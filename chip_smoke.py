@@ -1,0 +1,482 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one CUDA card and check it.
+
+Phases:
+  1. environment: the card, CUDA, nvcc and triton; TF32 off;
+  2. build: the four hand-written kernels from ``src/repro_torch/kernels/csrc``;
+  3. scale: the cifar_like store, N=50000 rows of D=3072 (proxy dp=192);
+  4. kernel checks at the main path's shapes (B=16, m=12500, k=5000):
+     each kernel against its plain PyTorch version, bit-equal on
+     integer-valued data (distances and the selected sets, in order),
+     within 1e-5 relative (distances) / 1e-4 absolute (means) on the
+     float store, timed with CUDA events against its bound, its plain
+     version and, where one exists, one PyTorch library call;
+  5. serve: ServeEngine answers 3 requests of 16 images; every count of
+     launches is set to 0 just before and read just after, and must show
+     that kernels 1-3 ran once per step of every wave;
+  6. baseline: GoldDiff and full-scan trajectories from the same x_T,
+     each counted alone (counts set to 0 before, read after); the
+     full-scan run's count is golden_aggregate's launches;
+  7. reference: a small store's trajectories on the card against the
+     same trajectories on the CPU (plain versions).
+
+Any failure exits non-zero before the last line.  The last lines are the
+card's name and power limit, a JSON line of per-kernel numbers, and
+``{"ok": true, "device": {...}}``.
+
+  python3 chip_smoke.py
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
+FP32_FLOPS_PER_S = 67e12       # H100 SXM data sheet, fp32 outside the tensor cores
+B, N, DP, D, M, K = 16, 50000, 192, 3072, 12500, 5000
+STEPS = 10
+DIST_RTOL, MEAN_ATOL, TRAJ_TOL = 1e-5, 1e-4, 1e-3
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def check(ok: bool, msg: str) -> None:
+    if not ok:
+        fail(msg)
+
+
+def run(cmd: list[str]) -> str:
+    return subprocess.run(cmd, check=True, capture_output=True,
+                          text=True).stdout.strip()
+
+
+def ints(shape, seed: int) -> torch.Tensor:
+    """Integer-valued fp32 data: every sum below is exact in fp32."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(-3, 4, shape, generator=g).float().cuda()
+
+
+def time_ms(fn, iters: int = 10) -> float:
+    """Mean device time of ``fn`` with CUDA events, after warm-up, with
+    the 50 MB L2 cache flushed before each launch (the main path reaches
+    every kernel after gigabytes of other traffic)."""
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
+    for _ in range(2):
+        fn()
+    pairs = []
+    for _ in range(iters):
+        flush.zero_()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        pairs.append((s, e))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / iters
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    return max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations"
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float(((got - want).abs() / want.abs().clamp_min(1.0)).max())
+
+
+def overlap(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Mean fraction of each row's set in ``a`` also in ``b``'s row."""
+    fr = [torch.isin(a[i], b[i]).float().mean() for i in range(a.shape[0])]
+    return float(torch.stack(fr).mean())
+
+
+def main() -> None:
+    # -- 1. environment ------------------------------------------------------
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a card")
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        fail(f"no src/repro_torch beside {Path(__file__).name}")
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import GoldDiff, OptimalDenoiser, sample
+    from repro_torch.data import make_dataset
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels.golden_aggregate import golden_aggregate
+    from repro_torch.kernels.golden_rerank import support_sqdist
+    from repro_torch.kernels.golden_support_aggregate import (
+        golden_support_aggregate)
+    from repro_torch.kernels.pdist import pdist
+    from repro_torch.launch.serve import Request, ServeEngine
+
+    smi = run(["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"])
+    nvcc_line = run([_build.nvcc(), "--version"]).splitlines()[-1]
+    try:
+        import triton
+        triton_state = f"triton {triton.__version__}"
+    except ImportError:
+        triton_state = "triton absent"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kind = torch.cuda.get_device_name(0)
+    print(f"[env] card: {smi}")
+    print(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"nvcc: {nvcc_line}, {triton_state}, python {sys.version.split()[0]}")
+    print("[env] TF32 off for matmul and cuDNN")
+
+    # -- 2. build --------------------------------------------------------------
+    names = ["pdist", "support_sqdist", "golden_support_aggregate",
+             "golden_aggregate"]
+    t0 = time.perf_counter()
+    log = _build.build(names)
+    print(f"[build] {len(names)} kernels in {time.perf_counter() - t0:.1f}s "
+          f"(one nvcc each, in parallel) into {_build.BUILD_DIR}")
+    for name in names:
+        for line in log.get(name, "").splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {name}: {line.strip()}")
+
+    # -- 3. scale: the store ---------------------------------------------------
+    t0 = time.perf_counter()
+    eng = ServeEngine("cifar_like", {"n": N}, num_steps=STEPS, max_batch=B)
+    torch.cuda.synchronize()
+    store_s = time.perf_counter() - t0
+    st = eng.store
+    check(tuple(st.X.shape) == (N, D) and tuple(st.proxy.shape) == (N, DP),
+          f"store shapes {tuple(st.X.shape)} {tuple(st.proxy.shape)}")
+    print(f"[scale] cifar_like store N={st.n} D={st.dim} dp={st.proxy.shape[1]}"
+          f" built in {store_s:.1f}s (numpy generation + upload)")
+
+    # -- 4. kernel checks at the main path's shapes -----------------------------
+    sched = eng.schedule
+    ts = eng.denoiser.engine
+    t_mid = 500
+    a, sig2 = ts.constants(t_mid)
+    g = torch.Generator().manual_seed(0)
+    rows = torch.randint(0, N, (B,), generator=g).cuda()
+    eps = torch.randn(B, D, generator=g).cuda()
+    q = (a * st.X[rows] + float(sched.b[t_mid]) * eps) / a   # rescaled query
+    qp = ts._proxy_query(q)
+    results = {}
+
+    # kernel 1: pdist (coarse screen)
+    qi, xi = ints((B, DP), 1), ints((N, DP), 2)
+    qin, xin = (qi * qi).sum(-1), (xi * xi).sum(-1)
+    d2k = pdist(qi, xi, qin, xin)
+    d2r = ref.pdist_ref(qi, xi, qin, xin)
+    check(torch.equal(d2k, d2r), "pdist: not bit-equal on integer data")
+    ik, vk = ref.materialized_topm(d2k, M)
+    ir, vr = ref.materialized_topm(d2r, M)
+    check(torch.equal(ik, ir) and torch.equal(vk, vr),
+          "pdist: integer top-m sets differ")
+    int_cand = ik
+    qpn = (qp * qp).sum(-1)
+    d2k = pdist(qp, st.proxy, qpn, st.proxy_norms)
+    d2r = ref.pdist_ref(qp, st.proxy, qpn, st.proxy_norms)
+    err = float((d2k - d2r).abs().max())
+    rel = rel_err(d2k, d2r)
+    check(rel <= DIST_RTOL, f"pdist: relative error {rel:.3g} > {DIST_RTOL}")
+    cand_k = ref.materialized_topm(d2k, M)[0]
+    cand_r = ref.materialized_topm(d2r, M)[0]
+    ov = overlap(cand_k, cand_r)
+    bias = qpn[:, None] + st.proxy_norms[None, :]
+    b_ms, b_by = bound(4 * (B * DP + N * DP + B + N + B * N), 2 * B * N * DP)
+    results["pdist"] = dict(
+        max_abs_err=err, ms=time_ms(lambda: pdist(qp, st.proxy, qpn,
+                                                  st.proxy_norms)),
+        plain_ms=time_ms(lambda: ref.pdist_ref(qp, st.proxy, qpn,
+                                               st.proxy_norms)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: torch.addmm(bias, qp, st.proxy.T,
+                                               alpha=-2.0)))
+    print(f"[check] pdist: integer bit-equal, top-{M} sets equal; float "
+          f"max abs {err:.3g}, max rel {rel:.3g}, top-{M} overlap {ov:.6f} "
+          f"(exact order {torch.equal(cand_k, cand_r)})")
+
+    # kernel 2: support_sqdist (exact re-rank), rows loaded by index
+    qfi, xfi = ints((B, D), 3), ints((N, D), 4)
+    xfin = (xfi * xfi).sum(-1)
+    sk = support_sqdist(qfi, xfi, xfin, int_cand)
+    sr = ref.support_sqdist_ref(qfi, xfi, xfin, int_cand)
+    check(torch.equal(sk, sr), "support_sqdist: not bit-equal on integer data")
+    gk, gvk = ops.golden_rerank(qfi, xfi, int_cand, K, xfin)
+    vr, pr = torch.sort(sr, dim=-1, stable=True)
+    check(torch.equal(gk, torch.gather(int_cand, -1, pr[:, :K]))
+          and torch.equal(gvk, vr[:, :K]),
+          "support_sqdist: integer golden sets differ")
+    del qfi, xfi, xfin, sr
+    sk = support_sqdist(q, st.X, st.x_norms, cand_k)
+    sr = ref.support_sqdist_ref(q, st.X, st.x_norms, cand_k)
+    err = float((sk - sr).abs().max())
+    rel = rel_err(sk, sr)
+    check(rel <= DIST_RTOL,
+          f"support_sqdist: relative error {rel:.3g} > {DIST_RTOL}")
+    gold_k, gd2 = ops.golden_rerank(q, st.X, cand_k, K, st.x_norms)
+    vr, pr = torch.sort(sr, dim=-1, stable=True)
+    gold_r = torch.gather(cand_k, -1, pr[:, :K])
+    ov = overlap(gold_k, gold_r)
+    del sr
+    u = int(torch.unique(cand_k).numel())
+    b_ms, b_by = bound(4 * (u * D + u) + 4 * B * D + 8 * B * M + 4 * B * M,
+                       2 * B * M * D)
+    results["support_sqdist"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: support_sqdist(q, st.X, st.x_norms, cand_k)),
+        plain_ms=time_ms(lambda: ref.support_sqdist_ref(q, st.X, st.x_norms,
+                                                        cand_k), iters=3),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    print(f"[check] support_sqdist: integer bit-equal, top-{K} sets equal; "
+          f"float max abs {err:.3g}, max rel {rel:.3g}, golden overlap "
+          f"{ov:.6f}; {u} distinct rows of {N}")
+
+    # kernel 3: golden_support_aggregate, rows loaded by index
+    lg = torch.clamp_min(-gd2 / (2.0 * sig2), ref.NEG_INF)
+    ak = golden_support_aggregate(st.X, gold_k, lg)
+    ar = ref.golden_support_aggregate_ref(st.X, gold_k, lg)
+    err = float((ak - ar).abs().max())
+    check(err <= MEAN_ATOL,
+          f"golden_support_aggregate: max abs error {err:.3g} > {MEAN_ATOL}")
+    lg_masked = lg.clone()
+    lg_masked[0] = ref.NEG_INF
+    am = golden_support_aggregate(st.X, gold_k, lg_masked)
+    err_m = float((am[0] - st.X[gold_k[0]].mean(0)).abs().max())
+    check(err_m <= MEAN_ATOL,
+          f"golden_support_aggregate: all-NEG_INF row is not the mean "
+          f"({err_m:.3g})")
+    u = int(torch.unique(gold_k).numel())
+    b_ms, b_by = bound(4 * u * D + 8 * B * K + 4 * B * K + 4 * B * D,
+                       2 * B * K * D)
+    results["golden_support_aggregate"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: golden_support_aggregate(st.X, gold_k, lg)),
+        plain_ms=time_ms(lambda: ref.golden_support_aggregate_ref(
+            st.X, gold_k, lg), iters=3),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    print(f"[check] golden_support_aggregate: max abs {err:.3g}, all-NEG_INF "
+          f"row = uniform mean to {err_m:.3g}; {u} distinct rows of {N}")
+
+    # kernel 4: golden_aggregate (full-scan baseline)
+    fk = golden_aggregate(q, st.X, sig2, st.x_norms)
+    fr = ref.golden_aggregate_ref(q, st.X, sig2, st.x_norms)
+    err = float((fk - fr).abs().max())
+    check(err <= MEAN_ATOL,
+          f"golden_aggregate: max abs error {err:.3g} > {MEAN_ATOL}")
+    fd = golden_aggregate(q, st.X, 0.0, st.x_norms)     # degenerate sigma
+    err_d = float((fd - st.X.mean(0)).abs().max())
+    check(bool(torch.isfinite(fd).all()) and err_d <= MEAN_ATOL,
+          f"golden_aggregate: sigma2=0 is not the data mean ({err_d:.3g})")
+    inv = ref.finite_inv_two_sigma2(sig2)
+    mask = (-inv * st.x_norms)[None, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def library():
+        return sdpa(q[None, None], st.X[None, None], st.X[None, None],
+                    attn_mask=mask, scale=2.0 * inv)[0, 0]
+
+    lib_err = float((library() - fr).abs().max())
+    b_ms, b_by = bound(4 * (N * D + N + 2 * B * D + B), 4 * B * N * D)
+    results["golden_aggregate"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: golden_aggregate(q, st.X, sig2, st.x_norms)),
+        plain_ms=time_ms(lambda: ref.golden_aggregate_ref(q, st.X, sig2,
+                                                          st.x_norms)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(library))
+    print(f"[check] golden_aggregate: max abs {err:.3g}; sigma2=0 -> data "
+          f"mean to {err_d:.3g}; library call (scaled_dot_product_attention) "
+          f"max abs {lib_err:.3g}")
+
+    # both aggregates again where the softmax is spread over many rows:
+    # at t=500 it is nearly one-hot, at the first step (t=1000) it is not
+    def spread(lg):
+        """Mean effective number of rows, 1 / sum(w^2), over queries."""
+        w = torch.softmax(lg, dim=-1)
+        return float((1.0 / (w * w).sum(-1)).mean())
+
+    for t_chk in (t_mid, 1000):
+        a_c, sig2_c = ts.constants(t_chk)
+        q_c = (a_c * st.X[rows] + float(sched.b[t_chk]) * eps) / a_c
+        gold_c, gd2_c = ops.golden_rerank(
+            q_c, st.X, ops.screen_topm(ts._proxy_query(q_c), st.proxy, M,
+                                       x_norms=st.proxy_norms)[0],
+            K, st.x_norms)
+        lg_c = torch.clamp_min(-gd2_c / (2.0 * sig2_c), ref.NEG_INF)
+        e3 = float((golden_support_aggregate(st.X, gold_c, lg_c)
+                    - ref.golden_support_aggregate_ref(st.X, gold_c, lg_c)
+                    ).abs().max())
+        e4 = float((golden_aggregate(q_c, st.X, sig2_c, st.x_norms)
+                    - ref.golden_aggregate_ref(q_c, st.X, sig2_c, st.x_norms)
+                    ).abs().max())
+        check(e3 <= MEAN_ATOL and e4 <= MEAN_ATOL,
+              f"t={t_chk}: aggregate max abs errors {e3:.3g}, {e4:.3g}")
+        full_lg = torch.clamp_min(-ref.pdist_ref(q_c, st.X, x_norms=st.x_norms)
+                                  * ref.finite_inv_two_sigma2(sig2_c),
+                                  ref.NEG_INF)
+        results["golden_support_aggregate"]["max_abs_err"] = max(
+            results["golden_support_aggregate"]["max_abs_err"], e3)
+        results["golden_aggregate"]["max_abs_err"] = max(
+            results["golden_aggregate"]["max_abs_err"], e4)
+        print(f"[check] t={t_chk}: golden_support_aggregate max abs {e3:.3g} "
+              f"(effective rows {spread(lg_c):.1f} of {K}); golden_aggregate "
+              f"max abs {e4:.3g} (effective rows {spread(full_lg):.1f} of {N})")
+    for name, r in results.items():
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
+        print(f"[time] {name}: kernel {r['ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+              f"{r['plain_ms']:.4f} ms, library {lib}")
+    print("[check] all four kernels: pdist ok, support_sqdist ok, "
+          "golden_support_aggregate ok, golden_aggregate ok")
+    del d2k, d2r, bias, xi, int_cand
+
+    # -- 5. serve: the main path, counted --------------------------------------
+    kernels = {"pdist": pdist, "support_sqdist": support_sqdist,
+               "golden_support_aggregate": golden_support_aggregate,
+               "golden_aggregate": golden_aggregate}
+    eng.serve([Request(99, B, seed=99)])          # warm-up wave, not counted
+    for fn in kernels.values():
+        fn.launches = 0
+    reqs = [Request(i, B, seed=100 + i) for i in range(3)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    served = eng.serve(reqs)
+    total = time.perf_counter() - t0
+    serve_counts = {n: fn.launches for n, fn in kernels.items()}
+    for r in served:
+        check(r.images.shape == (B, 32, 32, 3),
+              f"request {r.request_id}: shape {r.images.shape}")
+        check(bool(torch.isfinite(torch.from_numpy(r.images)).all()),
+              f"request {r.request_id}: non-finite images")
+    waves = len(served)
+    for n in ("pdist", "support_sqdist", "golden_support_aggregate"):
+        check(serve_counts[n] == STEPS * waves,
+              f"{n}: {serve_counts[n]} launches in {waves} waves, expected "
+              f"{STEPS * waves}")
+    check(serve_counts["golden_aggregate"] == 0, "full scan ran while serving")
+    print(f"[serve] {waves} waves of {B} images, {STEPS} steps: wave latency "
+          + ", ".join(f"{r.latency_s * 1e3:.1f} ms" for r in served)
+          + f"; {B * waves / total:.1f} images/s; launches {serve_counts}")
+
+    # -- 6. baseline: GoldDiff vs full scan from one x_T -----------------------
+    # Every trajectory is its own counted run: counts set to 0 just before
+    # it and read just after.  The first full-scan run is the full-scan
+    # path's count in the kernels line.
+    x_T = eng._init_noise([(reqs[0], 0, B)], B)
+    full = OptimalDenoiser(st, sched)
+    times = {"golddiff": [], "full_scan": []}
+    outs = {}
+    full_scan_counts = None
+    for which in ("golddiff", "full_scan", "full_scan", "golddiff"):
+        den = eng.denoiser if which == "golddiff" else full
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[which] = sample(den, sched, (B, D), num_steps=STEPS, x_init=x_T)
+        torch.cuda.synchronize()
+        times[which].append(time.perf_counter() - t0)
+        added = {n: fn.launches for n, fn in kernels.items()}
+        want = ({"pdist": STEPS, "support_sqdist": STEPS,
+                 "golden_support_aggregate": STEPS, "golden_aggregate": 0}
+                if which == "golddiff" else
+                {"pdist": 0, "support_sqdist": 0,
+                 "golden_support_aggregate": 0, "golden_aggregate": STEPS})
+        check(added == want, f"{which} trajectory launches {added}")
+        check(bool(torch.isfinite(outs[which]).all()),
+              f"{which} trajectory not finite")
+        if which == "full_scan" and full_scan_counts is None:
+            full_scan_counts = added
+    gd_s, fs_s = min(times["golddiff"]), min(times["full_scan"])
+    diff = (outs["golddiff"] - outs["full_scan"]).abs()
+    print(f"[baseline] B={B} N={N} {STEPS} steps: GoldDiff "
+          f"{gd_s * 1e3:.2f} ms, full scan {fs_s * 1e3:.2f} ms "
+          f"(runs {[round(t * 1e3, 2) for t in times['golddiff']]} / "
+          f"{[round(t * 1e3, 2) for t in times['full_scan']]}), "
+          f"GoldDiff/full-scan {gd_s / fs_s:.3f}; full-scan trajectory "
+          f"launches {full_scan_counts}; |GoldDiff - full scan| max "
+          f"{float(diff.max()):.3g}, mean {float(diff.mean()):.3g}")
+    # each kernel's launches come from the path that runs it: kernels 1-3
+    # from the served waves, golden_aggregate from one full-scan trajectory
+    path_of = {"pdist": "serve", "support_sqdist": "serve",
+               "golden_support_aggregate": "serve",
+               "golden_aggregate": "full_scan"}
+    path_counts = {"serve": serve_counts, "full_scan": full_scan_counts}
+    for n, p in path_of.items():
+        check(path_counts[p][n] > 0, f"{n} never launched on the {p} path")
+
+    # where the time goes: device time by kernel over one trajectory each.
+    # The idle share is taken against the unprofiled wall time of the same
+    # trajectory above: the profiler's own host work widens the gaps.
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for which in ("golddiff", "full_scan"):
+        den = eng.denoiser if which == "golddiff" else full
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            sample(den, sched, (B, D), num_steps=STEPS, x_init=x_T)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        kern = sorted((e for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA),
+                      key=lambda e: -e.self_device_time_total)
+        busy_us = sum(e.self_device_time_total for e in kern)
+        check(busy_us > 0, f"profile of {which}: no device time recorded")
+        plain_us = min(times[which]) * 1e6
+        print(f"[profile] {which}: wall {plain_us / 1e3:.2f} ms unprofiled "
+              f"({wall_us / 1e3:.2f} ms with the profiler on), device busy "
+              f"{busy_us / 1e3:.2f} ms, idle share "
+              f"{1 - busy_us / plain_us:.3f} of the unprofiled wall "
+              f"({1 - busy_us / wall_us:.3f} with the profiler on); "
+              f"top kernels: " + "; ".join(
+                  f"{e.key[:48]} x{e.count} {e.self_device_time_total / 1e3:.3f}"
+                  f" ms" for e in kern[:6]))
+
+    # -- 7. reference: small store, card against CPU plain versions ------------
+    small = make_dataset("cifar_like", n=2048, seed=1, device="cpu")
+    x0 = (float(sched.b[1000]) * torch.randn(
+        B, small.dim, generator=torch.Generator().manual_seed(5)))
+    for label, build in (("golddiff", lambda dev: GoldDiff(
+            OptimalDenoiser(small, sched, device=dev))),
+            ("full_scan", lambda dev: OptimalDenoiser(small, sched,
+                                                      device=dev))):
+        got = sample(build("cuda"), sched, (B, small.dim), x_init=x0).cpu()
+        want = sample(build("cpu"), sched, (B, small.dim), x_init=x0)
+        err = float((got - want).abs().max())
+        check(err <= TRAJ_TOL, f"reference {label}: card vs CPU {err:.3g}")
+        print(f"[reference] {label}: N=2048, {STEPS} steps, card vs CPU "
+              f"plain versions max abs {err:.3g} (tolerance {TRAJ_TOL})")
+
+    sources = {"pdist": ("csrc/pdist.cu", "src/repro/kernels/pdist.py:61"),
+               "support_sqdist": ("csrc/support_sqdist.cu",
+                                  "src/repro/kernels/golden_rerank.py:66"),
+               "golden_support_aggregate": (
+                   "csrc/golden_support_aggregate.cu",
+                   "src/repro/kernels/golden_support_aggregate.py:78"),
+               "golden_aggregate": ("csrc/golden_aggregate.cu",
+                                    "src/repro/kernels/golden_aggregate.py:93")}
+    line = {"kernels": [
+        dict(name=n, route="cuda",
+             source=f"src/repro_torch/kernels/{sources[n][0]}",
+             replaces=sources[n][1], path=path_of[n],
+             launches=path_counts[path_of[n]][n],
+             serve_launches=serve_counts[n],
+             full_scan_launches=full_scan_counts[n], **results[n])
+        for n in names]}
+    print(smi)
+    print(json.dumps(line))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

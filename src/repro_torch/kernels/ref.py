@@ -1,0 +1,84 @@
+"""Plain PyTorch versions of the hand-written kernels.
+
+Counterpart of ``repro.kernels.ref``.  ``kernels.ops`` uses these for
+CPU tensors; the tests hold them against the JAX package, and
+``chip_smoke.py`` holds each CUDA kernel against them on the card.
+The support functions take ``(X, idx)`` and gather inside, so each is
+the same function as its kernel (which loads rows by index).
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+# Largest inverse temperature the aggregation softmax uses: ``-d2 * inv``
+# stays an ordinary fp32 overflow (clamped at NEG_INF) instead of the
+# ``0 * inf`` NaN an unguarded ``1/(2*0.0)`` produces.
+MAX_INV_TWO_SIGMA2 = 3.0e37
+
+
+def finite_inv_two_sigma2(sigma2) -> float:
+    """``1 / (2 sigma2)`` clamped to an fp32-finite inverse temperature;
+    degenerate ``sigma2`` (<= 0, NaN, denormal) returns the cap."""
+    s = float(sigma2)
+    if not s > 0.0:                      # 0, negative, or NaN
+        return MAX_INV_TWO_SIGMA2
+    return min(1.0 / (2.0 * s), MAX_INV_TWO_SIGMA2)
+
+
+def pdist_ref(q: torch.Tensor, x: torch.Tensor,
+              q_norms: torch.Tensor | None = None,
+              x_norms: torch.Tensor | None = None) -> torch.Tensor:
+    """Matmul-form pairwise squared distances [B, N]; precomputed norms
+    may carry +inf (masked rows -> +inf distance)."""
+    q = q.float()
+    x = x.float()
+    qn = (q * q).sum(-1) if q_norms is None else q_norms.float()
+    xn = (x * x).sum(-1) if x_norms is None else x_norms.float()
+    return torch.clamp_min(qn[:, None] + xn[None, :] - 2.0 * (q @ x.T), 0.0)
+
+
+def materialized_topm(d2: torch.Tensor, m: int
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-m of a [B, N] distance matrix: ``(idx, d2)`` ascending, ties
+    to the lowest index (``lax.top_k``'s order: a stable sort, since
+    ``torch.topk`` promises no order among equal values); ``m > N``
+    surplus slots carry ``d2 = +inf`` and index 0."""
+    n = d2.shape[-1]
+    k = min(m, n)
+    vals, idx = torch.sort(d2, dim=-1, stable=True)
+    vals, idx = vals[:, :k].contiguous(), idx[:, :k].contiguous()
+    if m > k:
+        b = d2.shape[0]
+        vals = torch.cat([vals, vals.new_full((b, m - k), float("inf"))], 1)
+        idx = torch.cat([idx, idx.new_zeros((b, m - k))], 1)
+    return idx, vals
+
+
+def support_sqdist_ref(q: torch.Tensor, x: torch.Tensor,
+                       x_norms: torch.Tensor, idx: torch.Tensor
+                       ) -> torch.Tensor:
+    """Distances from each q_b to its own rows x[idx[b]]: [B, M] fp32."""
+    q32 = q.float()
+    xs = x[idx].float()                                   # [B, M, D]
+    qn = (q32 * q32).sum(-1, keepdim=True)
+    dot = torch.bmm(xs, q32[:, :, None])[..., 0]
+    return torch.clamp_min(qn + x_norms.float()[idx] - 2.0 * dot, 0.0)
+
+
+def golden_support_aggregate_ref(x: torch.Tensor, idx: torch.Tensor,
+                                 logits: torch.Tensor) -> torch.Tensor:
+    """softmax(logits)-weighted mean of x[idx] per query -> [B, D] fp32."""
+    w = torch.softmax(logits.float(), dim=-1)
+    return torch.bmm(w[:, None, :], x[idx].float())[:, 0]
+
+
+def golden_aggregate_ref(q: torch.Tensor, x: torch.Tensor, sigma2: float,
+                         x_norms: torch.Tensor | None = None) -> torch.Tensor:
+    """Full-scan posterior mean (Eq. 2); logits clamp at the finite
+    NEG_INF, so an all-clamped row is the uniform (data-mean) aggregate."""
+    inv = finite_inv_two_sigma2(sigma2)
+    lg = torch.clamp_min(-pdist_ref(q, x, x_norms=x_norms) * inv, NEG_INF)
+    w = torch.softmax(lg, dim=-1)
+    return (w @ x.float()).to(q.dtype)

@@ -3,22 +3,29 @@
 
 Phases:
   1. environment: the card, CUDA, nvcc and triton; TF32 off;
-  2. build: the four hand-written kernels from ``src/repro_torch/kernels/csrc``;
-  3. scale: the cifar_like store, N=50000 rows of D=3072 (proxy dp=192);
-  4. kernel checks at the main path's shapes (B=16, m=12500, k=5000):
-     each kernel against its plain PyTorch version, bit-equal on
-     integer-valued data (distances and the selected sets, in order),
-     within 1e-5 relative (distances) / 1e-4 absolute (means) on the
-     float store, timed with CUDA events against its bound, its plain
-     version and, where one exists, one PyTorch library call;
-  5. serve: ServeEngine answers 3 requests of 16 images; every count of
-     launches is set to 0 just before and read just after, and must show
-     that kernels 1-3 ran once per step of every wave;
-  6. baseline: GoldDiff and full-scan trajectories from the same x_T,
-     each counted alone (counts set to 0 before, read after); the
-     full-scan run's count is golden_aggregate's launches;
-  7. reference: a small store's trajectories on the card against the
-     same trajectories on the CPU (plain versions).
+  2. build: the six hand-written kernels from ``src/repro_torch/kernels/csrc``;
+  3. scale: the cifar_like store, N=50000 rows of D=3072 (proxy dp=192),
+     built once and shared by every phase;
+  4. kernel checks at the main path's shapes (B=16, m=12500, k=5000;
+     the two top-m kernels also at m=5000): each kernel against its
+     plain PyTorch version, bit-equal on integer-valued data (distances
+     and the selected sets, in order), within 1e-5 relative (distances)
+     / 1e-4 absolute (means) on the float store, timed with CUDA events
+     against its bound, its plain version and, where one exists, one
+     PyTorch library call;
+  5. policy: the fused-vs-staged step sweep over m/N that sets the
+     engine's "cuda" crossover, the streamed-vs-materialized screen's
+     time and peak memory at B=16 and B=256 that set its byte budget,
+     and the routes that fused="auto" / screen="auto" take here;
+  6. serve: ServeEngine answers 3 requests of 16 images on the auto
+     route, and again with fused=True; a streamed-screen trajectory
+     (GoldDiff(screen="streamed")).  Every count of launches is set to
+     0 just before each and read just after, and must show that each
+     route's kernels ran once per step, and the others never;
+  7. baseline: staged, fused and full-scan trajectories from the same
+     x_T, each counted alone, timed and profiled;
+  8. reference: a small store's trajectories on the card against the
+     same trajectories on the CPU (plain versions), for every route.
 
 Any failure exits non-zero before the last line.  The last lines are the
 card's name and power limit, a JSON line of per-kernel numbers, and
@@ -40,6 +47,8 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12       # H100 SXM data sheet, fp32 outside the tensor cores
 B, N, DP, D, M, K = 16, 50000, 192, 3072, 12500, 5000
+M_LOW = 5000                   # the smallest m_t of the 10-step schedule
+SWEEP = (0.05, 0.10, 0.25, 0.50)   # m/N of the fused-vs-staged sweep
 STEPS = 10
 DIST_RTOL, MEAN_ATOL, TRAJ_TOL = 1e-5, 1e-4, 1e-3
 
@@ -108,13 +117,17 @@ def main() -> None:
         fail(f"no src/repro_torch beside {Path(__file__).name}")
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import GoldDiff, OptimalDenoiser, sample
+    from repro_torch.core import engine as engine_mod
     from repro_torch.data import make_dataset
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels.fused_step import (
+        fused_candidates, fused_candidates_scan, fused_posterior)
     from repro_torch.kernels.golden_aggregate import golden_aggregate
     from repro_torch.kernels.golden_rerank import support_sqdist
     from repro_torch.kernels.golden_support_aggregate import (
         golden_support_aggregate)
     from repro_torch.kernels.pdist import pdist
+    from repro_torch.kernels.screen import screen_topm, screen_topm_scan
     from repro_torch.launch.serve import Request, ServeEngine
 
     smi = run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -135,7 +148,7 @@ def main() -> None:
 
     # -- 2. build --------------------------------------------------------------
     names = ["pdist", "support_sqdist", "golden_support_aggregate",
-             "golden_aggregate"]
+             "golden_aggregate", "screen_topm", "fused_candidates"]
     t0 = time.perf_counter()
     log = _build.build(names)
     print(f"[build] {len(names)} kernels in {time.perf_counter() - t0:.1f}s "
@@ -327,88 +340,280 @@ def main() -> None:
         print(f"[check] t={t_chk}: golden_support_aggregate max abs {e3:.3g} "
               f"(effective rows {spread(lg_c):.1f} of {K}); golden_aggregate "
               f"max abs {e4:.3g} (effective rows {spread(full_lg):.1f} of {N})")
+    # kernel 5: screen_topm (streamed exact screen, no [B, N] matrix).
+    # Integer data with a +inf-norm row: bit-equal to the plain carry loop
+    # (sets, order, distances, the +inf slots' index 0), at both ends of
+    # the schedule's m_t.
+    xin_inf = xin.clone()
+    xin_inf[7] = float("inf")
+    for m in (M, M_LOW):
+        gk = screen_topm(qi, xi, m, qin, xin_inf)
+        gr = screen_topm_scan(qi, xi, m, qin, xin_inf)
+        check(torch.equal(gk[0], gr[0]) and torch.equal(gk[1], gr[1]),
+              f"screen_topm: not bit-equal on integer data at m={m}")
+        check(torch.equal(gk[0], ref.materialized_topm(
+            ref.pdist_ref(qi, xi, qin, xin_inf), m)[0]),
+              f"screen_topm: integer top-{m} differs from the materialized "
+              f"screen")
+    sc_times = {}
+    for m in (M, M_LOW):
+        gi, gv = screen_topm(qp, st.proxy, m, qpn, st.proxy_norms)
+        wi, wv = screen_topm_scan(qp, st.proxy, m, qpn, st.proxy_norms)
+        rel = rel_err(gv, wv)
+        own = rel_err(torch.gather(d2r, -1, gi), gv)
+        check(rel <= DIST_RTOL and own <= DIST_RTOL,
+              f"screen_topm: m={m} relative errors {rel:.3g}, {own:.3g}")
+        sc_times[m] = (
+            time_ms(lambda: screen_topm(qp, st.proxy, m, qpn,
+                                        st.proxy_norms)),
+            time_ms(lambda: screen_topm_scan(qp, st.proxy, m, qpn,
+                                             st.proxy_norms), iters=3),
+            time_ms(lambda: torch.topk(torch.addmm(bias, qp, st.proxy.T,
+                                                   alpha=-2.0), m,
+                                       largest=False)))
+        print(f"[check] screen_topm m={m}: integer bit-equal (sets, order, "
+              f"+inf slots); float max abs {float((gv - wv).abs().max()):.3g}"
+              f", max rel {rel:.3g}, own-row rel {own:.3g}, overlap "
+              f"{overlap(gi, wi):.6f} (exact order {torch.equal(gi, wi)}); "
+              f"kernel {sc_times[m][0]:.4f} ms, plain {sc_times[m][1]:.4f} "
+              f"ms, library {sc_times[m][2]:.4f} ms")
+        if m == M:
+            results["screen_topm"] = dict(max_abs_err=float(
+                (gv - wv).abs().max()))
+    b_ms, b_by = bound(4 * (B * DP + N * DP + B + N) + 12 * B * M,
+                       2 * B * N * DP)
+    results["screen_topm"].update(
+        ms=sc_times[M][0], plain_ms=sc_times[M][1], bound_ms=b_ms,
+        bound_by=b_by, library_ms=sc_times[M][2])
+
+    # kernel 6: fused_candidates (one pass over proxy and store).  Integer
+    # data: bit-equal to the plain carry loop, and its candidate list is
+    # the streamed screen's; +inf rows in both stores.
+    qfi, xfi = ints((B, D), 21), ints((N, D), 22)
+    xfin = (xfi * xfi).sum(-1)
+    xfin[11] = float("inf")
+    for m in (M, M_LOW):
+        gk = fused_candidates(qi, qfi, xi, xfi, m, xin_inf, xfin)
+        gr = fused_candidates_scan(qi, qfi, xi, xfi, m, xin_inf, xfin)
+        check(torch.equal(gk[0], gr[0]) and torch.equal(gk[1], gr[1]),
+              f"fused_candidates: not bit-equal on integer data at m={m}")
+        check(torch.equal(gk[0], screen_topm(qi, xi, m, qin, xin_inf)[0]),
+              f"fused_candidates: m={m} candidates differ from the screen's")
+    del qfi, xfi, xfin, gk, gr
+    fu_times = {}
+    for m in (M, M_LOW):
+        gi, gv = fused_candidates(qp, q, st.proxy, st.X, m, st.proxy_norms,
+                                  st.x_norms)
+        wi, wv = fused_candidates_scan(qp, q, st.proxy, st.X, m,
+                                       st.proxy_norms, st.x_norms)
+        own = rel_err(ref.support_sqdist_ref(q, st.X, st.x_norms, gi), gv)
+        mean_err = float((fused_posterior(st.X, gi, gv, K, sig2)
+                          - fused_posterior(st.X, wi, wv, K, sig2)
+                          ).abs().max())
+        check(own <= DIST_RTOL and mean_err <= MEAN_ATOL,
+              f"fused_candidates: m={m} own-row rel {own:.3g}, posterior "
+              f"mean max abs {mean_err:.3g}")
+        fu_times[m] = (
+            time_ms(lambda: fused_candidates(qp, q, st.proxy, st.X, m,
+                                             st.proxy_norms, st.x_norms)),
+            time_ms(lambda: fused_candidates_scan(
+                qp, q, st.proxy, st.X, m, st.proxy_norms, st.x_norms),
+                iters=3))
+        same = gi == wi
+        err = float((gv - wv)[same].abs().max())
+        print(f"[check] fused_candidates m={m}: integer bit-equal (sets, "
+              f"order, exact distances, +inf slots), candidates = the "
+              f"screen's; float exact-d2 max abs {err:.3g} on equal slots, "
+              f"own-row rel {own:.3g}, proxy overlap {overlap(gi, wi):.6f} "
+              f"(exact order {bool(same.all())}), posterior mean max abs "
+              f"{mean_err:.3g}; kernel {fu_times[m][0]:.4f} ms, plain "
+              f"{fu_times[m][1]:.4f} ms")
+        if m == M:
+            results["fused_candidates"] = dict(max_abs_err=max(err,
+                                                               mean_err))
+    b_ms, b_by = bound(4 * (N * D + N * DP + 2 * N + B * D + B * DP + 2 * B)
+                       + 12 * B * M, 2 * B * N * (D + DP))
+    results["fused_candidates"].update(
+        ms=fu_times[M][0], plain_ms=fu_times[M][1], bound_ms=b_ms,
+        bound_by=b_by, library_ms=None)
+
     for name, r in results.items():
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
         print(f"[time] {name}: kernel {r['ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
               f"{r['plain_ms']:.4f} ms, library {lib}")
-    print("[check] all four kernels: pdist ok, support_sqdist ok, "
-          "golden_support_aggregate ok, golden_aggregate ok")
+    print("[check] all six kernels: " + ", ".join(f"{n} ok" for n in names))
     del d2k, d2r, bias, xi, int_cand
 
-    # -- 5. serve: the main path, counted --------------------------------------
+    # -- 5. policy: the engine's "cuda" constants -------------------------------
+    # Fused vs staged step at B=16, N=50000 over m/N (k = m/2, the same
+    # aggregate in both): where the fused step starts to win sets
+    # GATHER_CROSSOVER_FRAC["cuda"].
+    sweep = []
+    for frac in SWEEP:
+        m = int(frac * N)
+        k = m // 2
+
+        def staged():
+            cand = ops.screen_topm(qp, st.proxy, m, x_norms=st.proxy_norms)[0]
+            gid, gd = ops.golden_rerank(q, st.X, cand, k, st.x_norms)
+            return ops.golden_support_aggregate(
+                st.X, gid, torch.clamp_min(-gd / (2.0 * sig2), ref.NEG_INF))
+
+        def fused():
+            return ops.fused_step(q, qp, st.X, st.proxy, m, k, sig2,
+                                  st.x_norms, st.proxy_norms)
+
+        err = float((staged() - fused()).abs().max())
+        check(err <= MEAN_ATOL, f"sweep m/N={frac}: fused vs staged {err:.3g}")
+        t_s, t_f = time_ms(staged, iters=5), time_ms(fused, iters=5)
+        sweep.append((frac, t_s, t_f))
+        print(f"[crossover] m/N={frac} (m={m}, k={k}): staged step "
+              f"{t_s:.4f} ms, fused step {t_f:.4f} ms, fused/staged "
+              f"{t_f / t_s:.3f}, max abs {err:.3g}")
+    wins = [i for i, (_, t_s, t_f) in enumerate(sweep) if t_f < t_s]
+    if not wins:
+        cross = 1.0
+    elif wins[0] == 0:
+        cross = sweep[0][0]
+    else:
+        (f0, s0, u0), (f1, s1, u1) = sweep[wins[0] - 1], sweep[wins[0]]
+        cross = f0 + (f1 - f0) * (u0 - s0) / ((u0 - s0) - (u1 - s1))
+    print(f"[crossover] fused beats staged from m/N = {cross:.4f} "
+          f"(measured here); the engine's GATHER_CROSSOVER_FRAC['cuda'] = "
+          f"{engine_mod.GATHER_CROSSOVER_FRAC['cuda']}")
+
+    # Streamed vs materialized screen: time and peak device memory above
+    # what was allocated before the call, at B=16 and B=256.
+    for bq in (16, 256):
+        gq = torch.Generator().manual_seed(30 + bq)
+        rows_q = torch.randint(0, N, (bq,), generator=gq).cuda()
+        q_b = st.X[rows_q] + (float(sched.b[t_mid]) / a) * torch.randn(
+            bq, D, generator=gq).cuda()
+        qp_b = ts._proxy_query(q_b)
+        got = {}
+        for stream in (False, True):
+            def call():
+                return ops.screen_topm(qp_b, st.proxy, M,
+                                       x_norms=st.proxy_norms, stream=stream)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = call()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            got[stream] = (out, peak, time_ms(call))
+        (_, dm), pm, tm = got[False]
+        (_, ds), ps, tst = got[True]
+        rel = rel_err(ds, dm)
+        check(rel <= DIST_RTOL, f"B={bq}: streamed vs materialized {rel:.3g}")
+        print(f"[screen-memory] B={bq}, N={N}, m={M}: materialized "
+              f"{tm:.4f} ms, peak {pm / 2**20:.1f} MiB; streamed {tst:.4f} "
+              f"ms, peak {ps / 2**20:.1f} MiB; [B, N] fp32 matrix "
+              f"{4 * bq * N / 2**20:.1f} MiB; distances max rel {rel:.3g}")
+    del q_b, qp_b, got, out
+
+    auto_fused = ts.use_fused(1000)
+    auto_stream = ts.use_stream(B)
+    route = "fused" if auto_fused else ("streamed" if auto_stream
+                                        else "staged")
+    print(f"[policy] B={B}, N={N}: fused='auto' -> {auto_fused} (m_max/N "
+          f"{ts.cfg.sizes(N)[1] / N} vs crossover {ts.crossover_frac}), "
+          f"screen='auto' -> streamed {auto_stream} (budget "
+          f"{ts._screen_budget} bytes; streamed at B=256: "
+          f"{ts.use_stream(256)}); the auto serve route is '{route}'")
+
+    # -- 6. serve: each route, counted -----------------------------------------
     kernels = {"pdist": pdist, "support_sqdist": support_sqdist,
                "golden_support_aggregate": golden_support_aggregate,
-               "golden_aggregate": golden_aggregate}
-    eng.serve([Request(99, B, seed=99)])          # warm-up wave, not counted
-    for fn in kernels.values():
-        fn.launches = 0
-    reqs = [Request(i, B, seed=100 + i) for i in range(3)]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    served = eng.serve(reqs)
-    total = time.perf_counter() - t0
-    serve_counts = {n: fn.launches for n, fn in kernels.items()}
-    for r in served:
-        check(r.images.shape == (B, 32, 32, 3),
-              f"request {r.request_id}: shape {r.images.shape}")
-        check(bool(torch.isfinite(torch.from_numpy(r.images)).all()),
-              f"request {r.request_id}: non-finite images")
-    waves = len(served)
-    for n in ("pdist", "support_sqdist", "golden_support_aggregate"):
-        check(serve_counts[n] == STEPS * waves,
-              f"{n}: {serve_counts[n]} launches in {waves} waves, expected "
-              f"{STEPS * waves}")
-    check(serve_counts["golden_aggregate"] == 0, "full scan ran while serving")
-    print(f"[serve] {waves} waves of {B} images, {STEPS} steps: wave latency "
-          + ", ".join(f"{r.latency_s * 1e3:.1f} ms" for r in served)
-          + f"; {B * waves / total:.1f} images/s; launches {serve_counts}")
+               "golden_aggregate": golden_aggregate,
+               "screen_topm": screen_topm,
+               "fused_candidates": fused_candidates}
+    route_kernels = {
+        "staged": ("pdist", "support_sqdist", "golden_support_aggregate"),
+        "streamed": ("screen_topm", "support_sqdist",
+                     "golden_support_aggregate"),
+        "fused": ("fused_candidates", "golden_support_aggregate"),
+        "full_scan": ("golden_aggregate",)}
 
-    # -- 6. baseline: GoldDiff vs full scan from one x_T -----------------------
-    # Every trajectory is its own counted run: counts set to 0 just before
-    # it and read just after.  The first full-scan run is the full-scan
-    # path's count in the kernels line.
-    x_T = eng._init_noise([(reqs[0], 0, B)], B)
-    full = OptimalDenoiser(st, sched)
-    times = {"golddiff": [], "full_scan": []}
-    outs = {}
-    full_scan_counts = None
-    for which in ("golddiff", "full_scan", "full_scan", "golddiff"):
-        den = eng.denoiser if which == "golddiff" else full
-        for fn in kernels.values():
-            fn.launches = 0
+    def expected(which: str, n: int) -> dict:
+        return {k: n if k in route_kernels[which] else 0 for k in kernels}
+
+    def counted(fn):
+        """Run ``fn`` with every count set to 0 just before; return its
+        result, the wall seconds and the counts just after."""
+        for kfn in kernels.values():
+            kfn.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        outs[which] = sample(den, sched, (B, D), num_steps=STEPS, x_init=x_T)
+        out = fn()
         torch.cuda.synchronize()
-        times[which].append(time.perf_counter() - t0)
-        added = {n: fn.launches for n, fn in kernels.items()}
-        want = ({"pdist": STEPS, "support_sqdist": STEPS,
-                 "golden_support_aggregate": STEPS, "golden_aggregate": 0}
-                if which == "golddiff" else
-                {"pdist": 0, "support_sqdist": 0,
-                 "golden_support_aggregate": 0, "golden_aggregate": STEPS})
-        check(added == want, f"{which} trajectory launches {added}")
+        return out, time.perf_counter() - t0, {n: f.launches
+                                               for n, f in kernels.items()}
+
+    reqs = [Request(i, B, seed=100 + i) for i in range(3)]
+    path_counts = {}
+    for label, srv, want_route in (
+            ("serve", eng, route),
+            ("serve_fused", ServeEngine(st, num_steps=STEPS, max_batch=B,
+                                        fused=True), "fused")):
+        srv.serve([Request(99, B, seed=99)])     # warm-up wave, not counted
+        served, total, counts = counted(lambda: srv.serve(reqs))
+        for r in served:
+            check(r.images.shape == (B, 32, 32, 3),
+                  f"{label} request {r.request_id}: shape {r.images.shape}")
+            check(bool(torch.isfinite(torch.from_numpy(r.images)).all()),
+                  f"{label} request {r.request_id}: non-finite images")
+        waves = len(served)
+        check(counts == expected(want_route, STEPS * waves),
+              f"{label} ({want_route} route): launches {counts} in {waves} "
+              f"waves")
+        path_counts[label] = counts
+        print(f"[serve] {label} ({want_route} route): {waves} waves of {B} "
+              f"images, {STEPS} steps: wave latency "
+              + ", ".join(f"{r.latency_s * 1e3:.1f} ms" for r in served)
+              + f"; {B * waves / total:.1f} images/s; launches {counts}")
+
+    # -- 7. baseline: every route from one x_T, each counted alone -------------
+    x_T = eng._init_noise([(reqs[0], 0, B)], B)
+    full = OptimalDenoiser(st, sched)
+    dens = {"staged": GoldDiff(full, screen="materialized", fused=False),
+            "streamed": GoldDiff(full, screen="streamed", fused=False),
+            "fused": GoldDiff(full, fused=True),
+            "full_scan": full}
+    times = {w: [] for w in dens}
+    outs = {}
+    for which in ("staged", "fused", "full_scan", "streamed", "streamed",
+                  "full_scan", "fused", "staged"):
+        outs[which], dt, added = counted(lambda: sample(
+            dens[which], sched, (B, D), num_steps=STEPS, x_init=x_T))
+        times[which].append(dt)
+        check(added == expected(which, STEPS),
+              f"{which} trajectory launches {added}")
         check(bool(torch.isfinite(outs[which]).all()),
               f"{which} trajectory not finite")
-        if which == "full_scan" and full_scan_counts is None:
-            full_scan_counts = added
-    gd_s, fs_s = min(times["golddiff"]), min(times["full_scan"])
-    diff = (outs["golddiff"] - outs["full_scan"]).abs()
-    print(f"[baseline] B={B} N={N} {STEPS} steps: GoldDiff "
-          f"{gd_s * 1e3:.2f} ms, full scan {fs_s * 1e3:.2f} ms "
-          f"(runs {[round(t * 1e3, 2) for t in times['golddiff']]} / "
-          f"{[round(t * 1e3, 2) for t in times['full_scan']]}), "
-          f"GoldDiff/full-scan {gd_s / fs_s:.3f}; full-scan trajectory "
-          f"launches {full_scan_counts}; |GoldDiff - full scan| max "
-          f"{float(diff.max()):.3g}, mean {float(diff.mean()):.3g}")
-    # each kernel's launches come from the path that runs it: kernels 1-3
-    # from the served waves, golden_aggregate from one full-scan trajectory
-    path_of = {"pdist": "serve", "support_sqdist": "serve",
+        path_counts.setdefault(which, added)
+    best = {w: min(v) for w, v in times.items()}
+    for which in ("streamed", "fused"):
+        err = float((outs[which] - outs["staged"]).abs().max())
+        check(err <= TRAJ_TOL, f"{which} vs staged trajectory {err:.3g}")
+    diff = (outs["staged"] - outs["full_scan"]).abs()
+    print(f"[baseline] B={B} N={N} {STEPS} steps: " + ", ".join(
+        f"{w} {best[w] * 1e3:.2f} ms (runs "
+        f"{[round(t * 1e3, 2) for t in times[w]]})" for w in dens)
+        + f"; staged/full-scan {best['staged'] / best['full_scan']:.3f}, "
+        f"fused/full-scan {best['fused'] / best['full_scan']:.3f}, "
+        f"streamed/full-scan {best['streamed'] / best['full_scan']:.3f}; "
+        f"fused and streamed within {TRAJ_TOL} of staged; "
+        f"|staged - full scan| max {float(diff.max()):.3g}, mean "
+        f"{float(diff.mean()):.3g}")
+    # each kernel's launches come from the run of the route that owns it
+    path_of = {"pdist": "staged", "support_sqdist": "staged",
                "golden_support_aggregate": "serve",
-               "golden_aggregate": "full_scan"}
-    path_counts = {"serve": serve_counts, "full_scan": full_scan_counts}
+               "golden_aggregate": "full_scan", "screen_topm": "streamed",
+               "fused_candidates": "serve_fused"}
     for n, p in path_of.items():
         check(path_counts[p][n] > 0, f"{n} never launched on the {p} path")
 
@@ -417,12 +622,11 @@ def main() -> None:
     # trajectory above: the profiler's own host work widens the gaps.
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for which in ("golddiff", "full_scan"):
-        den = eng.denoiser if which == "golddiff" else full
+    for which in ("staged", "fused", "streamed", "full_scan"):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            sample(den, sched, (B, D), num_steps=STEPS, x_init=x_T)
+            sample(dens[which], sched, (B, D), num_steps=STEPS, x_init=x_T)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         kern = sorted((e for e in prof.key_averages()
@@ -430,7 +634,7 @@ def main() -> None:
                       key=lambda e: -e.self_device_time_total)
         busy_us = sum(e.self_device_time_total for e in kern)
         check(busy_us > 0, f"profile of {which}: no device time recorded")
-        plain_us = min(times[which]) * 1e6
+        plain_us = best[which] * 1e6
         print(f"[profile] {which}: wall {plain_us / 1e3:.2f} ms unprofiled "
               f"({wall_us / 1e3:.2f} ms with the profiler on), device busy "
               f"{busy_us / 1e3:.2f} ms, idle share "
@@ -440,14 +644,20 @@ def main() -> None:
                   f"{e.key[:48]} x{e.count} {e.self_device_time_total / 1e3:.3f}"
                   f" ms" for e in kern[:6]))
 
-    # -- 7. reference: small store, card against CPU plain versions ------------
+    # -- 8. reference: small store, card against CPU plain versions ------------
     small = make_dataset("cifar_like", n=2048, seed=1, device="cpu")
     x0 = (float(sched.b[1000]) * torch.randn(
         B, small.dim, generator=torch.Generator().manual_seed(5)))
-    for label, build in (("golddiff", lambda dev: GoldDiff(
-            OptimalDenoiser(small, sched, device=dev))),
-            ("full_scan", lambda dev: OptimalDenoiser(small, sched,
-                                                      device=dev))):
+    for label, kw in (("golddiff auto", {}),
+                      ("golddiff staged", dict(screen="materialized",
+                                               fused=False)),
+                      ("golddiff fused", dict(fused=True)),
+                      ("golddiff streamed", dict(screen="streamed",
+                                                 fused=False)),
+                      ("full_scan", None)):
+        def build(dev):
+            den = OptimalDenoiser(small, sched, device=dev)
+            return den if kw is None else GoldDiff(den, **kw)
         got = sample(build("cuda"), sched, (B, small.dim), x_init=x0).cpu()
         want = sample(build("cpu"), sched, (B, small.dim), x_init=x0)
         err = float((got - want).abs().max())
@@ -462,14 +672,16 @@ def main() -> None:
                    "csrc/golden_support_aggregate.cu",
                    "src/repro/kernels/golden_support_aggregate.py:78"),
                "golden_aggregate": ("csrc/golden_aggregate.cu",
-                                    "src/repro/kernels/golden_aggregate.py:93")}
+                                    "src/repro/kernels/golden_aggregate.py:93"),
+               "screen_topm": ("csrc/screen_topm.cu",
+                               "src/repro/kernels/screen.py:151"),
+               "fused_candidates": ("csrc/fused_candidates.cu",
+                                    "src/repro/kernels/fused_step.py:178")}
     line = {"kernels": [
         dict(name=n, route="cuda",
              source=f"src/repro_torch/kernels/{sources[n][0]}",
              replaces=sources[n][1], path=path_of[n],
-             launches=path_counts[path_of[n]][n],
-             serve_launches=serve_counts[n],
-             full_scan_launches=full_scan_counts[n], **results[n])
+             launches=path_counts[path_of[n]][n], **results[n])
         for n in names]}
     print(smi)
     print(json.dumps(line))

@@ -1,13 +1,19 @@
 """GoldDiff execution engine: coarse screen -> exact re-rank -> aggregate.
 
-Counterpart of ``repro.core.engine`` for one device, exact (non-indexed)
-screening, staged steps.  That is the path the JAX engine itself takes
-with its kernel backend at batch 16 on a GPU-sized store: the [B, N]
-screen stays materialized (``use_stream``), the re-rank and aggregate
-gather (the build-time strategy, since m_max / N = 0.25 <= 0.35), so
-``use_fused`` leaves the step staged.  Every stage goes through
-``repro_torch.kernels.ops``: the pdist screen, the by-index re-rank
-distances and the by-index golden aggregate on the card, their plain
+Counterpart of ``repro.core.engine`` for one device and exact
+(non-indexed) screening.  A step runs one of two bodies:
+
+* staged (``_denoise_body``): the coarse screen, materialized (pdist +
+  sort) or streamed (the ``screen_topm`` kernel) by ``use_stream``,
+  then the by-index re-rank distances and the by-index golden
+  aggregate;
+* fused (``_fused_body``, when ``use_fused``): the ``fused_candidates``
+  kernel reads the store once and the epilogue aggregates the k golden
+  rows.
+
+The policies are the reference's rules (``screen=``, ``fused=``) with
+the port's own per-platform constants below.  Every stage goes through
+``repro_torch.kernels.ops``: the kernels on the card, their plain
 versions on CPU.
 
 PyTorch runs eagerly, so there is no program cache: each step runs its
@@ -26,6 +32,26 @@ from repro_torch.kernels import ops
 from repro_torch.utils import resolve_device
 
 NEG_INF = -1e30
+
+# The m/N above which the fused single-pass step beats the staged step
+# (by-index re-rank and aggregate).  ``fused="auto"`` fuses when the
+# largest scheduled m_t / N exceeds it (the reference's "dense"
+# strategy).  "cpu" is the reference's own value, kept so that the
+# plain CPU path takes the reference's route.  "cuda" comes from
+# chip_smoke.py's [crossover] sweep on an H100 at B=16, N=50000: the
+# fused step won from m/N 0.0955 in one run and from at most 0.05 in
+# another, and the two tie at 0.10; at the default schedule
+# (m_max/N = 0.25) "auto" fuses (PERF.md).
+GATHER_CROSSOVER_FRAC = {"cpu": 0.10, "cuda": 0.10}
+
+# Bytes of the [B, N] fp32 distance matrix above which ``screen="auto"``
+# streams the coarse screen instead of materializing it.  "cpu" is the
+# reference's.  "cuda" comes from chip_smoke.py's [screen-memory] lines
+# on an H100: the streamed screen took 1.02-1.11x the materialized time
+# at B=16 and 256, while the materialized peak was 9x the matrix (the
+# sort's values and int64 indices).  So materialize until that peak
+# would pass about 4.5 GiB (5.6% of the 80 GB card) and stream above.
+SCREEN_MATERIALIZE_BYTES = {"cpu": 1 << 31, "cuda": 1 << 29}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,13 +87,34 @@ class GoldDiffEngine:
     """Kernel routing for the GoldDiff pipeline on one device.
 
     The store moves to ``device`` (the CUDA card unless the caller
-    passes another; raises when there is none)."""
+    passes another; raises when there is none).  ``screen`` is "auto",
+    "streamed" or "materialized"; ``screen_tile`` the plain carry
+    loop's N-tile (None: its default); ``fused`` "auto", True or
+    False."""
 
     def __init__(self, store: DatasetStore, schedule: Schedule,
-                 cfg: GoldDiffConfig | None = None, device=None):
+                 cfg: GoldDiffConfig | None = None, device=None,
+                 screen: str = "auto", screen_tile: int | None = None,
+                 fused: str | bool = "auto"):
+        if screen not in ("auto", "streamed", "materialized"):
+            raise ValueError(f"unknown screen mode {screen!r}")
+        if fused not in ("auto", True, False):
+            raise ValueError(f"unknown fused mode {fused!r}; expected "
+                             f"'auto', True or False")
         self.store = store.to(resolve_device(device))
         self.schedule = schedule
         self.cfg = cfg or GoldDiffConfig()
+        self.screen = screen
+        self.screen_tile = None if screen_tile is None else int(screen_tile)
+        self.fused = fused
+        platform = self.store.device.type
+        self._screen_budget = SCREEN_MATERIALIZE_BYTES[platform]
+        self.crossover_frac = GATHER_CROSSOVER_FRAC[platform]
+        # the reference's build-time strategy: past the crossover the
+        # staged re-rank would touch too many rows by index
+        m_max_frac = self.cfg.sizes(self.store.n)[1] / self.store.n
+        self.strategy = ("gather" if m_max_frac <= self.crossover_frac
+                         else "dense")
         self._consts: dict[int, tuple[float, float]] = {}
         self._sizes: dict[int, tuple[int, int]] = {}
 
@@ -86,15 +133,38 @@ class GoldDiffEngine:
             self._consts[t] = (a, sig2)
         return self._consts[t]
 
+    # -- routing policies -----------------------------------------------------
+    def use_fused(self, t: int) -> bool:
+        """Route this step through the fused single-pass body?  True
+        fuses every step; "auto" fuses where the reference's rule does
+        on one host, when the build-time strategy is "dense"."""
+        if self.fused is False:
+            return False
+        if self.fused is True:
+            return True
+        return self.strategy == "dense"
+
+    def use_stream(self, batch: int, n: int | None = None) -> bool:
+        """Stream the coarse screen at this (batch, store) size?  "auto"
+        streams once the materialized [B, N] fp32 matrix would cross the
+        platform's budget (``SCREEN_MATERIALIZE_BYTES``)."""
+        if self.screen != "auto":
+            return self.screen == "streamed"
+        n = self.store.n if n is None else n
+        return 4 * int(batch) * int(n) > self._screen_budget
+
     # -- pipeline stages ------------------------------------------------------
     def _proxy_query(self, q: torch.Tensor) -> torch.Tensor:
         q_img = q.reshape(q.shape[:-1] + tuple(self.store.image_shape))
         return downsample_proxy(q_img, self.cfg.proxy_factor)
 
     def coarse(self, q: torch.Tensor, m: int) -> torch.Tensor:
-        """Top-m candidates by exact proxy distance; [B, m]."""
+        """Top-m candidates by exact proxy distance; [B, m], streamed or
+        materialized by ``use_stream``."""
         return ops.screen_topm(self._proxy_query(q), self.store.proxy, m,
-                               x_norms=self.store.proxy_norms)[0]
+                               x_norms=self.store.proxy_norms,
+                               tile=self.screen_tile,
+                               stream=self.use_stream(q.shape[0]))[0]
 
     def _select_body(self, q: torch.Tensor, t: int
                      ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -118,6 +188,21 @@ class GoldDiffEngine:
         out = ops.golden_support_aggregate(self.store.X, idx, lg)
         return out.to(x_t.dtype)
 
+    def _fused_body(self, x_t: torch.Tensor, t: int) -> torch.Tensor:
+        """Fused single-pass step (``ops.fused_step``): candidates with
+        their exact distances from one read of the store, then the
+        top-k and the aggregate of the k golden rows."""
+        a, sig2 = self.constants(t)
+        m_t, k_t = self.sizes(t)
+        q = x_t / a
+        out = ops.fused_step(q, self._proxy_query(q), self.store.X,
+                             self.store.proxy, m_t, k_t, sig2,
+                             x_norms=self.store.x_norms,
+                             proxy_norms=self.store.proxy_norms,
+                             stream=self.use_stream(x_t.shape[0]),
+                             tile=self.screen_tile)
+        return out.to(x_t.dtype)
+
     # -- public entry points --------------------------------------------------
     def select(self, x_t: torch.Tensor, t: int) -> torch.Tensor:
         """Golden support S_t for each query; [B, k_t]."""
@@ -127,7 +212,10 @@ class GoldDiffEngine:
 
     def denoise(self, x_t: torch.Tensor, t: int) -> torch.Tensor:
         """Full GoldDiff step for the Optimal base (unbiased SS on S_t)."""
-        return self._denoise_body(x_t, int(t))
+        t = int(t)
+        if self.use_fused(t):
+            return self._fused_body(x_t, t)
+        return self._denoise_body(x_t, t)
 
     def full_scan(self, x_t: torch.Tensor, t: int) -> torch.Tensor:
         """Exact posterior mean over the whole store (Eq. 2)."""

@@ -21,9 +21,15 @@ __all__ = ["GoldDiff", "GoldDiffConfig", "GoldDiffEngine", "schedule_sizes"]
 
 
 class GoldDiff:
-    """Plug-and-play wrapper: GoldDiff(base_denoiser) (paper Tab. 5)."""
+    """Plug-and-play wrapper: GoldDiff(base_denoiser) (paper Tab. 5).
 
-    def __init__(self, base, cfg: GoldDiffConfig | None = None):
+    ``screen=``/``screen_tile=`` pick the streamed or materialized
+    coarse screen, ``fused=`` the single-pass fused step; both as in
+    :class:`GoldDiffEngine`."""
+
+    def __init__(self, base, cfg: GoldDiffConfig | None = None,
+                 screen: str = "auto", screen_tile: int | None = None,
+                 fused: str | bool = "auto"):
         if not isinstance(base, OptimalDenoiser):
             raise NotImplementedError(
                 "GoldDiff over a patch-family base is not ported yet "
@@ -34,7 +40,8 @@ class GoldDiff:
         self.schedule: Schedule = base.schedule
         self.name = f"golddiff+{base.name}"
         self.engine = GoldDiffEngine(self.store, self.schedule, self.cfg,
-                                     device=self.store.device)
+                                     device=self.store.device, screen=screen,
+                                     screen_tile=screen_tile, fused=fused)
 
     def select(self, x_t: torch.Tensor, t: int) -> torch.Tensor:
         """Golden support S_t for each query; [B, k_t]."""

@@ -1,0 +1,134 @@
+// Fused GoldDiff candidates: the m nearest rows of each query by PROXY
+// distance, in the proxy order (ties to the lowest row), each with its
+// EXACT squared distance attached,
+//   idx [B, m], d2 [B, m] = max(||q_b||^2 + ||x_j||^2 - 2 q_b.x_j, 0),
+// computed in one pass over the store: every row x_j [D] is read once.
+//
+// Replaces: src/repro/kernels/fused_step.py:178 (fused_candidates_pallas /
+// _fused_kernel :85, _merge_topm_carry :64).  Kept from the TPU kernel:
+// the proxy top-m contract of screen_topm (tie order, +inf rows never
+// selected), and the carried exact distance follows the proxy
+// selection; a slot whose proxy distance is +inf, or past N when m > N,
+// carries row 0 and exact d2 = +inf.
+// Bound on the H100: bytes.  At B=16, N=50000, D=3072, dp=192 the store
+// is 614.4 MB and the proxy 38.4 MB (0.195 ms at 3.35 TB/s), against
+// 2 * 16 * 50000 * 3264 = 5.2 GFLOP (0.078 ms of fp32 FMA work).
+// Design: the proxy selection runs first, as in screen_topm.cu (radix
+// passes over the 38.4 MB proxy store, which L2 mostly holds).  Then one
+// pass over the whole store: a block takes 128 rows for up to 16
+// queries, computes the exact distances of all of them (each row read
+// from HBM once for 16 queries, 4x4 register tiles, the next 32-column
+// slab prefetched into registers), recomputes the proxy keys
+// bit-identically, and writes (proxy key, exact d2) for the selected
+// pairs.  A per-query bitonic sort by proxy key then gives the order.
+// No [B, N] buffer and no [B, m, D] gather exist; live memory is O(B m).
+#include "topm_select.cuh"
+
+namespace {
+
+using namespace topm;
+
+template <bool PVEC, bool XVEC>
+__global__ void __launch_bounds__(THREADS)
+fused_pass(const float* __restrict__ qpT, const float* __restrict__ proxy,
+           const float* __restrict__ qpn, const float* __restrict__ pn,
+           const float* __restrict__ qT, const float* __restrict__ x,
+           const float* __restrict__ qn, const float* __restrict__ xn, int B,
+           int N, int dp, int D, int Bp, const State* __restrict__ st,
+           int* __restrict__ cnt, u64* __restrict__ keys,
+           float* __restrict__ pays, int L) {
+  __shared__ TileSmem sm;
+  const int q0 = blockIdx.y * BQ, row0 = blockIdx.x * BN;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float acc[QPT][RPT];
+  float ex[QPT][RPT];
+  tile_dot<XVEC>(qT, x, N, D, Bp, q0, row0, acc, sm);     // exact, full D
+#pragma unroll
+  for (int i = 0; i < QPT; ++i) {
+    const int b = q0 + 4 * warp + i;
+    const float qnb = b < B ? qn[b] : 0.f;
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      const int row = row0 + lane + 32 * r;
+      ex[i][r] = row < N ? clamped_d2(qnb, xn[row], acc[i][r]) : 0.f;
+    }
+  }
+  tile_dot<PVEC>(qpT, proxy, N, dp, Bp, q0, row0, acc, sm);  // proxy keys
+  bool sel[QPT][RPT];
+  u64 key[QPT][RPT];
+#pragma unroll
+  for (int i = 0; i < QPT; ++i) {
+    const int b = q0 + 4 * warp + i;
+    const bool live = b < B;
+    const u64 thr = live ? st[b].thr : 0;
+    const float qnb = live ? qpn[b] : 0.f;
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      const int row = row0 + lane + 32 * r;
+      sel[i][r] = false;
+      key[i][r] = 0;
+      if (live && row < N) {
+        key[i][r] = dist_key(clamped_d2(qnb, pn[row], acc[i][r]), row);
+        sel[i][r] = key[i][r] <= thr;
+      }
+    }
+  }
+  compact_write<true>(sel, key, ex, B, q0, L, cnt, keys, pays);
+}
+
+template <bool PVEC, bool XVEC>
+void fused(const float* qp, const float* proxy, const float* qpn,
+           const float* pn, const float* q, const float* x, const float* qn,
+           const float* xn, int B, int N, int dp, int D, int m, float* qpT,
+           float* qT, State* st, int* hist, int* cnt, u64* keys, float* pays,
+           int L, cudaStream_t s) {
+  select_phase<PVEC>(qp, proxy, qpn, pn, B, N, dp, m, qpT, st, hist, s);
+  const int Bp = (B + BQ - 1) / BQ * BQ;
+  const int64_t nq = (int64_t)D * Bp;
+  transpose_queries<<<(unsigned)((nq + 255) / 256), 256, 0, s>>>(q, qT, B, D,
+                                                                  Bp);
+  fused_pass<PVEC, XVEC>
+      <<<dim3((N + BN - 1) / BN, Bp / BQ), THREADS, 0, s>>>(
+          qpT, proxy, qpn, pn, qT, x, qn, xn, B, N, dp, D, Bp, st, cnt, keys,
+          pays, L);
+}
+
+}  // namespace
+
+// Scratch, all from the caller: qpT [dp * Bp] and qT [D * Bp] fp32 with
+// Bp = ceil(B/16)*16, st [B] State (24 bytes each), hist [MAX_PASSES * B
+// * 256] int32, cnt [B] int32, keys [B * L] uint64 and pays [B * L] fp32
+// with L the power of two >= min(m, N).  The entry point clears hist,
+// cnt and keys itself.  pvec / xvec: dp / D % 4 == 0 and 16-byte
+// aligned proxy / store.
+RT_EXPORT int fused_candidates_launch(
+    const float* qp, const float* proxy, const float* qpn, const float* pn,
+    const float* q, const float* x, const float* qn, const float* xn, int B,
+    int N, int dp, int D, int m, int pvec, int xvec, float* qpT, float* qT,
+    void* st, int* hist, int* cnt, void* keys, float* pays, int L,
+    int64_t* idx_out, float* d2_out, void* stream) {
+  if (B <= 0 || m <= 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  u64* k = static_cast<u64*>(keys);
+  State* state = static_cast<State*>(st);
+  cudaMemsetAsync(hist, 0, sizeof(int) * (size_t)MAX_PASSES * B * 256, s);
+  cudaMemsetAsync(cnt, 0, sizeof(int) * (size_t)B, s);
+  cudaMemsetAsync(k, 0xff, sizeof(u64) * (size_t)B * L, s);
+  if (pvec && xvec)
+    fused<true, true>(qp, proxy, qpn, pn, q, x, qn, xn, B, N, dp, D, m, qpT,
+                      qT, state, hist, cnt, k, pays, L, s);
+  else if (pvec)
+    fused<true, false>(qp, proxy, qpn, pn, q, x, qn, xn, B, N, dp, D, m, qpT,
+                       qT, state, hist, cnt, k, pays, L, s);
+  else if (xvec)
+    fused<false, true>(qp, proxy, qpn, pn, q, x, qn, xn, B, N, dp, D, m, qpT,
+                       qT, state, hist, cnt, k, pays, L, s);
+  else
+    fused<false, false>(qp, proxy, qpn, pn, q, x, qn, xn, B, N, dp, D, m,
+                        qpT, qT, state, hist, cnt, k, pays, L, s);
+  cudaError_t err = sort_keys<true>(k, pays, B, L, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  emit<true><<<dim3((m + 255) / 256, B), 256, 0, s>>>(k, pays, L, m, idx_out,
+                                                      d2_out);
+  return static_cast<int>(cudaGetLastError());
+}

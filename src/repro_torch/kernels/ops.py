@@ -1,10 +1,11 @@
 """Public kernel-layer functions for the GoldDiff hot path.
 
 Counterpart of ``repro.kernels.ops`` for the single-host exact path:
-coarse screen (``pdist`` + ``screen_topm`` in the materialized form),
-exact re-rank (``support_distances`` + ``golden_rerank``) and
-aggregation (``golden_support_aggregate`` over supports,
-``golden_aggregate`` for full scans).
+coarse screen (``screen_topm``: materialized ``pdist`` + sort, or the
+streamed kernel), exact re-rank (``support_distances`` +
+``golden_rerank``), aggregation (``golden_support_aggregate`` over
+supports, ``golden_aggregate`` for full scans) and the fused
+single-pass step (``fused_step``).
 
 Dispatch is by the tensors' device and nothing else: CPU tensors take
 the plain PyTorch version in ``ref``; CUDA tensors launch the
@@ -13,14 +14,17 @@ card to the plain version.  The support functions take the store and
 an index, and the kernels load rows by index: no [B, m, D] gather is
 materialized on the card.
 
-The top-m / top-k selections stay PyTorch (a stable sort, so ties go
-to the lowest index as with ``lax.top_k``).
+The selections outside the kernels stay PyTorch (a stable sort, so
+ties go to the lowest index as with ``lax.top_k``); the streamed screen
+and the fused candidates select inside their kernels.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels import fused_step as _fused
+from repro_torch.kernels import screen as _screen
 from repro_torch.kernels.golden_aggregate import golden_aggregate as _agg
 from repro_torch.kernels.golden_rerank import support_sqdist as _sqd
 from repro_torch.kernels.golden_support_aggregate import (
@@ -45,12 +49,29 @@ def pdist(q, x, q_norms=None, x_norms=None):
                   x_norms.float().contiguous())
 
 
-def screen_topm(q, x, m: int, q_norms=None, x_norms=None):
-    """Exact top-m rows of x by squared distance, materialized form:
-    the [B, N] distance matrix plus one stable sort.  Returns
-    ``(idx, d2)`` [B, m], ``d2`` ascending; ``m > N`` surplus slots
-    carry ``d2 = +inf`` and index 0."""
-    return ref.materialized_topm(pdist(q, x, q_norms, x_norms), m)
+def screen_topm(q, x, m: int, q_norms=None, x_norms=None,
+                tile: int | None = None, stream: bool = False):
+    """Exact top-m rows of x by squared distance.  Returns ``(idx, d2)``
+    [B, m], ``d2`` ascending, ties to the lowest index; ``m > N``
+    surplus slots carry ``d2 = +inf`` and index 0.
+
+    ``stream=False`` (the default) is the materialized form: the [B, N]
+    distance matrix plus one stable sort.  ``stream=True`` never builds
+    that matrix: the plain carry loop over N-tiles of ``tile`` rows on
+    the CPU, the ``screen_topm`` kernel on the card (which has no
+    N-tile).  The streamed forms also give index 0 to every slot whose
+    distance is +inf, as the reference kernel does."""
+    if not stream:
+        return ref.materialized_topm(pdist(q, x, q_norms, x_norms), m)
+    if _on_cpu(q):
+        return _screen.screen_topm_scan(q, x, m, q_norms, x_norms, tile=tile)
+    q = q.float().contiguous()
+    if q_norms is None:
+        q_norms = (q * q).sum(-1)
+    if x_norms is None:
+        x_norms = (x.float() ** 2).sum(-1)
+    return _screen.screen_topm(q, x, m, q_norms.float().contiguous(),
+                               x_norms.float().contiguous())
 
 
 def support_distances(q, x, idx, x_norms=None):
@@ -91,5 +112,38 @@ def golden_aggregate(q, x, sigma2: float, x_norms=None):
                 x_norms.float().contiguous())
 
 
+def fused_step(q, qp, x, proxy, m: int, k: int, sigma2: float,
+               x_norms=None, proxy_norms=None, stream: bool = True,
+               tile: int | None = None):
+    """One fused GoldDiff step: the posterior mean [B, D] fp32 of
+    rescaled queries ``q`` [B, D] with proxy queries ``qp`` [B, dp].
+
+    The candidate stage reads the store once (``fused_step`` module):
+    the proxy top-m with each slot's exact distance attached.  Then
+    ``fused_posterior`` re-ranks inside it, clamps the logits and
+    aggregates the k golden rows.  On the card it is always the
+    ``fused_candidates`` kernel.  On the CPU ``stream=True`` takes the
+    plain carry loop, ``stream=False`` the materialized screen with
+    exact distances by index (surplus slots marked +inf, as in the
+    streamed forms)."""
+    if x_norms is None:
+        x_norms = (x.float() ** 2).sum(-1)
+    if proxy_norms is None:
+        proxy_norms = (proxy.float() ** 2).sum(-1)
+    if not _on_cpu(q):
+        idx, d2 = _fused.fused_candidates(
+            qp.float().contiguous(), q.float().contiguous(), proxy, x, m,
+            proxy_norms.float().contiguous(), x_norms.float().contiguous())
+    elif stream:
+        idx, d2 = _fused.fused_candidates_scan(qp, q, proxy, x, m,
+                                               proxy_norms, x_norms,
+                                               tile=tile)
+    else:
+        idx, pd2 = screen_topm(qp, proxy, m, x_norms=proxy_norms)
+        d2 = torch.where(torch.isinf(pd2), float("inf"),
+                         support_distances(q, x, idx, x_norms))
+    return _fused.fused_posterior(x, idx, d2, k, sigma2)
+
+
 __all__ = ["pdist", "screen_topm", "support_distances", "golden_rerank",
-           "golden_support_aggregate", "golden_aggregate"]
+           "golden_support_aggregate", "golden_aggregate", "fused_step"]

@@ -13,8 +13,12 @@ Every request owns its noise: row i of a request draws x_T from a CPU
 ``torch.Generator`` seeded from ``(request.seed, i)`` alone, so its
 images depend neither on the wave that co-batched it nor on the device.
 
+``fused`` forwards to the engine (``GoldDiffEngine(fused=...)``): True
+runs every step through the single-pass fused kernel, "auto" where the
+engine's crossover says it pays.
+
   PYTHONPATH=src python -m repro_torch.launch.serve --dataset cifar_like \
-      --n 50000 --requests 3 --batch 16 --steps 10
+      --n 50000 --requests 3 --batch 16 --steps 10 [--fused on]
 """
 from __future__ import annotations
 
@@ -63,7 +67,7 @@ class ServeEngine:
                  schedule: str = "ddpm_linear", num_steps: int = 10,
                  gd_cfg: GoldDiffConfig | None = None, max_batch: int = 16,
                  mode: str = "auto", clip_value: float | None = 3.0,
-                 device=None):
+                 device=None, fused: str | bool = "auto"):
         if mode not in ("auto", "static"):
             raise NotImplementedError(
                 f"serve mode {mode!r} is not ported yet (ROADMAP Queue 1, "
@@ -80,7 +84,8 @@ class ServeEngine:
         self.clip_value = clip_value
         base_den = make_denoiser(base, self.store, self.schedule,
                                  device=self.device)
-        self.denoiser = GoldDiff(base_den, gd_cfg or GoldDiffConfig())
+        self.denoiser = GoldDiff(base_den, gd_cfg or GoldDiffConfig(),
+                                 fused=fused)
 
     @property
     def engine(self):
@@ -173,6 +178,9 @@ class ServeEngine:
                 for ri, r in enumerate(reqs)]
 
 
+FUSED_FLAG = {"auto": "auto", "on": True, "off": False}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dataset", default="cifar_like")
@@ -183,13 +191,18 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "the plain PyTorch versions)")
+    ap.add_argument("--fused", choices=sorted(FUSED_FLAG), default="auto",
+                    help="single-pass fused step: on, off, or auto (the "
+                         "engine's crossover decides)")
     args = ap.parse_args(argv)
 
     t0 = time.perf_counter()
     eng = ServeEngine(args.dataset, {"n": args.n}, num_steps=args.steps,
-                      max_batch=args.batch, device=args.device)
+                      max_batch=args.batch, device=args.device,
+                      fused=FUSED_FLAG[args.fused])
     print(f"store: {args.dataset} N={eng.store.n} D={eng.store.dim} on "
-          f"{eng.device} in {time.perf_counter() - t0:.2f}s")
+          f"{eng.device} in {time.perf_counter() - t0:.2f}s; fused steps: "
+          f"{eng.engine.use_fused(0)}")
     reqs = [Request(i, args.batch, seed=100 + i) for i in range(args.requests)]
     t0 = time.perf_counter()
     results = eng.serve(reqs)

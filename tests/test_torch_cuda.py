@@ -24,11 +24,14 @@ from repro_torch.core import (GoldDiff, OptimalDenoiser,  # noqa: E402
                               make_schedule, sample)
 from repro_torch.data import make_dataset  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels.fused_step import (  # noqa: E402
+    fused_candidates, fused_candidates_scan)
 from repro_torch.kernels.golden_aggregate import golden_aggregate  # noqa: E402
 from repro_torch.kernels.golden_rerank import support_sqdist  # noqa: E402
 from repro_torch.kernels.golden_support_aggregate import (  # noqa: E402
     golden_support_aggregate)
 from repro_torch.kernels.pdist import pdist  # noqa: E402
+from repro_torch.kernels.screen import screen_topm, screen_topm_scan  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -127,3 +130,115 @@ def test_kernels_count_launches(card):
     before = pdist.launches
     ops.pdist(q, x)
     assert pdist.launches == before + 1
+
+
+# -- the streamed screen and the fused candidates ------------------------------
+# The plain versions run on the card too (the carry loops, with torch's
+# matmul and stable sort); integer data makes them exact, so the
+# kernels must match them bit for bit, +inf and surplus slots included.
+
+def norms(a):
+    return (a * a).sum(-1)
+
+
+@pytest.mark.parametrize("b,n,d,m", [
+    (16, 50000, 192, 12500),   # the main path's shapes
+    (16, 5000, 192, 1250),
+    (5, 333, 7, 40),           # d % 4 != 0: scalar loads
+    (17, 300, 12, 400),        # B > 16, m > N
+    (3, 40000, 8, 20000),      # m > 16384: global bitonic merge steps
+    (2, 1, 4, 3),              # a one-row store
+])
+def test_screen_topm_bit_equal_integer(card, b, n, d, m):
+    q, x = ints((b, d), card, 10), ints((n, d), card, 11)
+    qn, xn = norms(q), norms(x)
+    if n > 3:
+        xn[3] = float("inf")
+    gi, gv = screen_topm(q, x, m, qn, xn)
+    wi, wv = screen_topm_scan(q, x, m, qn, xn)
+    assert torch.equal(gi, wi) and torch.equal(gv, wv)
+    assert (gi[torch.isinf(gv)] == 0).all()
+
+
+def test_screen_topm_all_tied(card):
+    q = torch.zeros(4, 8, device=card)
+    x = torch.ones(3000, 8, device=card)
+    gi, gv = screen_topm(q, x, 1000, norms(q), norms(x))
+    assert torch.equal(gi, torch.arange(1000, device=card).expand(4, -1))
+    assert (gv == 8).all()
+
+
+def test_screen_topm_float(card):
+    """Float data: distances within 1e-5 relative, and every selected
+    row's own distance is within that tolerance of its slot."""
+    g = torch.Generator().manual_seed(12)
+    q = torch.randn(16, 192, generator=g).to(card)
+    x = torch.randn(20000, 192, generator=g).to(card)
+    gi, gv = screen_topm(q, x, 3000, norms(q), norms(x))
+    wi, wv = screen_topm_scan(q, x, 3000, norms(q), norms(x))
+    torch.testing.assert_close(gv, wv, rtol=1e-5, atol=1e-5)
+    own = torch.gather(ref.pdist_ref(q, x), -1, gi)
+    torch.testing.assert_close(own, gv, rtol=1e-5, atol=1e-5)
+    assert (gi == wi).float().mean() > 0.99
+
+
+@pytest.mark.parametrize("b,n,dp,d,m", [
+    (16, 8000, 192, 3072, 2000),
+    (16, 3000, 48, 768, 800),
+    (5, 333, 7, 30, 40),        # dp, D % 4 != 0: scalar loads
+    (17, 200, 12, 64, 300),     # B > 16, m > N
+    (2, 20000, 8, 16, 17000),   # m > 16384: global bitonic merge steps
+])
+def test_fused_candidates_bit_equal_integer(card, b, n, dp, d, m):
+    qp, q = ints((b, dp), card, 13), ints((b, d), card, 14)
+    proxy, x = ints((n, dp), card, 15), ints((n, d), card, 16)
+    pn, xn = norms(proxy), norms(x)
+    pn[3] = float("inf")
+    xn[5] = float("inf")
+    gi, gv = fused_candidates(qp, q, proxy, x, m, pn, xn)
+    wi, wv = fused_candidates_scan(qp, q, proxy, x, m, pn, xn)
+    assert torch.equal(gi, wi) and torch.equal(gv, wv)
+    si, _ = screen_topm(qp, proxy, m, norms(qp), pn)
+    assert torch.equal(gi, si)
+
+
+def test_fused_step_float(card):
+    """The fused step on the card against its plain version on the
+    card: means within 1e-4."""
+    g = torch.Generator().manual_seed(17)
+    x = torch.randn(6000, 768, generator=g).to(card)
+    proxy = x.reshape(6000, 16, 16, 3)[:, ::4, ::4].reshape(6000, -1)
+    proxy = proxy.contiguous()
+    q = x[:16] + 0.3 * torch.randn(16, 768, generator=g).to(card)
+    qp = q.reshape(16, 16, 16, 3)[:, ::4, ::4].reshape(16, -1).contiguous()
+    got = ops.fused_step(q, qp, x, proxy, 1500, 600, 2.0)
+    i, d2 = fused_candidates_scan(qp, q, proxy, x, 1500)
+    from repro_torch.kernels.fused_step import fused_posterior
+    want = fused_posterior(x, i, d2, 600, 2.0)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("kw", [dict(fused=True),
+                                dict(screen="streamed", fused=False)])
+def test_new_routes_card_match_cpu(card, kw):
+    """Ten fused or streamed-screen steps on the card against the same
+    route on the CPU (plain versions)."""
+    cpu_store = make_dataset("cifar_like", n=1024, seed=0, device="cpu")
+    sched = make_schedule("ddpm_linear", 1000)
+    x_T = float(sched.b[1000]) * torch.randn(
+        8, cpu_store.dim, generator=torch.Generator().manual_seed(1))
+    outs = []
+    for dev in ("cpu", card):
+        gd = GoldDiff(OptimalDenoiser(cpu_store, sched, device=dev), **kw)
+        outs.append(sample(gd, sched, tuple(x_T.shape), x_init=x_T).cpu())
+    assert np.isfinite(outs[1].numpy()).all()
+    torch.testing.assert_close(outs[1], outs[0], rtol=1e-3, atol=1e-3)
+
+
+def test_new_kernels_count_launches(card):
+    q, x = ints((2, 8), card, 18), ints((9, 8), card, 19)
+    before = screen_topm.launches, fused_candidates.launches
+    ops.screen_topm(q, x, 4, stream=True)
+    ops.fused_step(x[:2], q, x, x, 4, 2, 1.0)
+    assert screen_topm.launches == before[0] + 1
+    assert fused_candidates.launches == before[1] + 1

@@ -37,7 +37,8 @@ def setup():
     jsched = jmake_schedule("ddpm_linear", 1000)
     tsched = make_schedule("ddpm_linear", 1000)
     jgd = JGoldDiff(JOptimal(js, jsched), **REF_ENGINE)
-    tgd = GoldDiff(OptimalDenoiser(ts, tsched, device="cpu"))
+    tgd = GoldDiff(OptimalDenoiser(ts, tsched, device="cpu"),
+                   screen="materialized", fused=False)
     return js, ts, jsched, tsched, jgd, tgd
 
 

@@ -3,29 +3,42 @@
 
 Phases:
   1. environment: the card, CUDA, nvcc and triton; TF32 off;
-  2. build: the six hand-written kernels from ``src/repro_torch/kernels/csrc``;
+  2. build: the seven hand-written kernels from ``src/repro_torch/kernels/csrc``;
   3. scale: the cifar_like store, N=50000 rows of D=3072 (proxy dp=192),
-     built once and shared by every phase;
+     built once and shared by every phase, and the Golden Index's scale
+     store, gmm N=65536 x 64 with 256 modes;
+     index-build: the port's k-means on the card for both stores, twice
+     each with one generator (bit-equal), the CSR layout validated and
+     saved and loaded back;
   4. kernel checks at the main path's shapes (B=16, m=12500, k=5000;
-     the two top-m kernels also at m=5000): each kernel against its
-     plain PyTorch version, bit-equal on integer-valued data (distances
-     and the selected sets, in order), within 1e-5 relative (distances)
-     / 1e-4 absolute (means) on the float store, timed with CUDA events
-     against its bound, its plain version and, where one exists, one
-     PyTorch library call;
+     the two top-m kernels also at m=5000; the centroid scan at both
+     index shapes): each kernel against its plain PyTorch version,
+     bit-equal on integer-valued data (distances and the selected sets,
+     in order), within 1e-5 relative (distances) / 1e-4 absolute (means)
+     on the float store, timed with CUDA events against its bound, its
+     plain version and, where one exists, one PyTorch library call;
   5. policy: the fused-vs-staged step sweep over m/N that sets the
      engine's "cuda" crossover, the streamed-vs-materialized screen's
      time and peak memory at B=16 and B=256 that set its byte budget,
      and the routes that fused="auto" / screen="auto" take here;
+     index: on the gmm store (the reference's indexed configuration),
+     which steps the index serves, recall@m_t against the exact screen
+     (>= 0.95 at every served bucket, the reference's gate) and the
+     indexed vs exact coarse and denoise times;
   6. serve: ServeEngine answers 3 requests of 16 images on the auto
      route, and again with fused=True; a streamed-screen trajectory
-     (GoldDiff(screen="streamed")).  Every count of launches is set to
-     0 just before each and read just after, and must show that each
-     route's kernels ran once per step, and the others never;
-  7. baseline: staged, fused and full-scan trajectories from the same
-     x_T, each counted alone, timed and profiled;
+     (GoldDiff(screen="streamed")); the indexed cifar_like trajectory
+     (GoldDiff(index=...), every step indexed), 3 indexed waves on the
+     gmm store, and 3 waves on cifar_like with index_mode="auto" that
+     must screen exactly.  Every count of launches is set to 0 just
+     before each and read just after, and must show that each route's
+     kernels ran once per step, and the others never;
+  7. baseline: staged, fused, streamed, indexed, full-scan and the exact
+     staged trajectory at the indexed configuration, from the same x_T,
+     each counted alone, timed and profiled;
   8. reference: a small store's trajectories on the card against the
-     same trajectories on the CPU (plain versions), for every route.
+     same trajectories on the CPU (plain versions), for every route
+     (the indexed one with an index built on the CPU and moved over).
 
 Any failure exits non-zero before the last line.  The last lines are the
 card's name and power limit, a JSON line of per-kernel numbers, and
@@ -38,6 +51,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -51,6 +65,17 @@ M_LOW = 5000                   # the smallest m_t of the 10-step schedule
 SWEEP = (0.05, 0.10, 0.25, 0.50)   # m/N of the fused-vs-staged sweep
 STEPS = 10
 DIST_RTOL, MEAN_ATOL, TRAJ_TOL = 1e-5, 1e-4, 1e-3
+# The reference's indexed configuration (benchmarks/index_speedup.py:49,
+# :59): m_t in [N/128, N/64], k_t in [N/256, N/128], probes 1/64-1/32
+# of the windows with a capacity floor of 2 m_t; and its N >= 50k
+# acceptance store (:141-143).
+INDEXED_FRACS = dict(m_min_frac=1 / 128, m_max_frac=1 / 64,
+                     k_min_frac=1 / 256, k_max_frac=1 / 128)
+SCALE_PROBES = dict(f_lo=1 / 64, f_hi=1 / 32, safety=2.0)
+GMM_N, GMM_DIM, GMM_MODES, GMM_SPREAD, GMM_C = 65536, 64, 256, 0.10, 512
+T_BUCKETS = (900, 300, 100, 20)
+RECALL_MIN = 0.95
+SPIN_CYCLES = 1_000_000        # ~0.5 ms at the H100's clock (time_ms)
 
 
 def fail(msg: str) -> None:
@@ -77,13 +102,17 @@ def ints(shape, seed: int) -> torch.Tensor:
 def time_ms(fn, iters: int = 10) -> float:
     """Mean device time of ``fn`` with CUDA events, after warm-up, with
     the 50 MB L2 cache flushed before each launch (the main path reaches
-    every kernel after gigabytes of other traffic)."""
+    every kernel after gigabytes of other traffic).  A spin kernel of
+    about half a millisecond after the flush lets the host enqueue all
+    of ``fn`` before the device reaches the start event, so a short
+    kernel's time is its own and not its wrapper's host overhead."""
     flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(2):
         fn()
     pairs = []
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -92,6 +121,20 @@ def time_ms(fn, iters: int = 10) -> float:
         pairs.append((s, e))
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in pairs) / iters
+
+
+def wall_ms(fn, iters: int = 20) -> float:
+    """Mean host wall time of ``fn`` per call over back-to-back calls,
+    synchronized at both ends: what a caller pays, host launches
+    included."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -116,10 +159,17 @@ def main() -> None:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}")
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.core import GoldDiff, OptimalDenoiser, sample
+    from repro_torch.core import (GoldDiff, GoldDiffConfig, GoldDiffEngine,
+                                  OptimalDenoiser, sample, sampling_timesteps)
     from repro_torch.core import engine as engine_mod
     from repro_torch.data import make_dataset
+    from repro_torch.index import (ProbeSchedule, build_index,
+                                   default_num_clusters, load_index,
+                                   save_index, screening_recall,
+                                   validate_index)
+    from repro_torch.index.store import ARRAY_FIELDS
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels.centroid_scan import centroid_scan
     from repro_torch.kernels.fused_step import (
         fused_candidates, fused_candidates_scan, fused_posterior)
     from repro_torch.kernels.golden_aggregate import golden_aggregate
@@ -148,7 +198,8 @@ def main() -> None:
 
     # -- 2. build --------------------------------------------------------------
     names = ["pdist", "support_sqdist", "golden_support_aggregate",
-             "golden_aggregate", "screen_topm", "fused_candidates"]
+             "golden_aggregate", "screen_topm", "fused_candidates",
+             "centroid_scan"]
     t0 = time.perf_counter()
     log = _build.build(names)
     print(f"[build] {len(names)} kernels in {time.perf_counter() - t0:.1f}s "
@@ -168,6 +219,53 @@ def main() -> None:
           f"store shapes {tuple(st.X.shape)} {tuple(st.proxy.shape)}")
     print(f"[scale] cifar_like store N={st.n} D={st.dim} dp={st.proxy.shape[1]}"
           f" built in {store_s:.1f}s (numpy generation + upload)")
+    t0 = time.perf_counter()
+    gst = make_dataset("gmm", n=GMM_N, dim=GMM_DIM, num_modes=GMM_MODES,
+                       spread=GMM_SPREAD, seed=0, device="cuda")
+    print(f"[scale] gmm store N={gst.n} D={gst.dim} ({GMM_MODES} modes, "
+          f"spread {GMM_SPREAD}) built in {time.perf_counter() - t0:.1f}s")
+    indexed_cfg = GoldDiffConfig(**INDEXED_FRACS)
+    scale_probes = ProbeSchedule(**SCALE_PROBES)
+
+    # -- index-build: the port's k-means on the card -----------------------------
+    def build_twice(store, c: int, label: str):
+        """Build the index twice from one seed; they must be bit-equal."""
+        built, secs = [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            built.append(build_index(store, c, generator=torch.Generator(
+                device="cuda").manual_seed(0)))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        ix, again = built
+        check(all(torch.equal(getattr(ix, f), getattr(again, f))
+                  for f in ("centroids", "perm", "offsets")),
+              f"{label}: two builds from one generator differ")
+        check(ix.device.type == "cuda" and ix.perm.dtype == torch.int64,
+              f"{label}: index on {ix.device}, perm {ix.perm.dtype}")
+        host = {f: getattr(ix, f).cpu().numpy() for f in ARRAY_FIELDS}
+        validate_index(host, ix.max_cluster)
+        sizes = torch.diff(ix.offsets).float()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = str(Path(tmp) / "index.npz")
+            save_index(ix, path)
+            back = load_index(path, device="cuda")
+        check(back.max_cluster == ix.max_cluster and all(
+            torch.equal(getattr(back, f), getattr(ix, f))
+            for f in ARRAY_FIELDS), f"{label}: save/load round trip differs")
+        print(f"[index-build] {label}: N={store.n} dp={store.proxy.shape[1]}"
+              f" C={c} clusters -> W={ix.num_clusters} windows, L="
+              f"{ix.max_cluster}; window rows min {int(sizes.min())}, "
+              f"median {float(sizes.median()):.0f}, mean "
+              f"{float(sizes.mean()):.1f}, max {int(sizes.max())}, std "
+              f"{float(sizes.std()):.1f}; build {secs[0]:.2f} s and "
+              f"{secs[1]:.2f} s, bit-equal; validate_index passes; "
+              f"save/load round trip equal")
+        return ix
+
+    cix = build_twice(st, default_num_clusters(N), "cifar_like")
+    gix = build_twice(gst, GMM_C, "gmm")
 
     # -- 4. kernel checks at the main path's shapes -----------------------------
     sched = eng.schedule
@@ -437,13 +535,63 @@ def main() -> None:
         ms=fu_times[M][0], plain_ms=fu_times[M][1], bound_ms=b_ms,
         bound_by=b_by, library_ms=None)
 
+    # kernel 7: centroid_scan (IVF level 1) at both index shapes, each
+    # with one +inf-norm padded window appended: integer data bit-equal
+    # to the plain version (and the probe lists of the stable sort),
+    # float data within DIST_RTOL, +inf windows +inf.
+    gq = gst.X[:B] + 0.3 * torch.randn(
+        B, GMM_DIM, generator=torch.Generator().manual_seed(40)).cuda()
+    for label, q_c, ix in (("cifar_like", qp, cix), ("gmm", gq, gix)):
+        w, dp = ix.centroids.shape
+        qi_c, ci = ints((B, dp), 41), ints((w + 1, dp), 42)
+        cni = (ci * ci).sum(-1)
+        cni[-1] = float("inf")
+        gk = centroid_scan(qi_c, ci, (qi_c * qi_c).sum(-1), cni)
+        gr = ref.centroid_scan_ref(qi_c, ci, cni)
+        check(torch.equal(gk, gr) and bool(torch.isinf(gk[:, -1]).all()),
+              f"centroid_scan: not bit-equal on integer data ({label})")
+        check(torch.equal(torch.sort(gk, dim=-1, stable=True)[1],
+                          torch.sort(gr, dim=-1, stable=True)[1]),
+              f"centroid_scan: integer probe lists differ ({label})")
+        cpad = torch.cat([ix.centroids, ix.centroids.new_zeros((1, dp))])
+        cnpad = torch.cat([ix.centroid_norms,
+                           ix.centroid_norms.new_full((1,), float("inf"))])
+        qn_c = (q_c * q_c).sum(-1)
+        fk = centroid_scan(q_c, cpad, qn_c, cnpad)
+        fr = ref.centroid_scan_ref(q_c, cpad, cnpad)
+        check(bool(torch.isinf(fk[:, -1]).all()),
+              f"centroid_scan: the padded window is not +inf ({label})")
+        err = float((fk - fr)[:, :-1].abs().max())
+        rel = rel_err(fk[:, :-1], fr[:, :-1])
+        check(rel <= DIST_RTOL,
+              f"centroid_scan: relative error {rel:.3g} > {DIST_RTOL} "
+              f"({label})")
+        probes_equal = torch.equal(torch.sort(fk, dim=-1, stable=True)[1],
+                                   torch.sort(fr, dim=-1, stable=True)[1])
+        cbias = qn_c[:, None] + cnpad[None, :]
+        c_ms = time_ms(lambda: centroid_scan(q_c, cpad, qn_c, cnpad))
+        c_plain = time_ms(lambda: ref.centroid_scan_ref(q_c, cpad, cnpad))
+        c_lib = time_ms(lambda: torch.addmm(cbias, q_c, cpad.T, alpha=-2.0))
+        b_ms, b_by = bound(4 * (B * dp + (w + 1) * dp + B + (w + 1)
+                                + B * (w + 1)), 2 * B * (w + 1) * dp)
+        print(f"[check] centroid_scan {label} (B={B}, C={w}+1 padded, "
+              f"d={dp}): integer bit-equal with equal probe lists, +inf "
+              f"window +inf; float max abs {err:.3g}, max rel {rel:.3g}, "
+              f"probe order equal {probes_equal}; kernel {c_ms:.4f} ms, "
+              f"bound {b_ms:.6f} ms ({b_by}), plain {c_plain:.4f} ms, "
+              f"library (torch.addmm) {c_lib:.4f} ms")
+        if label == "cifar_like":       # the indexed trajectory's shape
+            results["centroid_scan"] = dict(
+                max_abs_err=err, ms=c_ms, plain_ms=c_plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=c_lib)
+
     for name, r in results.items():
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
         print(f"[time] {name}: kernel {r['ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
               f"{r['plain_ms']:.4f} ms, library {lib}")
-    print("[check] all six kernels: " + ", ".join(f"{n} ok" for n in names))
+    print("[check] all seven kernels: " + ", ".join(f"{n} ok" for n in names))
     del d2k, d2r, bias, xi, int_cand
 
     # -- 5. policy: the engine's "cuda" constants -------------------------------
@@ -525,17 +673,73 @@ def main() -> None:
           f"{ts._screen_budget} bytes; streamed at B=256: "
           f"{ts.use_stream(256)}); the auto serve route is '{route}'")
 
+    # -- index: the reference's indexed configuration on the gmm store ----------
+    # Which buckets index_mode="auto" serves through the index, recall@m_t
+    # of the indexed candidates against the exact screen (gated), and the
+    # coarse and denoise times of both (recorded, not gated).
+    geng = GoldDiffEngine(gst, sched, indexed_cfg, index=gix,
+                          probe_schedule=scale_probes)
+    gexact = GoldDiffEngine(gst, sched, indexed_cfg)
+    x0 = gst.X[:B]
+    for t in T_BUCKETS:
+        m_t, k_t = geng.sizes(t)
+        a_t = float(sched.a[t])
+        eps_t = torch.randn(B, GMM_DIM, generator=torch.Generator(
+            ).manual_seed(t)).cuda()
+        q_t = (a_t * x0 + float(sched.b[t]) * eps_t) / a_t
+        exact = geng.coarse(q_t, m_t)
+        t_exact = time_ms(lambda: geng.coarse(q_t, m_t))
+        w_exact = wall_ms(lambda: geng.coarse(q_t, m_t))
+        line = (f"[index] gmm N={GMM_N} t={t}: m_t={m_t} k_t={k_t} nprobe="
+                f"{geng.nprobe(t)} of {gix.num_clusters} windows, padded "
+                f"candidates {geng.padded_m(t)} ({geng.padded_m(t) / GMM_N:.4f}"
+                f" of N); exact coarse {t_exact:.4f} ms device, "
+                f"{w_exact:.4f} ms wall")
+        if geng.use_index(t):
+            mp, p_t = geng.padded_m(t), geng.nprobe(t)
+            pos, pd2 = geng.coarse_indexed(q_t, mp, p_t)
+            recall = screening_recall(pos, pd2, gix.perm, exact)
+            check(recall >= RECALL_MIN,
+                  f"[index] t={t}: recall@m_t {recall:.4f} < {RECALL_MIN}")
+            t_idx = time_ms(lambda: geng.coarse_indexed(q_t, mp, p_t))
+            w_idx = wall_ms(lambda: geng.coarse_indexed(q_t, mp, p_t))
+            line += (f", served by the index: indexed coarse {t_idx:.4f} ms "
+                     f"device, {w_idx:.4f} ms wall (exact/indexed "
+                     f"{t_exact / t_idx:.2f}x device, {w_exact / w_idx:.2f}x "
+                     f"wall), recall@m_t {recall:.4f}")
+        else:
+            line += ", served by the exact screen (auto)"
+        print(line)
+    t = T_BUCKETS[-1]
+    a_t = float(sched.a[t])
+    x_t = a_t * x0 + float(sched.b[t]) * torch.randn(
+        B, GMM_DIM, generator=torch.Generator().manual_seed(77)).cuda()
+    d_idx, d_ex = geng.denoise(x_t, t), gexact.denoise(x_t, t)
+    s_idx = time_ms(lambda: geng.denoise(x_t, t))
+    s_ex = time_ms(lambda: gexact.denoise(x_t, t))
+    ws_idx = wall_ms(lambda: geng.denoise(x_t, t))
+    ws_ex = wall_ms(lambda: gexact.denoise(x_t, t))
+    print(f"[index] gmm t={t} denoise step (indexed {geng.use_index(t)}): "
+          f"indexed {s_idx:.4f} ms device, {ws_idx:.4f} ms wall; exact "
+          f"{s_ex:.4f} ms device, {ws_ex:.4f} ms wall (exact/indexed "
+          f"{s_ex / s_idx:.2f}x device, {ws_ex / ws_idx:.2f}x wall); "
+          f"posterior means differ by max abs "
+          f"{float((d_idx - d_ex).abs().max()):.3g}")
+
     # -- 6. serve: each route, counted -----------------------------------------
     kernels = {"pdist": pdist, "support_sqdist": support_sqdist,
                "golden_support_aggregate": golden_support_aggregate,
                "golden_aggregate": golden_aggregate,
                "screen_topm": screen_topm,
-               "fused_candidates": fused_candidates}
+               "fused_candidates": fused_candidates,
+               "centroid_scan": centroid_scan}
     route_kernels = {
         "staged": ("pdist", "support_sqdist", "golden_support_aggregate"),
         "streamed": ("screen_topm", "support_sqdist",
                      "golden_support_aggregate"),
         "fused": ("fused_candidates", "golden_support_aggregate"),
+        "indexed": ("centroid_scan", "support_sqdist",
+                    "golden_support_aggregate"),
         "full_scan": ("golden_aggregate",)}
 
     def expected(which: str, n: int) -> dict:
@@ -576,21 +780,73 @@ def main() -> None:
               + ", ".join(f"{r.latency_s * 1e3:.1f} ms" for r in served)
               + f"; {B * waves / total:.1f} images/s; launches {counts}")
 
-    # -- 7. baseline: every route from one x_T, each counted alone -------------
+    # the indexed path: (a) a cifar_like trajectory with every step
+    # indexed, (b) indexed waves on the gmm store, (c) cifar_like waves
+    # on index_mode="auto", which must screen every step exactly
     x_T = eng._init_noise([(reqs[0], 0, B)], B)
     full = OptimalDenoiser(st, sched)
+    den_ix = GoldDiff(full, indexed_cfg, index=cix,
+                      probe_schedule=scale_probes)
+    steps = [int(t) for t in sampling_timesteps(sched, STEPS)[:-1]]
+    ixe = den_ix.engine
+    check(all(ixe.use_index(t) for t in steps),
+          f"indexed trajectory: use_index {[ixe.use_index(t) for t in steps]}")
+    sample(den_ix, sched, (B, D), num_steps=STEPS, x_init=x_T)   # warm-up
+    _, dt, counts = counted(lambda: sample(den_ix, sched, (B, D),
+                                           num_steps=STEPS, x_init=x_T))
+    check(counts == expected("indexed", STEPS),
+          f"indexed trajectory launches {counts}")
+    path_counts["indexed"] = counts
+    print(f"[serve] indexed trajectory (cifar_like N={N}, D={D}, "
+          f"INDEXED_CFG, SCALE_PROBES, W={cix.num_clusters}, L="
+          f"{cix.max_cluster}): nprobe_t {[ixe.nprobe(t) for t in steps]}, "
+          f"re-ranked rows per query {[ixe.padded_m(t) for t in steps]}, "
+          f"m_t {[ixe.sizes(t)[0] for t in steps]}; {dt * 1e3:.2f} ms; "
+          f"launches {counts}")
+    for label, srv, want_route in (
+            ("serve_gmm_indexed",
+             ServeEngine(gst, num_steps=STEPS, max_batch=B,
+                         gd_cfg=indexed_cfg, index=gix,
+                         index_mode="always"), "indexed"),
+            ("serve_cifar_auto_index",
+             ServeEngine(st, num_steps=STEPS, max_batch=B,
+                         gd_cfg=indexed_cfg, index=cix), "staged")):
+        srv.serve([Request(99, B, seed=99)])     # warm-up wave, not counted
+        served, total, counts = counted(lambda: srv.serve(reqs))
+        for r in served:
+            check(r.images.shape == (B,) + srv.store.image_shape,
+                  f"{label} request {r.request_id}: shape {r.images.shape}")
+            check(bool(torch.isfinite(torch.from_numpy(r.images)).all()),
+                  f"{label} request {r.request_id}: non-finite images")
+        waves = len(served)
+        check(counts == expected(want_route, STEPS * waves),
+              f"{label} ({want_route} route): launches {counts}")
+        path_counts[label] = counts
+        se = srv.engine
+        print(f"[serve] {label} ({want_route} route): {waves} waves of {B}: "
+              f"wave latency " + ", ".join(f"{r.latency_s * 1e3:.1f} ms"
+                                           for r in served)
+              + f"; {B * waves / total:.1f} images/s; use_index per step "
+              f"{[se.use_index(t) for t in steps]}; nprobe_t "
+              f"{[se.nprobe(t) for t in steps]}; launches {counts}")
+
+    # -- 7. baseline: every route from one x_T, each counted alone -------------
     dens = {"staged": GoldDiff(full, screen="materialized", fused=False),
             "streamed": GoldDiff(full, screen="streamed", fused=False),
             "fused": GoldDiff(full, fused=True),
+            "indexed": den_ix,
+            "exact_indexed_cfg": GoldDiff(full, indexed_cfg),
             "full_scan": full}
+    route_of = dict({w: w for w in dens}, exact_indexed_cfg="staged")
     times = {w: [] for w in dens}
     outs = {}
-    for which in ("staged", "fused", "full_scan", "streamed", "streamed",
-                  "full_scan", "fused", "staged"):
+    for which in ("staged", "fused", "full_scan", "streamed", "indexed",
+                  "exact_indexed_cfg", "exact_indexed_cfg", "indexed",
+                  "streamed", "full_scan", "fused", "staged"):
         outs[which], dt, added = counted(lambda: sample(
             dens[which], sched, (B, D), num_steps=STEPS, x_init=x_T))
         times[which].append(dt)
-        check(added == expected(which, STEPS),
+        check(added == expected(route_of[which], STEPS),
               f"{which} trajectory launches {added}")
         check(bool(torch.isfinite(outs[which]).all()),
               f"{which} trajectory not finite")
@@ -609,11 +865,19 @@ def main() -> None:
         f"fused and streamed within {TRAJ_TOL} of staged; "
         f"|staged - full scan| max {float(diff.max()):.3g}, mean "
         f"{float(diff.mean()):.3g}")
+    diff_ix = (outs["indexed"] - outs["exact_indexed_cfg"]).abs()
+    print(f"[baseline] indexed {best['indexed'] * 1e3:.2f} ms vs exact staged "
+          f"at the same INDEXED_CFG {best['exact_indexed_cfg'] * 1e3:.2f} ms "
+          f"(indexed/exact {best['indexed'] / best['exact_indexed_cfg']:.3f}, "
+          f"indexed/full-scan {best['indexed'] / best['full_scan']:.3f}); "
+          f"|indexed - exact| max {float(diff_ix.max()):.3g}, mean "
+          f"{float(diff_ix.mean()):.3g} (cifar_like does not cluster: not "
+          f"gated)")
     # each kernel's launches come from the run of the route that owns it
     path_of = {"pdist": "staged", "support_sqdist": "staged",
                "golden_support_aggregate": "serve",
                "golden_aggregate": "full_scan", "screen_topm": "streamed",
-               "fused_candidates": "serve_fused"}
+               "fused_candidates": "serve_fused", "centroid_scan": "indexed"}
     for n, p in path_of.items():
         check(path_counts[p][n] > 0, f"{n} never launched on the {p} path")
 
@@ -622,7 +886,8 @@ def main() -> None:
     # trajectory above: the profiler's own host work widens the gaps.
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for which in ("staged", "fused", "streamed", "full_scan"):
+    for which in ("staged", "fused", "streamed", "indexed",
+                  "exact_indexed_cfg", "full_scan"):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -646,6 +911,7 @@ def main() -> None:
 
     # -- 8. reference: small store, card against CPU plain versions ------------
     small = make_dataset("cifar_like", n=2048, seed=1, device="cpu")
+    small_ix = build_index(small)                # on the CPU, moved over
     x0 = (float(sched.b[1000]) * torch.randn(
         B, small.dim, generator=torch.Generator().manual_seed(5)))
     for label, kw in (("golddiff auto", {}),
@@ -654,6 +920,9 @@ def main() -> None:
                       ("golddiff fused", dict(fused=True)),
                       ("golddiff streamed", dict(screen="streamed",
                                                  fused=False)),
+                      ("golddiff indexed", dict(
+                          cfg=indexed_cfg, index=small_ix,
+                          probe_schedule=scale_probes, index_mode="always")),
                       ("full_scan", None)):
         def build(dev):
             den = OptimalDenoiser(small, sched, device=dev)
@@ -676,7 +945,9 @@ def main() -> None:
                "screen_topm": ("csrc/screen_topm.cu",
                                "src/repro/kernels/screen.py:151"),
                "fused_candidates": ("csrc/fused_candidates.cu",
-                                    "src/repro/kernels/fused_step.py:178")}
+                                    "src/repro/kernels/fused_step.py:178"),
+               "centroid_scan": ("csrc/centroid_scan.cu",
+                                 "src/repro/kernels/centroid_scan.py:65")}
     line = {"kernels": [
         dict(name=n, route="cuda",
              source=f"src/repro_torch/kernels/{sources[n][0]}",

@@ -1,15 +1,22 @@
 """GoldDiff execution engine: coarse screen -> exact re-rank -> aggregate.
 
-Counterpart of ``repro.core.engine`` for one device and exact
-(non-indexed) screening.  A step runs one of two bodies:
+Counterpart of ``repro.core.engine`` for one device.  A step runs one
+of two bodies:
 
-* staged (``_denoise_body``): the coarse screen, materialized (pdist +
-  sort) or streamed (the ``screen_topm`` kernel) by ``use_stream``,
-  then the by-index re-rank distances and the by-index golden
-  aggregate;
-* fused (``_fused_body``, when ``use_fused``): the ``fused_candidates``
-  kernel reads the store once and the epilogue aggregates the k golden
-  rows.
+* staged (``_denoise_body``): the coarse screen, then the by-index
+  re-rank distances and the by-index golden aggregate.  The coarse
+  screen is exact, materialized (pdist + sort) or streamed (the
+  ``screen_topm`` kernel) by ``use_stream``, or indexed (``index=``, a
+  :class:`repro_torch.index.GoldenIndex`): the ``centroid_scan`` kernel
+  and the probed CSR windows, every probed row going to the re-rank
+  (``ops.ivf_screen`` in capacity mode), with the probe count nprobe_t
+  from a :class:`repro_torch.index.ProbeSchedule` and an occupancy
+  floor.  ``index_mode="auto"`` screens a step exactly when its probed
+  rows would pass the crossover fraction of N (``use_index``);
+  "always" indexes every step;
+* fused (``_fused_body``, when ``use_fused``; never on an indexed
+  step): the ``fused_candidates`` kernel reads the store once and the
+  epilogue aggregates the k golden rows.
 
 The policies are the reference's rules (``screen=``, ``fused=``) with
 the port's own per-platform constants below.  Every stage goes through
@@ -24,10 +31,13 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.core.dataset import DatasetStore, downsample_proxy
 from repro_torch.core.schedules import Schedule
+from repro_torch.index.schedule import ProbeSchedule
+from repro_torch.index.store import GoldenIndex
 from repro_torch.kernels import ops
 from repro_torch.utils import resolve_device
 
@@ -41,7 +51,9 @@ NEG_INF = -1e30
 # chip_smoke.py's [crossover] sweep on an H100 at B=16, N=50000: the
 # fused step won from m/N 0.0955 in one run and from at most 0.05 in
 # another, and the two tie at 0.10; at the default schedule
-# (m_max/N = 0.25) "auto" fuses (PERF.md).
+# (m_max/N = 0.25) "auto" fuses (PERF.md).  ``use_index`` reads the same
+# fraction, as the reference does: an indexed step's probed rows must
+# stay under it.
 GATHER_CROSSOVER_FRAC = {"cpu": 0.10, "cuda": 0.10}
 
 # Bytes of the [B, N] fp32 distance matrix above which ``screen="auto"``
@@ -86,22 +98,42 @@ def schedule_sizes(cfg: GoldDiffConfig, schedule: Schedule, t: int,
 class GoldDiffEngine:
     """Kernel routing for the GoldDiff pipeline on one device.
 
-    The store moves to ``device`` (the CUDA card unless the caller
-    passes another; raises when there is none).  ``screen`` is "auto",
-    "streamed" or "materialized"; ``screen_tile`` the plain carry
-    loop's N-tile (None: its default); ``fused`` "auto", True or
-    False."""
+    The store (and the index) move to ``device`` (the CUDA card unless
+    the caller passes another; raises when there is none).  ``screen``
+    is "auto", "streamed" or "materialized"; ``screen_tile`` the plain
+    carry loop's N-tile (None: its default); ``fused`` "auto", True or
+    False; ``index`` a GoldenIndex of this store (or None), probed by
+    ``probe_schedule`` (default ``ProbeSchedule()``) on the steps
+    ``index_mode`` ("auto" or "always") routes to it."""
 
     def __init__(self, store: DatasetStore, schedule: Schedule,
                  cfg: GoldDiffConfig | None = None, device=None,
                  screen: str = "auto", screen_tile: int | None = None,
-                 fused: str | bool = "auto"):
+                 fused: str | bool = "auto",
+                 index: GoldenIndex | None = None,
+                 probe_schedule: ProbeSchedule | None = None,
+                 index_mode: str = "auto"):
         if screen not in ("auto", "streamed", "materialized"):
             raise ValueError(f"unknown screen mode {screen!r}")
+        if index_mode not in ("auto", "always"):
+            raise ValueError(f"unknown index_mode {index_mode!r}")
         if fused not in ("auto", True, False):
             raise ValueError(f"unknown fused mode {fused!r}; expected "
                              f"'auto', True or False")
+        if index is not None and index.n != store.n:
+            raise ValueError(f"index built for N={index.n}, store has "
+                             f"N={store.n}")
         self.store = store.to(resolve_device(device))
+        self.index = (None if index is None
+                      else index.to(self.store.device))
+        self.index_mode = index_mode
+        self.probe_schedule = probe_schedule or ProbeSchedule()
+        if index is not None:
+            # ascending-occupancy cumsum: the fewest rows any P probed
+            # windows hold (the nprobe occupancy floor); a host constant
+            self._occ_cum = np.cumsum(np.sort(np.diff(
+                index.offsets.cpu().numpy())))
+        self._nprobe: dict[int, int] = {}
         self.schedule = schedule
         self.cfg = cfg or GoldDiffConfig()
         self.screen = screen
@@ -133,12 +165,44 @@ class GoldDiffEngine:
             self._consts[t] = (a, sig2)
         return self._consts[t]
 
+    def nprobe(self, t: int) -> int:
+        """Scheduled probe count nprobe_t for a static timestep, with an
+        occupancy floor: even the nprobe_t smallest windows hold k_t
+        real rows, so ``select()`` never returns padding."""
+        if t not in self._nprobe:
+            m_t, k_t = self.sizes(t)
+            p = self.probe_schedule.nprobe(
+                self.schedule.g_np(t), m_t, self.store.n,
+                self.index.num_clusters)
+            need = int(np.searchsorted(self._occ_cum, k_t) + 1)
+            self._nprobe[t] = min(max(p, need), self.index.num_clusters)
+        return self._nprobe[t]
+
+    def padded_m(self, t: int) -> int:
+        """Indexed candidate count: the probed capacity nprobe_t * L
+        (IVF-Flat: everything probed is re-ranked)."""
+        return self.nprobe(t) * self.index.max_cluster
+
     # -- routing policies -----------------------------------------------------
+    def use_index(self, t: int) -> bool:
+        """Route this step's coarse screen through the index?  "auto"
+        screens exactly whenever the probed rows would pass the
+        crossover fraction of N: the index degrades to the exact
+        screen, never to a slower step."""
+        if self.index is None:
+            return False
+        if self.index_mode == "always":
+            return True
+        return self.padded_m(t) <= self.crossover_frac * self.store.n
+
     def use_fused(self, t: int) -> bool:
-        """Route this step through the fused single-pass body?  True
-        fuses every step; "auto" fuses where the reference's rule does
-        on one host, when the build-time strategy is "dense"."""
+        """Route this step through the fused single-pass body?  Indexed
+        steps never fuse (the fused pass reads every store row).  True
+        fuses every other step; "auto" fuses where the reference's rule
+        does on one host, when the build-time strategy is "dense"."""
         if self.fused is False:
+            return False
+        if self.use_index(t):
             return False
         if self.fused is True:
             return True
@@ -166,10 +230,30 @@ class GoldDiffEngine:
                                tile=self.screen_tile,
                                stream=self.use_stream(q.shape[0]))[0]
 
+    def coarse_indexed(self, q: torch.Tensor, m: int, nprobe_max: int,
+                       nprobe=None) -> tuple[torch.Tensor, torch.Tensor]:
+        """Candidates via the Golden Index: ``(pos, d2)`` with positions
+        in cluster-sorted row space, +inf ``d2`` on capacity padding
+        (``ops.ivf_screen``; capacity mode when ``m = nprobe_max * L``)."""
+        ix = self.index
+        return ops.ivf_screen(self._proxy_query(q), ix.proxy_sorted,
+                              ix.proxy_norms_sorted, ix.offsets,
+                              ix.centroids, ix.centroid_norms, m,
+                              nprobe_max, ix.max_cluster, nprobe=nprobe)
+
     def _select_body(self, q: torch.Tensor, t: int
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-        """(idx, d2) of the golden support for a rescaled query."""
+        """(idx, d2) of the golden support for a rescaled query; ``idx``
+        are dataset row ids on both paths (indexed candidates map
+        through ``index.perm`` before the re-rank)."""
         m_t, k_t = self.sizes(t)
+        if self.use_index(t):
+            mp = self.padded_m(t)
+            pos, pd2 = self.coarse_indexed(q, mp, self.nprobe(t))
+            return ops.golden_rerank(q, self.store.X, self.index.perm[pos],
+                                     min(k_t, mp),
+                                     x_norms=self.store.x_norms,
+                                     valid=torch.isfinite(pd2))
         cand = self.coarse(q, m_t)
         return ops.golden_rerank(q, self.store.X, cand, k_t,
                                  x_norms=self.store.x_norms)

@@ -24,12 +24,16 @@ class GoldDiff:
     """Plug-and-play wrapper: GoldDiff(base_denoiser) (paper Tab. 5).
 
     ``screen=``/``screen_tile=`` pick the streamed or materialized
-    coarse screen, ``fused=`` the single-pass fused step; both as in
+    coarse screen, ``fused=`` the single-pass fused step, and
+    ``index=repro_torch.index.build_index(store)`` routes the coarse
+    screen through the Golden Index (probe width by
+    ``probe_schedule=``, steps by ``index_mode=``); all as in
     :class:`GoldDiffEngine`."""
 
     def __init__(self, base, cfg: GoldDiffConfig | None = None,
                  screen: str = "auto", screen_tile: int | None = None,
-                 fused: str | bool = "auto"):
+                 fused: str | bool = "auto", index=None,
+                 probe_schedule=None, index_mode: str = "auto"):
         if not isinstance(base, OptimalDenoiser):
             raise NotImplementedError(
                 "GoldDiff over a patch-family base is not ported yet "
@@ -41,7 +45,10 @@ class GoldDiff:
         self.name = f"golddiff+{base.name}"
         self.engine = GoldDiffEngine(self.store, self.schedule, self.cfg,
                                      device=self.store.device, screen=screen,
-                                     screen_tile=screen_tile, fused=fused)
+                                     screen_tile=screen_tile, fused=fused,
+                                     index=index,
+                                     probe_schedule=probe_schedule,
+                                     index_mode=index_mode)
 
     def select(self, x_t: torch.Tensor, t: int) -> torch.Tensor:
         """Golden support S_t for each query; [B, k_t]."""

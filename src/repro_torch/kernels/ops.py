@@ -5,7 +5,8 @@ coarse screen (``screen_topm``: materialized ``pdist`` + sort, or the
 streamed kernel), exact re-rank (``support_distances`` +
 ``golden_rerank``), aggregation (``golden_support_aggregate`` over
 supports, ``golden_aggregate`` for full scans) and the fused
-single-pass step (``fused_step``).
+single-pass step (``fused_step``), and the Golden Index's coarse
+screen (``centroid_scan`` + ``ivf_screen``).
 
 Dispatch is by the tensors' device and nothing else: CPU tensors take
 the plain PyTorch version in ``ref``; CUDA tensors launch the
@@ -25,6 +26,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels import fused_step as _fused
 from repro_torch.kernels import screen as _screen
+from repro_torch.kernels.centroid_scan import centroid_scan as _cscan
 from repro_torch.kernels.golden_aggregate import golden_aggregate as _agg
 from repro_torch.kernels.golden_rerank import support_sqdist as _sqd
 from repro_torch.kernels.golden_support_aggregate import (
@@ -85,11 +87,16 @@ def support_distances(q, x, idx, x_norms=None):
                 idx.contiguous())
 
 
-def golden_rerank(q, x, cand, k: int, x_norms=None):
+def golden_rerank(q, x, cand, k: int, x_norms=None, valid=None):
     """Exact re-rank inside the candidate set (paper Eq. 5).  Returns
     ``(idx, d2)``: the top-k dataset indices [B, k] and their exact
-    squared distances, ascending, ties to the lowest candidate slot."""
+    squared distances, ascending, ties to the lowest candidate slot.
+    ``valid`` (bool [B, m], optional) marks the real slots: the others
+    (capacity padding of ``ivf_screen``) get +inf, so they sort last
+    and weigh nothing."""
     d2 = support_distances(q, x, cand, x_norms)
+    if valid is not None:
+        d2 = torch.where(valid, d2, float("inf"))
     vals, pos = torch.sort(d2, dim=-1, stable=True)
     return torch.gather(cand, -1, pos[:, :k]), vals[:, :k]
 
@@ -110,6 +117,61 @@ def golden_aggregate(q, x, sigma2: float, x_norms=None):
         return ref.golden_aggregate_ref(q, x, sigma2, x_norms)
     return _agg(q.contiguous(), x, float(sigma2),
                 x_norms.float().contiguous())
+
+
+def centroid_scan(q, centroids, c_norms=None):
+    """Query -> centroid distances [B, C] fp32 (IVF level 1); +inf
+    ``c_norms`` entries (padded windows) give +inf."""
+    if _on_cpu(q):
+        return ref.centroid_scan_ref(q, centroids, c_norms)
+    q = q.float().contiguous()
+    if c_norms is None:
+        c_norms = (centroids.float() ** 2).sum(-1)
+    return _cscan(q, centroids, (q * q).sum(-1), c_norms.float().contiguous())
+
+
+def ivf_screen(qp, proxy_sorted, proxy_norms_sorted, offsets, centroids,
+               centroid_norms, m: int, nprobe_max: int, max_cluster: int,
+               nprobe=None):
+    """Two-level indexed coarse screen over the GoldenIndex layout.
+
+    Level 1: ``centroid_scan`` and the ``nprobe_max`` nearest windows,
+    by a stable sort (``lax.top_k``'s order: ties, such as the
+    duplicated centroids of a split cluster, go to the lowest window).
+    Level 2: the probed CSR windows, each padded to ``max_cluster``
+    rows L.  ``nprobe`` (int or 0-d tensor, default ``nprobe_max``)
+    masks the probes beyond it.
+
+    Returns ``(pos, d2)`` [B, m]: positions in cluster-sorted row space
+    (map them through ``perm``) and their proxy distances; padding
+    slots take ``pos = min(pos, N - 1)`` and ``d2 = +inf``.  With ``m >=
+    nprobe_max * L`` (capacity mode, the engine's: everything probed
+    goes to the exact re-rank) the rows come back in CSR order and
+    ``d2`` only marks them, 0 real and +inf padding.  Below that
+    (screening mode) the probed rows' proxy distances come from
+    ``support_distances`` by index on ``proxy_sorted`` (no [B, R, dp]
+    gather) and a stable sort keeps the m nearest."""
+    n = proxy_sorted.shape[0]
+    b = qp.shape[0]
+    cd2 = centroid_scan(qp, centroids, centroid_norms)
+    probe = torch.sort(cd2, dim=-1, stable=True)[1][:, :nprobe_max]
+    starts = offsets[probe]                                 # [B, P]
+    ends = offsets[probe + 1]
+    lane = torch.arange(max_cluster, dtype=starts.dtype, device=qp.device)
+    pos = starts[..., None] + lane                          # [B, P, L]
+    valid = pos < ends[..., None]
+    if nprobe is not None:
+        live = torch.arange(nprobe_max, device=qp.device) < nprobe
+        valid = valid & live[None, :, None]
+    pos = torch.clamp_max(pos, n - 1).reshape(b, -1)        # [B, R]
+    valid = valid.reshape(b, -1)
+    inf = float("inf")
+    if m >= nprobe_max * max_cluster:
+        return pos, torch.where(valid, 0.0, inf)
+    d2 = torch.where(valid, support_distances(qp, proxy_sorted, pos,
+                                              proxy_norms_sorted), inf)
+    vals, sel = torch.sort(d2, dim=-1, stable=True)
+    return torch.gather(pos, -1, sel[:, :m]), vals[:, :m]
 
 
 def fused_step(q, qp, x, proxy, m: int, k: int, sigma2: float,
@@ -146,4 +208,5 @@ def fused_step(q, qp, x, proxy, m: int, k: int, sigma2: float,
 
 
 __all__ = ["pdist", "screen_topm", "support_distances", "golden_rerank",
-           "golden_support_aggregate", "golden_aggregate", "fused_step"]
+           "golden_support_aggregate", "golden_aggregate", "fused_step",
+           "centroid_scan", "ivf_screen"]

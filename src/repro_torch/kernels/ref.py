@@ -39,6 +39,15 @@ def pdist_ref(q: torch.Tensor, x: torch.Tensor,
     return torch.clamp_min(qn[:, None] + xn[None, :] - 2.0 * (q @ x.T), 0.0)
 
 
+def centroid_scan_ref(q: torch.Tensor, centroids: torch.Tensor,
+                      c_norms: torch.Tensor | None = None) -> torch.Tensor:
+    """Query -> centroid distances [B, C] (IVF level 1): ``pdist_ref``
+    with the index's centroid norms, as the reference's ``xla`` backend
+    computes it.  A +inf norm (a padded window) gives a +inf distance
+    whatever the dot product, so such a window is never probed."""
+    return pdist_ref(q, centroids, x_norms=c_norms)
+
+
 def materialized_topm(d2: torch.Tensor, m: int
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-m of a [B, N] distance matrix: ``(idx, d2)`` ascending, ties

@@ -15,7 +15,9 @@ images depend neither on the wave that co-batched it nor on the device.
 
 ``fused`` forwards to the engine (``GoldDiffEngine(fused=...)``): True
 runs every step through the single-pass fused kernel, "auto" where the
-engine's crossover says it pays.
+engine's crossover says it pays.  ``index``/``index_mode`` forward
+too: a ``repro_torch.index.GoldenIndex`` of the store routes the coarse
+screen of the steps ``index_mode`` picks through the index.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --dataset cifar_like \
       --n 50000 --requests 3 --batch 16 --steps 10 [--fused on]
@@ -67,7 +69,8 @@ class ServeEngine:
                  schedule: str = "ddpm_linear", num_steps: int = 10,
                  gd_cfg: GoldDiffConfig | None = None, max_batch: int = 16,
                  mode: str = "auto", clip_value: float | None = 3.0,
-                 device=None, fused: str | bool = "auto"):
+                 device=None, fused: str | bool = "auto", index=None,
+                 index_mode: str = "auto"):
         if mode not in ("auto", "static"):
             raise NotImplementedError(
                 f"serve mode {mode!r} is not ported yet (ROADMAP Queue 1, "
@@ -85,7 +88,8 @@ class ServeEngine:
         base_den = make_denoiser(base, self.store, self.schedule,
                                  device=self.device)
         self.denoiser = GoldDiff(base_den, gd_cfg or GoldDiffConfig(),
-                                 fused=fused)
+                                 fused=fused, index=index,
+                                 index_mode=index_mode)
 
     @property
     def engine(self):

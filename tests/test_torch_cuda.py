@@ -23,7 +23,9 @@ import torch  # noqa: E402
 from repro_torch.core import (GoldDiff, OptimalDenoiser,  # noqa: E402
                               make_schedule, sample)
 from repro_torch.data import make_dataset  # noqa: E402
+from repro_torch.index import build_index  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels.centroid_scan import centroid_scan  # noqa: E402
 from repro_torch.kernels.fused_step import (  # noqa: E402
     fused_candidates, fused_candidates_scan)
 from repro_torch.kernels.golden_aggregate import golden_aggregate  # noqa: E402
@@ -242,3 +244,88 @@ def test_new_kernels_count_launches(card):
     ops.fused_step(x[:2], q, x, x, 4, 2, 1.0)
     assert screen_topm.launches == before[0] + 1
     assert fused_candidates.launches == before[1] + 1
+
+
+# -- the Golden Index: centroid scan, ivf_screen, k-means on the card ----------
+
+@pytest.mark.parametrize("b,c,d", [
+    (16, 225, 192),            # cifar_like's windows (+1 padded)
+    (16, 513, 64),             # the gmm scale store's (+1 padded)
+    (5, 37, 7),                # ragged C and d
+    (40, 100, 130),            # B > 16: several query tiles
+    (3, 1, 9),                 # C = 1
+])
+def test_centroid_scan_bit_equal_integer(card, b, c, d):
+    q, cents = ints((b, d), card, 20), ints((c, d), card, 21)
+    cn = norms(cents)
+    cn[-1] = float("inf")                       # a padded window
+    got = centroid_scan(q, cents, norms(q), cn)
+    want = ref.centroid_scan_ref(q, cents, cn)
+    assert torch.equal(got, want)
+    assert torch.isinf(got[:, -1]).all()
+    assert torch.equal(torch.sort(got, dim=-1, stable=True)[1],
+                       torch.sort(want, dim=-1, stable=True)[1])
+
+
+def test_centroid_scan_float(card):
+    g = torch.Generator().manual_seed(22)
+    q = torch.randn(16, 192, generator=g).to(card)
+    cents = torch.randn(300, 192, generator=g).to(card)
+    got = ops.centroid_scan(q, cents)
+    torch.testing.assert_close(got, ref.centroid_scan_ref(q, cents),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_ivf_screen_card_matches_cpu(card):
+    """The same carried index on both devices: capacity mode equal slot
+    for slot, screening mode equal on integer proxies."""
+    from repro_torch.core import store_from_numpy
+    rng = np.random.default_rng(23)
+    x = rng.integers(-3, 4, (3000, 16)).astype(np.float32)
+    n2 = (x * x).sum(-1)
+    cpu_store = store_from_numpy(x, x, n2, n2, (16,), device="cpu")
+    ix = build_index(cpu_store, 40)
+    q = torch.from_numpy(rng.integers(-3, 4, (16, 16)).astype(np.float32))
+    for m, p in ((6 * ix.max_cluster, 6), (200, 9)):
+        outs = []
+        for dev, ixd in (("cpu", ix), (card, ix.to(card))):
+            pos, d2 = ops.ivf_screen(q.to(dev), ixd.proxy_sorted,
+                                     ixd.proxy_norms_sorted, ixd.offsets,
+                                     ixd.centroids, ixd.centroid_norms, m,
+                                     p, ixd.max_cluster)
+            outs.append((pos.cpu(), d2.cpu()))
+        assert torch.equal(outs[0][0], outs[1][0])
+        assert torch.equal(outs[0][1], outs[1][1])
+
+
+def test_kmeans_on_card_is_deterministic(card):
+    store = make_dataset("gmm", n=20000, dim=32, num_modes=64, seed=0,
+                         device=card)
+    a, b = (build_index(store, 128, generator=torch.Generator(
+        device=card).manual_seed(0)) for _ in range(2))
+    assert torch.equal(a.centroids, b.centroids)
+    assert torch.equal(a.perm, b.perm) and torch.equal(a.offsets, b.offsets)
+    assert a.device.type == "cuda" and a.perm.dtype == torch.int64
+
+
+def test_indexed_route_card_matches_cpu(card):
+    """Ten indexed steps on the card against the same route on the CPU,
+    with an index built on the CPU and moved to the card."""
+    from repro_torch.core import GoldDiffConfig
+    from repro_torch.index import ProbeSchedule
+    cpu_store = make_dataset("cifar_like", n=1024, seed=0, device="cpu")
+    ix = build_index(cpu_store)
+    sched = make_schedule("ddpm_linear", 1000)
+    cfg = GoldDiffConfig(1 / 64, 1 / 32, 1 / 128, 1 / 64)
+    x_T = float(sched.b[1000]) * torch.randn(
+        8, cpu_store.dim, generator=torch.Generator().manual_seed(2))
+    outs = []
+    before = centroid_scan.launches
+    for dev in ("cpu", card):
+        gd = GoldDiff(OptimalDenoiser(cpu_store, sched, device=dev), cfg,
+                      index=ix, probe_schedule=ProbeSchedule(1 / 16, 1 / 4),
+                      index_mode="always")
+        outs.append(sample(gd, sched, tuple(x_T.shape), x_init=x_T).cpu())
+    assert centroid_scan.launches == before + 10
+    assert np.isfinite(outs[1].numpy()).all()
+    torch.testing.assert_close(outs[1], outs[0], rtol=1e-3, atol=1e-3)

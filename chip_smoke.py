@@ -3,7 +3,7 @@
 
 Phases:
   1. environment: the card, CUDA, nvcc and triton; TF32 off;
-  2. build: the seven hand-written kernels from ``src/repro_torch/kernels/csrc``;
+  2. build: the nine hand-written kernels from ``src/repro_torch/kernels/csrc``;
   3. scale: the cifar_like store, N=50000 rows of D=3072 (proxy dp=192),
      built once and shared by every phase, and the Golden Index's scale
      store, gmm N=65536 x 64 with 256 modes;
@@ -38,7 +38,16 @@ Phases:
      each counted alone, timed and profiled;
   8. reference: a small store's trajectories on the card against the
      same trajectories on the CPU (plain versions), for every route
-     (the indexed one with an index built on the CPU and moved over).
+     (the indexed one with an index built on the CPU and moved over);
+  9. the reduced-LLM slice (``llm_phases``): flash attention (kernel 9)
+     and golden decode attention (kernel 8) against their plain versions
+     at the path's shapes in fp32 and bf16 ([llm-check]); the
+     golden-decode entry point at --reduced on the card against the CPU
+     ([llm-reference]); the entry point at llama3.2-3b's full width,
+     counted (28 launches of kernel 9 a prefill), with its KL/top-1
+     table, prefill and decode walls and idle shares ([llm-decode]);
+     both kernels timed against bound, plain version and one library
+     call, kernel 9 also at S=32768 ([time]).
 
 Any failure exits non-zero before the last line.  The last lines are the
 card's name and power limit, a JSON line of per-kernel numbers, and
@@ -76,6 +85,18 @@ GMM_N, GMM_DIM, GMM_MODES, GMM_SPREAD, GMM_C = 65536, 64, 256, 0.10, 512
 T_BUCKETS = (900, 300, 100, 20)
 RECALL_MIN = 0.95
 SPIN_CYCLES = 1_000_000        # ~0.5 ms at the H100's clock (time_ms)
+BF16_FLOPS_PER_S = 989e12      # H100 SXM data sheet, dense bf16 tensor cores
+# The reduced-LLM slice: the golden-decode entry point's cache (B=2,
+# S=4096, llama3.2-3b's 8 KV heads of G=3, dh=128) and two long-context
+# shapes of the reference's dry-run (src/repro/launch/inputs.py:30-31):
+# prefill_32k at one sequence through one layer, and decode_32k at 16
+# of its 128 sequences with the config's own golden blocks (64 blocks
+# of 128 keys).
+LLM_B, LLM_S, HKV, G_Q, DH = 2, 4096, 8, 3, 128
+LONG_S = 32768
+DEC_B, DEC_BS, DEC_KB = 16, 128, 64
+ATT_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+LLM_LOGIT_TOL = 1e-4           # fp32 logits, card vs CPU (reduced width)
 
 
 def fail(msg: str) -> None:
@@ -137,9 +158,38 @@ def wall_ms(fn, iters: int = 20) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    tb, tf = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+def bound(nbytes: float, flops: float,
+          flops_per_s: float = FP32_FLOPS_PER_S) -> tuple[float, str]:
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
     return max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations"
+
+
+def profile_line(label: str, wall: float, fn) -> float:
+    """Profile one call of ``fn`` and print its device busy time, its idle
+    share against ``wall`` (the unprofiled wall in ms of the same call:
+    the profiler's own host work widens the gaps) and its top kernels.
+    Returns the idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_on = (time.perf_counter() - t0) * 1e3
+    kern = sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    check(busy > 0, f"profile of {label}: no device time recorded")
+    idle = 1 - busy / wall
+    print(f"[profile] {label}: wall {wall:.2f} ms unprofiled ({wall_on:.2f} "
+          f"ms with the profiler on), device busy {busy:.2f} ms, idle share "
+          f"{idle:.3f} of the unprofiled wall ({1 - busy / wall_on:.3f} with "
+          f"the profiler on); top kernels: " + "; ".join(
+              f"{e.key[:48]} x{e.count} {e.self_device_time_total / 1e3:.3f}"
+              f" ms" for e in kern[:6]))
+    return idle
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -150,6 +200,240 @@ def overlap(a: torch.Tensor, b: torch.Tensor) -> float:
     """Mean fraction of each row's set in ``a`` also in ``b``'s row."""
     fr = [torch.isin(a[i], b[i]).float().mean() for i in range(a.shape[0])]
     return float(torch.stack(fr).mean())
+
+
+def llm_phases(kernels: dict) -> tuple[dict, dict]:
+    """The reduced-LLM slice on the card: [llm-check] holds kernels 9 and
+    8 against their plain versions at the path's shapes; [llm-reference]
+    runs the golden-decode entry point at --reduced on the card and on
+    the CPU from one set of weights; [llm-decode] runs it at llama3.2-3b's
+    full width with every count set to 0 just before, then times and
+    profiles the prefill and one decode step; [time] times both kernels
+    against their bounds, plain versions and one library call.  Returns
+    the two kernels' result entries and the counts of the full-width
+    run."""
+    import dataclasses
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.golden_attention import (
+        golden_attention_decode, select_golden_blocks)
+    from repro_torch.launch import golden_decode as gd
+    from repro_torch.models import transformer as T
+    from repro_torch.models.module import tree_map
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    # -- [llm-check] kernel 9 at the prefill's shape --------------------------
+    err9 = 0.0
+    for dtype in (f32, bf16):
+        q = randn((LLM_B, HKV, G_Q, LLM_S, DH), dtype)
+        k, v = (randn((LLM_B, HKV, LLM_S, DH), dtype) for _ in range(2))
+        for causal in (True, False):
+            got = flash_attention(q, k, v, causal)
+            want = ref.flash_attention_ref(q, k, v, causal)
+            err = float((got.float() - want.float()).abs().max())
+            del want
+            check(err <= ATT_TOL[dtype], f"flash_attention {dtype} causal="
+                  f"{causal}: max abs {err:.3g} > {ATT_TOL[dtype]}")
+            err9 = max(err9, err)
+            print(f"[llm-check] flash_attention [{LLM_B}, {HKV}, {G_Q}, "
+                  f"{LLM_S}, {DH}] {str(dtype)[6:]} causal={causal}: max abs "
+                  f"{err:.3g} against its plain version (tolerance "
+                  f"{ATT_TOL[dtype]})")
+    del q, k, v, got
+
+    # -- [llm-check] kernel 8 at the ops shape and at decode_32k --------------
+    shapes8 = {"ops": (LLM_B, LLM_S, 64, LLM_S // 64 // 8),
+               "decode_32k": (DEC_B, LONG_S, DEC_BS, DEC_KB)}
+    err8, timed8 = 0.0, {}
+    for label, (b, s, bs, kb) in shapes8.items():
+        for dtype in (f32, bf16):
+            q = randn((b, HKV, G_Q, DH), dtype)
+            k, v = (randn((b, HKV, s, DH), dtype) for _ in range(2))
+            idx, _ = select_golden_blocks(q.float(), k, kb, bs)
+            valid = (torch.rand(idx.shape, generator=gen, device="cuda")
+                     < 0.75).int()
+            valid[0, 0, 0] = 1
+            valid[-1, -1] = 0                      # a (b, h) with none
+            got = golden_attention_decode(q, k, v, idx, valid, bs)
+            want = ref.golden_attention_decode_ref(q, k, v, idx, valid, bs)
+            err = float((got.float() - want.float()).abs().max())
+            zero = not bool(got[-1, -1].any())
+            check(err <= ATT_TOL[dtype] and zero,
+                  f"golden_attention_decode {label} {dtype}: max abs "
+                  f"{err:.3g}, no-valid (b, h) zero {zero}")
+            err8 = max(err8, err)
+            print(f"[llm-check] golden_attention_decode {label} (B={b}, "
+                  f"Hkv={HKV}, G={G_Q}, dh={DH}, S={s}, bs={bs}, kb={kb}, "
+                  f"{int((valid == 1).sum())} of {valid.numel()} blocks "
+                  f"valid) {str(dtype)[6:]}: max abs {err:.3g} against its "
+                  f"plain version (tolerance {ATT_TOL[dtype]}); the (b, h) "
+                  f"with no valid block gives 0")
+            if dtype == bf16:
+                timed8[label] = (q, k, v, idx, valid, bs)
+            del got, want
+
+    # -- [llm-reference] the entry point at --reduced, card against CPU -------
+    rcfg = gd.example_config(reduced=True)
+    params = gd.draw_params(rcfg, 0, "cpu")
+    toks = gd.draw_tokens(rcfg, LLM_B, LLM_S, 0)
+    t0 = time.perf_counter()
+    want = gd.run(rcfg, params, toks)
+    cpu_s = time.perf_counter() - t0
+    got = gd.run(rcfg, tree_map(lambda t: t.cuda(), params), toks.cuda())
+    errs = {key: float((got[key].cpu() - want[key]).abs().max())
+            for key in ("prefill_logits", "full_logits")}
+    for kb, lg in want["golden_logits"].items():
+        errs[f"golden kb={kb}"] = float(
+            (got["golden_logits"][kb].cpu() - lg).abs().max())
+    kl_err = max(abs(a["kl"] - w["kl"]) for a, w in
+                 zip(got["rows"], want["rows"]))
+    same_blocks = torch.equal(got["block_idx"].cpu(), want["block_idx"])
+    check(max(errs.values()) <= LLM_LOGIT_TOL and kl_err <= LLM_LOGIT_TOL
+          and same_blocks and [r["top1"] for r in got["rows"]]
+          == [r["top1"] for r in want["rows"]],
+          f"llm-reference: logits {errs}, KL {kl_err:.3g}, blocks equal "
+          f"{same_blocks}")
+    print(f"[llm-reference] golden-decode entry point at --reduced "
+          f"({rcfg.num_layers} layers, d_model {rcfg.d_model}, S={LLM_S}, "
+          f"B={LLM_B}), card against CPU from the same weights: logits max "
+          f"abs " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + f"; KL column max abs {kl_err:.3g}; top-1 column equal; ops "
+          f"block choices equal; tolerance {LLM_LOGIT_TOL} (CPU run "
+          f"{cpu_s:.1f} s)")
+    del params, want, got
+
+    # -- [llm-decode] the entry point at full width, counted ------------------
+    cfg = gd.example_config()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = gd.draw_params(cfg, 0, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    toks = gd.draw_tokens(cfg, LLM_B, LLM_S, 0).cuda()
+    gd.run(cfg, params, toks)                      # warm-up, not counted
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    res = gd.run(cfg, params, toks)
+    counts = {n: f.launches for n, f in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    want_counts = {n: 0 for n in kernels}
+    want_counts.update(flash_attention=cfg.num_layers,
+                       golden_attention_decode=1)
+    check(counts == want_counts, f"llm-decode launches {counts}")
+    check(all(bool(torch.isfinite(res[k]).all()) for k in
+              ("prefill_logits", "full_logits"))
+          and all(bool(torch.isfinite(v).all())
+                  for v in res["golden_logits"].values()),
+          "llm-decode: non-finite logits")
+    check(tuple(res["prefill_logits"].shape) == (LLM_B, cfg.padded_vocab),
+          f"llm-decode: logits {tuple(res['prefill_logits'].shape)}")
+    print(f"[llm-decode] {cfg.name} at full width ({cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size} padded to "
+          f"{cfg.padded_vocab}, bf16, random weights drawn on the card in "
+          f"{init_s:.2f} s), S={LLM_S}, B={LLM_B}, golden block "
+          f"{cfg.golden_block_size}; peak memory {peak / 2**30:.2f} GiB; "
+          f"launches {counts}")
+    gd.print_report(cfg, res, torch.device("cuda"))
+    nb = LLM_S // cfg.golden_block_size
+    pos, tok = LLM_S - 1, toks[:, -1]
+    cfg_full = dataclasses.replace(cfg, attn_kind_decode="full")
+    cfg_gold = dataclasses.replace(cfg, attn_kind_decode="golden",
+                                   golden_blocks=nb // 8)
+    _, cache = T.prefill(cfg, params, toks)
+    # no step may wait on the device from the host (a read-back, a
+    # blocking copy): with the sync debug mode at "error" any such call
+    # raises
+    torch.cuda.set_sync_debug_mode("error")
+    for c in (cfg, cfg_full, cfg_gold):
+        T.decode_step(c, params, cache, tok, pos)
+    T.prefill(cfg, params, toks)
+    torch.cuda.set_sync_debug_mode("default")
+    print("[llm-decode] prefill and decode steps (full, golden) make no "
+          "host-device synchronization (sync debug mode 'error')")
+    steps = {"prefill": lambda: T.prefill(cfg, params, toks),
+             "decode (full)": lambda: T.decode_step(cfg_full, params, cache,
+                                                    tok, pos),
+             f"decode (golden kb={nb // 8})": lambda: T.decode_step(
+                 cfg_gold, params, cache, tok, pos)}
+    walls = {}
+    for label, fn in steps.items():
+        walls[label] = wall_ms(fn, iters=3 if label == "prefill" else 10)
+        idle = profile_line(f"llm {label}", walls[label], fn)
+        print(f"[llm-decode] {label}: wall {walls[label]:.3f} ms (host clock "
+              f"+ synchronize, mean of back-to-back calls), idle share "
+              f"{idle:.3f}")
+    del params, cache, res
+
+    # -- [time] kernels 9 and 8 against bound, plain and library --------------
+    def flash_time(b, s, plain: bool):
+        q = randn((b, HKV, G_Q, s, DH), bf16)
+        k, v = (randn((b, HKV, s, DH), bf16) for _ in range(2))
+        qh = q.reshape(b, HKV * G_Q, s, DH)
+        lib = sdpa(qh, k, v, is_causal=True, enable_gqa=True)
+        lib_err = float((lib.reshape(q.shape).float()
+                         - flash_attention(q, k, v, True).float()).abs().max())
+        it = 10 if s <= LLM_S else 3
+        out = dict(ms=time_ms(lambda: flash_attention(q, k, v, True), it),
+                   plain_ms=(time_ms(lambda: ref.flash_attention_ref(
+                       q, k, v, True), 3) if plain else None),
+                   library_ms=time_ms(lambda: sdpa(
+                       qh, k, v, is_causal=True, enable_gqa=True), it))
+        flops = 4 * DH * b * HKV * G_Q * s * (s + 1) / 2
+        out["bound_ms"], out["bound_by"] = bound(
+            2 * (2 * q.numel() + 2 * k.numel()), flops, BF16_FLOPS_PER_S)
+        print(f"[time] flash_attention bf16 causal B={b}, S={s}: kernel "
+              f"{out['ms']:.4f} ms, bound {out['bound_ms']:.4f} ms "
+              f"({out['bound_by']}: {flops / 1e9:.1f} GFLOP at the bf16 "
+              f"tensor-core rate), plain "
+              + (f"{out['plain_ms']:.4f} ms" if plain else
+                 f"not measured (its [{b}, {HKV}, {G_Q}, {s}, {s}] fp32 "
+                 f"scores need {4 * b * HKV * G_Q * s * s / 1e9:.0f} GB)")
+              + f", library (scaled_dot_product_attention, is_causal, "
+              f"enable_gqa) {out['library_ms']:.4f} ms, max abs "
+              f"{lib_err:.3g} against it")
+        return out
+
+    r9 = flash_time(LLM_B, LLM_S, plain=True)
+    flash_time(1, LONG_S, plain=False)
+    r9["max_abs_err"] = err9
+    r8 = None
+    for label, (q, k, v, idx, valid, bs) in timed8.items():
+        b, s = q.shape[0], k.shape[2]
+        nvalid = int((valid == 1).sum())
+        blocks = torch.zeros((b, HKV, s // bs), dtype=torch.bool,
+                             device="cuda")
+        blocks.scatter_(2, idx.long(), valid == 1)
+        mask = blocks.repeat_interleave(bs, -1).repeat_interleave(
+            G_Q, 1)[:, :, None, :]                  # [B, Hq, 1, S]
+        qh = q.reshape(b, HKV * G_Q, 1, DH)
+        out = dict(
+            ms=time_ms(lambda: golden_attention_decode(q, k, v, idx, valid,
+                                                       bs)),
+            plain_ms=time_ms(lambda: ref.golden_attention_decode_ref(
+                q, k, v, idx, valid, bs), 3),
+            library_ms=time_ms(lambda: sdpa(qh, k, v, attn_mask=mask,
+                                            enable_gqa=True), 3))
+        nbytes = (2 * nvalid * bs * DH * 2 + 2 * 2 * q.numel()
+                  + 8 * idx.numel())
+        out["bound_ms"], out["bound_by"] = bound(
+            nbytes, 4 * G_Q * DH * bs * nvalid, BF16_FLOPS_PER_S)
+        print(f"[time] golden_attention_decode bf16 {label} (B={b}, S={s}, "
+              f"bs={bs}, {nvalid} valid blocks): kernel {out['ms']:.4f} ms, "
+              f"bound {out['bound_ms']:.4f} ms ({out['bound_by']}: "
+              f"{nbytes / 1e6:.1f} MB), plain {out['plain_ms']:.4f} ms, "
+              f"library (scaled_dot_product_attention with the golden "
+              f"blocks' mask, enable_gqa) {out['library_ms']:.4f} ms")
+        if label == "ops":                        # the path's own call
+            r8 = dict(out, max_abs_err=err8)
+    return {"flash_attention": r9, "golden_attention_decode": r8}, counts
 
 
 def main() -> None:
@@ -170,9 +454,11 @@ def main() -> None:
     from repro_torch.index.store import ARRAY_FIELDS
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels.centroid_scan import centroid_scan
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.fused_step import (
         fused_candidates, fused_candidates_scan, fused_posterior)
     from repro_torch.kernels.golden_aggregate import golden_aggregate
+    from repro_torch.kernels.golden_attention import golden_attention_decode
     from repro_torch.kernels.golden_rerank import support_sqdist
     from repro_torch.kernels.golden_support_aggregate import (
         golden_support_aggregate)
@@ -199,7 +485,7 @@ def main() -> None:
     # -- 2. build --------------------------------------------------------------
     names = ["pdist", "support_sqdist", "golden_support_aggregate",
              "golden_aggregate", "screen_topm", "fused_candidates",
-             "centroid_scan"]
+             "centroid_scan", "flash_attention", "golden_attention"]
     t0 = time.perf_counter()
     log = _build.build(names)
     print(f"[build] {len(names)} kernels in {time.perf_counter() - t0:.1f}s "
@@ -591,7 +877,7 @@ def main() -> None:
         print(f"[time] {name}: kernel {r['ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
               f"{r['plain_ms']:.4f} ms, library {lib}")
-    print("[check] all seven kernels: " + ", ".join(f"{n} ok" for n in names))
+    print("[check] kernels 1-7: " + ", ".join(f"{n} ok" for n in results))
     del d2k, d2r, bias, xi, int_cand
 
     # -- 5. policy: the engine's "cuda" constants -------------------------------
@@ -732,7 +1018,9 @@ def main() -> None:
                "golden_aggregate": golden_aggregate,
                "screen_topm": screen_topm,
                "fused_candidates": fused_candidates,
-               "centroid_scan": centroid_scan}
+               "centroid_scan": centroid_scan,
+               "flash_attention": flash_attention,
+               "golden_attention_decode": golden_attention_decode}
     route_kernels = {
         "staged": ("pdist", "support_sqdist", "golden_support_aggregate"),
         "streamed": ("screen_topm", "support_sqdist",
@@ -884,30 +1172,10 @@ def main() -> None:
     # where the time goes: device time by kernel over one trajectory each.
     # The idle share is taken against the unprofiled wall time of the same
     # trajectory above: the profiler's own host work widens the gaps.
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     for which in ("staged", "fused", "streamed", "indexed",
                   "exact_indexed_cfg", "full_scan"):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            sample(dens[which], sched, (B, D), num_steps=STEPS, x_init=x_T)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        kern = sorted((e for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA),
-                      key=lambda e: -e.self_device_time_total)
-        busy_us = sum(e.self_device_time_total for e in kern)
-        check(busy_us > 0, f"profile of {which}: no device time recorded")
-        plain_us = best[which] * 1e6
-        print(f"[profile] {which}: wall {plain_us / 1e3:.2f} ms unprofiled "
-              f"({wall_us / 1e3:.2f} ms with the profiler on), device busy "
-              f"{busy_us / 1e3:.2f} ms, idle share "
-              f"{1 - busy_us / plain_us:.3f} of the unprofiled wall "
-              f"({1 - busy_us / wall_us:.3f} with the profiler on); "
-              f"top kernels: " + "; ".join(
-                  f"{e.key[:48]} x{e.count} {e.self_device_time_total / 1e3:.3f}"
-                  f" ms" for e in kern[:6]))
+        profile_line(which, best[which] * 1e3, lambda: sample(
+            dens[which], sched, (B, D), num_steps=STEPS, x_init=x_T))
 
     # -- 8. reference: small store, card against CPU plain versions ------------
     small = make_dataset("cifar_like", n=2048, seed=1, device="cpu")
@@ -934,6 +1202,12 @@ def main() -> None:
         print(f"[reference] {label}: N=2048, {STEPS} steps, card vs CPU "
               f"plain versions max abs {err:.3g} (tolerance {TRAJ_TOL})")
 
+    # -- 9. the reduced-LLM slice: prefill and golden decode ------------------
+    llm_results, path_counts["llm_decode"] = llm_phases(kernels)
+    results.update(llm_results)
+    path_of.update(flash_attention="llm_decode",
+                   golden_attention_decode="llm_decode")
+
     sources = {"pdist": ("csrc/pdist.cu", "src/repro/kernels/pdist.py:61"),
                "support_sqdist": ("csrc/support_sqdist.cu",
                                   "src/repro/kernels/golden_rerank.py:66"),
@@ -947,13 +1221,21 @@ def main() -> None:
                "fused_candidates": ("csrc/fused_candidates.cu",
                                     "src/repro/kernels/fused_step.py:178"),
                "centroid_scan": ("csrc/centroid_scan.cu",
-                                 "src/repro/kernels/centroid_scan.py:65")}
+                                 "src/repro/kernels/centroid_scan.py:65"),
+               "flash_attention": ("csrc/flash_attention.cu",
+                                   "src/repro/kernels/flash_attention.py:85"),
+               "golden_attention_decode": (
+                   "csrc/golden_attention.cu",
+                   "src/repro/kernels/golden_attention.py:85")}
     line = {"kernels": [
         dict(name=n, route="cuda",
              source=f"src/repro_torch/kernels/{sources[n][0]}",
              replaces=sources[n][1], path=path_of[n],
              launches=path_counts[path_of[n]][n], **results[n])
-        for n in names]}
+        for n in kernels]}
+    for n in ("flash_attention", "golden_attention_decode"):
+        check(path_counts["llm_decode"][n] > 0,
+              f"{n} never launched on the llm_decode path")
     print(smi)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,11 @@ coarse screen (``screen_topm``: materialized ``pdist`` + sort, or the
 streamed kernel), exact re-rank (``support_distances`` +
 ``golden_rerank``), aggregation (``golden_support_aggregate`` over
 supports, ``golden_aggregate`` for full scans) and the fused
-single-pass step (``fused_step``), and the Golden Index's coarse
-screen (``centroid_scan`` + ``ivf_screen``).
+single-pass step (``fused_step``), the Golden Index's coarse
+screen (``centroid_scan`` + ``ivf_screen``), and the reduced-LLM
+attention: causal GQA ``flash_attention`` (the prefill) and golden
+block-sparse decode attention (``select_golden_blocks`` +
+``golden_attention_decode``).
 
 Dispatch is by the tensors' device and nothing else: CPU tensors take
 the plain PyTorch version in ``ref``; CUDA tensors launch the
@@ -27,6 +30,9 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import fused_step as _fused
 from repro_torch.kernels import screen as _screen
 from repro_torch.kernels.centroid_scan import centroid_scan as _cscan
+from repro_torch.kernels.flash_attention import flash_attention as _flash
+from repro_torch.kernels.golden_attention import (
+    golden_attention_decode as _gattn, select_golden_blocks)
 from repro_torch.kernels.golden_aggregate import golden_aggregate as _agg
 from repro_torch.kernels.golden_rerank import support_sqdist as _sqd
 from repro_torch.kernels.golden_support_aggregate import (
@@ -207,6 +213,42 @@ def fused_step(q, qp, x, proxy, m: int, k: int, sigma2: float,
     return _fused.fused_posterior(x, idx, d2, k, sigma2)
 
 
+def flash_attention(q, k, v, causal: bool = True, qc: int = 256,
+                    kc: int = 512):
+    """Causal (or full) GQA attention: q [B, Hkv, G, S, dh], k/v [B,
+    Hkv, S, dh] -> [B, Hkv, G, S, dh] in q's dtype, fp32 accumulation.
+
+    ``qc`` / ``kc`` are the reference kernel's tile sizes: they are
+    checked as it checks them (the sequence must tile evenly after
+    ``min(., S)``) and otherwise change only the order of the sums."""
+    s = q.shape[3]
+    qc, kc = min(qc, s), min(kc, s)
+    if s % qc or s % kc:
+        raise ValueError(f"flash_attention: seq {s} must tile evenly by "
+                         f"qc={qc} and kc={kc}")
+    if _on_cpu(q):
+        return ref.flash_attention_ref(q, k, v, causal)
+    return _flash(q.contiguous(), k.contiguous(), v.contiguous(), causal)
+
+
+def golden_attention_decode(q, k, v, block_idx, valid, block_size: int = 128):
+    """Exact attention over the golden blocks only: q [B, Hkv, G, dh],
+    k/v [B, Hkv, S, dh], block_idx / valid [B, Hkv, kb] -> [B, Hkv, G,
+    dh] in q's dtype.  Indices are clamped into range; blocks with
+    ``valid != 1`` are skipped; a (b, h) with none gives 0."""
+    s = k.shape[2]
+    if s % block_size:
+        raise ValueError(f"golden_attention_decode: cache length {s} must "
+                         f"be block-aligned (block_size={block_size})")
+    if _on_cpu(q):
+        return ref.golden_attention_decode_ref(q, k, v, block_idx, valid,
+                                               block_size)
+    return _gattn(q.contiguous(), k.contiguous(), v.contiguous(),
+                  block_idx.to(torch.int32).contiguous(),
+                  valid.to(torch.int32).contiguous(), block_size)
+
+
 __all__ = ["pdist", "screen_topm", "support_distances", "golden_rerank",
            "golden_support_aggregate", "golden_aggregate", "fused_step",
-           "centroid_scan", "ivf_screen"]
+           "centroid_scan", "ivf_screen", "flash_attention",
+           "golden_attention_decode", "select_golden_blocks"]

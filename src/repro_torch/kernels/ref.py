@@ -91,3 +91,48 @@ def golden_aggregate_ref(q: torch.Tensor, x: torch.Tensor, sigma2: float,
     lg = torch.clamp_min(-pdist_ref(q, x, x_norms=x_norms) * inv, NEG_INF)
     w = torch.softmax(lg, dim=-1)
     return (w @ x.float()).to(q.dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """Dense softmax attention: q [B, Hkv, G, S, dh], k/v [B, Hkv, S, dh]
+    -> [B, Hkv, G, S, dh] in q's dtype (fp32 scores; masked scores at
+    NEG_INF).  Materializes the [B, Hkv, G, S, S] scores."""
+    dh, s = q.shape[-1], q.shape[3]
+    scores = torch.einsum("bhgqd,bhkd->bhgqk", q.float(),
+                          k.float()) * dh ** -0.5
+    if causal:
+        mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+        scores = torch.where(mask, scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhgqk,bhkd->bhgqd", w, v.float()).to(q.dtype)
+
+
+def golden_attention_decode_ref(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, block_idx: torch.Tensor,
+                                valid: torch.Tensor, block_size: int = 128
+                                ) -> torch.Tensor:
+    """Gather the golden blocks densely, mask the invalid ones and
+    attend: q [B, Hkv, G, dh], k/v [B, Hkv, S, dh], block_idx / valid
+    [B, Hkv, kb] -> [B, Hkv, G, dh] in q's dtype.
+
+    It follows the kernel (``_gattn_kernel``), not the reference's dense
+    oracle, where the two differ: a (b, h) with no valid block gives 0
+    (the oracle's softmax over an all-NEG_INF row gives the mean of the
+    gathered V rows)."""
+    b, hkv, g, dh = q.shape
+    nb = k.shape[2] // block_size
+    kb = block_idx.shape[-1]
+    idx = block_idx.long().clamp(0, nb - 1)[..., None, None]
+    kg = torch.take_along_dim(k.reshape(b, hkv, nb, block_size, dh), idx, 2)
+    vg = torch.take_along_dim(v.reshape(b, hkv, nb, block_size, dh), idx, 2)
+    kg = kg.reshape(b, hkv, kb * block_size, dh).float()
+    vg = vg.reshape(b, hkv, kb * block_size, dh).float()
+    scores = torch.einsum("bhgd,bhsd->bhgs", q.float(), kg) * (
+        1.0 / dh ** 0.5)
+    live = (valid == 1).repeat_interleave(block_size, -1)[:, :, None, :]
+    scores = torch.where(live, scores, NEG_INF)
+    p = torch.where(live, torch.exp(scores - scores.amax(-1, keepdim=True)),
+                    0.0)
+    out = torch.einsum("bhgs,bhsd->bhgd", p, vg)
+    return (out / torch.clamp_min(p.sum(-1), 1e-30)[..., None]).to(q.dtype)

@@ -1,0 +1,59 @@
+"""Carry the reference's parameters and caches across to the port.
+
+The port cannot redraw ``jax.random``'s weights, so tests hand the
+reference's pytrees over as nested dicts of numpy arrays (bf16 leaves
+arrive as ml_dtypes arrays and go through float32, which is exact).
+Every leaf of the port's spec tree must be present with its shape, and
+no other: a missing or extra leaf, or a wrong shape, raises
+``ValueError``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.module import tree_leaves
+from repro_torch.models.transformer import cache_specs, model_specs
+
+
+def _convert(want: dict, tree, what: str, device) -> dict:
+    """``want``: path -> (shape, dtype); ``tree``: nested dict of arrays."""
+    got = dict(tree_leaves(tree))
+    missing, extra = sorted(set(want) - set(got)), sorted(set(got) - set(want))
+    if missing or extra:
+        raise ValueError(f"{what}: missing leaves {missing}, extra leaves "
+                         f"{extra}")
+    out: dict = {}
+    for path, (shape, dtype) in want.items():
+        arr = np.asarray(got[path])
+        if arr.shape != tuple(shape):
+            raise ValueError(f"{what}: {path} has shape {arr.shape}, "
+                             f"expected {tuple(shape)}")
+        node = out
+        *parents, leaf = path.split("/")
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = torch.from_numpy(np.array(arr, np.float32)).to(
+            device=device, dtype=dtype)
+    return out
+
+
+def params_from_numpy(cfg: ModelConfig, tree, device="cpu") -> dict:
+    """The reference's parameter pytree (``embed``, ``blocks/l{i}/...``,
+    ``final_norm``, ``lm_head`` when untied) as the port's tensors."""
+    want = {path: (s.shape, s.dtype)
+            for path, s in tree_leaves(model_specs(cfg))}
+    return _convert(want, tree, "params_from_numpy", device)
+
+
+def cache_from_numpy(cfg: ModelConfig, tree, device="cpu") -> dict:
+    """The reference's decode cache (``l{i}/{k, v[, summ]}``, each
+    ``[repeats, B, Hkv, S | nb, dh]``) as the port's tensors."""
+    try:
+        _, batch, _, seq_len, _ = np.shape(tree["l0"]["k"])
+    except (KeyError, TypeError, ValueError) as err:
+        raise ValueError(f"cache_from_numpy: no [repeats, B, Hkv, S, dh] "
+                         f"leaf l0/k ({err})") from err
+    want = dict(tree_leaves(cache_specs(cfg, batch, seq_len)))
+    return _convert(want, tree, "cache_from_numpy", device)

@@ -12,7 +12,13 @@ does not have.)
 Integer-valued data keeps every fp32 sum exact: distances and the
 selected sets are bit-equal.  Float data agrees to fp32 reduction
 order: 1e-5 relative on distances, 1e-5 absolute on means of O(1) rows.
+The attention kernels (8 and 9) agree with their plain versions to
+2e-5 in fp32 and 1e-2 (relative and absolute: one bf16 rounding of
+outputs of a few units) in bf16; the reduced model's logits on the card
+agree with the CPU's to 1e-4.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -34,6 +40,14 @@ from repro_torch.kernels.golden_support_aggregate import (  # noqa: E402
     golden_support_aggregate)
 from repro_torch.kernels.pdist import pdist  # noqa: E402
 from repro_torch.kernels.screen import screen_topm, screen_topm_scan  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.golden_attention import (  # noqa: E402
+    golden_attention_decode, select_golden_blocks)
+from repro_torch.launch import golden_decode as gd  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.models.module import tree_map  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -329,3 +343,149 @@ def test_indexed_route_card_matches_cpu(card):
     assert centroid_scan.launches == before + 10
     assert np.isfinite(outs[1].numpy()).all()
     torch.testing.assert_close(outs[1], outs[0], rtol=1e-3, atol=1e-3)
+
+
+# -- the reduced-LLM attention kernels (8 and 9) -------------------------------
+
+ATT_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+
+
+def randn(shape, dev, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=g).to(dev, dtype)
+
+
+@pytest.mark.parametrize("b,hkv,g,s,dh", [
+    (2, 8, 3, 512, 128),       # the llama prefill's heads
+    (1, 4, 5, 256, 64),
+    (2, 1, 2, 96, 32),         # S not a multiple of the key tile
+    (2, 2, 9, 130, 128),       # G x tile rows padded, ragged S
+    (1, 1, 1, 64, 32)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_plain(card, b, hkv, g, s, dh, causal,
+                                       dtype):
+    q = randn((b, hkv, g, s, dh), card, dtype, 0)
+    k = randn((b, hkv, s, dh), card, dtype, 1)
+    v = randn((b, hkv, s, dh), card, dtype, 2)
+    got = flash_attention(q, k, v, causal)
+    want = ref.flash_attention_ref(q, k, v, causal)
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = ATT_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def golden_case(card, b, hkv, g, dh, s, bs, kb, dtype, q_dtype=None):
+    q = randn((b, hkv, g, dh), card, q_dtype or dtype, 3)
+    k = randn((b, hkv, s, dh), card, dtype, 4)
+    v = randn((b, hkv, s, dh), card, dtype, 5)
+    idx, _ = select_golden_blocks(q.float(), k, kb, bs)
+    idx[0, 0, -1] = s // bs + 3                    # clamped into range
+    gen = torch.Generator().manual_seed(6)
+    valid = (torch.rand(idx.shape, generator=gen) < 0.8).int().to(card)
+    valid[0, 0, 0] = 1
+    valid[-1, -1] = 0                              # no valid block
+    return q, k, v, idx, valid
+
+
+@pytest.mark.parametrize("b,hkv,g,dh,s,bs,kb", [
+    (2, 8, 3, 128, 4096, 64, 8),       # the entry point's ops section
+    (4, 8, 3, 128, 8192, 128, 16),
+    (2, 2, 1, 32, 256, 32, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_golden_attention_matches_plain(card, b, hkv, g, dh, s, bs, kb,
+                                        dtype):
+    q, k, v, idx, valid = golden_case(card, b, hkv, g, dh, s, bs, kb, dtype)
+    got = golden_attention_decode(q, k, v, idx, valid, bs)
+    want = ref.golden_attention_decode_ref(q, k, v, idx, valid, bs)
+    assert got.dtype == dtype and not got[-1, -1].any()
+    tol = ATT_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_golden_attention_fp32_query_over_bf16_cache(card):
+    q, k, v, idx, valid = golden_case(card, 2, 8, 3, 128, 4096, 64, 8,
+                                      torch.bfloat16, torch.float32)
+    got = ops.golden_attention_decode(q, k, v, idx, valid, block_size=64)
+    want = ref.golden_attention_decode_ref(q, k, v, idx, valid, 64)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+def test_attention_kernels_count_launches(card):
+    q = randn((1, 2, 2, 64, 32), card, torch.float32, 7)
+    k = randn((1, 2, 64, 32), card, torch.float32, 8)
+    f0, g0 = flash_attention.launches, golden_attention_decode.launches
+    ops.flash_attention(q, k, k)
+    idx, valid = ops.select_golden_blocks(q[:, :, :, 0], k, 2, 16)
+    ops.golden_attention_decode(q[:, :, :, 0].contiguous(), k, k, idx, valid,
+                                block_size=16)
+    assert (flash_attention.launches, golden_attention_decode.launches) == \
+        (f0 + 1, g0 + 1)
+
+
+def test_attention_kernel_faults_raise(card, tmp_path, monkeypatch):
+    q = randn((1, 1, 1, 64, 48), card, torch.float32, 9)
+    k = randn((1, 1, 64, 48), card, torch.float32, 10)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_attention(q.cpu(), k.cpu(), k.cpu())
+    with pytest.raises(ValueError, match="must be"):
+        flash_attention(q[..., :32].contiguous(),
+                        k[..., :32].contiguous().double(),
+                        k[..., :32].contiguous())
+    # a launch the C entry point refuses (dh 48 has no instance) raises
+    fn = _build.load("flash_attention", "flash_attention_launch",
+                     flash_mod._ARGS)
+    out = torch.empty_like(q)
+    err = fn(_build.ptr(q), _build.ptr(k), _build.ptr(k), _build.ptr(out),
+             1, 1, 64, 48, 64, 4, 1, 0, 1.0, _build.stream(card))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _build.check("flash_attention", err)
+    # a build that fails raises, and no library is loaded
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(_build, "nvcc", lambda: "false")
+    with pytest.raises(RuntimeError, match="build failed"):
+        _build.load("golden_attention", "golden_attention_launch", [])
+
+
+def test_reduced_model_card_matches_cpu(card):
+    """The golden-decode entry point at the example's reduced width (a
+    512-token cache) on the card against the CPU, from the same weights
+    (drawn on the CPU and moved): logits, the sweep and the ops
+    section's block choices; kernel 9 runs once per layer."""
+    cfg = gd.example_config(reduced=True)
+    params = gd.draw_params(cfg, 0, "cpu")
+    toks = gd.draw_tokens(cfg, 2, 512, 0)
+    want = gd.run(cfg, params, toks)
+    before = flash_attention.launches
+    got = gd.run(cfg, tree_map(lambda t: t.to(card), params), toks.to(card))
+    assert flash_attention.launches == before + cfg.num_layers
+    for key in ("prefill_logits", "full_logits"):
+        torch.testing.assert_close(got[key].cpu(), want[key], rtol=1e-4,
+                                   atol=1e-4)
+    for kb, lg in want["golden_logits"].items():
+        torch.testing.assert_close(got["golden_logits"][kb].cpu(), lg,
+                                   rtol=1e-4, atol=1e-4)
+    assert torch.equal(got["block_idx"].cpu(), want["block_idx"])
+    assert [r["top1"] for r in got["rows"]] == [r["top1"] for r in
+                                               want["rows"]]
+    assert got["ops_err"] <= 2e-5
+
+
+def test_model_steps_do_not_synchronize(card):
+    """Prefill and decode never wait on the device from the host: the
+    position is a Python int and nothing is read back."""
+    cfg = gd.example_config(reduced=True)
+    params = gd.draw_params(cfg, 0, card)
+    toks = gd.draw_tokens(cfg, 2, 256, 0).to(card)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, cache = T.prefill(cfg, params, toks)
+        for kind in ("full", "golden"):
+            T.decode_step(dataclasses.replace(cfg, attn_kind_decode=kind),
+                          params, cache, toks[:, -1], 255)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")

@@ -3,7 +3,10 @@
 
 Phases:
   1. environment: the card, CUDA, nvcc and triton; TF32 off;
-  2. build: the nine hand-written kernels from ``src/repro_torch/kernels/csrc``;
+  2. build: the nine hand-written kernels from ``src/repro_torch/kernels/csrc``
+     (ten sources: kernel 9 has a bf16 tensor-core source and an fp32
+     CUDA-core one), with each new kernel's registers, shared memory
+     and spills;
   3. scale: the cifar_like store, N=50000 rows of D=3072 (proxy dp=192),
      built once and shared by every phase, and the Golden Index's scale
      store, gmm N=65536 x 64 with 256 modes;
@@ -47,7 +50,8 @@ Phases:
      counted (28 launches of kernel 9 a prefill), with its KL/top-1
      table, prefill and decode walls and idle shares ([llm-decode]);
      both kernels timed against bound, plain version and one library
-     call, kernel 9 also at S=32768 ([time]).
+     call, with the achieved rate and share of the bound, kernel 9 also
+     at S=32768 ([time]).
 
 Any failure exits non-zero before the last line.  The last lines are the
 card's name and power limit, a JSON line of per-kernel numbers, and
@@ -57,6 +61,7 @@ card's name and power limit, a JSON line of per-kernel numbers, and
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import subprocess
 import sys
@@ -164,6 +169,13 @@ def bound(nbytes: float, flops: float,
     return max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations"
 
 
+def short(name: str) -> str:
+    """A kernel's name as the profiler gives it, without the return type
+    and the anonymous namespace, cut to 48 characters."""
+    return name.replace("void ", "").replace("(anonymous namespace)::",
+                                             "")[:48]
+
+
 def profile_line(label: str, wall: float, fn) -> float:
     """Profile one call of ``fn`` and print its device busy time, its idle
     share against ``wall`` (the unprofiled wall in ms of the same call:
@@ -187,7 +199,7 @@ def profile_line(label: str, wall: float, fn) -> float:
           f"ms with the profiler on), device busy {busy:.2f} ms, idle share "
           f"{idle:.3f} of the unprofiled wall ({1 - busy / wall_on:.3f} with "
           f"the profiler on); top kernels: " + "; ".join(
-              f"{e.key[:48]} x{e.count} {e.self_device_time_total / 1e3:.3f}"
+              f"{short(e.key)} x{e.count} {e.self_device_time_total / 1e3:.3f}"
               f" ms" for e in kern[:6]))
     return idle
 
@@ -390,7 +402,10 @@ def llm_phases(kernels: dict) -> tuple[dict, dict]:
         out["bound_ms"], out["bound_by"] = bound(
             2 * (2 * q.numel() + 2 * k.numel()), flops, BF16_FLOPS_PER_S)
         print(f"[time] flash_attention bf16 causal B={b}, S={s}: kernel "
-              f"{out['ms']:.4f} ms, bound {out['bound_ms']:.4f} ms "
+              f"{out['ms']:.4f} ms ({flops / out['ms'] / 1e9:.1f} TFLOP/s, "
+              f"{out['bound_ms'] / out['ms']:.3f} of the bound; "
+              f"{out['library_ms'] / out['ms']:.3f}x the library's speed), "
+              f"bound {out['bound_ms']:.4f} ms "
               f"({out['bound_by']}: {flops / 1e9:.1f} GFLOP at the bf16 "
               f"tensor-core rate), plain "
               + (f"{out['plain_ms']:.4f} ms" if plain else
@@ -426,7 +441,10 @@ def llm_phases(kernels: dict) -> tuple[dict, dict]:
         out["bound_ms"], out["bound_by"] = bound(
             nbytes, 4 * G_Q * DH * bs * nvalid, BF16_FLOPS_PER_S)
         print(f"[time] golden_attention_decode bf16 {label} (B={b}, S={s}, "
-              f"bs={bs}, {nvalid} valid blocks): kernel {out['ms']:.4f} ms, "
+              f"bs={bs}, {nvalid} valid blocks): kernel {out['ms']:.4f} ms "
+              f"({nbytes / out['ms'] / 1e6:.1f} GB/s, "
+              f"{out['bound_ms'] / out['ms']:.3f} of the bound; "
+              f"{out['library_ms'] / out['ms']:.3f}x the library's speed), "
               f"bound {out['bound_ms']:.4f} ms ({out['bound_by']}: "
               f"{nbytes / 1e6:.1f} MB), plain {out['plain_ms']:.4f} ms, "
               f"library (scaled_dot_product_attention with the golden "
@@ -485,15 +503,30 @@ def main() -> None:
     # -- 2. build --------------------------------------------------------------
     names = ["pdist", "support_sqdist", "golden_support_aggregate",
              "golden_aggregate", "screen_topm", "fused_candidates",
-             "centroid_scan", "flash_attention", "golden_attention"]
+             "centroid_scan", "flash_attention", "flash_attention_sm90",
+             "golden_attention"]
     t0 = time.perf_counter()
     log = _build.build(names)
-    print(f"[build] {len(names)} kernels in {time.perf_counter() - t0:.1f}s "
+    print(f"[build] {len(names)} sources in {time.perf_counter() - t0:.1f}s "
           f"(one nvcc each, in parallel) into {_build.BUILD_DIR}")
     for name in names:
+        if name in ("flash_attention_sm90", "golden_attention"):
+            continue                       # by instance, below
         for line in log.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
+    for name, entry in (("flash_attention_sm90", "flash_sm90_kernel"),
+                        ("golden_attention", "gattn_")):
+        for inst, regs, smem, spill in _build.instances(log.get(name, ""),
+                                                        entry):
+            print(f"[build] {name} {inst}: {regs} registers, {smem} "
+                  f"{spill}")
+    smem9 = _build.load("flash_attention_sm90", "flash_attention_sm90_smem_"
+                        "bytes", [ctypes.c_int] * 2, ctypes.c_size_t)
+    print("[build] flash_attention_sm90 dynamic shared memory a CTA (W "
+          "consumer warpgroups, dh): " + ", ".join(
+              f"W={w} dh={dh} {smem9(w, dh)} B" for w in (1, 2, 3)
+              for dh in (32, 64, 128)))
 
     # -- 3. scale: the store ---------------------------------------------------
     t0 = time.perf_counter()
@@ -1222,7 +1255,7 @@ def main() -> None:
                                     "src/repro/kernels/fused_step.py:178"),
                "centroid_scan": ("csrc/centroid_scan.cu",
                                  "src/repro/kernels/centroid_scan.py:65"),
-               "flash_attention": ("csrc/flash_attention.cu",
+               "flash_attention": ("csrc/flash_attention_sm90.cu",
                                    "src/repro/kernels/flash_attention.py:85"),
                "golden_attention_decode": (
                    "csrc/golden_attention.cu",

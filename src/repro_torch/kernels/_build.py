@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -81,6 +82,31 @@ def build(names) -> dict[str, str]:
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return reports
+
+
+def instances(report: str, entry: str):
+    """(instance, registers, shared memory, spills) of each kernel whose
+    name starts with ``entry`` in a ``-Xptxas -v`` report, template
+    arguments written out (``flash_sm90_kernel<3,128>``)."""
+    out, cur, spill = [], None, ""
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']*)'", line)
+        if m:
+            k = re.search(rf"({entry}\w*?)(?:I((?:L[ib]\d+E)+)E|E)",
+                          m.group(1))
+            cur, spill = k and k.group(1), ""
+            if k and k.group(2):
+                args = re.findall(r"L[ib](\d+)E", k.group(2))
+                cur += "<" + ",".join(args) + ">"
+            continue
+        if cur and "spill" in line:
+            spill = line.strip()
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if cur and m:
+            out.append((cur, int(m.group(1)),
+                        f"{m.group(2) or 0} bytes static smem", spill))
+            cur = None
+    return out
 
 
 def load(name: str, fn: str, argtypes, restype=ctypes.c_int):

@@ -1,21 +1,21 @@
 // Causal (or full) GQA attention with an online softmax (flash attention):
 //   out[b, h, g, i] = sum_j softmax_j(q[b, h, g, i] . k[b, h, j] * dh^-0.5) v[b, h, j]
 // over keys j <= i when causal, every key otherwise.
-// q [B, Hkv, G, S, dh], k/v [B, Hkv, S, dh], fp32 or bf16 (all three the
-// same type) -> out [B, Hkv, G, S, dh] in q's type; fp32 accumulation.
+// q [B, Hkv, G, S, dh], k/v [B, Hkv, S, dh], fp32 -> out [B, Hkv, G, S,
+// dh] in fp32.
 //
 // Replaces: src/repro/kernels/flash_attention.py:85 (flash_attention /
 // _flash_kernel :25).  Kept from the TPU kernel: the fp32 online softmax
 // (running max m from NEG_INF, denominator l, accumulator acc), scores
 // scaled after the dot product, causal tiles above the diagonal skipped,
-// and the final acc / max(l, 1e-30) rounded once to q's type.  The TPU's
-// VMEM tiles (qc, kc) only order the sums; this kernel picks its own.
-// Bound on the H100: operations.  At B=2, Hkv=8, G=3, S=4096, dh=128,
-// causal, the work is ~206 GFLOP (0.21 ms on the bf16 tensor cores at
-// 989 TFLOP/s) against 134 MB of bf16 in and out (0.04 ms at 3.35 TB/s).
-// This first version runs on the CUDA cores in fp32 (67 TFLOP/s peak),
-// so it cannot come near that bound: wgmma on bf16 tiles fed by TMA is
-// the redesign.
+// and the final acc / max(l, 1e-30).  The TPU's VMEM tiles (qc, kc) only
+// order the sums; this kernel picks its own.
+// fp32 inputs only (the --reduced configuration, held to 2e-5, which a
+// TF32 tensor-core product would miss); bf16 inputs, the model's dtype,
+// go to flash_attention_sm90.cu (wgmma fed by TMA).
+// Bound on the H100: operations, at the fp32 rate outside the tensor
+// cores (67 TFLOP/s): 4 dh FLOP per (row, key) pair, half of them past
+// the diagonal skipped when causal.
 // Design: one block per (b * Hkv, tile of BQ query positions); its rows
 // are the G * BQ (head, position) pairs of that tile (row r is head
 // r / BQ, position q0 + r % BQ), so all G query heads of the KV head
@@ -29,8 +29,6 @@
 // over keys stops at the diagonal when causal, and the grid starts with
 // the longest rows.
 #include "common.cuh"
-
-#include <cuda_bf16.h>
 
 namespace {
 
@@ -51,41 +49,18 @@ size_t smem_floats(int rt, int dh) {
          (size_t)r * (BK + PAD);
 }
 
-// Four consecutive elements from global memory as fp32.
-__device__ __forceinline__ float4 load4(const void* base, int64_t i,
-                                        int bf16) {
-  if (bf16) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(
-        static_cast<const __nv_bfloat16*>(base) + i);
-    const float2 a = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-    const float2 b = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-    return make_float4(a.x, a.y, b.x, b.y);
-  }
-  return *reinterpret_cast<const float4*>(static_cast<const float*>(base) +
-                                          i);
-}
-
-__device__ __forceinline__ void store1(void* base, int64_t i, float x,
-                                       int bf16) {
-  if (bf16)
-    static_cast<__nv_bfloat16*>(base)[i] = __float2bfloat16(x);
-  else
-    static_cast<float*>(base)[i] = x;
-}
-
 // Rows [k0, k0 + BK) of a [S, DH] matrix into shared [BK][DH + PAD] as
 // fp32; rows past S are zero.
 template <int DH>
-__device__ __forceinline__ void stage_keys(float* dst, const void* src,
-                                           int64_t base, int k0, int S,
-                                           int bf16) {
+__device__ __forceinline__ void stage_keys(float* dst, const float* src,
+                                           int64_t base, int k0, int S) {
   constexpr int C4 = DH / 4;
   for (int e = threadIdx.x; e < BK * C4; e += THREADS) {
     const int t = e / C4, c = (e - t * C4) * 4;
     float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (k0 + t < S) val = load4(src, base + (int64_t)(k0 + t) * DH + c, bf16);
+    if (k0 + t < S)
+      val = *reinterpret_cast<const float4*>(src + base +
+                                             (int64_t)(k0 + t) * DH + c);
     *reinterpret_cast<float4*>(dst + t * (DH + PAD) + c) = val;
   }
 }
@@ -105,9 +80,9 @@ __device__ __forceinline__ float group16_sum(float v) {
 
 template <int RT, int DH>
 __global__ void __launch_bounds__(THREADS)
-flash_kernel(const void* __restrict__ q, const void* __restrict__ k,
-             const void* __restrict__ v, void* __restrict__ out, int G,
-             int S, int BQ, int causal, int bf16, float scale) {
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, float* __restrict__ out, int G,
+             int S, int BQ, int causal, float scale) {
   constexpr int R = 16 * RT;
   constexpr int LDQ = DH + PAD, LDP = BK + PAD;
   constexpr int VEC = Cols<DH>::VEC, NV = Cols<DH>::NV;
@@ -128,8 +103,8 @@ flash_kernel(const void* __restrict__ q, const void* __restrict__ k,
     const int r = e / C4, c = (e - r * C4) * 4;
     float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
     if (r < active && q0 + r % BQ < S)
-      val = load4(q, q_base + ((int64_t)(r / BQ) * S + q0 + r % BQ) * DH + c,
-                  bf16);
+      val = *reinterpret_cast<const float4*>(
+          q + q_base + ((int64_t)(r / BQ) * S + q0 + r % BQ) * DH + c);
     *reinterpret_cast<float4*>(q_s + r * LDQ + c) = val;
   }
 
@@ -148,7 +123,7 @@ flash_kernel(const void* __restrict__ q, const void* __restrict__ k,
   const int kend = causal ? min(S, q0 + BQ) : S;
   for (int k0 = 0; k0 < kend; k0 += BK) {
     __syncthreads();                   // Q staged; last tile's V and P read
-    stage_keys<DH>(kv_s, k, kv_base, k0, S, bf16);
+    stage_keys<DH>(kv_s, k, kv_base, k0, S);
     __syncthreads();
 
     float s[RT][4];
@@ -199,7 +174,7 @@ flash_kernel(const void* __restrict__ q, const void* __restrict__ k,
       for (int c = 0; c < VEC * NV; ++c) acc[i][c] *= sc;
     }
     __syncthreads();                   // P written; K no longer read
-    stage_keys<DH>(kv_s, v, kv_base, k0, S, bf16);
+    stage_keys<DH>(kv_s, v, kv_base, k0, S);
     __syncthreads();
 
 #pragma unroll 2
@@ -249,32 +224,31 @@ flash_kernel(const void* __restrict__ q, const void* __restrict__ k,
     for (int n = 0; n < NV; ++n)
 #pragma unroll
       for (int c = 0; c < VEC; ++c)
-        store1(out, row + n * 16 * VEC + tx * VEC + c, acc[i][n * VEC + c] / den,
-               bf16);
+        out[row + n * 16 * VEC + tx * VEC + c] = acc[i][n * VEC + c] / den;
   }
 }
 
 template <int RT, int DH>
-cudaError_t launch(dim3 grid, cudaStream_t st, const void* q, const void* k,
-                   const void* v, void* out, int G, int S, int BQ, int causal,
-                   int bf16, float scale) {
+cudaError_t launch(dim3 grid, cudaStream_t st, const float* q, const float* k,
+                   const float* v, float* out, int G, int S, int BQ, int causal,
+                   float scale) {
   const size_t smem = sizeof(float) * smem_floats(RT, DH);
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<RT, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   flash_kernel<RT, DH><<<grid, THREADS, smem, st>>>(q, k, v, out, G, S, BQ,
-                                                    causal, bf16, scale);
+                                                    causal, scale);
   return cudaGetLastError();
 }
 
 template <int DH>
-cudaError_t launch_dh(int rt, dim3 grid, cudaStream_t st, const void* q,
-                      const void* k, const void* v, void* out, int G, int S,
-                      int BQ, int causal, int bf16, float scale) {
+cudaError_t launch_dh(int rt, dim3 grid, cudaStream_t st, const float* q,
+                      const float* k, const float* v, float* out, int G, int S,
+                      int BQ, int causal, float scale) {
   switch (rt) {
 #define RT_CASE(n) \
-  case n: return launch<n, DH>(grid, st, q, k, v, out, G, S, BQ, causal, bf16, scale);
+  case n: return launch<n, DH>(grid, st, q, k, v, out, G, S, BQ, causal, scale);
     RT_CASE(1) RT_CASE(2) RT_CASE(3) RT_CASE(4)
     RT_CASE(5) RT_CASE(6) RT_CASE(7) RT_CASE(8)
 #undef RT_CASE
@@ -290,10 +264,10 @@ RT_EXPORT size_t flash_attention_smem_bytes(int rt, int dh) {
 
 // BH = B * Hkv; rows of a block: G * bq (head, position) pairs, which
 // must fit in 16 * rt; dh in {32, 64, 128}.  Pointers 16-byte aligned.
-RT_EXPORT int flash_attention_launch(const void* q, const void* k,
-                                     const void* v, void* out, int BH, int G,
+RT_EXPORT int flash_attention_launch(const float* q, const float* k,
+                                     const float* v, float* out, int BH, int G,
                                      int S, int dh, int bq, int rt,
-                                     int causal, int bf16, float scale,
+                                     int causal, float scale,
                                      void* stream) {
   if (BH <= 0 || S <= 0) return static_cast<int>(cudaGetLastError());
   if (G <= 0 || bq <= 0 || G * bq > 16 * rt)
@@ -302,9 +276,9 @@ RT_EXPORT int flash_attention_launch(const void* q, const void* k,
   dim3 grid((S + bq - 1) / bq, BH);
   cudaError_t err;
   switch (dh) {
-    case 32: err = launch_dh<32>(rt, grid, st, q, k, v, out, G, S, bq, causal, bf16, scale); break;
-    case 64: err = launch_dh<64>(rt, grid, st, q, k, v, out, G, S, bq, causal, bf16, scale); break;
-    case 128: err = launch_dh<128>(rt, grid, st, q, k, v, out, G, S, bq, causal, bf16, scale); break;
+    case 32: err = launch_dh<32>(rt, grid, st, q, k, v, out, G, S, bq, causal, scale); break;
+    case 64: err = launch_dh<64>(rt, grid, st, q, k, v, out, G, S, bq, causal, scale); break;
+    case 128: err = launch_dh<128>(rt, grid, st, q, k, v, out, G, S, bq, causal, scale); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

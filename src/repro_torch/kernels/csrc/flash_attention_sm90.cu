@@ -1,0 +1,580 @@
+// Causal (or full) GQA flash attention in bf16 on Hopper's tensor cores:
+//   out[b, h, g, i] = sum_j softmax_j(q[b, h, g, i] . k[b, h, j] * dh^-0.5) v[b, h, j]
+// over keys j <= i when causal, every key otherwise.
+// q [B, Hkv, G, S, dh], k/v [B, Hkv, S, dh], all bf16, dh in {32, 64, 128}
+// -> out [B, Hkv, G, S, dh] in bf16; fp32 accumulation.  The fp32 route
+// stays on the CUDA cores (flash_attention.cu): a tensor-core product in
+// TF32 would not hold fp32's tolerance.
+//
+// Replaces: src/repro/kernels/flash_attention.py:85 (flash_attention /
+// _flash_kernel :25).  Kept from the TPU kernel: the fp32 online softmax
+// (running max m from NEG_INF, denominator l, accumulator acc), scores
+// scaled after the dot product, causal tiles above the diagonal never
+// loaded, and acc / max(l, 1e-30) rounded once to bf16.  One numeric
+// change: wgmma takes bf16 operands, and the TPU kernel keeps the
+// weights P in fp32.  P rounded once to bf16 (8 bits) moved outputs of a
+// few units by one bf16 step (0.0156 at [2, 4), over the 1e-2 check), so
+// P goes in as two bf16 terms, P_hi = bf16(P) and P_lo = bf16(P - P_hi)
+// (about 16 bits), both multiplied by V: the P V product costs twice,
+// the score product once.  l sums the fp32 weights.  Masked keys get
+// -inf before the row max, so a row's max is one of its own scores.
+// Bound on the H100: operations.  At B=2, Hkv=8, G=3, S=4096, dh=128,
+// causal, the work is ~206 GFLOP (0.21 ms at 989 TFLOP/s on the bf16
+// tensor cores) against 134 MB of bf16 in and out (0.04 ms at 3.35 TB/s).
+//
+// Design (tiles: BQ = 64 query positions, BK = 64 keys, NST = 3 stages):
+// one CTA per (b * Hkv, group of W query heads, tile of 64 positions),
+// with W consumer warpgroups (W = min(G, 3), the wrapper's plan) and one
+// producer warpgroup.  Warpgroup w owns the 64 rows (head g0 + w,
+// positions q0 .. q0 + 63): wgmma's M.  A head group past G is padding:
+// its warpgroup exits at once.  All W heads share every K/V tile, which
+// crosses HBM once per tile for the W heads.  The grid's slowest index
+// is the query tile, longest causal rows first.
+// Loads: one producer thread issues TMA copies through 3-D tensor maps,
+// Q [B*Hkv*G, S, dh] and K, V [B*Hkv, S, dh], 64 x 64-column boxes with
+// the 128-byte swizzle, so a ragged S is zero-filled per head and never
+// reads the next head's rows (dh = 32 is zero-filled to 64 columns: the
+// score product takes only dh / 16 steps, the P V product's extra
+// columns are zeros and never stored).  Q once; K and V into a ring of
+// NST stages, each with a "full" mbarrier per tensor (TMA's transaction
+// count) and an "empty" mbarrier that each consumer warp arrives on.
+// Descriptors are built on the host in the C entry point
+// (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint: no -lcuda)
+// and passed as __grid_constant__ parameters.
+// S = Q K^T: wgmma m64n64k16, A (Q) and B (K) from shared memory,
+// K-major, 128-byte swizzle (a descriptor step of 32 bytes per k16 inside
+// a 64-column region, a region of 8 KB further for dh = 128).
+// Inside a warpgroup, tile j's P V product runs on the tensor cores while
+// the softmax of tile j + 1 runs on the CUDA cores (S(j + 1) is issued
+// before P(j) V(j); wgmma groups complete in order).
+// Softmax on the fp32 accumulator fragments in registers: each thread
+// holds rows r and r + 8 of its warp's 16; the row max reduces over the 4
+// lanes of a quad by shuffles; l is summed per thread and over the quad
+// once at the end.  Scores are kept in log2 units (scale * log2 e folded
+// into one multiply, exp2f).
+// O += P_hi V + P_lo V: P converted to bf16 in registers is wgmma's A
+// operand (the accumulator fragment of k16 step kk is exactly the A
+// fragment), V the B operand from shared memory, MN-major (transposed),
+// so P never goes through shared memory.  wgmma m64n{64,128}k16.
+// Epilogue: O / max(l, 1e-30) in bf16 into the warpgroup's own Q tile
+// (16-byte chunks XOR-swizzled by row: no bank conflicts), then 16-byte
+// stores of the rows < S.
+// Registers: W = 3 runs 512 threads at 128 registers each; setmaxnreg
+// gives the producer 24 and the consumers 160.
+// Not here yet: persistent CTAs, ping-pong scheduling of the warpgroups,
+// fp8.
+#include "common.cuh"
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+
+namespace {
+
+constexpr int BQ = 64;              // query positions a warpgroup (wgmma M)
+constexpr int BK = 64;              // keys a tile
+constexpr int NST = 3;              // K/V ring stages
+constexpr int REGION = 64 * 128;    // one 64-row x 128-byte swizzled region
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Dynamic shared memory of a CTA: 1024 bytes of alignment slack, W Q
+// tiles, NST K and NST V tiles, then the 1 + 3 NST mbarriers.
+constexpr size_t smem_bytes(int w, int dh) {
+  return 1024 + (size_t)(w + 2 * NST) * ((dh < 64 ? 64 : dh) / 64) * REGION +
+         8 * (1 + 3 * NST);
+}
+
+template <int W, int DH>
+struct Cfg {
+  static constexpr int DHP = DH < 64 ? 64 : DH;   // columns in shared memory
+  static constexpr int NC = DHP / 64;             // 128-byte column regions
+  static constexpr int TILE = NC * REGION;        // bytes of a 64-row tile
+  static constexpr int THREADS = 128 * (W + 1);
+  static constexpr size_t SMEM = smem_bytes(W, DH);
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// One box of a 3-D tensor map into shared memory; completes on ``bar``.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2) : "memory");
+}
+
+// wgmma shared-memory descriptors, 128-byte swizzle (layout type 1).
+// K-major: 8-row groups 1024 bytes apart (SBO); LBO unused.
+__device__ __forceinline__ uint64_t desc_k(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// MN-major (V as B, transposed): 64-column regions REGION bytes apart
+// (LBO), 8-key groups 1024 bytes apart (SBO).
+__device__ __forceinline__ uint64_t desc_mn(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)(REGION >> 4) << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of wgmma's registers
+// across the fence / wait instructions.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ void pin(uint32_t (&r)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(r[i / 4][i % 4])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+template <int W, int DH>
+__global__ void __launch_bounds__(128 * (W + 1), 1)
+flash_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
+                  const __grid_constant__ CUtensorMap kmap,
+                  const __grid_constant__ CUtensorMap vmap,
+                  __nv_bfloat16* __restrict__ out, int G, int S, int causal,
+                  float scale_log2) {
+  using C = Cfg<W, DH>;
+  constexpr int DHP = C::DHP, NC = C::NC, TILE = C::TILE;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t q_s = (raw + 1023u) & ~1023u;    // swizzle needs 1024 B
+  const uint32_t k_s = q_s + W * TILE, v_s = k_s + NST * TILE;
+  const uint32_t bar = v_s + NST * TILE;
+  const uint32_t q_full = bar;
+  auto k_full = [&](int st) { return bar + 8u * (1 + st); };
+  auto v_full = [&](int st) { return bar + 8u * (1 + NST + st); };
+  auto empty = [&](int st) { return bar + 8u * (1 + 2 * NST + st); };
+
+  const int bh = blockIdx.x, hg = blockIdx.y;
+  const int nq = (S + BQ - 1) / BQ;
+  const int q0 = (nq - 1 - (int)blockIdx.z) * BQ;   // longest rows first
+  const int nreal = min(W, G - hg * W);              // heads, not padding
+  const int kend = causal ? min(S, q0 + BQ) : S;
+  const int nk = (kend + BK - 1) / BK;
+  const int tid = threadIdx.x, wg = tid >> 7;
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < NST; ++st) {
+      mbar_init(k_full(st), 1);
+      mbar_init(v_full(st), 1);
+      mbar_init(empty(st), 4 * nreal);               // every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == W) {                                     // producer warpgroup
+    if constexpr (W == 3) asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
+    if (tid == W * 128) {
+      mbar_expect_tx(q_full, nreal * TILE);
+      for (int i = 0; i < nreal; ++i)
+        for (int c = 0; c < NC; ++c)
+          tma_load(q_s + i * TILE + c * REGION, &qmap, q_full, c * 64, q0,
+                   bh * G + hg * W + i);
+      for (int j = 0; j < nk; ++j) {
+        const int st = j % NST;
+        if (j >= NST) mbar_wait(empty(st), ((j / NST) - 1) & 1);
+        mbar_expect_tx(k_full(st), TILE);
+        for (int c = 0; c < NC; ++c)
+          tma_load(k_s + st * TILE + c * REGION, &kmap, k_full(st), c * 64,
+                   j * BK, bh);
+        mbar_expect_tx(v_full(st), TILE);
+        for (int c = 0; c < NC; ++c)
+          tma_load(v_s + st * TILE + c * REGION, &vmap, v_full(st), c * 64,
+                   j * BK, bh);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup ``wg``: rows (head g0 + wg, positions q0 + 0..63)
+  if constexpr (W == 3) asm volatile("setmaxnreg.inc.sync.aligned.u32 160;");
+  if (wg >= nreal) return;                           // padding
+  const int head = hg * W + wg;
+  const int t = tid & 127, warp = t >> 5, lane = t & 31;
+  const int r0 = warp * 16 + (lane >> 2);            // rows r0 and r0 + 8
+  const int cq = 2 * (lane & 3);                     // column within 8
+  const uint32_t qa = q_s + wg * TILE;
+
+  float o[DHP / 2], s[32];
+#pragma unroll
+  for (int i = 0; i < DHP / 2; ++i) o[i] = 0.f;
+  float m0 = RT_NEG_INF, m1 = RT_NEG_INF, l0 = 0.f, l1 = 0.f, c0, c1;
+  uint32_t hi[4][4], lo[4][4];
+
+  // S = Q K^T of tile j into s (issued, not waited for)
+  auto issue_scores = [&](int j) {
+    const uint32_t kb = k_s + (j % NST) * TILE;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const uint32_t off = (kk >> 2) * REGION + (kk & 3) * 32;
+      wgmma_ss_n64(s, desc_k(qa + off), desc_k(kb + off), kk > 0);
+    }
+    wg_commit();
+  };
+  // the online softmax of tile j on s: masks, updates m and l, leaves the
+  // fp32 weights in s and the rescale factors of o in c0, c1
+  auto softmax = [&](int j) {
+    const int k0 = j * BK;
+    if (k0 + BK > S || (causal && k0 + BK - 1 > q0)) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int key = k0 + 8 * (i >> 2) + cq + (i & 1);
+        const int pos = q0 + r0 + ((i & 2) ? 8 : 0);
+        if (key >= S || (causal && key > pos)) s[i] = -INFINITY;
+      }
+    }
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      if (i & 2) mx1 = fmaxf(mx1, s[i]);
+      else mx0 = fmaxf(mx0, s[i]);
+    }
+#pragma unroll
+    for (int o2 = 1; o2 <= 2; o2 <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o2));
+    }
+    const float mn0 = fmaxf(m0, mx0 * scale_log2);
+    const float mn1 = fmaxf(m1, mx1 * scale_log2);
+    c0 = exp2f(m0 - mn0);
+    c1 = exp2f(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float p = exp2f(fmaf(s[i], scale_log2, (i & 2) ? -mn1 : -mn0));
+      s[i] = p;
+      if (i & 2) sum1 += p;
+      else sum0 += p;
+    }
+    l0 = l0 * c0 + sum0;
+    l1 = l1 * c1 + sum1;
+  };
+  // P = P_hi + P_lo in two bf16 terms: the accumulator fragment of keys
+  // 16 kk .. 16 kk + 15 is wgmma's A fragment for that k16 step
+  auto split = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float a = s[8 * kk + 2 * r], b = s[8 * kk + 2 * r + 1];
+        hi[kk][r] = pack_bf16(a, b);
+        const float2 h = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&hi[kk][r]));
+        lo[kk][r] = pack_bf16(a - h.x, b - h.y);
+      }
+  };
+
+  // O += P(j) V(j), issued, not waited for
+  auto issue_pv = [&](int j) {
+    const int st = j % NST;
+    mbar_wait(v_full(st), (j / NST) & 1);
+    const uint32_t vb = v_s + st * TILE;
+    pin(o);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t dv = desc_mn(vb + kk * 2048);
+      if constexpr (DHP == 64) {
+        wgmma_rs_n64(o, hi[kk], dv);
+        wgmma_rs_n64(o, lo[kk], dv);
+      } else {
+        wgmma_rs_n128(o, hi[kk], dv);
+        wgmma_rs_n128(o, lo[kk], dv);
+      }
+    }
+    wg_commit();
+  };
+  auto release = [&](int j) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(j % NST));      // the stage is free
+  };
+
+  mbar_wait(q_full, 0);
+  mbar_wait(k_full(0), 0);
+  issue_scores(0);
+  wg_wait<0>();
+  pin(s);
+  softmax(0);
+  split();
+  // Tile j's P V product runs while tile j + 1's softmax does: S(j + 1)
+  // is issued first, then P(j) V(j); the wait for all but the newest
+  // group gives S(j + 1), the wait for both gives O.
+  for (int j = 0; j + 1 < nk; ++j) {
+    mbar_wait(k_full((j + 1) % NST), ((j + 1) / NST) & 1);
+    issue_scores(j + 1);
+    issue_pv(j);
+    wg_wait<1>();
+    pin(s);
+    softmax(j + 1);
+    wg_wait<0>();
+    pin(o);
+    pin(hi);                       // read by the P V product until here
+    pin(lo);
+    release(j);
+#pragma unroll
+    for (int i = 0; i < DHP / 2; ++i) o[i] *= (i & 2) ? c1 : c0;
+    split();
+  }
+  issue_pv(nk - 1);
+  wg_wait<0>();
+  pin(o);
+  release(nk - 1);
+
+  // epilogue: O / max(l, 1e-30) in bf16 through this warpgroup's Q tile
+#pragma unroll
+  for (int o2 = 1; o2 <= 2; o2 <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, o2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, o2);
+  }
+  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  uint8_t* tile = smem_raw + (qa - raw);
+#pragma unroll
+  for (int i = 0; i < DHP / 2; i += 2) {
+    const int row = r0 + ((i & 2) ? 8 : 0);
+    const int col = 8 * (i >> 2) + cq;
+    const float d = (i & 2) ? d1 : d0;
+    const int chunk = (col & 63) >> 3;
+    *reinterpret_cast<uint32_t*>(tile + (col >> 6) * REGION + row * 128 +
+                                 ((chunk ^ (row & 7)) << 4) +
+                                 ((col & 7) << 1)) =
+        pack_bf16(o[i] / d, o[i + 1] / d);
+  }
+  asm volatile("bar.sync %0, 128;" ::"r"(wg + 1) : "memory");
+  constexpr int CH = DH / 8;                         // 16-byte chunks a row
+  const int64_t plane = (int64_t)(bh * G + head) * S;
+  for (int e = t; e < BQ * CH; e += 128) {
+    const int row = e / CH, ch = e - row * CH;
+    if (q0 + row >= S) continue;
+    const uint4 val = *reinterpret_cast<const uint4*>(
+        tile + (ch >> 3) * REGION + row * 128 + (((ch & 7) ^ (row & 7)) << 4));
+    *reinterpret_cast<uint4*>(out + (plane + q0 + row) * DH + ch * 8) = val;
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// [planes, S, dh] bf16, boxes of 64 columns x 64 rows, 128-byte swizzle;
+// reads past S or past dh give zeros.
+bool make_map(CUtensorMap* map, const void* ptr, int dh, int S, int planes) {
+  EncodeTiled enc = encoder();
+  if (!enc) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)dh, (cuuint64_t)S,
+                              (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)dh * 2,
+                                 (cuuint64_t)S * dh * 2};
+  const cuuint32_t box[3] = {64, BQ, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int W, int DH>
+cudaError_t launch(dim3 grid, cudaStream_t st, const CUtensorMap& qm,
+                   const CUtensorMap& km, const CUtensorMap& vm, void* out,
+                   int G, int S, int causal, float scale_log2) {
+  using C = Cfg<W, DH>;
+  static bool ready = false;
+  if (!ready) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_sm90_kernel<W, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)C::SMEM);
+    if (err != cudaSuccess) return err;
+    ready = true;
+  }
+  flash_sm90_kernel<W, DH><<<grid, C::THREADS, C::SMEM, st>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(out), G, S, causal, scale_log2);
+  return cudaGetLastError();
+}
+
+template <int DH>
+cudaError_t launch_w(int w, dim3 grid, cudaStream_t st, const CUtensorMap& qm,
+                     const CUtensorMap& km, const CUtensorMap& vm, void* out,
+                     int G, int S, int causal, float scale_log2) {
+  switch (w) {
+    case 1: return launch<1, DH>(grid, st, qm, km, vm, out, G, S, causal, scale_log2);
+    case 2: return launch<2, DH>(grid, st, qm, km, vm, out, G, S, causal, scale_log2);
+    case 3: return launch<3, DH>(grid, st, qm, km, vm, out, G, S, causal, scale_log2);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+RT_EXPORT size_t flash_attention_sm90_smem_bytes(int w, int dh) {
+  return smem_bytes(w, dh);
+}
+
+// BH = B * Hkv; w consumer warpgroups a CTA (1-3, the wrapper's plan:
+// heads of a CTA); dh in {32, 64, 128}; bf16 pointers 16-byte aligned.
+RT_EXPORT int flash_attention_sm90_launch(const void* q, const void* k,
+                                          const void* v, void* out, int BH,
+                                          int G, int S, int dh, int w,
+                                          int causal, float scale,
+                                          void* stream) {
+  if (BH <= 0 || S <= 0) return static_cast<int>(cudaGetLastError());
+  if (G <= 0 || w < 1 || w > 3 || (dh != 32 && dh != 64 && dh != 128))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap qm, km, vm;
+  if (!make_map(&qm, q, dh, S, BH * G) || !make_map(&km, k, dh, S, BH) ||
+      !make_map(&vm, v, dh, S, BH))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nq = (S + BQ - 1) / BQ;
+  dim3 grid(BH, (G + w - 1) / w, nq);
+  const float sl2 = scale * LOG2E;
+  cudaError_t err;
+  switch (dh) {
+    case 32: err = launch_w<32>(w, grid, st, qm, km, vm, out, G, S, causal, sl2); break;
+    case 64: err = launch_w<64>(w, grid, st, qm, km, vm, out, G, S, causal, sl2); break;
+    default: err = launch_w<128>(w, grid, st, qm, km, vm, out, G, S, causal, sl2); break;
+  }
+  return static_cast<int>(err);
+}

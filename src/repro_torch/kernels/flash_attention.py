@@ -1,17 +1,24 @@
-"""Hand-written CUDA kernel: causal (or full) GQA flash attention.
+"""Hand-written CUDA kernels: causal (or full) GQA flash attention.
 
-Replaces ``repro/kernels/flash_attention.py:85`` (``flash_attention`` /
-``_flash_kernel``), the prefill's attention.  The kernel
-(``csrc/flash_attention.cu``) keeps the TPU kernel's fp32 online
-softmax and its causal tile skipping; one CUDA block takes one KV head
-and a tile of query positions for all G query heads at once, so each
-K/V tile crosses HBM once for the G heads.  The TPU's VMEM tile sizes
-(``qc``, ``kc``) only order the sums and are not taken here: the
-wrapper picks the query tile so that G x tile rows fit the kernel's
-16 x RT row grid.  It runs on the CUDA cores in fp32; its bound at the
-prefill's shape is the bf16 tensor cores (see the source).  Its plain
-version is ``ref.flash_attention_ref``; ``ops.flash_attention`` picks
-between them by device.
+Replace ``repro/kernels/flash_attention.py:85`` (``flash_attention`` /
+``_flash_kernel``), the prefill's attention.  Both keep the TPU kernel's
+fp32 online softmax and its causal tile skipping, and share each K/V
+tile across the G query heads of a KV head.  The route is chosen by
+dtype, not tried in turn:
+
+* bf16 (the model's dtype) -> ``csrc/flash_attention_sm90.cu``: wgmma on
+  the tensor cores fed by TMA through an mbarrier ring; one CTA per (KV
+  head, group of W <= 3 query heads, tile of 64 positions), one consumer
+  warpgroup a head (``sm90_plan``).  P enters the P V product as two
+  bf16 terms, P_hi + P_lo (the TPU kernel keeps it in fp32).
+* fp32 (the ``--reduced`` configuration) -> ``csrc/flash_attention.cu``
+  on the CUDA cores in fp32: a tensor-core product would be TF32 and
+  miss fp32's tolerance.  The wrapper picks its query tile so that G x
+  tile rows fit the kernel's 16 x RT row grid (``_tile``).
+
+The TPU's VMEM tile sizes (``qc``, ``kc``) only order the sums and are
+not taken here.  The plain version is ``ref.flash_attention_ref``;
+``ops.flash_attention`` picks between it and this by device.
 """
 from __future__ import annotations
 
@@ -21,10 +28,25 @@ import torch
 
 from repro_torch.kernels import _build
 
-_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float]
+_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float]
          + [ctypes.c_void_p])
-HEAD_DIMS = (32, 64, 128)          # head dims the kernel is compiled for
+_ARGS_SM90 = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float]
+              + [ctypes.c_void_p])
+HEAD_DIMS = (32, 64, 128)          # head dims the kernels are compiled for
 MAX_ROWS = 128                     # 16 x RT rows a block, RT <= 8
+SM90_BQ = 64                       # positions a warpgroup tile (wgmma's M)
+SM90_MAX_W = 3                     # consumer warpgroups a CTA
+
+
+def sm90_plan(g: int) -> tuple[int, int]:
+    """(W, head groups) of the bf16 kernel for G query heads per KV head:
+    a CTA runs W = min(G, 3) consumer warpgroups, warpgroup w owning the
+    64 rows (head group * W + w, one tile of positions); a head index
+    past G pads the last group and its warpgroup does nothing."""
+    if g < 1:
+        raise ValueError(f"flash_attention: G={g} query heads per KV head")
+    w = min(g, SM90_MAX_W)
+    return w, -(-g // w)
 
 
 def _tile(g: int) -> tuple[int, int]:
@@ -42,7 +64,8 @@ def _tile(g: int) -> tuple[int, int]:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """q [B, Hkv, G, S, dh], k/v [B, Hkv, S, dh] (CUDA, contiguous, all
-    fp32 or all bf16) -> [B, Hkv, G, S, dh] in q's dtype."""
+    fp32 or all bf16) -> [B, Hkv, G, S, dh] in q's dtype.  bf16 runs the
+    tensor-core kernel, fp32 the CUDA-core one (see the module note)."""
     name = "flash_attention"
     _build.require(name, q.device, q=q, k=k, v=v)
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -60,14 +83,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for arg, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} must be 16-byte aligned")
-    bq, rt = _tile(g)
     out = torch.empty_like(q)
-    fn = _build.load(name, "flash_attention_launch", _ARGS)
-    err = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
-             b * hkv, g, s, dh, bq, rt, int(causal),
-             int(q.dtype == torch.bfloat16), float(dh ** -0.5),
-             _build.stream(q.device))
-    _build.check(name, err)
+    if q.dtype == torch.bfloat16:
+        lib = "flash_attention_sm90"
+        fn = _build.load(lib, "flash_attention_sm90_launch", _ARGS_SM90)
+        err = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v),
+                 _build.ptr(out), b * hkv, g, s, dh, sm90_plan(g)[0],
+                 int(causal), float(dh ** -0.5), _build.stream(q.device))
+    else:
+        lib = name
+        bq, rt = _tile(g)
+        fn = _build.load(lib, "flash_attention_launch", _ARGS)
+        err = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v),
+                 _build.ptr(out), b * hkv, g, s, dh, bq, rt, int(causal),
+                 float(dh ** -0.5), _build.stream(q.device))
+    _build.check(lib, err)
     flash_attention.launches += 1
     return out
 

@@ -7,13 +7,16 @@ against mean-pooled key blocks (the proxy) and keeps the top kb blocks;
 only.
 
 The kernel replaces ``repro/kernels/golden_attention.py:85``
-(``golden_attention_decode`` / ``_gattn_kernel``).  One CUDA block per
-(b, h) walks its kb selected blocks, paged-attention style: it loads
-each valid block's K and V rows from the cache by index (no gathered
-copy) and shares them across the G query heads
-(``csrc/golden_attention.cu``).  It is bound by the bytes of the valid
-blocks.  A (b, h) with no valid block gives 0, as the TPU kernel does;
-the plain version ``ref.golden_attention_decode_ref`` follows it.
+(``golden_attention_decode`` / ``_gattn_kernel``) as split-kb
+flash-decoding (``csrc/golden_attention.cu``): the kb selected blocks of
+each (b, h) are cut into chunks of c blocks (``split_chunks``), one CUDA
+block per (b * Hkv, chunk) loads each valid block's K and V rows from
+the cache by index, paged-attention style (no gathered copy), shares
+them across the G query heads and writes a partial (m, l, acc) to fp32
+scratch; a second launch merges the chunks by log-sum-exp in a fixed
+order.  It is bound by the bytes of the valid blocks.  A (b, h) with no
+valid block gives 0, as the TPU kernel does; the plain version
+``ref.golden_attention_decode_ref`` follows it.
 ``select_golden_blocks`` is plain PyTorch, as in the reference: a
 stable descending sort, so ties go to the lowest block (``lax.top_k``).
 """
@@ -25,10 +28,24 @@ import torch
 
 from repro_torch.kernels import _build
 
-_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float]
+_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_float]
          + [ctypes.c_void_p])
 HEAD_DIMS = (32, 64, 128)          # head dims the kernel is compiled for
-MAX_SMEM = 227 * 1024
+CTAS_PER_SM = 4                    # the split's target occupancy
+
+
+def split_chunks(bh: int, kb: int, sms: int) -> tuple[int, int]:
+    """(c, nch): each (b, h)'s kb blocks in nch chunks of c (the last may
+    be shorter, none empty), so that the B * Hkv * nch CTAs are about
+    four per SM of a card with ``sms`` SMs, and one block a CTA where
+    that is all there is (B * Hkv * kb <= 4 * sms).  kb = 0 gives one
+    empty chunk."""
+    if kb <= 0:
+        return 1, 1
+    c = max(1, bh * kb // (CTAS_PER_SM * sms))
+    nch = -(-kb // c)
+    c = -(-kb // nch)                  # even out the chunks
+    return c, -(-kb // c)
 
 
 def select_golden_blocks(q: torch.Tensor, k: torch.Tensor, num_blocks: int,
@@ -80,17 +97,19 @@ def golden_attention_decode(q: torch.Tensor, k: torch.Tensor,
     if s % block_size or s == 0:
         raise ValueError(f"{name}: cache length {s} is not a positive "
                          f"multiple of block_size={block_size}")
-    smem = _build.load(lib, "golden_attention_smem_bytes",
-                       [ctypes.c_int] * 3, ctypes.c_size_t)(g, dh, block_size)
-    if smem > MAX_SMEM:
-        raise ValueError(f"{name}: G={g}, block_size={block_size} need "
-                         f"{smem} bytes of shared memory, more than "
-                         f"{MAX_SMEM}")
+    for arg, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must be 16-byte aligned")
+    c, nch = split_chunks(
+        b * hkv, kb,
+        torch.cuda.get_device_properties(q.device).multi_processor_count)
+    part = torch.empty(b * hkv * nch * g * (dh + 2), dtype=torch.float32,
+                       device=q.device)
     out = torch.empty_like(q)
     fn = _build.load(lib, "golden_attention_launch", _ARGS)
     err = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v),
-             _build.ptr(block_idx), _build.ptr(valid), _build.ptr(out),
-             b * hkv, g, s, dh, block_size, kb,
+             _build.ptr(block_idx), _build.ptr(valid), _build.ptr(part),
+             _build.ptr(out), b * hkv, g, s, dh, block_size, kb, c, nch,
              int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16),
              float(1.0 / dh ** 0.5), _build.stream(q.device))
     _build.check(lib, err)

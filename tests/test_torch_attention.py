@@ -13,7 +13,9 @@ Where the reference's two golden paths differ (a (b, h) with no valid
 block: the Pallas kernel gives 0, the dense oracle the mean of V), the
 port follows the kernel; the test pins that the oracle differs there
 only.  ``select_golden_blocks`` must give the reference's indices,
-``lax.top_k``'s order on tied integer keys included.
+``lax.top_k``'s order on tied integer keys included.  The CUDA
+wrappers' pure-Python choices are checked here too: the bf16 flash
+kernel's head/warpgroup plan and the golden kernel's chunk split.
 """
 import numpy as np
 import pytest
@@ -27,6 +29,8 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.golden_attention import (  # noqa: E402
     select_golden_blocks as jselect)
+from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
+from repro_torch.kernels import golden_attention as gattn_mod  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 BACKEND = "pallas_interpret"
@@ -147,3 +151,38 @@ def test_select_golden_blocks_ties_match_reference(g, num_blocks):
     np.testing.assert_array_equal(got_valid.numpy(), np.asarray(want_valid))
     np.testing.assert_array_equal(got_idx[0, 0].numpy(),
                                   np.arange(min(num_blocks, s // bs)))
+
+
+@pytest.mark.parametrize("g", [1, 2, 3, 5, 9])
+@pytest.mark.parametrize("s", [64, 96, 130, 4096])
+def test_flash_sm90_rows_cover_every_head_and_position_once(g, s):
+    """The bf16 kernel's plan: W = min(G, 3) warpgroups a CTA, one head
+    each; the rows of all CTAs are every (head, position) exactly once,
+    the last query tile (the longest causal rows) first."""
+    w, groups = flash_mod.sm90_plan(g)
+    assert w == min(g, 3) and groups * w >= g > (groups - 1) * w
+    bq = flash_mod.SM90_BQ
+    nq = -(-s // bq)
+    rows = [(hg * w + wg, (nq - 1 - z) * bq + r)         # the kernel's grid
+            for z in range(nq) for hg in range(groups) for wg in range(w)
+            for r in range(bq)
+            if hg * w + wg < g and (nq - 1 - z) * bq + r < s]
+    assert len(rows) == len(set(rows)) == g * s
+    assert set(rows) == {(h, p) for h in range(g) for p in range(s)}
+    assert rows[0][1] == (s - 1) // 64 * 64
+
+
+@pytest.mark.parametrize("bh,kb", [(128, 64), (16, 8), (1, 1), (2, 66),
+                                   (32, 64), (200, 3), (5, 0), (1000, 300)])
+def test_golden_split_chunks(bh, kb):
+    """Every selected block in exactly one non-empty chunk, and at least
+    one CTA an SM whenever B * Hkv * kb >= 132."""
+    sms = 132                                        # an H100's SMs
+    c, nch = gattn_mod.split_chunks(bh, kb, sms)
+    chunks = [range(i * c, min(kb, (i + 1) * c)) for i in range(nch)]
+    assert sorted(j for ch in chunks for j in ch) == list(range(kb))
+    assert kb == 0 or all(len(ch) > 0 for ch in chunks)
+    if bh * kb >= sms:
+        assert bh * nch >= sms
+    if bh * kb <= gattn_mod.CTAS_PER_SM * sms:
+        assert c == 1

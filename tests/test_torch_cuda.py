@@ -14,7 +14,7 @@ selected sets are bit-equal.  Float data agrees to fp32 reduction
 order: 1e-5 relative on distances, 1e-5 absolute on means of O(1) rows.
 The attention kernels (8 and 9) agree with their plain versions to
 2e-5 in fp32 and 1e-2 (relative and absolute: one bf16 rounding of
-outputs of a few units) in bf16; the reduced model's logits on the card
+outputs of a few units, and kernel 9's bf16 weights P) in bf16; the reduced model's logits on the card
 agree with the CPU's to 1e-4.
 """
 import dataclasses
@@ -44,7 +44,7 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.golden_attention import (  # noqa: E402
-    golden_attention_decode, select_golden_blocks)
+    golden_attention_decode, select_golden_blocks, split_chunks)
 from repro_torch.launch import golden_decode as gd  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.module import tree_map  # noqa: E402
@@ -375,6 +375,32 @@ def test_flash_attention_matches_plain(card, b, hkv, g, s, dh, causal,
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+def test_flash_attention_bf16_prefill_shape(card):
+    """The tensor-core kernel at the full prefill's attention shape."""
+    q = randn((2, 8, 3, 4096, 128), card, torch.bfloat16, 20)
+    k = randn((2, 8, 4096, 128), card, torch.bfloat16, 21)
+    v = randn((2, 8, 4096, 128), card, torch.bfloat16, 22)
+    got = flash_attention(q, k, v, True)
+    want = ref.flash_attention_ref(q, k, v, True)
+    tol = ATT_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_routes_through_ops(card, dtype):
+    """Each route (fp32 on the CUDA cores, bf16 on the tensor cores)
+    through ``ops.flash_attention`` against the plain version."""
+    q = randn((1, 4, 5, 256, 64), card, dtype, 23)
+    k = randn((1, 4, 256, 64), card, dtype, 24)
+    v = randn((1, 4, 256, 64), card, dtype, 25)
+    before = flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=True)
+    assert flash_attention.launches == before + 1
+    want = ref.flash_attention_ref(q, k, v, True)
+    tol = ATT_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
 def golden_case(card, b, hkv, g, dh, s, bs, kb, dtype, q_dtype=None):
     q = randn((b, hkv, g, dh), card, q_dtype or dtype, 3)
     k = randn((b, hkv, s, dh), card, dtype, 4)
@@ -401,6 +427,42 @@ def test_golden_attention_matches_plain(card, b, hkv, g, dh, s, bs, kb,
     assert got.dtype == dtype and not got[-1, -1].any()
     tol = ATT_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_golden_attention_split_chunks(card, dtype):
+    """decode_32k-like split (B * Hkv * kb large enough for several
+    blocks a CTA, kb not a multiple of the chunk): a (b, h) whose valid
+    blocks all sit in one chunk, one with none (gives 0), clamped
+    indices on both sides."""
+    b, hkv, g, dh, s, bs, kb = 4, 8, 3, 128, 32768, 128, 64
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    c, nch = split_chunks(b * hkv, kb, sms)
+    assert c > 1 and kb % c
+    q, k, v, idx, valid = golden_case(card, b, hkv, g, dh, s, bs, kb, dtype)
+    idx[0, 1, 0] = -2                              # clamped to block 0
+    valid[0, 1, 0] = 1
+    valid[1, 2] = 0
+    valid[1, 2, c:2 * c] = 1                       # only chunk 1 counts
+    got = golden_attention_decode(q, k, v, idx, valid, bs)
+    want = ref.golden_attention_decode_ref(q, k, v, idx, valid, bs)
+    assert not got[-1, -1].any()
+    tol = ATT_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_attention_kernels_are_deterministic(card):
+    """Two calls of each kernel give bit-equal outputs (the split's
+    merge runs in a fixed order)."""
+    q = randn((2, 8, 3, 1024, 128), card, torch.bfloat16, 26)
+    k = randn((2, 8, 1024, 128), card, torch.bfloat16, 27)
+    assert torch.equal(flash_attention(q, k, k, True),
+                       flash_attention(q, k, k, True))
+    args = golden_case(card, 16, 8, 3, 128, 8192, 128, 64, torch.bfloat16)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert split_chunks(16 * 8, 64, sms)[1] > 1
+    assert torch.equal(golden_attention_decode(*args, 128),
+                       golden_attention_decode(*args, 128))
 
 
 def test_golden_attention_fp32_query_over_bf16_cache(card):
@@ -440,7 +502,7 @@ def test_attention_kernel_faults_raise(card, tmp_path, monkeypatch):
                      flash_mod._ARGS)
     out = torch.empty_like(q)
     err = fn(_build.ptr(q), _build.ptr(k), _build.ptr(k), _build.ptr(out),
-             1, 1, 64, 48, 64, 4, 1, 0, 1.0, _build.stream(card))
+             1, 1, 64, 48, 64, 4, 1, 1.0, _build.stream(card))
     with pytest.raises(RuntimeError, match="CUDA error"):
         _build.check("flash_attention", err)
     # a build that fails raises, and no library is loaded

@@ -175,3 +175,34 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tagg_mod.golden_aggregate(q, x, 0.5, torch.zeros(5))
     assert tpdist_mod.pdist.launches == before
+
+
+def test_build_report_instances():
+    """``_build.instances`` reads each kernel instance's registers,
+    static shared memory and spills out of an ``-Xptxas -v`` report, its
+    template arguments written out."""
+    from repro_torch.kernels import _build
+    report = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN56_GLOBAL__N__1_x_cu"
+        "_17flash_sm90_kernelILi3ELi128EEEv14CUtensorMap_stS1_' for "
+        "'sm_90a'",
+        "ptxas info    : Function properties for _ZN56_GLOBAL__N_x",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 128 registers, used 16 barriers",
+        "ptxas info    : Compiling entry function '_ZN56_GLOBAL__N__1_x_cu"
+        "_11gattn_splitILi64ELi4ELb1EEEvPKv' for 'sm_90a'",
+        "    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 147 registers, used 1 barriers, 4352 bytes "
+        "smem",
+        "ptxas info    : Compiling entry function '_ZN56_GLOBAL__N__1_x_cu"
+        "_11gattn_mergeEPKfPviiii' for 'sm_90a'",
+        "ptxas info    : Used 32 registers, used 0 barriers"])
+    assert _build.instances(report, "flash_sm90_kernel") == [
+        ("flash_sm90_kernel<3,128>", 128, "0 bytes static smem",
+         "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads")]
+    got = _build.instances(report, "gattn_")
+    assert [(n, r, m) for n, r, m, _ in got] == [
+        ("gattn_split<64,4,1>", 147, "4352 bytes static smem"),
+        ("gattn_merge", 32, "0 bytes static smem")]
+    assert got[0][3].startswith("8 bytes stack frame, 4 bytes spill")
+    assert got[1][3] == ""

@@ -14,12 +14,16 @@ Phases:
      each with one generator (bit-equal), the CSR layout validated and
      saved and loaded back;
   4. kernel checks at the main path's shapes (B=16, m=12500, k=5000;
-     the two top-m kernels also at m=5000; the centroid scan at both
-     index shapes): each kernel against its plain PyTorch version,
+     the two top-m kernels also at m=5000, and on integer data at m=2049,
+     one past their sort chunk, and m=20000, four merge rounds; the
+     centroid scan at both index shapes): each kernel against its plain
+     PyTorch version,
      bit-equal on integer-valued data (distances and the selected sets,
      in order), within 1e-5 relative (distances) / 1e-4 absolute (means)
      on the float store, timed with CUDA events against its bound, its
      plain version and, where one exists, one PyTorch library call;
+     the two top-m kernels' device time split into the select passes,
+     the chunk sort, the merge rounds and the rest ([time] ... split);
   5. policy: the fused-vs-staged step sweep over m/N that sets the
      engine's "cuda" crossover, the streamed-vs-materialized screen's
      time and peak memory at B=16 and B=256 that set its byte budget,
@@ -76,6 +80,14 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12       # H100 SXM data sheet, fp32 outside the tensor cores
 B, N, DP, D, M, K = 16, 50000, 192, 3072, 12500, 5000
 M_LOW = 5000                   # the smallest m_t of the 10-step schedule
+# integer checks of the top-m kernels: the path's m_t, one past the
+# sort's 2048-key chunk (its m + 2048 = 4097 slots: two chunks and one
+# more), and above 16384 (22048 slots: 11 chunks, four merge rounds)
+M_CHECKS = (M, M_LOW, 2049, 20000)
+# the top-m kernels' launches by part, for [time] ... split and [profile]
+TOPM_PARTS = {"select passes": ("radix_pass", "select_all"),
+              "chunk sort": ("sort_chunks",), "merge rounds": ("merge_round",)}
+TOPM_ENTRIES = ("radix_pass", "select_all", "sort_chunks", "merge_round")
 SWEEP = (0.05, 0.10, 0.25, 0.50)   # m/N of the fused-vs-staged sweep
 STEPS = 10
 DIST_RTOL, MEAN_ATOL, TRAJ_TOL = 1e-5, 1e-4, 1e-3
@@ -179,8 +191,9 @@ def short(name: str) -> str:
 def profile_line(label: str, wall: float, fn) -> float:
     """Profile one call of ``fn`` and print its device busy time, its idle
     share against ``wall`` (the unprofiled wall in ms of the same call:
-    the profiler's own host work widens the gaps) and its top kernels.
-    Returns the idle share."""
+    the profiler's own host work widens the gaps), its top kernels and
+    the device time of the top-m kernels' parts (TOPM_PARTS).  Returns
+    the idle share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -200,8 +213,67 @@ def profile_line(label: str, wall: float, fn) -> float:
           f"{idle:.3f} of the unprofiled wall ({1 - busy / wall_on:.3f} with "
           f"the profiler on); top kernels: " + "; ".join(
               f"{short(e.key)} x{e.count} {e.self_device_time_total / 1e3:.3f}"
-              f" ms" for e in kern[:6]))
+              f" ms" for e in kern[:6]) + "; top-m parts: " + ", ".join(
+              f"{part} {part_ms(kern, frags):.3f} ms"
+              for part, frags in TOPM_PARTS.items()))
     return idle
+
+
+def part_ms(kern, frags) -> float:
+    """Device ms of the profiled kernels whose names hold a fragment."""
+    return sum(e.self_device_time_total for e in kern
+               if any(f in e.key for f in frags)) / 1e3
+
+
+def device_split(fn, groups: dict, iters: int = 10):
+    """Device ms per call of ``fn`` by kernel group, from the profiler
+    over ``iters`` calls, each after an L2 flush (as ``time_ms``): each
+    kernel's time goes to the first group one of whose name fragments its
+    name holds, else to "rest".  The flush's own kernels are left out.
+    Also returns the device us of each launch of one more such call, in
+    launch order."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
+
+    def launches(run):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        return sorted(ev, key=lambda e: e.time_range.start)
+
+    skip = {e.name for e in launches(flush.zero_)}
+    fn()
+
+    def calls():
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+
+    out = dict.fromkeys([*groups, "rest"], 0.0)
+    for e in launches(calls):
+        if e.name in skip:
+            continue
+        g = next((g for g, frags in groups.items()
+                  if any(f in e.name for f in frags)), "rest")
+        out[g] += e.time_range.elapsed_us() / 1e3 / iters
+    flush.zero_()
+    one = [(short(e.name).split("(")[0].split("<")[0].strip(),
+            e.time_range.elapsed_us())
+           for e in launches(fn) if e.name not in skip]
+    return out, one
+
+
+def split_line(label: str, kernel_ms: float, fn) -> None:
+    """Print a top-m kernel's device time by part (TOPM_PARTS) and the
+    device time of each launch of one call."""
+    split, one = device_split(fn, TOPM_PARTS)
+    print(f"[time] {label} split (profiler, L2 flushed): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
+          + f"; sum {sum(split.values()):.4f} ms against the kernel's "
+          f"{kernel_ms:.4f} ms (CUDA events); one call's launches (us): "
+          + ", ".join(f"{n} {us:.1f}" for n, us in one))
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -509,18 +581,22 @@ def main() -> None:
     log = _build.build(names)
     print(f"[build] {len(names)} sources in {time.perf_counter() - t0:.1f}s "
           f"(one nvcc each, in parallel) into {_build.BUILD_DIR}")
+    by_instance = {"flash_attention_sm90": ("flash_sm90_kernel",),
+                   "golden_attention": ("gattn_",),
+                   "screen_topm": TOPM_ENTRIES + ("compact_pass",),
+                   "fused_candidates": TOPM_ENTRIES + ("fused_pass",)}
     for name in names:
-        if name in ("flash_attention_sm90", "golden_attention"):
+        if name in by_instance:
             continue                       # by instance, below
         for line in log.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
-    for name, entry in (("flash_attention_sm90", "flash_sm90_kernel"),
-                        ("golden_attention", "gattn_")):
-        for inst, regs, smem, spill in _build.instances(log.get(name, ""),
-                                                        entry):
-            print(f"[build] {name} {inst}: {regs} registers, {smem} "
-                  f"{spill}")
+    for name, entries in by_instance.items():
+        for entry in entries:
+            for inst, regs, smem, spill in _build.instances(
+                    log.get(name, ""), entry):
+                print(f"[build] {name} {inst}: {regs} registers, {smem} "
+                      f"{spill}")
     smem9 = _build.load("flash_attention_sm90", "flash_attention_sm90_smem_"
                         "bytes", [ctypes.c_int] * 2, ctypes.c_size_t)
     print("[build] flash_attention_sm90 dynamic shared memory a CTA (W "
@@ -763,7 +839,7 @@ def main() -> None:
     # the schedule's m_t.
     xin_inf = xin.clone()
     xin_inf[7] = float("inf")
-    for m in (M, M_LOW):
+    for m in M_CHECKS:
         gk = screen_topm(qi, xi, m, qin, xin_inf)
         gr = screen_topm_scan(qi, xi, m, qin, xin_inf)
         check(torch.equal(gk[0], gr[0]) and torch.equal(gk[1], gr[1]),
@@ -789,11 +865,14 @@ def main() -> None:
                                                    alpha=-2.0), m,
                                        largest=False)))
         print(f"[check] screen_topm m={m}: integer bit-equal (sets, order, "
-              f"+inf slots); float max abs {float((gv - wv).abs().max()):.3g}"
+              f"+inf slots; also at m={M_CHECKS[2:]}); float max abs "
+              f"{float((gv - wv).abs().max()):.3g}"
               f", max rel {rel:.3g}, own-row rel {own:.3g}, overlap "
               f"{overlap(gi, wi):.6f} (exact order {torch.equal(gi, wi)}); "
               f"kernel {sc_times[m][0]:.4f} ms, plain {sc_times[m][1]:.4f} "
               f"ms, library {sc_times[m][2]:.4f} ms")
+        split_line(f"screen_topm m={m}", sc_times[m][0], lambda: screen_topm(
+            qp, st.proxy, m, qpn, st.proxy_norms))
         if m == M:
             results["screen_topm"] = dict(max_abs_err=float(
                 (gv - wv).abs().max()))
@@ -809,7 +888,7 @@ def main() -> None:
     qfi, xfi = ints((B, D), 21), ints((N, D), 22)
     xfin = (xfi * xfi).sum(-1)
     xfin[11] = float("inf")
-    for m in (M, M_LOW):
+    for m in M_CHECKS:
         gk = fused_candidates(qi, qfi, xi, xfi, m, xin_inf, xfin)
         gr = fused_candidates_scan(qi, qfi, xi, xfi, m, xin_inf, xfin)
         check(torch.equal(gk[0], gr[0]) and torch.equal(gk[1], gr[1]),
@@ -839,12 +918,16 @@ def main() -> None:
         same = gi == wi
         err = float((gv - wv)[same].abs().max())
         print(f"[check] fused_candidates m={m}: integer bit-equal (sets, "
-              f"order, exact distances, +inf slots), candidates = the "
+              f"order, exact distances, +inf slots; also at m="
+              f"{M_CHECKS[2:]}), candidates = the "
               f"screen's; float exact-d2 max abs {err:.3g} on equal slots, "
               f"own-row rel {own:.3g}, proxy overlap {overlap(gi, wi):.6f} "
               f"(exact order {bool(same.all())}), posterior mean max abs "
               f"{mean_err:.3g}; kernel {fu_times[m][0]:.4f} ms, plain "
               f"{fu_times[m][1]:.4f} ms")
+        split_line(f"fused_candidates m={m}", fu_times[m][0],
+                   lambda: fused_candidates(qp, q, st.proxy, st.X, m,
+                                            st.proxy_norms, st.x_norms))
         if m == M:
             results["fused_candidates"] = dict(max_abs_err=max(err,
                                                                mean_err))

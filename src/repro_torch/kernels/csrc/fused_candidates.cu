@@ -20,8 +20,10 @@
 // from HBM once for 16 queries, 4x4 register tiles, the next 32-column
 // slab prefetched into registers), recomputes the proxy keys
 // bit-identically, and writes (proxy key, exact d2) for the selected
-// pairs.  A per-query bitonic sort by proxy key then gives the order.
-// No [B, N] buffer and no [B, m, D] gather exist; live memory is O(B m).
+// pairs (at most m + 2048 a query).  The shared sort (chunks, then merge
+// rounds) orders them by proxy key, carrying the exact d2, and keeps the
+// first m.  No [B, N] buffer and no [B, m, D] gather exist; live memory
+// is O(B m).
 #include "topm_select.cuh"
 
 namespace {
@@ -30,11 +32,11 @@ using namespace topm;
 
 template <bool PVEC, bool XVEC>
 __global__ void __launch_bounds__(THREADS)
-fused_pass(const float* __restrict__ qpT, const float* __restrict__ proxy,
+fused_pass(const float* __restrict__ qp, const float* __restrict__ proxy,
            const float* __restrict__ qpn, const float* __restrict__ pn,
-           const float* __restrict__ qT, const float* __restrict__ x,
+           const float* __restrict__ q, const float* __restrict__ x,
            const float* __restrict__ qn, const float* __restrict__ xn, int B,
-           int N, int dp, int D, int Bp, const State* __restrict__ st,
+           int N, int dp, int D, const State* __restrict__ st,
            int* __restrict__ cnt, u64* __restrict__ keys,
            float* __restrict__ pays, int L) {
   __shared__ TileSmem sm;
@@ -42,7 +44,7 @@ fused_pass(const float* __restrict__ qpT, const float* __restrict__ proxy,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float acc[QPT][RPT];
   float ex[QPT][RPT];
-  tile_dot<XVEC>(qT, x, N, D, Bp, q0, row0, acc, sm);     // exact, full D
+  tile_dot<XVEC>(q, x, N, D, B, q0, row0, acc, sm, threadIdx.x, 0);  // exact
 #pragma unroll
   for (int i = 0; i < QPT; ++i) {
     const int b = q0 + 4 * warp + i;
@@ -53,7 +55,8 @@ fused_pass(const float* __restrict__ qpT, const float* __restrict__ proxy,
       ex[i][r] = row < N ? clamped_d2(qnb, xn[row], acc[i][r]) : 0.f;
     }
   }
-  tile_dot<PVEC>(qpT, proxy, N, dp, Bp, q0, row0, acc, sm);  // proxy keys
+  tile_dot<PVEC>(qp, proxy, N, dp, B, q0, row0, acc, sm, threadIdx.x,
+                 0);                                          // proxy keys
   bool sel[QPT][RPT];
   u64 key[QPT][RPT];
 #pragma unroll
@@ -77,58 +80,58 @@ fused_pass(const float* __restrict__ qpT, const float* __restrict__ proxy,
 }
 
 template <bool PVEC, bool XVEC>
-void fused(const float* qp, const float* proxy, const float* qpn,
-           const float* pn, const float* q, const float* x, const float* qn,
-           const float* xn, int B, int N, int dp, int D, int m, float* qpT,
-           float* qT, State* st, int* hist, int* cnt, u64* keys, float* pays,
-           int L, cudaStream_t s) {
-  select_phase<PVEC>(qp, proxy, qpn, pn, B, N, dp, m, qpT, st, hist, s);
-  const int Bp = (B + BQ - 1) / BQ * BQ;
-  const int64_t nq = (int64_t)D * Bp;
-  transpose_queries<<<(unsigned)((nq + 255) / 256), 256, 0, s>>>(q, qT, B, D,
-                                                                  Bp);
+cudaError_t fused(const float* qp, const float* proxy, const float* qpn,
+                  const float* pn, const float* q, const float* x,
+                  const float* qn, const float* xn, int B, int N, int dp,
+                  int D, int m, int cap, const int* passes, int npasses,
+                  State* st, int* work, u64* keys, float* pays,
+                  cudaStream_t s) {
+  cudaError_t err = select_phase<PVEC>(qp, proxy, qpn, pn, B, N, dp, m, cap,
+                                       passes, npasses, st, work + B, s);
+  if (err != cudaSuccess) return err;
   fused_pass<PVEC, XVEC>
-      <<<dim3((N + BN - 1) / BN, Bp / BQ), THREADS, 0, s>>>(
-          qpT, proxy, qpn, pn, qT, x, qn, xn, B, N, dp, D, Bp, st, cnt, keys,
-          pays, L);
+      <<<dim3((N + BN - 1) / BN, (B + BQ - 1) / BQ), THREADS, 0, s>>>(
+          qp, proxy, qpn, pn, q, x, qn, xn, B, N, dp, D, st, work, keys,
+          pays, cap);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Scratch, all from the caller: qpT [dp * Bp] and qT [D * Bp] fp32 with
-// Bp = ceil(B/16)*16, st [B] State (24 bytes each), hist [MAX_PASSES * B
-// * 256] int32, cnt [B] int32, keys [B * L] uint64 and pays [B * L] fp32
-// with L the power of two >= min(m, N).  The entry point clears hist,
-// cnt and keys itself.  pvec / xvec: dp / D % 4 == 0 and 16-byte
-// aligned proxy / store.
+// Scratch, all from the caller: st [B] State (24 bytes each), work
+// [B + npasses * (ceil(B/16) + B * 2112)] int32 (counters, tickets,
+// histograms; the entry point clears it), keys [2 * B * cap] uint64 and
+// pays [2 * B * cap] fp32.  cap / passes / npasses / chunk: the host's
+// plan, as for screen_topm_launch.  pvec / xvec: dp / D % 4 == 0 and
+// 16-byte aligned proxy / store.
 RT_EXPORT int fused_candidates_launch(
     const float* qp, const float* proxy, const float* qpn, const float* pn,
     const float* q, const float* x, const float* qn, const float* xn, int B,
-    int N, int dp, int D, int m, int pvec, int xvec, float* qpT, float* qT,
-    void* st, int* hist, int* cnt, void* keys, float* pays, int L,
-    int64_t* idx_out, float* d2_out, void* stream) {
+    int N, int dp, int D, int m, int pvec, int xvec, int cap,
+    const int* passes, int npasses, int chunk, void* st, int* work,
+    void* keys, float* pays, int64_t* idx_out, float* d2_out, void* stream) {
   if (B <= 0 || m <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   u64* k = static_cast<u64*>(keys);
   State* state = static_cast<State*>(st);
-  cudaMemsetAsync(hist, 0, sizeof(int) * (size_t)MAX_PASSES * B * 256, s);
-  cudaMemsetAsync(cnt, 0, sizeof(int) * (size_t)B, s);
-  cudaMemsetAsync(k, 0xff, sizeof(u64) * (size_t)B * L, s);
+  cudaMemsetAsync(work, 0, sizeof(int) * (size_t)work_ints(B, npasses), s);
+  cudaError_t err;
   if (pvec && xvec)
-    fused<true, true>(qp, proxy, qpn, pn, q, x, qn, xn, B, N, dp, D, m, qpT,
-                      qT, state, hist, cnt, k, pays, L, s);
+    err = fused<true, true>(qp, proxy, qpn, pn, q, x, qn, xn, B, N, dp, D, m,
+                            cap, passes, npasses, state, work, k, pays, s);
   else if (pvec)
-    fused<true, false>(qp, proxy, qpn, pn, q, x, qn, xn, B, N, dp, D, m, qpT,
-                       qT, state, hist, cnt, k, pays, L, s);
+    err = fused<true, false>(qp, proxy, qpn, pn, q, x, qn, xn, B, N, dp, D,
+                             m, cap, passes, npasses, state, work, k, pays,
+                             s);
   else if (xvec)
-    fused<false, true>(qp, proxy, qpn, pn, q, x, qn, xn, B, N, dp, D, m, qpT,
-                       qT, state, hist, cnt, k, pays, L, s);
+    err = fused<false, true>(qp, proxy, qpn, pn, q, x, qn, xn, B, N, dp, D,
+                             m, cap, passes, npasses, state, work, k, pays,
+                             s);
   else
-    fused<false, false>(qp, proxy, qpn, pn, q, x, qn, xn, B, N, dp, D, m,
-                        qpT, qT, state, hist, cnt, k, pays, L, s);
-  cudaError_t err = sort_keys<true>(k, pays, B, L, s);
+    err = fused<false, false>(qp, proxy, qpn, pn, q, x, qn, xn, B, N, dp, D,
+                              m, cap, passes, npasses, state, work, k, pays,
+                              s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  emit<true><<<dim3((m + 255) / 256, B), 256, 0, s>>>(k, pays, L, m, idx_out,
-                                                      d2_out);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      sort_emit<true>(k, pays, work, B, cap, chunk, m, idx_out, d2_out, s));
 }

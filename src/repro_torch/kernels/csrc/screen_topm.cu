@@ -13,11 +13,13 @@
 // 38.4 MB and the outputs 1.6 MB (m=12500), about 12 us at 3.35 TB/s,
 // against 0.31 GFLOP (5 us of fp32 FMA work).
 // Design: see topm_select.cuh.  The radix select reads the proxy store
-// once per pass (4 to 6 passes at N=50000, fewer when every query's
-// m-th key is isolated early), so this first kernel reads several times
-// the bound's bytes, most of them from L2 (the proxy store fits in the
-// 50 MB L2); then one compaction pass, a per-query bitonic sort of the
-// m selected keys, and the emit.  Live memory is O(B (m + 256 passes)).
+// once per pass (11-bit digits; a query stops as soon as at most
+// m + 2048 keys lie at or below its bin: two passes on float data, and
+// none when m + 2048 >= N), most of it from L2 (the proxy store fits in
+// the 50 MB L2); then one compaction pass, a sort of the at most m + 2048
+// selected keys spread over B * ceil((m + 2048) / 2048) CTAs, and merge
+// rounds whose last writes the first m.  Live memory is
+// O(B (m + 2112 bins a pass)).
 #include "topm_select.cuh"
 
 namespace {
@@ -26,14 +28,14 @@ using namespace topm;
 
 template <bool VEC>
 __global__ void __launch_bounds__(THREADS)
-compact_pass(const float* __restrict__ qT, const float* __restrict__ x,
+compact_pass(const float* __restrict__ q, const float* __restrict__ x,
              const float* __restrict__ qn, const float* __restrict__ xn,
-             int B, int N, int d, int Bp, const State* __restrict__ st,
+             int B, int N, int d, const State* __restrict__ st,
              int* __restrict__ cnt, u64* __restrict__ keys, int L) {
   __shared__ TileSmem sm;
   const int q0 = blockIdx.y * BQ, row0 = blockIdx.x * BN;
   float acc[QPT][RPT];
-  tile_dot<VEC>(qT, x, N, d, Bp, q0, row0, acc, sm);
+  tile_dot<VEC>(q, x, N, d, B, q0, row0, acc, sm, threadIdx.x, 0);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   bool sel[QPT][RPT];
   u64 key[QPT][RPT];
@@ -60,41 +62,45 @@ compact_pass(const float* __restrict__ qT, const float* __restrict__ x,
 }
 
 template <bool VEC>
-void screen(const float* q, const float* x, const float* qn, const float* xn,
-            int B, int N, int d, int m, float* qT, State* st, int* hist,
-            int* cnt, u64* keys, int L, cudaStream_t s) {
-  select_phase<VEC>(q, x, qn, xn, B, N, d, m, qT, st, hist, s);
-  const int Bp = (B + BQ - 1) / BQ * BQ;
-  compact_pass<VEC><<<dim3((N + BN - 1) / BN, Bp / BQ), THREADS, 0, s>>>(
-      qT, x, qn, xn, B, N, d, Bp, st, cnt, keys, L);
+cudaError_t screen(const float* q, const float* x, const float* qn,
+                   const float* xn, int B, int N, int d, int m, int cap,
+                   const int* passes, int npasses, State* st, int* work,
+                   u64* keys, cudaStream_t s) {
+  cudaError_t err = select_phase<VEC>(q, x, qn, xn, B, N, d, m, cap, passes,
+                                      npasses, st, work + B, s);
+  if (err != cudaSuccess) return err;
+  compact_pass<VEC><<<dim3((N + BN - 1) / BN, (B + BQ - 1) / BQ), THREADS,
+                       0, s>>>(q, x, qn, xn, B, N, d, st, work, keys, cap);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Scratch, all from the caller: qT [d * ceil(B/16)*16] fp32, st [B]
-// State (24 bytes each), hist [MAX_PASSES * B * 256] int32, cnt [B]
-// int32, keys [B * L] uint64 with L the power of two >= min(m, N).  The
-// entry point clears hist, cnt and keys itself.
+// Scratch, all from the caller: st [B] State (24 bytes each), work
+// [B + npasses * (ceil(B/16) + B * 2112)] int32 (counters, tickets,
+// histograms; the entry point clears it), keys [2 * B * cap] uint64.
+// The host's plan: cap, the keys a query may select (screen.select_cap:
+// min(m + 2048, N)); passes, npasses (shift, width) pairs in host memory (none
+// when cap >= N); chunk, the sort's chunk (screen.radix_plan,
+// screen.sort_plan).
 RT_EXPORT int screen_topm_launch(const float* q, const float* x,
                                  const float* qn, const float* xn, int B,
-                                 int N, int d, int m, int vec, float* qT,
-                                 void* st, int* hist, int* cnt, void* keys,
-                                 int L, int64_t* idx_out, float* d2_out,
+                                 int N, int d, int m, int vec, int cap,
+                                 const int* passes, int npasses, int chunk,
+                                 void* st, int* work, void* keys,
+                                 int64_t* idx_out, float* d2_out,
                                  void* stream) {
   if (B <= 0 || m <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   u64* k = static_cast<u64*>(keys);
   State* state = static_cast<State*>(st);
-  cudaMemsetAsync(hist, 0, sizeof(int) * (size_t)MAX_PASSES * B * 256, s);
-  cudaMemsetAsync(cnt, 0, sizeof(int) * (size_t)B, s);
-  cudaMemsetAsync(k, 0xff, sizeof(u64) * (size_t)B * L, s);
-  if (vec)
-    screen<true>(q, x, qn, xn, B, N, d, m, qT, state, hist, cnt, k, L, s);
-  else
-    screen<false>(q, x, qn, xn, B, N, d, m, qT, state, hist, cnt, k, L, s);
-  cudaError_t err = sort_keys<false>(k, nullptr, B, L, s);
+  cudaMemsetAsync(work, 0, sizeof(int) * (size_t)work_ints(B, npasses), s);
+  cudaError_t err =
+      vec ? screen<true>(q, x, qn, xn, B, N, d, m, cap, passes, npasses,
+                         state, work, k, s)
+          : screen<false>(q, x, qn, xn, B, N, d, m, cap, passes, npasses,
+                          state, work, k, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  emit<false><<<dim3((m + 255) / 256, B), 256, 0, s>>>(k, nullptr, L, m,
-                                                       idx_out, d2_out);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(sort_emit<false>(k, nullptr, work, B, cap, chunk,
+                                           m, idx_out, d2_out, s));
 }

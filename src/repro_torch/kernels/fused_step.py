@@ -14,10 +14,11 @@ re-ranks last and gets no weight.
 * :func:`fused_candidates` -- hand-written CUDA kernel
   (``csrc/fused_candidates.cu``), replacing
   ``repro/kernels/fused_step.py:178`` (``fused_candidates_pallas``).  It
-  radix-selects the proxy top-m (passes over the 38 MB proxy store),
-  then reads the 614 MB store once for all queries of a block, computing
-  every row's exact distance and keeping those of the selected rows.
-  Bound by the store's bytes.
+  radix-selects the proxy top-m (passes over the 38 MB proxy store,
+  shared with ``screen_topm``), then reads the 614 MB store once for
+  all queries of a block, computing every row's exact distance and
+  keeping those of the selected rows, and sorts them by proxy key with
+  their exact distances.  Bound by the store's bytes.
 * :func:`fused_candidates_scan` -- its plain PyTorch version, the tiled
   carry loop of ``repro.kernels.fused_step.fused_candidates_scan``.
 * :func:`fused_posterior` -- the shared epilogue: exact top-k inside the
@@ -33,8 +34,7 @@ import torch
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.golden_support_aggregate import (
     golden_support_aggregate as _sagg)
-from repro_torch.kernels.screen import (merge_topm, padded_batch, scan_tiles,
-                                        scratch, tile_d2)
+from repro_torch.kernels.screen import merge_topm, scan_tiles, scratch, tile_d2
 
 NEG_INF = ref.NEG_INF
 DEFAULT_TILE = 4096        # the reference kernel's N-tile (VMEM block)
@@ -72,8 +72,8 @@ def fused_candidates_scan(qp: torch.Tensor, q: torch.Tensor,
     return torch.clamp_max(idx, max(n - 1, 0)), ex
 
 
-_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 7
-         + [ctypes.c_int] + [ctypes.c_void_p] * 3)
+_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+         + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7)
 
 
 def fused_candidates(qp: torch.Tensor, q: torch.Tensor, proxy: torch.Tensor,
@@ -98,10 +98,7 @@ def fused_candidates(qp: torch.Tensor, q: torch.Tensor, proxy: torch.Tensor,
         raise ValueError(f"{name}: needs N >= 1 and m >= 1, got N={n}, m={m}")
     dev = q.device
     s = scratch(b, n, m, dev)
-    bp = padded_batch(b)
-    qpT = torch.empty(dp * bp, dtype=torch.float32, device=dev)
-    qT = torch.empty(d * bp, dtype=torch.float32, device=dev)
-    pays = torch.empty(b * s["length"], dtype=torch.float32, device=dev)
+    pays = torch.empty(s["keys"].numel(), dtype=torch.float32, device=dev)
     qpn, qn = (qp * qp).sum(-1), (q * q).sum(-1)
     idx = torch.empty((b, m), dtype=torch.int64, device=dev)
     d2 = torch.empty((b, m), dtype=torch.float32, device=dev)
@@ -111,9 +108,9 @@ def fused_candidates(qp: torch.Tensor, q: torch.Tensor, proxy: torch.Tensor,
     err = fn(_build.ptr(qp), _build.ptr(proxy), _build.ptr(qpn),
              _build.ptr(proxy_norms), _build.ptr(q), _build.ptr(x),
              _build.ptr(qn), _build.ptr(x_norms), b, n, dp, d, m, pvec, xvec,
-             _build.ptr(qpT), _build.ptr(qT), _build.ptr(s["st"]),
-             _build.ptr(s["hist"]), _build.ptr(s["cnt"]),
-             _build.ptr(s["keys"]), _build.ptr(pays), s["length"],
+             s["cap"], s["passes"], s["npasses"], s["chunk"],
+             _build.ptr(s["st"]), _build.ptr(s["work"]),
+             _build.ptr(s["keys"]), _build.ptr(pays),
              _build.ptr(idx), _build.ptr(d2), _build.stream(dev))
     _build.check(name, err)
     fused_candidates.launches += 1

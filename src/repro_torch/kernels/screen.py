@@ -14,9 +14,12 @@ index 0 (the reference kernel's carry-first merge and clamp).
   (``screen_topm_pallas``).  The TPU kernel carries a [bq, m] top-m in
   VMEM across its sequential grid; Hopper's blocks run in parallel and
   that carry does not fit their shared memory, so the kernel radix-
-  selects the m-th 64-bit key ``(bits(d2) << 32) | index`` in a few
-  passes over the proxy store, compacts the m keys below it and sorts
-  them per query.  Bound by the bytes of the store it reads.
+  selects the m-th 64-bit key ``(bits(d2) << 32) | index`` in passes of
+  11-bit digits over the proxy store (:func:`radix_plan`), stopping as
+  soon as at most :func:`select_cap` keys lie at or below the bin that
+  holds it; it compacts those keys, sorts them in chunks, merges the
+  chunks (:func:`sort_plan`) and keeps the first m.  Bound by the bytes
+  of the store it reads.
 * :func:`screen_topm_scan` -- its plain PyTorch version: the tiled
   carry loop of ``repro.kernels.screen.screen_topm_scan``, with a
   stable sort in place of ``lax.top_k``.
@@ -31,8 +34,16 @@ from repro_torch.kernels import _build
 
 DEFAULT_TILE = 4096     # the reference kernel's N-tile (VMEM block)
 SCAN_TILE = 16384       # the plain carry loop's N-tile
-MAX_PASSES = 8          # csrc/topm_select.cuh: radix passes at most
-STATE_BYTES = 24        # csrc/topm_select.cuh: sizeof(topm::State)
+# csrc/topm_select.cuh, which takes its plan from the functions below
+STATE_BYTES = 24        # sizeof(topm::State)
+RADIX_BITS = 11         # a digit's bits at most (2048 bins)
+HIST_INTS = 2048 + 64   # a query's histogram a pass: fine bins, coarse groups
+QUERY_GROUP = 16        # queries a radix block takes
+MAX_PASSES = 6          # 3 distance digits + up to 3 row digits
+SORT_CHUNK = 2048       # keys one CTA sorts in shared memory
+# Bit 63 of a key is the distance's sign bit, always 0 (d2 >= 0, -0.0
+# folded to +0.0), so three digits resolve the distance's 31 other bits.
+DIST_DIGITS = ((52, 11), (41, 11), (32, 9))
 
 
 def merge_topm(vals, idx, neg_tile, idx_tile, m: int, *extra):
@@ -89,26 +100,70 @@ def screen_topm_scan(q: torch.Tensor, x: torch.Tensor, m: int,
     return torch.clamp_max(idx, max(n - 1, 0)), -vals
 
 
-_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5
-         + [ctypes.c_int] + [ctypes.c_void_p] * 3)
+_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+         + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6)
+
+
+def select_cap(n: int, m: int) -> int:
+    """Keys a query may select on the way to its m nearest of n rows:
+    a radix pass reads the whole store, while sorting one more chunk of
+    keys costs far less, so the select stops once at most m + SORT_CHUNK
+    keys lie at or below the m-th key's bin (on float data, after the
+    second pass; a tie wider than the slack takes the row passes).  At
+    least m, at most n."""
+    return min(m + SORT_CHUNK, n)
+
+
+def radix_plan(n: int, m: int) -> tuple[tuple[int, int], ...]:
+    """``(shift, width)`` of each radix pass that selects m of n rows by
+    the key ``(bits(d2) << 32) | row``: the three distance digits, then
+    11-bit digits of the row index from its top bit down (only the bits
+    that n - 1 needs).  A query leaves the passes as soon as its cap is
+    met, so a row pass does work only when a tie spans more keys than
+    the slack.  None when the cap takes every row."""
+    if select_cap(n, m) >= n:
+        return ()
+    bits = (n - 1).bit_length()
+    top = RADIX_BITS * ((bits - 1) // RADIX_BITS) if bits else -1
+    return DIST_DIGITS + tuple((s, min(RADIX_BITS, bits - s))
+                               for s in range(top, -1, -RADIX_BITS))
+
+
+def sort_plan(s: int) -> tuple[int, int, int]:
+    """``(chunk, chunks, rounds)`` of the sort of a query's s = cap
+    slots: chunks of a power of two from 64 to SORT_CHUNK keys, each
+    sorted by one CTA, then ``ceil(log2(chunks))`` merge rounds."""
+    chunk = min(SORT_CHUNK, max(64, 1 << max(s - 1, 0).bit_length()))
+    chunks = -(-s // chunk)
+    return chunk, chunks, (chunks - 1).bit_length()
+
+
+def scratch_sizes(b: int, n: int, m: int) -> dict:
+    """Element counts of the select's scratch for B queries: ``state``
+    bytes, ``work`` int32 (per-query counters, then per pass a ticket per
+    query group and a histogram per query), ``keys`` uint64 (two halves
+    of ``cap`` slots a query, between which the sort's runs alternate;
+    the fused kernel's payloads take as many fp32)."""
+    passes = len(radix_plan(n, m))
+    groups = -(-b // QUERY_GROUP)
+    cap = select_cap(n, m)
+    return dict(state=b * STATE_BYTES,
+                work=b + passes * (groups + b * HIST_INTS),
+                keys=2 * b * cap, cap=cap)
 
 
 def scratch(b: int, n: int, m: int, device) -> dict:
-    """The select's scratch: per-query state, histograms, counters and
-    the [B, L] key buffer, L the power of two >= min(m, N)."""
-    sel = min(m, n)
-    length = 1 << max(sel - 1, 0).bit_length()
+    """The select's scratch, allocated, and the plan that sizes it:
+    ``passes`` (the flattened radix plan, a ctypes int array) and
+    ``chunk`` (the sort's)."""
+    z = scratch_sizes(b, n, m)
+    plan = [v for pair in radix_plan(n, m) for v in pair]
     return dict(
-        st=torch.empty(b * STATE_BYTES, dtype=torch.uint8, device=device),
-        hist=torch.empty(MAX_PASSES * b * 256, dtype=torch.int32,
-                         device=device),
-        cnt=torch.empty(b, dtype=torch.int32, device=device),
-        keys=torch.empty(b * length, dtype=torch.int64, device=device),
-        length=length)
-
-
-def padded_batch(b: int) -> int:
-    return -(-b // 16) * 16
+        st=torch.empty(z["state"], dtype=torch.uint8, device=device),
+        work=torch.empty(z["work"], dtype=torch.int32, device=device),
+        keys=torch.empty(z["keys"], dtype=torch.int64, device=device),
+        cap=z["cap"], passes=(ctypes.c_int * max(len(plan), 1))(*plan),
+        npasses=len(plan) // 2, chunk=sort_plan(z["cap"])[0])
 
 
 def screen_topm(q: torch.Tensor, x: torch.Tensor, m: int,
@@ -130,16 +185,14 @@ def screen_topm(q: torch.Tensor, x: torch.Tensor, m: int,
     if n < 1 or m < 1:
         raise ValueError(f"{name}: needs N >= 1 and m >= 1, got N={n}, m={m}")
     s = scratch(b, n, m, q.device)
-    qT = torch.empty(d * padded_batch(b), dtype=torch.float32,
-                     device=q.device)
     idx = torch.empty((b, m), dtype=torch.int64, device=q.device)
     d2 = torch.empty((b, m), dtype=torch.float32, device=q.device)
     vec = int(d % 4 == 0 and x.data_ptr() % 16 == 0)
     fn = _build.load(name, "screen_topm_launch", _ARGS)
     err = fn(_build.ptr(q), _build.ptr(x), _build.ptr(q_norms),
-             _build.ptr(x_norms), b, n, d, m, vec, _build.ptr(qT),
-             _build.ptr(s["st"]), _build.ptr(s["hist"]), _build.ptr(s["cnt"]),
-             _build.ptr(s["keys"]), s["length"], _build.ptr(idx),
+             _build.ptr(x_norms), b, n, d, m, vec, s["cap"], s["passes"],
+             s["npasses"], s["chunk"], _build.ptr(s["st"]),
+             _build.ptr(s["work"]), _build.ptr(s["keys"]), _build.ptr(idx),
              _build.ptr(d2), _build.stream(q.device))
     _build.check(name, err)
     screen_topm.launches += 1

@@ -162,8 +162,16 @@ def norms(a):
     (16, 5000, 192, 1250),
     (5, 333, 7, 40),           # d % 4 != 0: scalar loads
     (17, 300, 12, 400),        # B > 16, m > N
-    (3, 40000, 8, 20000),      # m > 16384: global bitonic merge steps
+    (3, 40000, 8, 20000),      # m > 16384: 11 sort chunks, 4 merge rounds
     (2, 1, 4, 3),              # a one-row store
+    # the sort takes cap = min(m + 2048, N) slots in chunks of 2048
+    (2, 2048, 8, 100),         # cap = one chunk: no pass, no merge round
+    (1, 10000, 16, 1),         # B = 1, cap = one chunk + 1
+    (1, 10000, 16, 2048),      # B = 1, cap = two chunks, m = one chunk
+    (1, 10000, 16, 2049),      # m = one chunk + 1: a ragged merge round
+    (33, 10000, 16, 6143),     # B = 33, cap = four chunks - 1
+    (2, 3000, 8, 5000),        # m > N above one chunk
+    (2, 200000, 8, 30000),     # several tiles per radix block
 ])
 def test_screen_topm_bit_equal_integer(card, b, n, d, m):
     q, x = ints((b, d), card, 10), ints((n, d), card, 11)
@@ -176,11 +184,15 @@ def test_screen_topm_bit_equal_integer(card, b, n, d, m):
     assert (gi[torch.isinf(gv)] == 0).all()
 
 
-def test_screen_topm_all_tied(card):
+@pytest.mark.parametrize("n,m", [(3000, 100), (6000, 2500), (3000, 1000)])
+def test_screen_topm_all_tied(card, n, m):
+    """Every distance equal: the lowest rows.  The row passes pick them
+    where m + 2048 < N (m = 2500 is above one sort chunk); at m + 2048
+    >= N every row is sorted."""
     q = torch.zeros(4, 8, device=card)
-    x = torch.ones(3000, 8, device=card)
-    gi, gv = screen_topm(q, x, 1000, norms(q), norms(x))
-    assert torch.equal(gi, torch.arange(1000, device=card).expand(4, -1))
+    x = torch.ones(n, 8, device=card)
+    gi, gv = screen_topm(q, x, m, norms(q), norms(x))
+    assert torch.equal(gi, torch.arange(m, device=card).expand(4, -1))
     assert (gv == 8).all()
 
 
@@ -203,7 +215,12 @@ def test_screen_topm_float(card):
     (16, 3000, 48, 768, 800),
     (5, 333, 7, 30, 40),        # dp, D % 4 != 0: scalar loads
     (17, 200, 12, 64, 300),     # B > 16, m > N
-    (2, 20000, 8, 16, 17000),   # m > 16384: global bitonic merge steps
+    (2, 20000, 8, 16, 17000),   # m > 16384: 10 sort chunks, 4 merge rounds
+    (2, 2048, 8, 16, 100),      # cap = one chunk: no pass, no merge round
+    (1, 6000, 16, 16, 2048),    # B = 1, m = one chunk (cap two)
+    (1, 6000, 16, 16, 2049),    # m = one chunk + 1
+    (33, 9000, 16, 32, 6143),   # B = 33, cap = four chunks - 1
+    (3, 2500, 8, 16, 4000),     # m > N above one chunk
 ])
 def test_fused_candidates_bit_equal_integer(card, b, n, dp, d, m):
     qp, q = ints((b, dp), card, 13), ints((b, d), card, 14)
@@ -216,6 +233,18 @@ def test_fused_candidates_bit_equal_integer(card, b, n, dp, d, m):
     assert torch.equal(gi, wi) and torch.equal(gv, wv)
     si, _ = screen_topm(qp, proxy, m, norms(qp), pn)
     assert torch.equal(gi, si)
+
+
+def test_fused_candidates_all_tied(card):
+    """Every proxy distance equal, m above one sort chunk and m + 2048 <
+    N (so the row passes run): the lowest rows in order, each with its
+    own exact distance."""
+    qp = torch.zeros(3, 8, device=card)
+    proxy = torch.ones(6000, 8, device=card)
+    q, x = ints((3, 16), card, 20), ints((6000, 16), card, 21)
+    gi, gv = fused_candidates(qp, q, proxy, x, 2500, norms(proxy), norms(x))
+    assert torch.equal(gi, torch.arange(2500, device=card).expand(3, -1))
+    assert torch.equal(gv, ref.support_sqdist_ref(q, x, norms(x), gi))
 
 
 def test_fused_step_float(card):

@@ -5,8 +5,8 @@ Phases:
   1. environment: the card, CUDA, nvcc and triton; TF32 off;
   2. build: the nine hand-written kernels from ``src/repro_torch/kernels/csrc``
      (ten sources: kernel 9 has a bf16 tensor-core source and an fp32
-     CUDA-core one), with each new kernel's registers, shared memory
-     and spills;
+     CUDA-core one), with the registers, shared memory and spills of
+     each instance of the redesigned kernels (2-3, 5-6, 8-9);
   3. scale: the cifar_like store, N=50000 rows of D=3072 (proxy dp=192),
      built once and shared by every phase, and the Golden Index's scale
      store, gmm N=65536 x 64 with 256 modes;
@@ -23,7 +23,11 @@ Phases:
      on the float store, timed with CUDA events against its bound, its
      plain version and, where one exists, one PyTorch library call;
      the two top-m kernels' device time split into the select passes,
-     the chunk sort, the merge rounds and the rest ([time] ... split);
+     the chunk sort, the merge rounds and the rest, and kernels 2 and
+     3's into the row map, the weights (3), the row pass and the gather
+     or merge ([time] ... split), their row passes' rate against a plain
+     read of the store, and both at B=1; kernel 3 called twice,
+     bit-equal;
   5. policy: the fused-vs-staged step sweep over m/N that sets the
      engine's "cuda" crossover, the streamed-vs-materialized screen's
      time and peak memory at B=16 and B=256 that set its byte budget,
@@ -88,6 +92,18 @@ M_CHECKS = (M, M_LOW, 2049, 20000)
 TOPM_PARTS = {"select passes": ("radix_pass", "select_all"),
               "chunk sort": ("sort_chunks",), "merge rounds": ("merge_round",)}
 TOPM_ENTRIES = ("radix_pass", "select_all", "sort_chunks", "merge_round")
+# kernels 2 and 3's launches by part (csrc/row_union.cuh and the two
+# sources), for [time] ... split, and both together for [profile]
+SQDIST_PARTS = {"row map": ("sqdist_mark", "union_count", "union_compact"),
+                "row pass": ("sqdist_dots",), "gather": ("sqdist_gather",)}
+SAGG_PARTS = {"row map": ("sagg_mark", "union_count", "union_compact"),
+              "weights": ("sagg_tally", "sagg_weigh"),
+              "row pass": ("sagg_rows",), "merge": ("sagg_merge",)}
+UNION_PARTS = {"row maps": ("sqdist_mark", "sagg_mark", "union_count",
+                            "union_compact"),
+               "weights": SAGG_PARTS["weights"],
+               "row passes": ("sqdist_dots", "sagg_rows"),
+               "gather and merge": ("sqdist_gather", "sagg_merge")}
 SWEEP = (0.05, 0.10, 0.25, 0.50)   # m/N of the fused-vs-staged sweep
 STEPS = 10
 DIST_RTOL, MEAN_ATOL, TRAJ_TOL = 1e-5, 1e-4, 1e-3
@@ -101,7 +117,8 @@ SCALE_PROBES = dict(f_lo=1 / 64, f_hi=1 / 32, safety=2.0)
 GMM_N, GMM_DIM, GMM_MODES, GMM_SPREAD, GMM_C = 65536, 64, 256, 0.10, 512
 T_BUCKETS = (900, 300, 100, 20)
 RECALL_MIN = 0.95
-SPIN_CYCLES = 1_000_000        # ~0.5 ms at the H100's clock (time_ms)
+SPIN_CYCLES = 4_000_000        # ~2 ms at the H100's clock (time_ms): more
+                               # than a GoldDiff step's host enqueue
 BF16_FLOPS_PER_S = 989e12      # H100 SXM data sheet, dense bf16 tensor cores
 # The reduced-LLM slice: the golden-decode entry point's cache (B=2,
 # S=4096, llama3.2-3b's 8 KV heads of G=3, dh=128) and two long-context
@@ -141,9 +158,10 @@ def time_ms(fn, iters: int = 10) -> float:
     """Mean device time of ``fn`` with CUDA events, after warm-up, with
     the 50 MB L2 cache flushed before each launch (the main path reaches
     every kernel after gigabytes of other traffic).  A spin kernel of
-    about half a millisecond after the flush lets the host enqueue all
-    of ``fn`` before the device reaches the start event, so a short
-    kernel's time is its own and not its wrapper's host overhead."""
+    about two milliseconds after the flush lets the host enqueue all of
+    ``fn`` before the device reaches the start event, so a call's time
+    is its own and not its wrapper's host overhead (a GoldDiff step
+    enqueues for up to about a millisecond)."""
     flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(2):
         fn()
@@ -192,8 +210,8 @@ def profile_line(label: str, wall: float, fn) -> float:
     """Profile one call of ``fn`` and print its device busy time, its idle
     share against ``wall`` (the unprofiled wall in ms of the same call:
     the profiler's own host work widens the gaps), its top kernels and
-    the device time of the top-m kernels' parts (TOPM_PARTS).  Returns
-    the idle share."""
+    the device time of the top-m kernels' parts (TOPM_PARTS) and of
+    kernels 2 and 3's (UNION_PARTS).  Returns the idle share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -215,7 +233,9 @@ def profile_line(label: str, wall: float, fn) -> float:
               f"{short(e.key)} x{e.count} {e.self_device_time_total / 1e3:.3f}"
               f" ms" for e in kern[:6]) + "; top-m parts: " + ", ".join(
               f"{part} {part_ms(kern, frags):.3f} ms"
-              for part, frags in TOPM_PARTS.items()))
+              for part, frags in TOPM_PARTS.items()) + "; union parts: "
+          + ", ".join(f"{part} {part_ms(kern, frags):.3f} ms"
+                      for part, frags in UNION_PARTS.items()))
     return idle
 
 
@@ -265,15 +285,18 @@ def device_split(fn, groups: dict, iters: int = 10):
     return out, one
 
 
-def split_line(label: str, kernel_ms: float, fn) -> None:
-    """Print a top-m kernel's device time by part (TOPM_PARTS) and the
-    device time of each launch of one call."""
-    split, one = device_split(fn, TOPM_PARTS)
+def split_line(label: str, kernel_ms: float, fn,
+               parts: dict = TOPM_PARTS) -> dict:
+    """Print a kernel's device time by part (TOPM_PARTS for the top-m
+    kernels) and the device time of each launch of one call; return the
+    parts' ms."""
+    split, one = device_split(fn, parts)
     print(f"[time] {label} split (profiler, L2 flushed): "
           + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
           + f"; sum {sum(split.values()):.4f} ms against the kernel's "
           f"{kernel_ms:.4f} ms (CUDA events); one call's launches (us): "
           + ", ".join(f"{n} {us:.1f}" for n, us in one))
+    return split
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -584,6 +607,8 @@ def main() -> None:
     by_instance = {"flash_attention_sm90": ("flash_sm90_kernel",),
                    "golden_attention": ("gattn_",),
                    "screen_topm": TOPM_ENTRIES + ("compact_pass",),
+                   "support_sqdist": ("sqdist_", "union_"),
+                   "golden_support_aggregate": ("sagg_", "union_"),
                    "fused_candidates": TOPM_ENTRIES + ("fused_pass",)}
     for name in names:
         if name in by_instance:
@@ -743,10 +768,17 @@ def main() -> None:
     print(f"[check] support_sqdist: integer bit-equal, top-{K} sets equal; "
           f"float max abs {err:.3g}, max rel {rel:.3g}, golden overlap "
           f"{ov:.6f}; {u} distinct rows of {N}")
+    pass2 = split_line(f"support_sqdist m={M}",
+                       results["support_sqdist"]["ms"],
+                       lambda: support_sqdist(q, st.X, st.x_norms, cand_k),
+                       SQDIST_PARTS)["row pass"]
+    rows2 = u
 
     # kernel 3: golden_support_aggregate, rows loaded by index
     lg = torch.clamp_min(-gd2 / (2.0 * sig2), ref.NEG_INF)
     ak = golden_support_aggregate(st.X, gold_k, lg)
+    check(torch.equal(ak, golden_support_aggregate(st.X, gold_k, lg)),
+          "golden_support_aggregate: two calls differ")
     ar = ref.golden_support_aggregate_ref(st.X, gold_k, lg)
     err = float((ak - ar).abs().max())
     check(err <= MEAN_ATOL,
@@ -768,7 +800,31 @@ def main() -> None:
             st.X, gold_k, lg), iters=3),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
     print(f"[check] golden_support_aggregate: max abs {err:.3g}, all-NEG_INF "
-          f"row = uniform mean to {err_m:.3g}; {u} distinct rows of {N}")
+          f"row = uniform mean to {err_m:.3g}, two calls bit-equal; {u} "
+          f"distinct rows of {N}")
+    pass3 = split_line(f"golden_support_aggregate k={K}",
+                       results["golden_support_aggregate"]["ms"],
+                       lambda: golden_support_aggregate(st.X, gold_k, lg),
+                       SAGG_PARTS)["row pass"]
+    # the row passes against a plain read of the whole store (the rate
+    # this card reaches on one sequential pass), and both kernels at B=1,
+    # where no row is shared
+    read_ms = time_ms(lambda: st.X.sum(0))
+    read_rate = 4 * N * D / read_ms / 1e9
+    print(f"[time] row passes: kernel 2 {4 * rows2 * D / pass2 / 1e9:.3f} "
+          f"TB/s ({rows2} rows), kernel 3 {4 * u * D / pass3 / 1e9:.3f} TB/s "
+          f"({u} rows); a plain read of the store (X.sum(0), "
+          f"{4 * N * D / 1e6:.0f} MB) {read_ms:.4f} ms, {read_rate:.3f} TB/s")
+    q1, c1 = q[:1].contiguous(), cand_k[:1].contiguous()
+    g1, l1 = gold_k[:1].contiguous(), lg[:1].contiguous()
+    b2 = bound(4 * (M * D + M + D) + 12 * M, 2 * M * D)[0]
+    b3 = bound(4 * (K * D + D) + 12 * K, 2 * K * D)[0]
+    print(f"[time] B=1 (no row shared): support_sqdist m={M} "
+          f"{time_ms(lambda: support_sqdist(q1, st.X, st.x_norms, c1)):.4f} "
+          f"ms (bound {b2:.4f}), golden_support_aggregate k={K} "
+          f"{time_ms(lambda: golden_support_aggregate(st.X, g1, l1)):.4f} ms "
+          f"(bound {b3:.4f})")
+    del q1, c1, g1, l1
 
     # kernel 4: golden_aggregate (full-scan baseline)
     fk = golden_aggregate(q, st.X, sig2, st.x_norms)

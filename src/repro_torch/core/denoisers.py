@@ -52,6 +52,6 @@ DENOISERS = {"optimal": OptimalDenoiser}
 def make_denoiser(name: str, store: DatasetStore, schedule: Schedule, **kw):
     if name not in DENOISERS:
         raise NotImplementedError(
-            f"denoiser {name!r} is not ported yet (ROADMAP Queue 1, items 5 "
-            f"and 13); the port has {sorted(DENOISERS)}")
+            f"denoiser {name!r} is not ported yet (ROADMAP Queue 1: the "
+            f"rest of core/); the port has {sorted(DENOISERS)}")
     return DENOISERS[name](store, schedule, **kw)

@@ -37,7 +37,8 @@ class GoldDiff:
         if not isinstance(base, OptimalDenoiser):
             raise NotImplementedError(
                 "GoldDiff over a patch-family base is not ported yet "
-                "(ROADMAP Queue 1, item 13); the port wraps OptimalDenoiser")
+                "(ROADMAP Queue 1: the rest of core/); the port wraps "
+                "OptimalDenoiser")
         self.base = base
         self.cfg = cfg or GoldDiffConfig()
         self.store: DatasetStore = base.store

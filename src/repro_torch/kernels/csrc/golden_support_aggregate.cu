@@ -6,93 +6,250 @@
 // (golden_support_aggregate / _sagg_kernel :30).  The TPU kernel carries
 // an online (max, l, acc) state from one grid step to the next; Hopper
 // blocks run in no order, so nothing can be carried between them.
-// Bound on the H100: bytes.  Each (query, support slot) pair reads one
-// 12 KB row at D=3072 (the distinct rows' bytes are the floor), against
-// 2 FLOPs per loaded element.
-// Design: a block owns one query and a 128-column slice of D.  It first
-// reduces the query's k logits to their max and then to
-// l = sum exp(logit - max) (block reductions in a fixed order), then
-// its 8 warps walk the support rows, each lane accumulating 4 columns
-// (one 16-byte load per row) with weight exp(logit - max) in registers.
-// The 8 warp partials are summed in shared memory in a fixed order: no
-// atomics, and the result is deterministic.  NEG_INF logits get weight
-// exp(NEG_INF - max) = 0; an all-NEG_INF query has max = NEG_INF and
-// weight 1 everywhere, which is the uniform mean.
-#include "common.cuh"
+// Bound on the H100: bytes.  The floor is the distinct rows' bytes: at
+// B=16, k=5000 the 80000 golden slots name 48070 rows (0.59 GB, 0.18 ms
+// at 3.35 TB/s), against 2 FLOPs per (query, slot, column).
+// Design: the rows a batch names are read once for each group of QG=16
+// queries, not once per (query, slot):
+//   1. sagg_mark: every slot marks its row (row_union.cuh); block x == 0
+//      of each query reduces its k logits to max (starting at NEG_INF,
+//      as the TPU kernel) and l = sum exp(logit - max), in a fixed order;
+//   2. union_count, union_compact (row_union.cuh): the group's U rows as
+//      an ascending list, and each row's position in it;
+//   3. sagg_tally, sagg_weigh: each slot's weight exp(logit - max) is
+//      computed once and added to W [G, ucap, QG] at (its row's
+//      position, its query).  A row that one query names several times
+//      (m > N surplus slots, which carry a clamped index; random indices)
+//      gets one weight per slot, as the plain version's bmm over x[idx]
+//      does.  Exclusive-writer scheme, so the sum does not depend on the
+//      order of atomics: the tally counts each (query, row)'s slots;
+//      a single slot stores its weight, two slots add theirs with
+//      atomicAdd onto 0 (a + b == b + a exactly), and of three or more
+//      one slot (the first to bump the tally's visit count) sums all of
+//      them in slot order and stores the sum;
+//   4. sagg_rows: CTA (slice, tile) takes 512 columns (a float4 a
+//      thread) and tile's share of the U list rows, [t U / T, (t+1) U / T)
+//      (real rows only); it streams each row's slice from HBM once and
+//      accumulates acc[b] += W[b, row] x_row for the group's 16 queries
+//      in registers, LOADS rows' loads in flight a thread; the tile's
+//      weights and row ids go through shared memory 64 rows at a time.
+//      The partial sums go to part [T, B, D];
+//   5. sagg_merge: out[b, c] = (sum over tiles in order) / max(l, 1e-30).
+// NEG_INF logits get weight exp(NEG_INF - max) = 0; an all-NEG_INF query
+// has max = NEG_INF and weight 1 everywhere, which is the uniform mean.
+// Deterministic: two calls give bit-equal outputs.
+#include "row_union.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int COLS = 128;    // columns of D per block: 32 lanes x 4
+using runion::QG;
 
+constexpr int THREADS = 256;     // mark, tally and weigh blocks
+constexpr int ROW_THREADS = 128; // a row-pass CTA: 4 columns each
+constexpr int SLICE = 4 * ROW_THREADS;   // columns a row-pass CTA
+constexpr int BATCH = 64;        // rows whose weights a CTA stages at once
+constexpr int LOADS = 8;         // row slices a thread has in flight
+typedef unsigned long long u64;
+
+// Mark each slot's row; block x == 0 of query b writes (max, l).
 __global__ void __launch_bounds__(THREADS)
-support_aggregate_kernel(const float* __restrict__ x,
-                         const int64_t* __restrict__ idx,
-                         const float* __restrict__ logits,
-                         float* __restrict__ out, int K, int D, int vec) {
+sagg_mark(const int64_t* __restrict__ idx, const float* __restrict__ logits,
+          uint4* __restrict__ map, float2* __restrict__ stat, int K, int N) {
   __shared__ float scratch[33];
-  __shared__ float4 part[WARPS][COLS / 4];
   const int b = blockIdx.y;
-  const float* lg = logits + (int64_t)b * K;
+  const int j = blockIdx.x * THREADS + threadIdx.x;
+  if (j < K) runion::mark(map, N, b, idx[(int64_t)b * K + j]);
+  if (blockIdx.x == 0) {
+    const float* lg = logits + (int64_t)b * K;
+    float m = RT_NEG_INF;
+#pragma unroll 8
+    for (int i = threadIdx.x; i < K; i += THREADS) m = fmaxf(m, lg[i]);
+    m = block_reduce<true>(m, scratch);
+    float l = 0.f;
+#pragma unroll 8
+    for (int i = threadIdx.x; i < K; i += THREADS) l += expf(lg[i] - m);
+    l = block_reduce<false>(l, scratch);
+    if (threadIdx.x == 0) stat[b] = make_float2(m, l);
+  }
+}
+
+// tally[g, pos(r), b % QG] += 1 for each slot: the low 32 bits count the
+// (query, row)'s slots, the high 32 bits count sagg_weigh's visits.
+__global__ void __launch_bounds__(THREADS)
+sagg_tally(const int64_t* __restrict__ idx, const uint4* __restrict__ map,
+           u64* __restrict__ tally, int K, int N, int ucap) {
+  const int b = blockIdx.y, g = b / QG;
+  const int j = blockIdx.x * THREADS + threadIdx.x;
+  if (j >= K) return;
+  const int64_t r = idx[(int64_t)b * K + j];
+  const int64_t s = runion::position(map, N, g, r);
+  atomicAdd(tally + ((int64_t)g * ucap + s) * QG + b % QG, 1ull);
+}
+
+// W[g, pos(r), b % QG] = the sum of the weights of query b's slots that
+// name r (see the header: one writer, or two commuting adds).
+__global__ void __launch_bounds__(THREADS)
+sagg_weigh(const int64_t* __restrict__ idx, const float* __restrict__ logits,
+           const uint4* __restrict__ map, const float2* __restrict__ stat,
+           u64* __restrict__ tally, float* __restrict__ W, int K, int N,
+           int ucap) {
+  const int b = blockIdx.y, g = b / QG;
+  const int j = blockIdx.x * THREADS + threadIdx.x;
+  if (j >= K) return;
   const int64_t* ib = idx + (int64_t)b * K;
+  const float* lg = logits + (int64_t)b * K;
+  const float m = stat[b].x;
+  const int64_t r = ib[j];
+  const int64_t e =
+      ((int64_t)g * ucap + runion::position(map, N, g, r)) * QG + b % QG;
+  const unsigned c = (unsigned)tally[e];       // final: tally has ended
+  const float w = expf(lg[j] - m);
+  if (c == 1u) {
+    W[e] = w;
+  } else if (c == 2u) {
+    atomicAdd(W + e, w);
+  } else if ((atomicAdd(tally + e, 1ull << 32) >> 32) == 0ull) {
+    float s = 0.f;
+    for (int i = 0; i < K; ++i)
+      if (ib[i] == r) s += expf(lg[i] - m);
+    W[e] = s;
+  }
+}
 
-  // the max starts at NEG_INF as in the TPU kernel, so hard -inf
-  // logits get zero weight even when every logit is -inf
-  float m = RT_NEG_INF;
-  for (int j = threadIdx.x; j < K; j += THREADS) m = fmaxf(m, lg[j]);
-  m = block_reduce<true>(m, scratch);
-  float l = 0.f;
-  for (int j = threadIdx.x; j < K; j += THREADS) l += expf(lg[j] - m);
-  l = block_reduce<false>(l, scratch);
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int c = blockIdx.x * COLS + 4 * lane;    // this lane's 4 columns
+// part[t, b, c..c+3] = sum over the tile's list rows s of
+// W[g, s, b] * x[rows[g, s], c..c+3] for the group's queries b.
+template <bool VEC>
+__global__ void __launch_bounds__(ROW_THREADS)
+sagg_rows(const float* __restrict__ x, const int* __restrict__ rows,
+          const int* __restrict__ ucount, const float* __restrict__ W,
+          float* __restrict__ part, int B, int D, int ucap) {
+  __shared__ float4 ws[BATCH][QG / 4];
+  __shared__ int64_t rs[BATCH];
+  const int g = blockIdx.z, q0 = g * QG, t = blockIdx.y, T = gridDim.y;
+  const int c = blockIdx.x * SLICE + 4 * threadIdx.x;
   const int nc = max(0, min(4, D - c));
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (vec && nc == 4) {
-#pragma unroll 4
-    for (int j = warp; j < K; j += WARPS) {
-      const float w = expf(lg[j] - m);
-      const float4 v = __ldg(reinterpret_cast<const float4*>(x + ib[j] * D + c));
-      acc.x += w * v.x; acc.y += w * v.y; acc.z += w * v.z; acc.w += w * v.w;
-    }
-  } else if (nc > 0) {
-    for (int j = warp; j < K; j += WARPS) {
-      const float w = expf(lg[j] - m);
-      const float* xr = x + ib[j] * D + c;
-      acc.x += w * __ldg(xr);
-      if (nc > 1) acc.y += w * __ldg(xr + 1);
-      if (nc > 2) acc.z += w * __ldg(xr + 2);
-      if (nc > 3) acc.w += w * __ldg(xr + 3);
+  const int64_t U = ucount[g];
+  const int s0 = (int)(t * U / T), s1 = (int)((t + 1) * U / T);
+  const int* rg = rows + (int64_t)g * ucap;
+  const float4* wg = reinterpret_cast<const float4*>(W + (int64_t)g * ucap * QG);
+
+  float4 acc[QG];
+#pragma unroll
+  for (int i = 0; i < QG; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int base = s0; base < s1; base += BATCH) {
+    const int nb = min(BATCH, s1 - base);
+    __syncthreads();              // the last batch's reads are done
+    for (int e = threadIdx.x; e < nb * (QG / 4); e += ROW_THREADS)
+      ws[e / (QG / 4)][e % (QG / 4)] = __ldg(wg + (int64_t)base * (QG / 4) + e);
+    for (int e = threadIdx.x; e < nb; e += ROW_THREADS)
+      rs[e] = rg[base + e];
+    __syncthreads();
+    if (nc == 0) continue;
+    for (int u0 = 0; u0 < nb; u0 += LOADS) {
+      float4 v[LOADS];              // LOADS rows' slices in flight at once
+#pragma unroll
+      for (int u = 0; u < LOADS; ++u) {
+        v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (u0 + u < nb) {
+          const float* xr = x + rs[u0 + u] * D + c;
+          if (VEC) {
+            v[u] = __ldg(reinterpret_cast<const float4*>(xr));
+          } else {
+            v[u].x = __ldg(xr);
+            if (nc > 1) v[u].y = __ldg(xr + 1);
+            if (nc > 2) v[u].z = __ldg(xr + 2);
+            if (nc > 3) v[u].w = __ldg(xr + 3);
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < LOADS; ++u) {
+        if (u0 + u >= nb) break;
+#pragma unroll
+        for (int i4 = 0; i4 < QG / 4; ++i4) {
+          const float4 w = ws[u0 + u][i4];
+          const float wi[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            float4& a = acc[4 * i4 + k];
+            a.x += wi[k] * v[u].x; a.y += wi[k] * v[u].y;
+            a.z += wi[k] * v[u].z; a.w += wi[k] * v[u].w;
+          }
+        }
+      }
     }
   }
-  part[warp][lane] = acc;
-  __syncthreads();
-
-  if (threadIdx.x < COLS) {
-    const int col = blockIdx.x * COLS + threadIdx.x;
-    if (col < D) {
-      float s = 0.f;
-      for (int w = 0; w < WARPS; ++w)
-        s += reinterpret_cast<const float*>(part[w])[threadIdx.x];
-      out[(int64_t)b * D + col] = s / fmaxf(l, 1e-30f);
+  if (nc == 0) return;
+#pragma unroll
+  for (int i = 0; i < QG; ++i) {
+    const int b = q0 + i;
+    if (b >= B) break;
+    float* o = part + ((int64_t)t * B + b) * D + c;
+    if (VEC) {
+      *reinterpret_cast<float4*>(o) = acc[i];
+    } else {
+      o[0] = acc[i].x;
+      if (nc > 1) o[1] = acc[i].y;
+      if (nc > 2) o[2] = acc[i].z;
+      if (nc > 3) o[3] = acc[i].w;
     }
   }
 }
 
+// out[b, c] = (sum over tiles t in order of part[t, b, c]) / max(l_b, 1e-30).
+__global__ void sagg_merge(const float* __restrict__ part,
+                           const float2* __restrict__ stat,
+                           float* __restrict__ out, int B, int D, int T) {
+  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t bd = (int64_t)B * D;
+  if (e >= bd) return;
+  float s = 0.f;
+  for (int t = 0; t < T; ++t) s += part[t * bd + e];
+  out[e] = s / fmaxf(stat[e / D].y, 1e-30f);
+}
+
 }  // namespace
 
-RT_EXPORT int golden_support_aggregate_launch(const float* x,
-                                              const int64_t* idx,
-                                              const float* logits, float* out,
-                                              int B, int K, int D, int vec,
-                                              void* stream) {
-  if (B > 0 && D > 0) {
-    dim3 grid((D + COLS - 1) / COLS, B);
-    support_aggregate_kernel<<<grid, THREADS, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-        x, idx, logits, out, K, D, vec);
+// zero (the host's golden_support_aggregate.scratch_sizes, zeroed here):
+// tally [G, ucap, QG] u64, W [G, ucap, QG] fp32, the map [G, N] of
+// 16-byte words.
+// work (int32): stat [B] (max, l) as fp32 pairs, chunk counts
+// [G, chunks], ucount [G], rows [G, ucap].  part: [T, B, D] fp32, T = tiles.
+RT_EXPORT int golden_support_aggregate_launch(
+    const float* x, const int64_t* idx, const float* logits, float* out,
+    int B, int K, int N, int D, int vec, int G, int ucap, int chunks,
+    int tiles, void* zero, int* work, float* part, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || D <= 0) return static_cast<int>(cudaGetLastError());
+  if (K <= 0) {                        // an empty softmax: zeros
+    cudaMemsetAsync(out, 0, sizeof(float) * (size_t)B * D, st);
+    return static_cast<int>(cudaGetLastError());
   }
+  const size_t cells = (size_t)G * ucap * QG;
+  u64* tally = static_cast<u64*>(zero);
+  float* W = reinterpret_cast<float*>(tally + cells);
+  uint4* map = reinterpret_cast<uint4*>(W + cells);
+  float2* stat = reinterpret_cast<float2*>(work);
+  int* ccount = work + 2 * B;
+  int* ucount = ccount + G * chunks;
+  int* rows = ucount + G;
+  cudaMemsetAsync(zero, 0, cells * (sizeof(u64) + sizeof(float)) +
+                               sizeof(uint4) * (size_t)G * N, st);
+  const dim3 slots((K + THREADS - 1) / THREADS, B);
+  sagg_mark<<<slots, THREADS, 0, st>>>(idx, logits, map, stat, K, N);
+  runion::compact(map, ccount, rows, ucount, N, G, ucap, chunks, st);
+  sagg_tally<<<slots, THREADS, 0, st>>>(idx, map, tally, K, N, ucap);
+  sagg_weigh<<<slots, THREADS, 0, st>>>(idx, logits, map, stat, tally, W, K,
+                                        N, ucap);
+  const dim3 grid((D + SLICE - 1) / SLICE, tiles, G);
+  if (vec)
+    sagg_rows<true><<<grid, ROW_THREADS, 0, st>>>(x, rows, ucount, W, part, B,
+                                                  D, ucap);
+  else
+    sagg_rows<false><<<grid, ROW_THREADS, 0, st>>>(x, rows, ucount, W, part,
+                                                   B, D, ucap);
+  const int64_t total = (int64_t)B * D;
+  sagg_merge<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(part, stat, out,
+                                                              B, D, tiles);
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,11 +2,15 @@
 
 Replaces ``repro/kernels/golden_support_aggregate.py:78``
 (``golden_support_aggregate`` / ``_sagg_kernel``).  The TPU kernel's
-online softmax carry across grid steps has no counterpart on Hopper;
-the kernel (``csrc/golden_support_aggregate.cu``) reduces each query's
-logits to (max, l) first and then accumulates the weighted rows,
-loaded by index, in registers per 128-column slice: no atomics,
-deterministic, bound by the bytes of the rows it reads.  Its plain
+online softmax carry across grid steps has no counterpart on Hopper.
+The kernel (``csrc/golden_support_aggregate.cu``) reduces each query's
+logits to (max, l) first and turns each slot into its weight once; the
+batch's row map (``csrc/row_union.cuh``, planned by
+``golden_rerank.union_plan``) lists the rows a group of queries names,
+and one pass over that list reads each row once for the group and
+accumulates its weighted columns for all of the group's queries in
+registers.  The CTAs' partial sums merge in a fixed order:
+deterministic, bound by the bytes of the distinct rows.  Its plain
 version is ``ref.golden_support_aggregate_ref``.
 """
 from __future__ import annotations
@@ -16,8 +20,45 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.golden_rerank import (CTAS_PER_SM, H100_SMS,
+                                               QUERY_GROUP, carve, sm_count,
+                                               union_plan)
 
-_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+SLICE = 512          # columns one row-pass CTA takes (a float4 a thread)
+MIN_TILE_ROWS = 64   # fewest list rows a row-pass CTA is planned for
+
+_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+         + [ctypes.c_void_p] * 4)
+
+
+def aggregate_plan(b: int, n: int, k: int, d: int,
+                   sms: int = H100_SMS) -> dict:
+    """:func:`golden_rerank.union_plan` plus the row pass's grid:
+    ``slices`` of SLICE columns and ``tiles`` per group, each tile
+    taking an equal share of the group's list (computed on the card from
+    its count), so that about CTAS_PER_SM CTAs an SM run, but a tile has
+    at least MIN_TILE_ROWS rows of a full list."""
+    p = union_plan(b, n, k)
+    p["slices"] = max(1, -(-d // SLICE))
+    want = -(-CTAS_PER_SM * sms // (p["slices"] * max(1, p["groups"])))
+    p["tiles"] = max(1, min(want, p["ucap"] // MIN_TILE_ROWS))
+    return p
+
+
+def scratch_sizes(b: int, n: int, k: int, d: int,
+                  sms: int = H100_SMS) -> dict:
+    """Sizes of the kernel's scratch: ``zero`` bytes, zeroed by the call
+    (the tally u64 and the weights fp32, each [G, ucap, QUERY_GROUP],
+    then the map's 16-byte words [G, N]); ``work`` int32 (the (max, l)
+    pairs [B] as fp32, the chunk counts [G, chunks], the list counts
+    [G], the lists [G, ucap]); ``part`` fp32 (the tiles' partial sums
+    [tiles, B, D])."""
+    p = aggregate_plan(b, n, k, d, sms)
+    g, ucap = p["groups"], p["ucap"]
+    cells = g * ucap * QUERY_GROUP
+    return dict(zero=12 * cells + 16 * g * n,
+                work=2 * b + g * p["chunks"] + g + g * ucap,
+                part=p["tiles"] * b * d)
 
 
 def golden_support_aggregate(x: torch.Tensor, idx: torch.Tensor,
@@ -32,11 +73,19 @@ def golden_support_aggregate(x: torch.Tensor, idx: torch.Tensor,
     n, d = x.shape
     b, k = idx.shape
     _build.require_shape(name, "logits", logits, (b, k))
-    out = torch.empty((b, d), dtype=torch.float32, device=x.device)
+    dev = x.device
+    sms = sm_count(dev)
+    p = aggregate_plan(b, n, k, d, sms)
+    z = scratch_sizes(b, n, k, d, sms)
+    scratch, (zero, work, part) = carve(dev, z["zero"], 4 * z["work"],
+                                        4 * z["part"])
+    out = torch.empty((b, d), dtype=torch.float32, device=dev)
     vec = int(d % 4 == 0 and x.data_ptr() % 16 == 0)
     fn = _build.load(name, "golden_support_aggregate_launch", _ARGS)
     err = fn(_build.ptr(x), _build.ptr(idx), _build.ptr(logits),
-             _build.ptr(out), b, k, d, vec, _build.stream(x.device))
+             _build.ptr(out), b, k, n, d, vec, p["groups"], p["ucap"],
+             p["chunks"], p["tiles"], zero, work, part,
+             _build.stream(dev))
     _build.check(name, err)
     golden_support_aggregate.launches += 1
     return out

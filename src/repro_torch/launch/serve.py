@@ -73,8 +73,8 @@ class ServeEngine:
                  index_mode: str = "auto"):
         if mode not in ("auto", "static"):
             raise NotImplementedError(
-                f"serve mode {mode!r} is not ported yet (ROADMAP Queue 1, "
-                f"items 7 and 11); the port serves mode='static'")
+                f"serve mode {mode!r} is not ported yet (ROADMAP Queue 1: "
+                f"serving runtime); the port serves mode='static'")
         self.mode = "static"
         self.device = resolve_device(device)
         self.store = (dataset.to(self.device)

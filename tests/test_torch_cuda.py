@@ -112,6 +112,137 @@ def test_golden_support_aggregate_matches(card, b, n, d, k):
                                atol=1e-5)
 
 
+# -- kernels 2 and 3 read the batch's row union (csrc/row_union.cuh) ---------
+# Each query group's rows are read once; the cases cover every query
+# naming the same rows, no row named twice, one query, several query
+# groups (B > 16), ragged D, rows named three or more times by one query,
+# and m > N surplus slots.
+
+UNION_CASES = [("shared", 16, 6000, 3072, 700),
+               ("disjoint", 16, 12000, 3072, 700),
+               ("random", 1, 500, 3072, 300),
+               ("random", 33, 2000, 130, 150),
+               ("random", 5, 300, 7, 40),
+               ("random", 16, 64, 3072, 400)]
+
+
+def union_idx(kind, b, n, s, dev, seed):
+    """[b, s] row ids: every query the same rows ("shared"), no row twice
+    ("disjoint", b s <= n) or drawn with repeats ("random")."""
+    g = torch.Generator().manual_seed(seed)
+    if kind == "shared":
+        idx = torch.randperm(n, generator=g)[:s].expand(b, s)
+    elif kind == "disjoint":
+        idx = torch.randperm(n, generator=g)[:b * s].reshape(b, s)
+    else:
+        idx = torch.randint(0, n, (b, s), generator=g)
+    return idx.contiguous().to(dev)
+
+
+@pytest.mark.parametrize("kind,b,n,d,m", UNION_CASES)
+def test_support_sqdist_union_integer(card, kind, b, n, d, m):
+    q, x = ints((b, d), card, 30), ints((n, d), card, 31)
+    xn = (x * x).sum(-1)
+    idx = union_idx(kind, b, n, m, card, 32)
+    got = support_sqdist(q, x, xn, idx)
+    assert torch.equal(got, ref.support_sqdist_ref(q, x, xn, idx))
+    assert torch.equal(got, support_sqdist(q, x, xn, idx))
+
+
+@pytest.mark.parametrize("kind,b,n,d,m", UNION_CASES)
+def test_support_sqdist_union_float(card, kind, b, n, d, m):
+    g = torch.Generator().manual_seed(35)
+    x = torch.randn(n, d, generator=g).to(card)
+    q = (torch.randn(b, d, generator=g)).to(card)
+    xn = (x * x).sum(-1)
+    idx = union_idx(kind, b, n, m, card, 36)
+    got = support_sqdist(q, x, xn, idx)
+    want = ref.support_sqdist_ref(q, x, xn, idx)
+    rel = ((got - want).abs() / want.abs().clamp_min(1.0)).max()
+    assert float(rel) <= 1e-5
+    assert torch.equal(got, support_sqdist(q, x, xn, idx))
+
+
+@pytest.mark.parametrize("kind,b,n,d,k", UNION_CASES)
+def test_golden_support_aggregate_union(card, kind, b, n, d, k):
+    g = torch.Generator().manual_seed(33)
+    x = torch.randn(n, d, generator=g).to(card)
+    idx = union_idx(kind, b, n, k, card, 34)
+    lg = (3 * torch.randn(b, k, generator=g)).to(card)
+    lg[0] = ref.NEG_INF                 # an all-NEG_INF query
+    lg[-1, ::3] = ref.NEG_INF
+    got = golden_support_aggregate(x, idx, lg)
+    want = ref.golden_support_aggregate_ref(x, idx, lg)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got[0], x[idx[0]].mean(0), rtol=1e-5,
+                               atol=1e-5)
+    assert torch.equal(got, golden_support_aggregate(x, idx, lg))
+
+
+def test_golden_support_aggregate_repeated_rows(card):
+    """Rows that one query names three or more times with different
+    logits weigh once a slot, in the same sum on every call."""
+    g = torch.Generator().manual_seed(37)
+    x = torch.randn(10, 3072, generator=g).to(card)
+    idx = torch.randint(0, 4, (3, 256), generator=g).to(card)
+    idx[2, 5:] = 0                       # one row 251 times
+    lg = (3 * torch.randn(3, 256, generator=g)).to(card)
+    got = golden_support_aggregate(x, idx, lg)
+    torch.testing.assert_close(
+        got, ref.golden_support_aggregate_ref(x, idx, lg), rtol=1e-5,
+        atol=1e-5)
+    for _ in range(3):
+        assert torch.equal(got, golden_support_aggregate(x, idx, lg))
+
+
+def test_union_kernels_surplus_slots(card):
+    """m > N: the screen's surplus slots carry row 0, so the re-rank and
+    the aggregate see row 0 once more a surplus slot."""
+    b, n, d, m, k = 4, 50, 64, 80, 70
+    q, x = ints((b, d), card, 38), ints((n, d), card, 39)
+    xn = (x * x).sum(-1)
+    cand = ref.materialized_topm(ref.pdist_ref(q, x, None, xn), m)[0]
+    assert bool((cand[:, n:] == 0).all())
+    got = support_sqdist(q, x, xn, cand)
+    assert torch.equal(got, ref.support_sqdist_ref(q, x, xn, cand))
+    gid, gd2 = ops.golden_rerank(q, x, cand, k, xn)
+    lg = torch.clamp_min(-gd2 / 20.0, ref.NEG_INF)
+    torch.testing.assert_close(
+        golden_support_aggregate(x, gid, lg),
+        ref.golden_support_aggregate_ref(x, gid, lg), rtol=1e-5, atol=1e-5)
+
+
+def test_union_kernels_empty_inputs(card):
+    """No query, no slot: empty distances, and zero means for an empty
+    softmax, as the plain versions give."""
+    q, x = ints((3, 16), card, 43), ints((20, 16), card, 44)
+    xn = (x * x).sum(-1)
+    none = torch.zeros((3, 0), dtype=torch.int64, device=card)
+    assert support_sqdist(q, x, xn, none).shape == (3, 0)
+    assert support_sqdist(q[:0], x, xn, none[:0]).shape == (0, 0)
+    lg = torch.zeros((3, 0), device=card)
+    got = golden_support_aggregate(x, none, lg)
+    assert torch.equal(got, ref.golden_support_aggregate_ref(x, none, lg))
+    assert golden_support_aggregate(x, none[:0], lg[:0]).shape == (0, 16)
+
+
+def test_union_kernels_count_once_and_never_sync(card):
+    """One call adds 1 to its count however many launches it makes, and
+    reads nothing back from the card."""
+    q, x = ints((16, 64), card, 40), ints((300, 64), card, 41)
+    idx = union_idx("random", 16, 300, 50, card, 42)
+    xn = (x * x).sum(-1)
+    before = support_sqdist.launches, golden_support_aggregate.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        d2 = support_sqdist(q, x, xn, idx)
+        golden_support_aggregate(x, idx, -d2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert (support_sqdist.launches, golden_support_aggregate.launches) == \
+        (before[0] + 1, before[1] + 1)
+
+
 @pytest.mark.parametrize("b,n,d", [(16, 5000, 3072), (3, 77, 10),
                                    (1, 40, 12288)])
 @pytest.mark.parametrize("sigma2", [0.5, 20.0, 0.0])

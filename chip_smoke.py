@@ -6,7 +6,7 @@ Phases:
   2. build: the nine hand-written kernels from ``src/repro_torch/kernels/csrc``
      (ten sources: kernel 9 has a bf16 tensor-core source and an fp32
      CUDA-core one), with the registers, shared memory and spills of
-     each instance of the redesigned kernels (2-3, 5-6, 8-9);
+     each instance of the redesigned kernels (1-6, 8-9);
   3. scale: the cifar_like store, N=50000 rows of D=3072 (proxy dp=192),
      built once and shared by every phase, and the Golden Index's scale
      store, gmm N=65536 x 64 with 256 modes;
@@ -27,7 +27,11 @@ Phases:
      3's into the row map, the weights (3), the row pass and the gather
      or merge ([time] ... split), their row passes' rate against a plain
      read of the store, and both at B=1; kernel 3 called twice,
-     bit-equal;
+     bit-equal; kernel 4's device time split into its cluster pass and
+     its merge, the pass's rate against the same plain read, its
+     clusters' ranks holding bit-identical softmax states, two calls
+     bit-equal, and kernel 4 at B=1 and at D=12288 (N=16384), kernel 1
+     at B=1;
   5. policy: the fused-vs-staged step sweep over m/N that sets the
      engine's "cuda" crossover, the streamed-vs-materialized screen's
      time and peak memory at B=16 and B=256 that set its byte budget,
@@ -99,6 +103,8 @@ SQDIST_PARTS = {"row map": ("sqdist_mark", "union_count", "union_compact"),
 SAGG_PARTS = {"row map": ("sagg_mark", "union_count", "union_compact"),
               "weights": ("sagg_tally", "sagg_weigh"),
               "row pass": ("sagg_rows",), "merge": ("sagg_merge",)}
+AGG_PARTS = {"cluster pass": ("agg_cluster",), "merge": ("merge_kernel",)}
+WIDE_N, WIDE_D = 16384, 12288    # kernel 4 at the afhq_like width
 UNION_PARTS = {"row maps": ("sqdist_mark", "sagg_mark", "union_count",
                             "union_compact"),
                "weights": SAGG_PARTS["weights"],
@@ -570,7 +576,8 @@ def main() -> None:
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.fused_step import (
         fused_candidates, fused_candidates_scan, fused_posterior)
-    from repro_torch.kernels.golden_aggregate import golden_aggregate
+    from repro_torch.kernels.golden_aggregate import (cluster_states,
+                                                      golden_aggregate)
     from repro_torch.kernels.golden_attention import golden_attention_decode
     from repro_torch.kernels.golden_rerank import support_sqdist
     from repro_torch.kernels.golden_support_aggregate import (
@@ -604,7 +611,9 @@ def main() -> None:
     log = _build.build(names)
     print(f"[build] {len(names)} sources in {time.perf_counter() - t0:.1f}s "
           f"(one nvcc each, in parallel) into {_build.BUILD_DIR}")
-    by_instance = {"flash_attention_sm90": ("flash_sm90_kernel",),
+    by_instance = {"pdist": ("pdist_kernel",),
+                   "golden_aggregate": ("agg_cluster", "merge_kernel"),
+                   "flash_attention_sm90": ("flash_sm90_kernel",),
                    "golden_attention": ("gattn_",),
                    "screen_topm": TOPM_ENTRIES + ("compact_pass",),
                    "support_sqdist": ("sqdist_", "union_"),
@@ -732,6 +741,14 @@ def main() -> None:
     print(f"[check] pdist: integer bit-equal, top-{M} sets equal; float "
           f"max abs {err:.3g}, max rel {rel:.3g}, top-{M} overlap {ov:.6f} "
           f"(exact order {torch.equal(cand_k, cand_r)})")
+    qp1, qpn1 = qp[:1].contiguous(), qpn[:1].contiguous()
+    b1_ms = bound(4 * (DP + N * DP + 1 + N + N), 2 * N * DP)[0]
+    print(f"[time] pdist B=1: kernel "
+          f"{time_ms(lambda: pdist(qp1, st.proxy, qpn1, st.proxy_norms)):.4f}"
+          f" ms (bound {b1_ms:.4f}); a plain read of the proxy store "
+          f"(proxy.sum(), {4 * N * DP / 1e6:.1f} MB) "
+          f"{time_ms(lambda: st.proxy.sum()):.4f} ms")
+    del qp1, qpn1
 
     # kernel 2: support_sqdist (exact re-rank), rows loaded by index
     qfi, xfi = ints((B, D), 3), ints((N, D), 4)
@@ -852,9 +869,43 @@ def main() -> None:
         plain_ms=time_ms(lambda: ref.golden_aggregate_ref(q, st.X, sig2,
                                                           st.x_norms)),
         bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(library))
+    again, ranks = cluster_states(q, st.X, sig2, st.x_norms)
+    check(torch.equal(again, fk), "golden_aggregate: two calls differ")
+    check(bool(torch.equal(ranks, ranks[:, :1].expand_as(ranks))),
+          "golden_aggregate: the CTAs of a cluster disagree")
     print(f"[check] golden_aggregate: max abs {err:.3g}; sigma2=0 -> data "
           f"mean to {err_d:.3g}; library call (scaled_dot_product_attention) "
-          f"max abs {lib_err:.3g}")
+          f"max abs {lib_err:.3g}; two calls bit-equal; the {ranks.shape[1]} "
+          f"CTAs of each of {ranks.shape[0]} clusters hold bit-identical "
+          f"(max, l) and first-tile weights")
+    pass4 = split_line("golden_aggregate", results["golden_aggregate"]["ms"],
+                       lambda: golden_aggregate(q, st.X, sig2, st.x_norms),
+                       AGG_PARTS)["cluster pass"]
+    print(f"[time] golden_aggregate cluster pass: {4 * N * D / pass4 / 1e9:.3f}"
+          f" TB/s over the {4 * N * D / 1e6:.0f} MB store; the plain read "
+          f"(X.sum(0)) {read_ms:.4f} ms, {read_rate:.3f} TB/s")
+    q1 = q[:1].contiguous()
+    b4_ms = bound(4 * (N * D + N + 2 * D + 1), 4 * N * D)[0]
+    print(f"[time] golden_aggregate B=1: kernel "
+          f"{time_ms(lambda: golden_aggregate(q1, st.X, sig2, st.x_norms)):.4f}"
+          f" ms (bound {b4_ms:.4f})")
+    gw = torch.Generator(device="cuda").manual_seed(7)
+    xw = 0.3 * torch.randn(WIDE_N, WIDE_D, generator=gw, device="cuda")
+    qw = xw[:B] + 0.1 * torch.randn(B, WIDE_D, generator=gw, device="cuda")
+    xwn = (xw * xw).sum(-1)
+    ew = float((golden_aggregate(qw, xw, 0.5, xwn)
+                - ref.golden_aggregate_ref(qw, xw, 0.5, xwn)).abs().max())
+    check(ew <= MEAN_ATOL, f"golden_aggregate D={WIDE_D}: max abs {ew:.3g}")
+    bw_ms = bound(4 * (WIDE_N * WIDE_D + WIDE_N + 2 * B * WIDE_D + B),
+                  4 * B * WIDE_N * WIDE_D)[0]
+    print(f"[time] golden_aggregate B={B} N={WIDE_N} D={WIDE_D} (afhq_like "
+          f"width, random store): kernel "
+          f"{time_ms(lambda: golden_aggregate(qw, xw, 0.5, xwn)):.4f} ms "
+          f"(bound {bw_ms:.4f}), plain "
+          f"{time_ms(lambda: ref.golden_aggregate_ref(qw, xw, 0.5, xwn)):.4f}"
+          f" ms, X.sum(0) {time_ms(lambda: xw.sum(0)):.4f} ms; max abs "
+          f"{ew:.3g}")
+    del xw, qw, xwn, q1, again, ranks
 
     # both aggregates again where the softmax is spread over many rows:
     # at t=500 it is nearly one-hot, at the first step (t=1000) it is not

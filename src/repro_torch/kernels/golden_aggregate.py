@@ -1,15 +1,15 @@
-"""Hand-written CUDA kernel: full-scan posterior mean (Eq. 2), split over N.
+"""Hand-written CUDA kernel: full-scan posterior mean (Eq. 2), one pass.
 
 Replaces ``repro/kernels/golden_aggregate.py:93`` (``golden_aggregate`` /
-``_agg_kernel``).  Hopper blocks run in no order, so instead of the
-TPU's sequential online-softmax carry the kernel
-(``csrc/golden_aggregate.cu``) splits N across blocks, each keeping a
-partial (max, l, acc[BQ, D]) in shared memory for a group of up to 8
-queries, and a second small kernel merges the partials by log-sum-exp.
-All queries of a group share each tile of the store; the groups of one
-row range sit side by side in the grid so that the store can cross HBM
-about once per call (the intent; the DRAM bytes are not measured).
-Its plain version is ``ref.golden_aggregate_ref``.
+``_agg_kernel``).  The kernel (``csrc/golden_aggregate.cu``) copies each
+store row from device memory into shared memory once per call for a
+group of up to 16 queries; the logits and the weighted sum both read it
+there.  D is split across a thread block cluster (:func:`plan`), the
+CTAs add their partial logits in rank order through distributed shared
+memory, N is split across the clusters the card keeps resident, and a
+second small kernel merges the clusters' (max, l, acc) states by
+log-sum-exp in split order.  Its plain version is
+``ref.golden_aggregate_ref``.
 """
 from __future__ import annotations
 
@@ -18,36 +18,109 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels.golden_rerank import H100_SMS
 
-_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_float] + [ctypes.c_void_p] * 4
-         + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_float] + [ctypes.c_void_p] * 5
+         + [ctypes.c_int] * 8 + [ctypes.c_void_p])
 # shared memory a block may opt in to on Hopper (232,448 bytes)
 MAX_SMEM = 227 * 1024
-GROUPS = (8, 4, 2, 1)      # queries per block the kernel is compiled for
+THREADS = 256          # a CTA's threads
+QUERY_GROUP = 16       # queries a cluster serves
+TILE_ROWS = 16         # store rows a tile
+WEIGHT_STRIDE = 20     # a query's row of weights in shared memory
+SLICES = (64, 128, 256, 448, 768)   # columns a CTA: 8 warps x 8 KW
+CLUSTERS = (1, 2, 4, 8, 16)   # CTAs a cluster (16: non-portable, H100)
+STAGES = (8, 7, 6, 5, 4, 3)   # ring depths, deepest first
+BARS = 32              # floats: the stages' and the sums' mbarriers
 
 
-def _plan(b: int, n: int, d: int, device: torch.device) -> tuple[int, int, int]:
-    """(queries per block, splits of N, rows per split)."""
-    smem = _build.load("golden_aggregate", "golden_aggregate_smem_bytes",
-                       [ctypes.c_int, ctypes.c_int], ctypes.c_size_t)
-    fits = [g for g in GROUPS if smem(g, d) <= MAX_SMEM]
-    if not fits:
-        raise ValueError(f"golden_aggregate: D={d} needs "
-                         f"{smem(1, d)} bytes of shared memory per block, "
-                         f"more than the {MAX_SMEM} a block can hold")
-    want = 1 << max(0, (b - 1).bit_length())      # next power of two >= B
-    bq = next((g for g in fits if g <= want), fits[-1])
-    groups = -(-b // bq)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    splits = max(1, min(n, sms // groups))
-    rows = -(-n // splits)
-    return bq, -(-n // rows), rows
+def dt_stride(cols: int) -> int:
+    """``dt_stride`` of ``csrc/dist_tile.cuh``: a staged row's stride in
+    floats (a multiple of 32, plus 8)."""
+    return -(-cols // 32) * 32 + 8
 
 
-def golden_aggregate(q: torch.Tensor, x: torch.Tensor, sigma2: float,
-                     x_norms: torch.Tensor) -> torch.Tensor:
-    """Full-scan posterior mean: q [B, D] (the rescaled query), x [N, D]
-    and x_norms [N] fp32 -> [B, D] in q's dtype (fp32 accumulation)."""
+def smem_bytes(ds: int, stages: int, c: int) -> int:
+    """``agg_smem`` of the source: the mbarriers, the ring, the warps'
+    partial dots, the C ranks' partial dots (x2), the weights (x2) and the
+    rescale factors (x2)."""
+    q, r = QUERY_GROUP, TILE_ROWS
+    return 4 * (BARS + stages * r * dt_stride(ds) + (THREADS // 32) * q * r
+                + 2 * c * q * r + 2 * q * WEIGHT_STRIDE + 2 * q)
+
+
+def pad4(t: torch.Tensor) -> torch.Tensor:
+    """t [.., d] with its rows 16-byte aligned and a positive multiple of
+    4 floats: t itself when it is, else a copy padded with zero columns
+    (the copies' rows; zero columns add nothing to a dot or to a mean)."""
+    d = t.shape[-1]
+    if d and d % 4 == 0 and t.data_ptr() % 16 == 0:
+        return t
+    return torch.nn.functional.pad(t, (0, -d % 4 or 4)).contiguous()
+
+
+def cluster_shape(d: int) -> dict:
+    """The smallest cluster whose CTAs each take at most SLICES[-1]
+    columns: ``cluster`` (C), ``slice`` (ds, the least of SLICES that
+    covers ceil(D / C)), ``stages`` (the deepest ring that fits) and
+    ``smem`` (bytes a CTA)."""
+    c = next((c for c in CLUSTERS if -(-d // c) <= SLICES[-1]), None)
+    if c is None:
+        raise ValueError(f"golden_aggregate: D={d} needs more than "
+                         f"{CLUSTERS[-1]} CTAs of {SLICES[-1]} columns")
+    ds = next(s for s in SLICES if s >= -(-d // c))
+    stages = next(s for s in STAGES if smem_bytes(ds, s, c) <= MAX_SMEM)
+    return dict(cluster=c, slice=ds, stages=stages,
+                smem=smem_bytes(ds, stages, c))
+
+
+def plan(b: int, n: int, d: int, clusters: int | None = None,
+         sms: int = H100_SMS) -> dict:
+    """:func:`cluster_shape` plus the grid: ``groups`` of 16 queries side
+    by side, ``splits`` of N (the resident ``clusters`` shared among the
+    groups, every split at least one tile), ``rows`` a split (a multiple
+    of TILE_ROWS), and the scratch's element counts (``part_acc`` fp32
+    [splits, B, D]; ``part_ml`` fp32, m and l [splits, B] each).
+    ``clusters`` defaults to sms // C, one CTA an SM; on the card it is
+    what ``cudaOccupancyMaxActiveClusters`` reports."""
+    p = cluster_shape(d)
+    if clusters is None:
+        clusters = max(1, sms // p["cluster"])
+    groups = -(-b // QUERY_GROUP)
+    tiles = -(-n // TILE_ROWS)
+    want = max(1, min(clusters // max(1, groups), tiles))
+    rows = -(-tiles // want) * TILE_ROWS
+    splits = -(-n // rows)
+    p.update(groups=groups, splits=splits, rows=rows,
+             part_acc=splits * b * d, part_ml=2 * splits * b)
+    return p
+
+
+_ACTIVE: dict = {}
+
+
+def active_clusters(shape: dict, device: torch.device) -> int:
+    """Clusters of this shape the card keeps resident at once; raises if
+    the card refuses the cluster shape."""
+    key = (device.index, shape["cluster"], shape["slice"], shape["stages"])
+    if key not in _ACTIVE:
+        fn = _build.load("golden_aggregate", "golden_aggregate_active_"
+                         "clusters", [ctypes.c_int] * 3)
+        with torch.cuda.device(device):
+            got = fn(shape["cluster"], shape["slice"], shape["stages"])
+        if got < 0:
+            _build.check("golden_aggregate", -got)
+        if got == 0:
+            raise RuntimeError(
+                f"golden_aggregate: the card keeps no cluster of "
+                f"{shape['cluster']} CTAs with {shape['smem']} bytes of "
+                f"shared memory each resident")
+        _ACTIVE[key] = got
+    return _ACTIVE[key]
+
+
+def _launch(q: torch.Tensor, x: torch.Tensor, sigma2: float,
+            x_norms: torch.Tensor, debug: bool):
     name = "golden_aggregate"
     _build.require(name, q.device, q=q, x=x, x_norms=x_norms)
     _build.require_dtype(name, torch.float32, x=x, x_norms=x_norms)
@@ -59,23 +132,43 @@ def golden_aggregate(q: torch.Tensor, x: torch.Tensor, sigma2: float,
         raise ValueError(f"{name}: the store is empty")
     q32 = q.float().contiguous()
     qn = (q32 * q32).sum(-1)
-    bq, splits, rows = _plan(b, n, d, q.device)
-    part_acc = torch.empty((splits, b, d), dtype=torch.float32,
-                           device=q.device)
-    part_m = torch.empty((splits, b), dtype=torch.float32, device=q.device)
-    part_l = torch.empty((splits, b), dtype=torch.float32, device=q.device)
-    out = torch.empty((b, d), dtype=torch.float32, device=q.device)
-    vec = int(d % 4 == 0 and q32.data_ptr() % 16 == 0
-              and x.data_ptr() % 16 == 0)
+    q32, x = pad4(q32), pad4(x)
+    dp = x.shape[1]
+    p = plan(b, n, dp, active_clusters(cluster_shape(dp), q.device))
+    dev = q.device
+    part_acc = torch.empty(p["part_acc"], dtype=torch.float32, device=dev)
+    part_ml = torch.empty(p["part_ml"], dtype=torch.float32, device=dev)
+    out = torch.empty((b, dp), dtype=torch.float32, device=dev)
+    dbg = (torch.full((p["splits"], p["cluster"], p["groups"] * QUERY_GROUP,
+                       2 + TILE_ROWS), float("nan"), device=dev)
+           if debug else None)
     fn = _build.load(name, "golden_aggregate_launch", _ARGS)
     err = fn(_build.ptr(q32), _build.ptr(x), _build.ptr(qn),
              _build.ptr(x_norms), ref.finite_inv_two_sigma2(sigma2),
-             _build.ptr(part_acc), _build.ptr(part_m), _build.ptr(part_l),
-             _build.ptr(out), b, n, d, bq, splits, rows, vec,
-             _build.stream(q.device))
+             _build.ptr(part_acc), _build.ptr(part_ml),
+             ctypes.c_void_p(part_ml.data_ptr() + 4 * p["splits"] * b),
+             _build.ptr(out), None if dbg is None else _build.ptr(dbg),
+             b, n, dp, p["cluster"], p["slice"], p["stages"], p["splits"],
+             p["rows"], _build.stream(dev))
     _build.check(name, err)
     golden_aggregate.launches += 1
-    return out.to(q.dtype)
+    return out[:, :d].to(q.dtype), dbg
+
+
+def golden_aggregate(q: torch.Tensor, x: torch.Tensor, sigma2: float,
+                     x_norms: torch.Tensor) -> torch.Tensor:
+    """Full-scan posterior mean: q [B, D] (the rescaled query), x [N, D]
+    and x_norms [N] fp32 -> [B, D] in q's dtype (fp32 accumulation)."""
+    return _launch(q, x, sigma2, x_norms, debug=False)[0]
 
 
 golden_aggregate.launches = 0
+
+
+def cluster_states(q: torch.Tensor, x: torch.Tensor, sigma2: float,
+                   x_norms: torch.Tensor):
+    """:func:`golden_aggregate` plus what each CTA of every cluster holds:
+    [splits, C, groups * 16, 2 + 16] fp32, each rank's final (max, l) and
+    its first tile's 16 weights a query slot.  The ranks of a cluster
+    must agree bit for bit (the test of the rank-order logit sum)."""
+    return _launch(q, x, sigma2, x_norms, debug=True)

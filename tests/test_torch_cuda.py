@@ -17,6 +17,7 @@ The attention kernels (8 and 9) agree with their plain versions to
 outputs of a few units, and kernel 9's bf16 weights P) in bf16; the reduced model's logits on the card
 agree with the CPU's to 1e-4.
 """
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -34,6 +35,8 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.centroid_scan import centroid_scan  # noqa: E402
 from repro_torch.kernels.fused_step import (  # noqa: E402
     fused_candidates, fused_candidates_scan)
+from repro_torch.kernels import golden_aggregate as gagg_mod  # noqa: E402
+from repro_torch.kernels import pdist as pdist_mod  # noqa: E402
 from repro_torch.kernels.golden_aggregate import golden_aggregate  # noqa: E402
 from repro_torch.kernels.golden_rerank import support_sqdist  # noqa: E402
 from repro_torch.kernels.golden_support_aggregate import (  # noqa: E402
@@ -67,7 +70,9 @@ def ints(shape, dev, seed):
 
 
 @pytest.mark.parametrize("b,n,d", [(16, 5000, 192), (5, 333, 7),
-                                   (17, 64, 33)])
+                                   (17, 64, 33), (1, 4099, 64),
+                                   (33, 1001, 784), (16, 777, 3072),
+                                   (17, 130, 12288)])
 def test_pdist_bit_equal_integer(card, b, n, d):
     q, x = ints((b, d), card, 0), ints((n, d), card, 1)
     qn, xn = (q * q).sum(-1), (x * x).sum(-1)
@@ -244,7 +249,9 @@ def test_union_kernels_count_once_and_never_sync(card):
 
 
 @pytest.mark.parametrize("b,n,d", [(16, 5000, 3072), (3, 77, 10),
-                                   (1, 40, 12288)])
+                                   (1, 40, 12288), (1, 5003, 64),
+                                   (17, 2001, 784), (33, 1500, 3072),
+                                   (16, 3000, 12288), (16, 999, 3000)])
 @pytest.mark.parametrize("sigma2", [0.5, 20.0, 0.0])
 def test_golden_aggregate_matches(card, b, n, d, sigma2):
     g = torch.Generator().manual_seed(6)
@@ -255,6 +262,81 @@ def test_golden_aggregate_matches(card, b, n, d, sigma2):
     want = ref.golden_aggregate_ref(q, x, sigma2, xn)
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+# -- kernel 4's cluster design (csrc/golden_aggregate.cu) ---------------------
+# D is split across the CTAs of a thread block cluster (C = 1, 2, 4 or
+# 16 at these widths; 3000 is not a multiple of C x 8), N across the
+# clusters; the CTAs of a cluster must hold bit-identical logits.
+
+@pytest.mark.parametrize("b,n,d", [(16, 3001, 3072), (17, 777, 784),
+                                   (1, 50, 12288), (5, 1000, 3000),
+                                   (33, 301, 64)])
+def test_golden_aggregate_inf_norm_rows(card, b, n, d):
+    """+inf-norm rows get no weight (the means equal the mean over the
+    other rows), on ragged N; two calls are bit-equal."""
+    g = torch.Generator().manual_seed(21)
+    x = (torch.randn(n, d, generator=g) / d ** 0.5).to(card)
+    q = x[:b] + 0.1 * torch.randn(b, d, generator=g).to(card)
+    xn = (x * x).sum(-1)
+    dead = torch.arange(0, n, 7, device=card)
+    xn[dead] = float("inf")
+    live = torch.ones(n, dtype=torch.bool, device=card)
+    live[dead] = False
+    got = golden_aggregate(q, x, 0.5, xn)
+    torch.testing.assert_close(got, ref.golden_aggregate_ref(q, x, 0.5, xn),
+                               rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(
+        got, ref.golden_aggregate_ref(q, x[live], 0.5, xn[live]),
+        rtol=1e-4, atol=1e-5)
+    assert torch.equal(got, golden_aggregate(q, x, 0.5, xn))
+
+
+@pytest.mark.parametrize("b,n,d", [(16, 5000, 3072), (17, 2001, 784),
+                                   (16, 3000, 12288), (3, 999, 3000)])
+def test_golden_aggregate_cluster_ranks_agree(card, b, n, d):
+    """Every CTA of a cluster ends with the same (max, l) and had the
+    same first-tile weights, bit for bit: the rank-order logit sum."""
+    g = torch.Generator().manual_seed(22)
+    x = (torch.randn(n, d, generator=g) / d ** 0.5).to(card)
+    q = x[:b] + 0.1 * torch.randn(b, d, generator=g).to(card)
+    xn = (x * x).sum(-1)
+    out, ranks = gagg_mod.cluster_states(q, x, 0.5, xn)
+    p = gagg_mod.plan(b, n, d, gagg_mod.active_clusters(
+        gagg_mod.cluster_shape(d), card))
+    assert tuple(ranks.shape) == (p["splits"], p["cluster"],
+                                  16 * p["groups"], 18)
+    assert not torch.isnan(ranks).any()
+    assert torch.equal(ranks, ranks[:, :1].expand_as(ranks))
+    assert torch.equal(out, golden_aggregate(q, x, 0.5, xn))
+
+
+def test_full_scan_kernels_count_once_and_never_sync(card):
+    """One call of kernel 1 or 4 adds 1 to its count, however many
+    launches it makes, and reads nothing back from the card; the
+    wrappers' plans agree with the C sources' shared-memory sizes."""
+    q, x = ints((16, 3072), card, 23), ints((700, 3072), card, 24)
+    xn = (x * x).sum(-1)
+    golden_aggregate(q, x, 0.5, xn)          # builds, reads the card's shape
+    before = pdist.launches, golden_aggregate.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pdist(q[:, :192].contiguous(), x[:, :192].contiguous(),
+              (q[:, :192] ** 2).sum(-1), (x[:, :192] ** 2).sum(-1))
+        golden_aggregate(q, x, 0.5, xn)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert (pdist.launches, golden_aggregate.launches) == \
+        (before[0] + 1, before[1] + 1)
+    agg_smem = _build.load("golden_aggregate", "golden_aggregate_smem_bytes",
+                           [ctypes.c_int] * 3, ctypes.c_size_t)
+    pd_smem = _build.load("pdist", "pdist_smem_bytes", [ctypes.c_int] * 2,
+                          ctypes.c_size_t)
+    for d in (2, 64, 784, 3072, 12288):
+        s = gagg_mod.cluster_shape(d)
+        assert agg_smem(s["slice"], s["stages"], s["cluster"]) == s["smem"]
+        p = pdist_mod.plan(16, 50000, d)
+        assert pd_smem(d, p["stages"]) == p["smem"]
 
 
 def test_trajectory_card_matches_cpu(card):

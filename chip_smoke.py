@@ -31,7 +31,13 @@ Phases:
      its merge, the pass's rate against the same plain read, its
      clusters' ranks holding bit-identical softmax states, two calls
      bit-equal, and kernel 4 at B=1 and at D=12288 (N=16384), kernel 1
-     at B=1;
+     at B=1; kernel 7 at both index shapes: its distance stage alone
+     against the plain version as above, and its probe launch (pooling,
+     distances, the stable top-nprobe windows, the CSR expansion) bit-
+     equal to its plain version in every field on integer data at the
+     indexed step's P and at P = W, its float probe lists equal up to
+     printed near-ties, timed against the chain it replaces (launches
+     counted with the profiler), and at every window of the gmm store;
   5. policy: the fused-vs-staged step sweep over m/N that sets the
      engine's "cuda" crossover, the streamed-vs-materialized screen's
      time and peak memory at B=16 and B=256 that set its byte budget,
@@ -45,7 +51,9 @@ Phases:
      (GoldDiff(screen="streamed")); the indexed cifar_like trajectory
      (GoldDiff(index=...), every step indexed), 3 indexed waves on the
      gmm store, and 3 waves on cifar_like with index_mode="auto" that
-     must screen exactly.  Every count of launches is set to 0 just
+     must screen exactly; one indexed step profiled: exactly one launch
+     (kernel 7's) from the rescaled query to kernel 2's first launch.
+     Every count of launches is set to 0 just
      before each and read just after, and must show that each route's
      kernels ran once per step, and the others never;
   7. baseline: staged, fused, streamed, indexed, full-scan and the exact
@@ -84,9 +92,18 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "scripts"))
+try:
+    from card_timing import (B, GMM_C, GMM_DIM, GMM_MODES, GMM_N, GMM_SPREAD,
+                             INDEXED_FRACS, N, SCALE_PROBES, STEPS, T_BUCKETS,
+                             card, kernel_names, launch_name,
+                             short, time_ms, wall_ms)
+except ImportError:
+    sys.exit(f"chip_smoke: FAIL: no scripts/card_timing.py beside "
+             f"{Path(__file__).name}")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12       # H100 SXM data sheet, fp32 outside the tensor cores
-B, N, DP, D, M, K = 16, 50000, 192, 3072, 12500, 5000
+DP, D, M, K = 192, 3072, 12500, 5000
 M_LOW = 5000                   # the smallest m_t of the 10-step schedule
 # integer checks of the top-m kernels: the path's m_t, one past the
 # sort's 2048-key chunk (its m + 2048 = 4097 slots: two chunks and one
@@ -111,20 +128,8 @@ UNION_PARTS = {"row maps": ("sqdist_mark", "sagg_mark", "union_count",
                "row passes": ("sqdist_dots", "sagg_rows"),
                "gather and merge": ("sqdist_gather", "sagg_merge")}
 SWEEP = (0.05, 0.10, 0.25, 0.50)   # m/N of the fused-vs-staged sweep
-STEPS = 10
 DIST_RTOL, MEAN_ATOL, TRAJ_TOL = 1e-5, 1e-4, 1e-3
-# The reference's indexed configuration (benchmarks/index_speedup.py:49,
-# :59): m_t in [N/128, N/64], k_t in [N/256, N/128], probes 1/64-1/32
-# of the windows with a capacity floor of 2 m_t; and its N >= 50k
-# acceptance store (:141-143).
-INDEXED_FRACS = dict(m_min_frac=1 / 128, m_max_frac=1 / 64,
-                     k_min_frac=1 / 256, k_max_frac=1 / 128)
-SCALE_PROBES = dict(f_lo=1 / 64, f_hi=1 / 32, safety=2.0)
-GMM_N, GMM_DIM, GMM_MODES, GMM_SPREAD, GMM_C = 65536, 64, 256, 0.10, 512
-T_BUCKETS = (900, 300, 100, 20)
 RECALL_MIN = 0.95
-SPIN_CYCLES = 4_000_000        # ~2 ms at the H100's clock (time_ms): more
-                               # than a GoldDiff step's host enqueue
 BF16_FLOPS_PER_S = 989e12      # H100 SXM data sheet, dense bf16 tensor cores
 # The reduced-LLM slice: the golden-decode entry point's cache (B=2,
 # S=4096, llama3.2-3b's 8 KV heads of G=3, dh=128) and two long-context
@@ -160,56 +165,10 @@ def ints(shape, seed: int) -> torch.Tensor:
     return torch.randint(-3, 4, shape, generator=g).float().cuda()
 
 
-def time_ms(fn, iters: int = 10) -> float:
-    """Mean device time of ``fn`` with CUDA events, after warm-up, with
-    the 50 MB L2 cache flushed before each launch (the main path reaches
-    every kernel after gigabytes of other traffic).  A spin kernel of
-    about two milliseconds after the flush lets the host enqueue all of
-    ``fn`` before the device reaches the start event, so a call's time
-    is its own and not its wrapper's host overhead (a GoldDiff step
-    enqueues for up to about a millisecond)."""
-    flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
-    for _ in range(2):
-        fn()
-    pairs = []
-    for _ in range(iters):
-        flush.zero_()
-        torch.cuda._sleep(SPIN_CYCLES)
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        pairs.append((s, e))
-    torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in pairs) / iters
-
-
-def wall_ms(fn, iters: int = 20) -> float:
-    """Mean host wall time of ``fn`` per call over back-to-back calls,
-    synchronized at both ends: what a caller pays, host launches
-    included."""
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / iters
-
-
 def bound(nbytes: float, flops: float,
           flops_per_s: float = FP32_FLOPS_PER_S) -> tuple[float, str]:
     tb, tf = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
     return max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations"
-
-
-def short(name: str) -> str:
-    """A kernel's name as the profiler gives it, without the return type
-    and the anonymous namespace, cut to 48 characters."""
-    return name.replace("void ", "").replace("(anonymous namespace)::",
-                                             "")[:48]
 
 
 def profile_line(label: str, wall: float, fn) -> float:
@@ -285,8 +244,7 @@ def device_split(fn, groups: dict, iters: int = 10):
                   if any(f in e.name for f in frags)), "rest")
         out[g] += e.time_range.elapsed_us() / 1e3 / iters
     flush.zero_()
-    one = [(short(e.name).split("(")[0].split("<")[0].strip(),
-            e.time_range.elapsed_us())
+    one = [(launch_name(e.name), e.time_range.elapsed_us())
            for e in launches(fn) if e.name not in skip]
     return out, one
 
@@ -586,8 +544,7 @@ def main() -> None:
     from repro_torch.kernels.screen import screen_topm, screen_topm_scan
     from repro_torch.launch.serve import Request, ServeEngine
 
-    smi = run(["nvidia-smi", "--query-gpu=name,power.limit",
-               "--format=csv,noheader"])
+    smi = card()
     nvcc_line = run([_build.nvcc(), "--version"]).splitlines()[-1]
     try:
         import triton
@@ -1044,10 +1001,10 @@ def main() -> None:
         ms=fu_times[M][0], plain_ms=fu_times[M][1], bound_ms=b_ms,
         bound_by=b_by, library_ms=None)
 
-    # kernel 7: centroid_scan (IVF level 1) at both index shapes, each
-    # with one +inf-norm padded window appended: integer data bit-equal
-    # to the plain version (and the probe lists of the stable sort),
-    # float data within DIST_RTOL, +inf windows +inf.
+    # kernel 7 at both index shapes.  (a) Its distance stage alone
+    # (ops.centroid_scan) with one +inf-norm padded window appended:
+    # integer data bit-equal to the plain version (and the probe lists of
+    # the stable sort), float data within DIST_RTOL, +inf windows +inf.
     gq = gst.X[:B] + 0.3 * torch.randn(
         B, GMM_DIM, generator=torch.Generator().manual_seed(40)).cuda()
     for label, q_c, ix in (("cifar_like", qp, cix), ("gmm", gq, gix)):
@@ -1055,7 +1012,7 @@ def main() -> None:
         qi_c, ci = ints((B, dp), 41), ints((w + 1, dp), 42)
         cni = (ci * ci).sum(-1)
         cni[-1] = float("inf")
-        gk = centroid_scan(qi_c, ci, (qi_c * qi_c).sum(-1), cni)
+        gk = centroid_scan(qi_c, ci, cni)
         gr = ref.centroid_scan_ref(qi_c, ci, cni)
         check(torch.equal(gk, gr) and bool(torch.isinf(gk[:, -1]).all()),
               f"centroid_scan: not bit-equal on integer data ({label})")
@@ -1066,7 +1023,7 @@ def main() -> None:
         cnpad = torch.cat([ix.centroid_norms,
                            ix.centroid_norms.new_full((1,), float("inf"))])
         qn_c = (q_c * q_c).sum(-1)
-        fk = centroid_scan(q_c, cpad, qn_c, cnpad)
+        fk = centroid_scan(q_c, cpad, cnpad)
         fr = ref.centroid_scan_ref(q_c, cpad, cnpad)
         check(bool(torch.isinf(fk[:, -1]).all()),
               f"centroid_scan: the padded window is not +inf ({label})")
@@ -1078,21 +1035,161 @@ def main() -> None:
         probes_equal = torch.equal(torch.sort(fk, dim=-1, stable=True)[1],
                                    torch.sort(fr, dim=-1, stable=True)[1])
         cbias = qn_c[:, None] + cnpad[None, :]
-        c_ms = time_ms(lambda: centroid_scan(q_c, cpad, qn_c, cnpad))
+        c_ms = time_ms(lambda: centroid_scan(q_c, cpad, cnpad))
         c_plain = time_ms(lambda: ref.centroid_scan_ref(q_c, cpad, cnpad))
         c_lib = time_ms(lambda: torch.addmm(cbias, q_c, cpad.T, alpha=-2.0))
         b_ms, b_by = bound(4 * (B * dp + (w + 1) * dp + B + (w + 1)
                                 + B * (w + 1)), 2 * B * (w + 1) * dp)
         print(f"[check] centroid_scan {label} (B={B}, C={w}+1 padded, "
-              f"d={dp}): integer bit-equal with equal probe lists, +inf "
-              f"window +inf; float max abs {err:.3g}, max rel {rel:.3g}, "
-              f"probe order equal {probes_equal}; kernel {c_ms:.4f} ms, "
-              f"bound {b_ms:.6f} ms ({b_by}), plain {c_plain:.4f} ms, "
-              f"library (torch.addmm) {c_lib:.4f} ms")
-        if label == "cifar_like":       # the indexed trajectory's shape
+              f"d={dp}; kernel 7's distance stage alone): integer "
+              f"bit-equal with equal probe lists, +inf window +inf; float "
+              f"max abs {err:.3g}, max rel {rel:.3g}, probe order equal "
+              f"{probes_equal}; kernel {c_ms:.4f} ms, bound {b_ms:.6f} ms "
+              f"({b_by}), plain {c_plain:.4f} ms, library (torch.addmm) "
+              f"{c_lib:.4f} ms")
+
+    # (b) The probe launch (ops.ivf_probe: pooling, distances, the stable
+    # top-P windows and the CSR expansion in one launch) against its plain
+    # version (ref.downsample_proxy + ref.ivf_probe_ref) on the same card
+    # tensors: integer data bit-equal in every field at the indexed
+    # step's P and at P = C (the last window padded, so it must come
+    # last; split windows' duplicated centroids kept, so ties occur);
+    # float data (the real centroids) with probe lists equal or each
+    # difference a near-tie within DIST_RTOL, printed; timed against the
+    # chain the launch replaced, rebuilt here (downsample_proxy, the
+    # distances, a stable sort, the expansion, perm[pos], isfinite).  Its
+    # distances come from this tree's distance stage, which sums the query
+    # norms inside, so it makes 38 launches where the replaced chain made
+    # 40; scripts/torch_index_times.py times an older tree's own chain.
+    steps = [int(t) for t in sampling_timesteps(sched, STEPS)[:-1]]
+    cix_eng = GoldDiffEngine(st, sched, indexed_cfg, index=cix,
+                             probe_schedule=scale_probes)
+    gix_eng = GoldDiffEngine(gst, sched, indexed_cfg, index=gix,
+                             probe_schedule=scale_probes)
+    probe_shapes = (
+        ("cifar_like", q, st.image_shape, cix,
+         max(cix_eng.nprobe(t) for t in steps)),
+        ("gmm", gq, gst.image_shape, gix, gix_eng.nprobe(T_BUCKETS[0])))
+    engine_fields = ("ids", "valid")
+
+    def probe_kernel(qq, shape, ix, cents, cn, p, fields=ref.PROBE_FIELDS):
+        return ops.ivf_probe(qq, shape, 4, cents, cn, ix.offsets, ix.perm,
+                             ix.n, p, ix.max_cluster, fields=fields)
+
+    def probe_plain(qq, shape, ix, cents, cn, p):
+        qpp = ref.downsample_proxy(
+            qq.reshape((qq.shape[0],) + tuple(shape)), 4)
+        return ref.ivf_probe_ref(qpp, cents, cn, ix.offsets, ix.perm, ix.n,
+                                 p, ix.max_cluster)
+
+    def rebuilt_chain(qq, shape, ix, p):
+        qpp = ref.downsample_proxy(
+            qq.reshape((qq.shape[0],) + tuple(shape)), 4)
+        cd2 = ops.centroid_scan(qpp, ix.centroids, ix.centroid_norms)
+        probe = torch.sort(cd2, dim=-1, stable=True)[1][:, :p]
+        starts, ends = ix.offsets[probe], ix.offsets[probe + 1]
+        lane = torch.arange(ix.max_cluster, dtype=starts.dtype,
+                            device=qq.device)
+        pos = starts[..., None] + lane
+        valid = (pos < ends[..., None]).reshape(qq.shape[0], -1)
+        pos = torch.clamp_max(pos, ix.n - 1).reshape(qq.shape[0], -1)
+        d2 = torch.where(valid, 0.0, float("inf"))
+        return ix.perm[pos], torch.isfinite(d2)
+
+    for label, q_c, shape, ix, p_step in probe_shapes:
+        w, dp = ix.centroids.shape
+        qi_c = ints((B,) + tuple(q_c.shape[1:]), 43)
+        ci = ints((w, dp), 44).cpu()
+        dup = (ix.centroids[1:] == ix.centroids[:-1]).all(-1).cpu()
+        for j in torch.nonzero(dup).flatten().tolist():
+            ci[j + 1] = ci[j]                       # split windows tie
+        ci = ci.cuda()
+        cni = (ci * ci).sum(-1)
+        cni[-1] = float("inf")                      # a padded window
+        for p in sorted({1, p_step, w}):
+            got = probe_kernel(qi_c, shape, ix, ci, cni, p)
+            want = probe_plain(qi_c, shape, ix, ci, cni, p)
+            for field, g, r in zip(ref.PROBE_FIELDS, got, want):
+                check(torch.equal(g, r), f"ivf_probe {label} P={p}: {field} "
+                      f"not bit-equal on integer data")
+            if p == w:
+                check(bool((got.probe[:, -1] == w - 1).all()),
+                      f"ivf_probe {label}: the padded window is not last")
+        ties = int(dup.sum())
+        got = probe_kernel(q_c, shape, ix, ix.centroids, ix.centroid_norms,
+                           p_step)
+        want = probe_plain(q_c, shape, ix, ix.centroids, ix.centroid_norms,
+                           p_step)
+        qpp = ref.downsample_proxy(q_c.reshape((B,) + tuple(shape)), 4)
+        d2r = ref.centroid_scan_ref(qpp, ix.centroids, ix.centroid_norms)
+        differ = got.probe != want.probe
+        near = [(float(a), float(r)) for a, r in zip(
+            torch.gather(d2r, 1, got.probe)[differ],
+            torch.gather(d2r, 1, want.probe)[differ])]
+        check(all(abs(a - r) <= DIST_RTOL * max(abs(r), 1.0)
+                  for a, r in near),
+              f"ivf_probe {label}: probe lists differ beyond near-ties "
+              f"{near[:8]}")
+        if not near:
+            for field, g, r in zip(ref.PROBE_FIELDS, got, want):
+                check(torch.equal(g, r), f"ivf_probe {label}: float {field} "
+                      f"differs with equal probe lists")
+        # the timed launch (the engine's fields) writes what the full one
+        # wrote; its error is the reference distances of the windows it
+        # chose against those the plain version chose (0: the same lists)
+        timed = probe_kernel(q_c, shape, ix, ix.centroids, ix.centroid_norms,
+                             p_step, engine_fields)
+        check(torch.equal(timed.ids, got.ids)
+              and torch.equal(timed.valid, got.valid),
+              f"ivf_probe {label}: the engine's fields differ from the full "
+              f"launch's")
+        probe_err = float((torch.gather(d2r, 1, got.probe)
+                           - torch.gather(d2r, 1, want.probe)).abs().max())
+        slots = B * p_step * ix.max_cluster
+        k_ms = time_ms(lambda: probe_kernel(
+            q_c, shape, ix, ix.centroids, ix.centroid_norms, p_step,
+            engine_fields))
+        plain_ms = time_ms(lambda: probe_plain(
+            q_c, shape, ix, ix.centroids, ix.centroid_norms, p_step))
+        chain_ms = time_ms(lambda: rebuilt_chain(q_c, shape, ix, p_step))
+        chain_names = kernel_names(lambda: rebuilt_chain(q_c, shape, ix,
+                                                         p_step))
+        new_names = kernel_names(lambda: probe_kernel(
+            q_c, shape, ix, ix.centroids, ix.centroid_norms, p_step,
+            engine_fields))
+        check(len(new_names) == 1, f"ivf_probe {label}: {new_names}")
+        d = q_c.shape[1]
+        touched = int(torch.unique(got.pos[got.valid]).numel())
+        b_ms, b_by = bound(4 * (B * d + w * dp + w) + 8 * (w + 1)
+                           + 8 * touched + 9 * slots,
+                           2 * B * w * dp + B * d)
+        print(f"[check] ivf_probe {label} (B={B}, D={d}, W={w} windows, "
+              f"d={dp}, L={ix.max_cluster}, P in {sorted({1, p_step, w})}; "
+              f"{ties} split windows tie): integer bit-equal in probe, pos, "
+              f"ids, valid and markers, the padded window last at P=W; "
+              f"float at P={p_step}: probe lists equal {not near} "
+              f"({len(near)} near-tie slots within {DIST_RTOL}: {near[:4]}), "
+              f"the chosen windows' reference distances max abs "
+              f"{probe_err:.3g}")
+        print(f"[time] ivf_probe {label} P={p_step} ({slots} slots, the "
+              f"engine's ids and validity): kernel {k_ms:.4f} ms in "
+              f"{len(new_names)} launch, bound {b_ms:.6f} ms ({b_by}) plus "
+              f"one launch's latency; plain {plain_ms:.4f} ms; the rebuilt "
+              f"chain (the replaced ops, this tree's distance stage) "
+              f"{chain_ms:.4f} ms device over {len(chain_names)} launches "
+              f"({', '.join(chain_names)})")
+        if label == "cifar_like":        # the indexed trajectory's shape
             results["centroid_scan"] = dict(
-                max_abs_err=err, ms=c_ms, plain_ms=c_plain, bound_ms=b_ms,
-                bound_by=b_by, library_ms=c_lib)
+                max_abs_err=probe_err, ms=k_ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    p_all = gix.num_clusters              # serve_gmm_indexed's first step
+    big = [time_ms(lambda: probe_kernel(
+        gq, gst.image_shape, gix, gix.centroids, gix.centroid_norms, p_all,
+        engine_fields)), time_ms(lambda: rebuilt_chain(
+            gq, gst.image_shape, gix, p_all))]
+    print(f"[time] ivf_probe gmm P={p_all} (every window, "
+          f"{B * p_all * gix.max_cluster} slots): kernel {big[0]:.4f} ms, "
+          f"the rebuilt chain {big[1]:.4f} ms device")
 
     for name, r in results.items():
         lib = ("none" if r["library_ms"] is None
@@ -1186,8 +1283,7 @@ def main() -> None:
     # Which buckets index_mode="auto" serves through the index, recall@m_t
     # of the indexed candidates against the exact screen (gated), and the
     # coarse and denoise times of both (recorded, not gated).
-    geng = GoldDiffEngine(gst, sched, indexed_cfg, index=gix,
-                          probe_schedule=scale_probes)
+    geng = gix_eng
     gexact = GoldDiffEngine(gst, sched, indexed_cfg)
     x0 = gst.X[:B]
     for t in T_BUCKETS:
@@ -1298,7 +1394,6 @@ def main() -> None:
     full = OptimalDenoiser(st, sched)
     den_ix = GoldDiff(full, indexed_cfg, index=cix,
                       probe_schedule=scale_probes)
-    steps = [int(t) for t in sampling_timesteps(sched, STEPS)[:-1]]
     ixe = den_ix.engine
     check(all(ixe.use_index(t) for t in steps),
           f"indexed trajectory: use_index {[ixe.use_index(t) for t in steps]}")
@@ -1314,6 +1409,31 @@ def main() -> None:
           f"re-ranked rows per query {[ixe.padded_m(t) for t in steps]}, "
           f"m_t {[ixe.sizes(t)[0] for t in steps]}; {dt * 1e3:.2f} ms; "
           f"launches {counts}")
+    # one indexed step's launches, read from the profiler: the step's
+    # selection must be kernel 7's probe launch and then exactly the
+    # re-rank's launches (kernel 2 and its sort) on the probe's output
+    t1 = steps[0]
+    q1 = x_T / float(sched.a[t1])
+    p1 = ixe.nprobe(t1)
+    pr1 = ixe.probe(q1, p1)
+    level1 = kernel_names(lambda: ixe.probe(q1, p1))
+    rerank = kernel_names(lambda: ops.golden_rerank(
+        q1, st.X, pr1.ids, min(ixe.sizes(t1)[1], ixe.padded_m(t1)),
+        x_norms=st.x_norms, valid=pr1.valid))
+    sel_names = kernel_names(lambda: ixe._select_body(q1, t1))
+    check(len(level1) == 1 and "ivf_probe_kernel" in level1[0]
+          and sel_names == level1 + rerank,
+          f"indexed step: level 1 {level1}, re-rank {rerank}, selection "
+          f"{sel_names}")
+    chain_level1 = kernel_names(lambda: rebuilt_chain(q1, st.image_shape,
+                                                      cix, p1))
+    step_names = kernel_names(lambda: ixe.denoise(x_T, t1))
+    print(f"[profile] indexed step t={t1} (profiler): {len(level1)} launch "
+          f"from the rescaled q to the ids and validity kernel 2 takes "
+          f"({level1[0]}), then the re-rank's {len(rerank)} "
+          f"({', '.join(rerank)}); the rebuilt chain on the same q "
+          f"{len(chain_level1)} launches; the whole step {len(step_names)} "
+          f"launches: {', '.join(step_names)}")
     for label, srv, want_route in (
             ("serve_gmm_indexed",
              ServeEngine(gst, num_steps=STEPS, max_batch=B,

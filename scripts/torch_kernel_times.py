@@ -6,11 +6,11 @@
 Imports ``repro_torch`` from DIR (default: this checkout's ``src``),
 builds that tree's two kernel sources, and prints one JSON line: the
 card's name and power limit, and ms per launch (CUDA events, the 50 MB
-L2 flushed and a ~2 ms spin before each launch, as ``chip_smoke.py``'s
-``time_ms``) of kernel 4 at B=16 and B=1 over N=50000 x D=3072 and at
-B=16 over N=16384 x D=12288, of kernel 1 at B=16 and B=1 over N=50000 x
-d=192, and of a plain read of each store (``X.sum(0)`` and
-``X.sum()``).  The stores are random, drawn on the card from seed 0.
+L2 flushed and a ~2 ms spin before each launch: ``time_ms`` of
+``scripts/card_timing.py``, which ``chip_smoke.py`` shares) of kernel 4
+at B=16 and B=1 over N=50000 x D=3072 and at B=16 over N=16384 x
+D=12288, of kernel 1 at B=16 and B=1 over N=50000 x d=192, and of a
+plain read of each store (``X.sum(0)`` and ``X.sum()``).  The stores are random, drawn on the card from seed 0.
 To compare two trees on one card, run them in turns in one call
 (parent, change, change, parent), each in its own process.  Needs a
 CUDA card; exits non-zero without one.
@@ -19,31 +19,12 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 from pathlib import Path
 
 import torch
 
-SPIN_CYCLES = 4_000_000
-
-
-def time_ms(fn, iters: int = 20) -> float:
-    flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
-    for _ in range(2):
-        fn()
-    pairs = []
-    for _ in range(iters):
-        flush.zero_()
-        torch.cuda._sleep(SPIN_CYCLES)
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        pairs.append((s, e))
-    torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in pairs) / iters
+from card_timing import card, time_ms
 
 
 def main() -> None:
@@ -59,11 +40,8 @@ def main() -> None:
     from repro_torch.kernels.pdist import pdist
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
     g = torch.Generator(device="cuda").manual_seed(0)
-    out = {"tag": args.tag, "src": args.src, "card": smi}
+    out = {"tag": args.tag, "src": args.src, "card": card()}
     for b, n, d in ((16, 50000, 3072), (1, 50000, 3072), (16, 16384, 12288)):
         x = 0.3 * torch.randn(n, d, generator=g, device="cuda")
         q = x[:b] + 0.1 * torch.randn(b, d, generator=g, device="cuda")

@@ -3,7 +3,9 @@
 Counterpart of ``repro.core.dataset``: the training set flattened to
 ``X: [N, D]``, the 4x average-pooled proxy ``proxy: [N, dp]`` used by
 GoldDiff's coarse screen, and precomputed fp32 squared norms, all as
-tensors on one device.
+tensors on one device.  ``downsample_proxy`` lives in ``kernels.ref``
+(it is the plain version of kernel 7's pooling stage) and is exported
+here as before.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.kernels.ref import downsample_proxy
 from repro_torch.utils import resolve_device
 
 
@@ -46,31 +49,6 @@ class DatasetStore:
             proxy_norms=self.proxy_norms.to(device),
             image_shape=self.image_shape,
             labels=None if self.labels is None else self.labels.to(device))
-
-
-def downsample_proxy(x_img: torch.Tensor, factor: int = 4) -> torch.Tensor:
-    """Paper's proxy: spatially average-pooled image, flattened.
-
-    ``x_img``: [..., H, W, C].  Identity (flattened) for non-image data
-    or tiny spatial dims.  The window is summed in row-major order and
-    then divided by its size, which is the order XLA:CPU reduces
-    ``repro.core.dataset.downsample_proxy``'s mean in: the two agree
-    bit for bit.
-    """
-    if x_img.ndim < 3 or x_img.shape[-2] < factor or x_img.shape[-3] < factor:
-        return (x_img.reshape(x_img.shape[: x_img.ndim - 1] + (-1,))
-                if x_img.ndim >= 2 else x_img)
-    h, w, c = x_img.shape[-3:]
-    hh, ww = h // factor, w // factor
-    lead = tuple(x_img.shape[:-3])
-    v = x_img[..., : hh * factor, : ww * factor, :]
-    v = v.reshape(lead + (hh, factor, ww, factor, c))
-    acc = None
-    for i in range(factor):
-        for j in range(factor):
-            s = v[..., i, :, j, :]
-            acc = s.clone() if acc is None else acc + s
-    return (acc / (factor * factor)).reshape(lead + (hh * ww * c,))
 
 
 def make_store(x, image_shape: tuple, labels=None, proxy_factor: int = 4,

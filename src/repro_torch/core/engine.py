@@ -7,9 +7,10 @@ of two bodies:
   re-rank distances and the by-index golden aggregate.  The coarse
   screen is exact, materialized (pdist + sort) or streamed (the
   ``screen_topm`` kernel) by ``use_stream``, or indexed (``index=``, a
-  :class:`repro_torch.index.GoldenIndex`): the ``centroid_scan`` kernel
-  and the probed CSR windows, every probed row going to the re-rank
-  (``ops.ivf_screen`` in capacity mode), with the probe count nprobe_t
+  :class:`repro_torch.index.GoldenIndex`): kernel 7 (``ops.ivf_probe``)
+  pools the query, picks the windows and writes the probed CSR windows'
+  dataset ids and validity in one launch, every probed row going to the
+  re-rank (``ivf_screen``'s capacity mode), with the probe count nprobe_t
   from a :class:`repro_torch.index.ProbeSchedule` and an occupancy
   floor.  ``index_mode="auto"`` screens a step exactly when its probed
   rows would pass the crossover fraction of N (``use_index``);
@@ -251,19 +252,28 @@ class GoldDiffEngine:
                               ix.centroids, ix.centroid_norms, m,
                               nprobe_max, ix.max_cluster, nprobe=nprobe)
 
+    def probe(self, q: torch.Tensor, nprobe_max: int):
+        """IVF level 1 of rescaled queries (``ops.ivf_probe``: on the card
+        one launch from ``q`` to the probed candidates' dataset ids and
+        validity, the proxy pooled inside it)."""
+        ix = self.index
+        return ops.ivf_probe(q, self.store.image_shape, self.cfg.proxy_factor,
+                             ix.centroids, ix.centroid_norms, ix.offsets,
+                             ix.perm, ix.n, nprobe_max, ix.max_cluster,
+                             fields=("ids", "valid"))
+
     def _select_body(self, q: torch.Tensor, t: int
                      ) -> tuple[torch.Tensor, torch.Tensor]:
         """(idx, d2) of the golden support for a rescaled query; ``idx``
-        are dataset row ids on both paths (indexed candidates map
-        through ``index.perm`` before the re-rank)."""
+        are dataset row ids on both paths (indexed candidates come from
+        ``probe`` as ids, with the validity of each capacity slot)."""
         m_t, k_t = self.sizes(t)
         if self.use_index(t):
-            mp = self.padded_m(t)
-            pos, pd2 = self.coarse_indexed(q, mp, self.nprobe(t))
-            return ops.golden_rerank(q, self.store.X, self.index.perm[pos],
-                                     min(k_t, mp),
+            pr = self.probe(q, self.nprobe(t))
+            return ops.golden_rerank(q, self.store.X, pr.ids,
+                                     min(k_t, self.padded_m(t)),
                                      x_norms=self.store.x_norms,
-                                     valid=torch.isfinite(pd2))
+                                     valid=pr.valid)
         cand = self.coarse(q, m_t)
         return ops.golden_rerank(q, self.store.X, cand, k_t,
                                  x_norms=self.store.x_norms)

@@ -12,10 +12,10 @@ Counterpart of ``repro.index`` for one device:
 * :mod:`repro_torch.index.schedule` — :class:`ProbeSchedule`, the
   time-aware probe count nprobe_t.
 
-``GoldDiffEngine(index=...)`` routes the coarse stage through it: a
-centroid scan (``ops.centroid_scan``, a hand-written kernel on the
-card) plus the probed CSR windows, O(C d + nprobe_t L) instead of
-O(N d).
+``GoldDiffEngine(index=...)`` routes the coarse stage through it:
+``ops.ivf_probe`` (on the card one launch of a hand-written kernel)
+pools the query, scans the centroids and expands the probed CSR
+windows, O(C d + nprobe_t L) instead of O(N d).
 """
 from repro_torch.index.build import kmeans, kmeans_plusplus
 from repro_torch.index.schedule import ProbeSchedule

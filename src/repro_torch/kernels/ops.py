@@ -6,7 +6,8 @@ streamed kernel), exact re-rank (``support_distances`` +
 ``golden_rerank``), aggregation (``golden_support_aggregate`` over
 supports, ``golden_aggregate`` for full scans) and the fused
 single-pass step (``fused_step``), the Golden Index's coarse
-screen (``centroid_scan`` + ``ivf_screen``), and the reduced-LLM
+screen (``ivf_probe``, one launch from the query to the probed
+candidates; ``centroid_scan``; ``ivf_screen``), and the reduced-LLM
 attention: causal GQA ``flash_attention`` (the prefill) and golden
 block-sparse decode attention (``select_golden_blocks`` +
 ``golden_attention_decode``).
@@ -19,8 +20,8 @@ an index, and the kernels load rows by index: no [B, m, D] gather is
 materialized on the card.
 
 The selections outside the kernels stay PyTorch (a stable sort, so
-ties go to the lowest index as with ``lax.top_k``); the streamed screen
-and the fused candidates select inside their kernels.
+ties go to the lowest index as with ``lax.top_k``); the streamed screen,
+the fused candidates and the indexed probe select inside their kernels.
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels import fused_step as _fused
 from repro_torch.kernels import screen as _screen
-from repro_torch.kernels.centroid_scan import centroid_scan as _cscan
+from repro_torch.kernels import centroid_scan as _probe
 from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.golden_attention import (
     golden_attention_decode as _gattn, select_golden_blocks)
@@ -127,13 +128,40 @@ def golden_aggregate(q, x, sigma2: float, x_norms=None):
 
 def centroid_scan(q, centroids, c_norms=None):
     """Query -> centroid distances [B, C] fp32 (IVF level 1); +inf
-    ``c_norms`` entries (padded windows) give +inf."""
+    ``c_norms`` entries (padded windows) give +inf.  On the card: kernel
+    7's distance stage alone."""
     if _on_cpu(q):
         return ref.centroid_scan_ref(q, centroids, c_norms)
-    q = q.float().contiguous()
     if c_norms is None:
         c_norms = (centroids.float() ** 2).sum(-1)
-    return _cscan(q, centroids, (q * q).sum(-1), c_norms.float().contiguous())
+    return _probe.centroid_scan(q.float().contiguous(), centroids,
+                                c_norms.float().contiguous())
+
+
+def ivf_probe(q, image_shape, factor: int, centroids, centroid_norms,
+              offsets, perm, n: int, nprobe_max: int, max_cluster: int,
+              nprobe=None, fields=ref.PROBE_FIELDS) -> ref.Probe:
+    """IVF level 1 from rescaled queries q [B, D] of a store of
+    ``image_shape``: the proxy (``downsample_proxy`` by ``factor``), the
+    ``nprobe_max`` nearest windows in ``lax.top_k``'s order (ties, such
+    as the duplicated centroids of a split cluster, to the lowest
+    window) and each window's ``max_cluster`` slots L over an index of
+    ``n`` rows (``ref.Probe``: probe list, positions, ``perm`` ids,
+    validity, 0 / +inf markers; ``nprobe``, int or 0-d tensor, masks the
+    probes beyond it).  On the card one launch of kernel 7 writing only
+    ``fields``; on the CPU ``ref.ivf_probe_ref`` (the other fields None
+    there too)."""
+    _probe.pool_geometry(image_shape, factor)
+    if not _on_cpu(q):
+        return _probe.ivf_probe(q.float().contiguous(), image_shape, factor,
+                                centroids, centroid_norms, offsets, perm, n,
+                                nprobe_max, max_cluster, nprobe, fields)
+    qp = ref.downsample_proxy(q.reshape((q.shape[0],) + tuple(image_shape)),
+                              factor)
+    out = ref.ivf_probe_ref(qp, centroids, centroid_norms, offsets, perm, n,
+                            nprobe_max, max_cluster, nprobe)
+    return ref.Probe(*(v if k in fields else None
+                       for k, v in zip(ref.PROBE_FIELDS, out)))
 
 
 def ivf_screen(qp, proxy_sorted, proxy_norms_sorted, offsets, centroids,
@@ -141,43 +169,32 @@ def ivf_screen(qp, proxy_sorted, proxy_norms_sorted, offsets, centroids,
                nprobe=None):
     """Two-level indexed coarse screen over the GoldenIndex layout.
 
-    Level 1: ``centroid_scan`` and the ``nprobe_max`` nearest windows,
-    by a stable sort (``lax.top_k``'s order: ties, such as the
-    duplicated centroids of a split cluster, go to the lowest window).
-    Level 2: the probed CSR windows, each padded to ``max_cluster``
-    rows L.  ``nprobe`` (int or 0-d tensor, default ``nprobe_max``)
-    masks the probes beyond it.
+    Level 1 (``ivf_probe`` on the proxy queries qp [B, dp]): the
+    ``nprobe_max`` nearest windows, by ``lax.top_k``'s order, and the
+    probed CSR windows, each padded to ``max_cluster`` rows L.
+    ``nprobe`` (int or 0-d tensor, default ``nprobe_max``) masks the
+    probes beyond it.
 
     Returns ``(pos, d2)`` [B, m]: positions in cluster-sorted row space
     (map them through ``perm``) and their proxy distances; padding
     slots take ``pos = min(pos, N - 1)`` and ``d2 = +inf``.  With ``m >=
-    nprobe_max * L`` (capacity mode, the engine's: everything probed
-    goes to the exact re-rank) the rows come back in CSR order and
-    ``d2`` only marks them, 0 real and +inf padding.  Below that
-    (screening mode) the probed rows' proxy distances come from
-    ``support_distances`` by index on ``proxy_sorted`` (no [B, R, dp]
-    gather) and a stable sort keeps the m nearest."""
-    n = proxy_sorted.shape[0]
-    b = qp.shape[0]
-    cd2 = centroid_scan(qp, centroids, centroid_norms)
-    probe = torch.sort(cd2, dim=-1, stable=True)[1][:, :nprobe_max]
-    starts = offsets[probe]                                 # [B, P]
-    ends = offsets[probe + 1]
-    lane = torch.arange(max_cluster, dtype=starts.dtype, device=qp.device)
-    pos = starts[..., None] + lane                          # [B, P, L]
-    valid = pos < ends[..., None]
-    if nprobe is not None:
-        live = torch.arange(nprobe_max, device=qp.device) < nprobe
-        valid = valid & live[None, :, None]
-    pos = torch.clamp_max(pos, n - 1).reshape(b, -1)        # [B, R]
-    valid = valid.reshape(b, -1)
-    inf = float("inf")
-    if m >= nprobe_max * max_cluster:
-        return pos, torch.where(valid, 0.0, inf)
-    d2 = torch.where(valid, support_distances(qp, proxy_sorted, pos,
-                                              proxy_norms_sorted), inf)
+    nprobe_max * L`` (capacity mode: everything probed goes to the exact
+    re-rank) the rows come back in CSR order and ``d2`` only marks them,
+    0 real and +inf padding: on the card that is kernel 7's one launch.
+    Below that (screening mode) the probed rows' proxy distances come
+    from ``support_distances`` by index on ``proxy_sorted`` (no [B, R,
+    dp] gather) and a stable sort keeps the m nearest."""
+    capacity = m >= nprobe_max * max_cluster
+    pr = ivf_probe(qp, (qp.shape[1],), 1, centroids, centroid_norms,
+                   offsets, None, proxy_sorted.shape[0], nprobe_max,
+                   max_cluster, nprobe,
+                   ("pos", "marker") if capacity else ("pos", "valid"))
+    if capacity:
+        return pr.pos, pr.marker
+    d2 = torch.where(pr.valid, support_distances(
+        qp, proxy_sorted, pr.pos, proxy_norms_sorted), float("inf"))
     vals, sel = torch.sort(d2, dim=-1, stable=True)
-    return torch.gather(pos, -1, sel[:, :m]), vals[:, :m]
+    return torch.gather(pr.pos, -1, sel[:, :m]), vals[:, :m]
 
 
 def fused_step(q, qp, x, proxy, m: int, k: int, sigma2: float,
@@ -250,5 +267,5 @@ def golden_attention_decode(q, k, v, block_idx, valid, block_size: int = 128):
 
 __all__ = ["pdist", "screen_topm", "support_distances", "golden_rerank",
            "golden_support_aggregate", "golden_aggregate", "fused_step",
-           "centroid_scan", "ivf_screen", "flash_attention",
+           "centroid_scan", "ivf_probe", "ivf_screen", "flash_attention",
            "golden_attention_decode", "select_golden_blocks"]

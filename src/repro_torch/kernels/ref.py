@@ -8,6 +8,8 @@ the same function as its kernel (which loads rows by index).
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 NEG_INF = -1e30
@@ -46,6 +48,77 @@ def centroid_scan_ref(q: torch.Tensor, centroids: torch.Tensor,
     computes it.  A +inf norm (a padded window) gives a +inf distance
     whatever the dot product, so such a window is never probed."""
     return pdist_ref(q, centroids, x_norms=c_norms)
+
+
+def downsample_proxy(x_img: torch.Tensor, factor: int = 4) -> torch.Tensor:
+    """Paper's proxy: spatially average-pooled image, flattened.
+
+    ``x_img``: [..., H, W, C].  Identity (flattened) for non-image data
+    or tiny spatial dims.  The window is summed in row-major order and
+    then divided by its size, which is the order XLA:CPU reduces
+    ``repro.core.dataset.downsample_proxy``'s mean in: the two agree
+    bit for bit.  The plain version of kernel 7's pooling stage.
+    """
+    if x_img.ndim < 3 or x_img.shape[-2] < factor or x_img.shape[-3] < factor:
+        return (x_img.reshape(x_img.shape[: x_img.ndim - 1] + (-1,))
+                if x_img.ndim >= 2 else x_img)
+    h, w, c = x_img.shape[-3:]
+    hh, ww = h // factor, w // factor
+    lead = tuple(x_img.shape[:-3])
+    v = x_img[..., : hh * factor, : ww * factor, :]
+    v = v.reshape(lead + (hh, factor, ww, factor, c))
+    acc = None
+    for i in range(factor):
+        for j in range(factor):
+            s = v[..., i, :, j, :]
+            acc = s.clone() if acc is None else acc + s
+    return (acc / (factor * factor)).reshape(lead + (hh * ww * c,))
+
+
+class Probe(NamedTuple):
+    """IVF level 1's outputs (``ivf_probe_ref`` / the kernel): the probed
+    windows [B, P] in stable ascending distance order, and for each of
+    the P L candidate slots its cluster-sorted position, dataset id,
+    validity and d2 marker (0 real, +inf padding).  A field the caller
+    did not ask for is None."""
+    probe: torch.Tensor | None
+    pos: torch.Tensor | None
+    ids: torch.Tensor | None
+    valid: torch.Tensor | None
+    marker: torch.Tensor | None
+
+
+PROBE_FIELDS = Probe._fields
+
+
+def ivf_probe_ref(qp: torch.Tensor, centroids: torch.Tensor,
+                  c_norms: torch.Tensor, offsets: torch.Tensor,
+                  perm: torch.Tensor | None, n: int, nprobe_max: int,
+                  max_cluster: int, nprobe=None) -> Probe:
+    """IVF level 1 of proxy queries qp [B, dp] over an index of ``n``
+    rows: ``centroid_scan_ref``, the ``nprobe_max`` nearest windows by a
+    stable sort (``lax.top_k``'s order: ties, such as the duplicated
+    centroids of a split cluster, go to the lowest window), and each
+    window's ``max_cluster`` slots L: ``pos = min(offsets[w] + lane,
+    n - 1)``, valid where ``offsets[w] + lane < offsets[w + 1]`` and the
+    probe is below ``nprobe`` (int or 0-d tensor; default all),
+    ``ids = perm[pos]`` (None without ``perm``)."""
+    b = qp.shape[0]
+    cd2 = centroid_scan_ref(qp, centroids, c_norms)
+    probe = torch.sort(cd2, dim=-1, stable=True)[1][:, :nprobe_max]
+    starts = offsets[probe]                                 # [B, P]
+    ends = offsets[probe + 1]
+    lane = torch.arange(max_cluster, dtype=starts.dtype, device=qp.device)
+    pos = starts[..., None] + lane                          # [B, P, L]
+    valid = pos < ends[..., None]
+    if nprobe is not None:
+        live = torch.arange(nprobe_max, device=qp.device) < nprobe
+        valid = valid & live[None, :, None]
+    pos = torch.clamp_max(pos, n - 1).reshape(b, -1)        # [B, R]
+    valid = valid.reshape(b, -1)
+    return Probe(probe=probe, pos=pos,
+                 ids=None if perm is None else perm[pos], valid=valid,
+                 marker=torch.where(valid, 0.0, float("inf")))
 
 
 def materialized_topm(d2: torch.Tensor, m: int

@@ -515,7 +515,7 @@ def test_centroid_scan_bit_equal_integer(card, b, c, d):
     q, cents = ints((b, d), card, 20), ints((c, d), card, 21)
     cn = norms(cents)
     cn[-1] = float("inf")                       # a padded window
-    got = centroid_scan(q, cents, norms(q), cn)
+    got = centroid_scan(q, cents, cn)
     want = ref.centroid_scan_ref(q, cents, cn)
     assert torch.equal(got, want)
     assert torch.isinf(got[:, -1]).all()
@@ -585,6 +585,191 @@ def test_indexed_route_card_matches_cpu(card):
     assert centroid_scan.launches == before + 10
     assert np.isfinite(outs[1].numpy()).all()
     torch.testing.assert_close(outs[1], outs[0], rtol=1e-3, atol=1e-3)
+
+
+# -- kernel 7 as one probe launch (ops.ivf_probe) ------------------------------
+
+IMAGE = (32, 32, 3)            # cifar_like's queries, pooled 4x to d=192
+
+
+def probe_index(c, L, dev, seed, dp=192):
+    """A CSR layout of C windows of 1..L rows (one of L rows) and a
+    permutation of its rows; integer centroids of width dp, every third
+    window a copy of the one before it (a split cluster), the last one
+    padded (+inf norm) when C > 3."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(1, L + 1, c)
+    sizes[rng.integers(0, c)] = L
+    offsets = np.concatenate([[0], np.cumsum(sizes)])
+    n = int(offsets[-1])
+    cents = rng.integers(-3, 4, (c, dp)).astype(np.float32)
+    if c > 2:
+        cents[1::3] = cents[0::3][: len(cents[1::3])]
+    cn = (cents * cents).sum(-1)
+    if c > 3:
+        cn[-1] = np.inf
+
+    def t(a, dt):
+        return torch.from_numpy(np.asarray(a, dt)).to(dev)
+
+    return dict(centroids=t(cents, np.float32),
+                centroid_norms=t(cn, np.float32),
+                offsets=t(offsets, np.int64),
+                perm=t(rng.permutation(n), np.int64), n=n, L=L)
+
+
+def probe_pair(q, ix, p, shape=IMAGE, nprobe=None, fields=ref.PROBE_FIELDS,
+               factor=4):
+    """(kernel, plain version) of level 1 on the same card tensors."""
+    args = (ix["centroids"], ix["centroid_norms"], ix["offsets"], ix["perm"],
+            ix["n"], p, ix["L"])
+    got = ops.ivf_probe(q, shape, factor, *args, nprobe=nprobe, fields=fields)
+    qp = ref.downsample_proxy(q.reshape((q.shape[0],) + tuple(shape)), factor)
+    return got, ref.ivf_probe_ref(qp, *args, nprobe=nprobe)
+
+
+def assert_probe_equal(got, want):
+    for name, g, w in zip(ref.PROBE_FIELDS, got, want):
+        if g is not None:
+            assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("c", [1, 5, 230, 617, 4097])
+@pytest.mark.parametrize("b", [1, 16, 17])
+def test_ivf_probe_bit_equal_integer(card, b, c):
+    ix = probe_index(c, 12, card, seed=c + b)
+    q = ints((b, 3072), card, 30 + c)
+    for p in sorted({1, min(8, c), c}):
+        got, want = probe_pair(q, ix, p)
+        assert_probe_equal(got, want)
+        if p == c > 3:                      # the padded window comes last
+            assert (got.probe[:, -1] == c - 1).all()
+
+
+def test_ivf_probe_identity_gmm_shape(card):
+    """The gmm scale store's shape: no pooling, d=64, C=617, every window
+    probed, with the int and 0-d tensor masks."""
+    ix = probe_index(617, 192, card, seed=5, dp=64)
+    q = ints((16, 64), card, 31)
+    for nprobe in (None, 300, torch.tensor(300, device=card)):
+        got, want = probe_pair(q, ix, 617, shape=(64,), nprobe=nprobe)
+        assert_probe_equal(got, want)
+
+
+@pytest.mark.parametrize("factor", [1, 2, 3, 8])
+def test_ivf_probe_pooling_factors(card, factor):
+    """Factors other than the stores' 4 (the fold reads a window's f^2
+    samples in chunks of 16: 1, 4, 9 (cropped to 30x30) and 64 of them):
+    bit-equal to ``ref.downsample_proxy`` then the plain version.  The
+    integers are multiples of f^2, so every pooled mean is an integer and
+    the distances are exact (a mean of nine integers is not)."""
+    dp = (32 // factor) ** 2 * 3
+    ix = probe_index(230, 12, card, seed=20 + factor, dp=dp)
+    q = factor * factor * ints((16, 3072), card, 38 + factor)
+    for p in (8, 230):
+        got, want = probe_pair(q, ix, p, factor=factor)
+        assert_probe_equal(got, want)
+
+
+@pytest.mark.parametrize("nprobe", [0, 3, 8, 13, "int64", "int32"])
+def test_ivf_probe_nprobe_mask(card, nprobe):
+    ix = probe_index(40, 9, card, seed=7)
+    q = ints((16, 3072), card, 32)
+    if isinstance(nprobe, str):
+        nprobe = torch.tensor(5, dtype=getattr(torch, nprobe), device=card)
+    got, want = probe_pair(q, ix, 8, nprobe=nprobe)
+    assert_probe_equal(got, want)
+    live = min(8, int(nprobe))
+    assert not got.valid.reshape(16, 8, 9)[:, live:].any()
+
+
+def test_ivf_probe_reads_the_mask_on_the_card(card):
+    """A 0-d tensor nprobe is read by the kernel: no host sync."""
+    ix = probe_index(40, 9, card, seed=8)
+    q = ints((16, 3072), card, 33)
+    nprobe = torch.tensor(4, device=card)
+    ops.ivf_probe(q, IMAGE, 4, ix["centroids"], ix["centroid_norms"],
+                  ix["offsets"], ix["perm"], ix["n"], 8, 9, nprobe)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ops.ivf_probe(q, IMAGE, 4, ix["centroids"],
+                            ix["centroid_norms"], ix["offsets"], ix["perm"],
+                            ix["n"], 8, 9, nprobe)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert not got.valid.reshape(16, 8, 9)[:, 4:].any()
+
+
+def test_ivf_probe_zero_distance_first(card):
+    """A query whose proxy equals a centroid: its distance is exactly 0
+    (no -0.0 after +inf) and that window is probed first."""
+    ix = probe_index(230, 12, card, seed=9)
+    c2 = ix["centroids"][2].reshape(8, 8, 3)
+    q = c2.repeat_interleave(4, 0).repeat_interleave(4, 1).reshape(1, -1)
+    q = torch.cat([q, ints((2, 3072), card, 34)])
+    qp = ref.downsample_proxy(q.reshape(3, *IMAGE), 4)
+    assert torch.equal(qp[0], ix["centroids"][2])
+    d2 = ops.centroid_scan(qp, ix["centroids"], ix["centroid_norms"])
+    assert d2[0, 2].item() == 0.0 and not torch.signbit(d2[0, 2])
+    got, want = probe_pair(q, ix, 8)
+    assert_probe_equal(got, want)
+    assert got.probe[0, 0].item() == int(torch.nonzero(d2[0] == 0)[0])
+
+
+def test_ivf_probe_ties_go_to_the_lowest_window(card):
+    """Split windows share a centroid: equal keys but for the window, in
+    ascending window order, as lax.top_k breaks the tie."""
+    ix = probe_index(230, 12, card, seed=10)
+    q = ints((16, 3072), card, 35)
+    got, _ = probe_pair(q, ix, 230)
+    d2 = ref.centroid_scan_ref(
+        ref.downsample_proxy(q.reshape(16, *IMAGE), 4), ix["centroids"],
+        ix["centroid_norms"])
+    ranked = torch.gather(d2, 1, got.probe)
+    same = ranked[:, 1:] == ranked[:, :-1]
+    assert same.any()
+    assert (got.probe[:, 1:][same] > got.probe[:, :-1][same]).all()
+
+
+def test_ivf_probe_float(card):
+    """Float queries and centroids: the distance stage within 1e-5, the
+    probe lists equal up to near-ties (windows within 1e-5 relative)."""
+    g = torch.Generator().manual_seed(36)
+    ix = probe_index(617, 64, card, seed=11, dp=64)
+    ix["centroids"] = torch.randn(617, 64, generator=g).to(card)
+    ix["centroid_norms"] = norms(ix["centroids"])
+    q = ix["centroids"][:16] + 0.3 * torch.randn(16, 64, generator=g).to(card)
+    got, want = probe_pair(q, ix, 40, shape=(64,))
+    d2 = ref.centroid_scan_ref(q, ix["centroids"], ix["centroid_norms"])
+    torch.testing.assert_close(
+        ops.centroid_scan(q, ix["centroids"], ix["centroid_norms"]), d2,
+        rtol=1e-5, atol=1e-5)
+    diff = got.probe != want.probe
+    a = torch.gather(d2, 1, got.probe)[diff]
+    w = torch.gather(d2, 1, want.probe)[diff]
+    assert ((a - w).abs() <= 1e-5 * w.abs().clamp_min(1.0)).all()
+
+
+def test_ivf_probe_is_one_launch(card):
+    """The engine's fields: one kernel on the card, one count."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    ix = probe_index(230, 12, card, seed=12)
+    q = ints((16, 3072), card, 37)
+    got, want = probe_pair(q, ix, 8, fields=("ids", "valid"))
+    assert got.probe is None and got.pos is None and got.marker is None
+    assert_probe_equal(got, want)
+    before = centroid_scan.launches
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ops.ivf_probe(q, IMAGE, 4, ix["centroids"], ix["centroid_norms"],
+                      ix["offsets"], ix["perm"], ix["n"], 8, 12,
+                      fields=("ids", "valid"))
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert centroid_scan.launches == before + 1
+    assert len(names) == 1 and "ivf_probe_kernel" in names[0], names
 
 
 # -- the reduced-LLM attention kernels (8 and 9) -------------------------------

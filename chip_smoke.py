@@ -59,9 +59,19 @@ Phases:
   7. baseline: staged, fused, streamed, indexed, full-scan and the exact
      staged trajectory at the indexed configuration, from the same x_T,
      each counted alone, timed and profiled;
+     plan: ServeEngine in plan mode (the reference's default) at B=16:
+     the plan, warmup()'s CUDA graphs (one per plan bucket x batch
+     bucket), their seconds and the memory they hold; 3 counted waves
+     in turns with the static engine (no capture after warmup); every
+     segment's graph replay bit-equal to the segment run eagerly; plan
+     vs static within 1e-3; the indexed plan at INDEXED_CFG +
+     SCALE_PROBES; gmm index_mode="always" plan waves; plan and static
+     trajectories timed in turns and profiled at B=16, 4 and 1 (the
+     earlier [serve] phases are pinned to mode="static");
   8. reference: a small store's trajectories on the card against the
      same trajectories on the CPU (plain versions), for every route
-     (the indexed one with an index built on the CPU and moved over);
+     (the indexed one with an index built on the CPU and moved over),
+     and the auto and indexed plans;
   9. the reduced-LLM slice (``llm_phases``): flash attention (kernel 9)
      and golden decode attention (kernel 8) against their plain versions
      at the path's shapes in fp32 and bf16 ([llm-check]); the
@@ -87,6 +97,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from pathlib import Path
 
 import torch
@@ -96,7 +107,7 @@ sys.path.insert(0, str(ROOT / "scripts"))
 try:
     from card_timing import (B, GMM_C, GMM_DIM, GMM_MODES, GMM_N, GMM_SPREAD,
                              INDEXED_FRACS, N, SCALE_PROBES, STEPS, T_BUCKETS,
-                             card, kernel_names, launch_name,
+                             card, device_kernels, kernel_names, launch_name,
                              short, time_ms, wall_ms)
 except ImportError:
     sys.exit(f"chip_smoke: FAIL: no scripts/card_timing.py beside "
@@ -521,7 +532,9 @@ def main() -> None:
         fail(f"no src/repro_torch beside {Path(__file__).name}")
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import (GoldDiff, GoldDiffConfig, GoldDiffEngine,
-                                  OptimalDenoiser, sample, sampling_timesteps)
+                                  OptimalDenoiser, build_plan, plan_segment,
+                                  plan_segment_key, sample, sample_plan,
+                                  sampling_timesteps)
     from repro_torch.core import engine as engine_mod
     from repro_torch.data import make_dataset
     from repro_torch.index import (ProbeSchedule, build_index,
@@ -597,7 +610,8 @@ def main() -> None:
 
     # -- 3. scale: the store ---------------------------------------------------
     t0 = time.perf_counter()
-    eng = ServeEngine("cifar_like", {"n": N}, num_steps=STEPS, max_batch=B)
+    eng = ServeEngine("cifar_like", {"n": N}, num_steps=STEPS, max_batch=B,
+                      mode="static")
     torch.cuda.synchronize()
     store_s = time.perf_counter() - t0
     st = eng.store
@@ -1366,10 +1380,12 @@ def main() -> None:
 
     reqs = [Request(i, B, seed=100 + i) for i in range(3)]
     path_counts = {}
+    static_srv = {"serve": eng}               # the [plan] phase serves these
     for label, srv, want_route in (
             ("serve", eng, route),
             ("serve_fused", ServeEngine(st, num_steps=STEPS, max_batch=B,
-                                        fused=True), "fused")):
+                                        fused=True, mode="static"),
+             "fused")):
         srv.serve([Request(99, B, seed=99)])     # warm-up wave, not counted
         served, total, counts = counted(lambda: srv.serve(reqs))
         for r in served:
@@ -1438,10 +1454,12 @@ def main() -> None:
             ("serve_gmm_indexed",
              ServeEngine(gst, num_steps=STEPS, max_batch=B,
                          gd_cfg=indexed_cfg, index=gix,
-                         index_mode="always"), "indexed"),
+                         index_mode="always", mode="static"), "indexed"),
             ("serve_cifar_auto_index",
              ServeEngine(st, num_steps=STEPS, max_batch=B,
-                         gd_cfg=indexed_cfg, index=cix), "staged")):
+                         gd_cfg=indexed_cfg, index=cix, mode="static"),
+             "staged")):
+        static_srv[label] = srv
         srv.serve([Request(99, B, seed=99)])     # warm-up wave, not counted
         served, total, counts = counted(lambda: srv.serve(reqs))
         for r in served:
@@ -1504,14 +1522,6 @@ def main() -> None:
           f"|indexed - exact| max {float(diff_ix.max()):.3g}, mean "
           f"{float(diff_ix.mean()):.3g} (cifar_like does not cluster: not "
           f"gated)")
-    # each kernel's launches come from the run of the route that owns it
-    path_of = {"pdist": "staged", "support_sqdist": "staged",
-               "golden_support_aggregate": "serve",
-               "golden_aggregate": "full_scan", "screen_topm": "streamed",
-               "fused_candidates": "serve_fused", "centroid_scan": "indexed"}
-    for n, p in path_of.items():
-        check(path_counts[p][n] > 0, f"{n} never launched on the {p} path")
-
     # where the time goes: device time by kernel over one trajectory each.
     # The idle share is taken against the unprofiled wall time of the same
     # trajectory above: the profiler's own host work widens the gaps.
@@ -1519,6 +1529,253 @@ def main() -> None:
                   "exact_indexed_cfg", "full_scan"):
         profile_line(which, best[which] * 1e3, lambda: sample(
             dens[which], sched, (B, D), num_steps=STEPS, x_init=x_T))
+
+    # -- 7b. plan: plan-mode serving, one CUDA graph a (plan x batch) bucket ---
+    t_phase = time.perf_counter()
+    peng = ServeEngine(st, num_steps=STEPS, max_batch=B)
+    pe, plan = peng.engine, peng.plan
+    check(peng.mode == "plan", f"ServeEngine(auto) serves {peng.mode}")
+    p_route = ("fused" if pe._fused_masked(False) else
+               "streamed" if pe.use_stream(B) else "staged")
+    for line in plan.describe().splitlines():
+        print(f"[plan] {line}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    res0, alloc0 = torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
+    stats = peng.warmup()
+    torch.cuda.empty_cache()       # what stays reserved is what graphs hold
+    pool_res = torch.cuda.memory_reserved() - res0
+    pool_alloc = torch.cuda.memory_allocated() - alloc0
+    n_graphs = len(stats["batch_buckets"]) * plan.num_buckets
+    check(stats["programs_compiled"] == pe._captures == n_graphs,
+          f"[plan] warmup: {stats} with {pe._captures} captures")
+    print(f"[plan] warmup: {pe._captures} CUDA graphs captured (batch "
+          f"buckets {stats['batch_buckets']} x {plan.num_buckets} plan "
+          f"buckets) in {stats['warmup_s']:.2f} s; device memory held after "
+          f"warmup (empty_cache before and after): {pool_res / 2**20:.1f} "
+          f"MiB more reserved (the shared graph pool, the static buffers), "
+          f"{pool_alloc / 2**20:.1f} MiB more allocated (the static "
+          f"buffers)")
+    builds = pe._builds
+    waves_of = {}
+    for label, srv, want in (("static", eng, route), ("plan", peng, p_route),
+                             ("plan", peng, p_route),
+                             ("static", eng, route)):
+        served, total, counts = counted(lambda: srv.serve(reqs))
+        check(all(r.images.shape == (B, 32, 32, 3) and bool(torch.isfinite(
+            torch.from_numpy(r.images)).all()) for r in served),
+              f"[plan] {label} waves: shapes or non-finite images")
+        check(counts == expected(want, STEPS * len(served)),
+              f"[plan] {label} waves ({want} route): launches {counts}")
+        waves_of.setdefault(label, []).append(
+            ([r.latency_s * 1e3 for r in served], B * len(served) / total))
+        path_counts.setdefault(f"{label}_serve", counts)
+    check(pe._builds == builds and pe._captures == n_graphs,
+          f"[plan] serving after warmup built {pe._builds - builds} programs")
+    for label, runs in waves_of.items():
+        print(f"[plan] {label} serve, {p_route if label == 'plan' else route}"
+              f" route, 3 waves of {B} images x {STEPS} steps, two runs: "
+              + "; ".join("wave latency " + ", ".join(f"{v:.2f}" for v in w)
+                          + f" ms, {ips:.1f} images/s" for w, ips in runs)
+              + (f"; launches {path_counts['plan_serve']}, 0 captures after "
+                 f"warmup" if label == "plan" else ""))
+
+    def plan_run(gd, pln, x):
+        e = gd.engine
+        return sample_plan(gd.call_masked, sched, tuple(x.shape), pln,
+                           x_init=x, program_cache=e.program, jitter=e.jitter)
+
+    def replay_vs_eager(gd, pln, x, label):
+        """Each segment's graph against the same segment run eagerly;
+        returns the eager trajectory and each bucket's entry state."""
+        entries = []
+        for bucket in pln.buckets:
+            entries.append(x)
+            seg = plan_segment(gd.call_masked, sched, pln, bucket)
+            graph = gd.engine._programs.get(plan_segment_key(
+                pln, bucket, tuple(x.shape), "float32", 3.0))
+            check(graph is not None, f"[plan] {label}: no graph for {bucket}")
+            got, want = graph(x), seg(x)
+            check(torch.equal(got, want),
+                  f"[plan] {label} steps [{bucket.start}, {bucket.stop}): "
+                  f"graph replay differs from eager by "
+                  f"{float((got - want).abs().max()):.3g}")
+            x = want
+        return x, entries
+
+    def counted_kernels(fn):
+        """The counts ``fn`` adds and the device kernels the profiler
+        sees it run, by name, less copies and memsets."""
+        for kfn in kernels.values():
+            kfn.launches = 0
+        _, names = device_kernels(fn)
+        return ({n: f.launches for n, f in kernels.items()},
+                Counter(n for n in names if n not in copy_names
+                        and not n.startswith(("Memcpy", "Memset"))))
+
+    def replay_measured(gd, pln, x, label):
+        """The counts a replayed plan trajectory adds hold what the card
+        ran: its device kernels equal, name for name, those of the same
+        segments run eagerly, where each wrapper counts at its launch,
+        and its counts equal that eager run's."""
+        segs = [plan_segment(gd.call_masked, sched, pln, b)
+                for b in pln.buckets]
+
+        def eager():
+            y = x
+            for seg in segs:
+                y = seg(y)
+            return y
+        e_counts, e_names = counted_kernels(eager)
+        r_counts, r_names = counted_kernels(lambda: plan_run(gd, pln, x))
+        check(r_names == e_names and r_counts == e_counts,
+              f"[plan] {label}: replay counts {r_counts}, device kernels "
+              f"{dict(r_names)}; eager counts {e_counts}, device kernels "
+              f"{dict(e_names)}")
+        print(f"[plan] {label}: one replayed trajectory ran, by the "
+              f"profiler, the device kernels of the eager segments "
+              f"({sum(e_names.values())} launches of {len(e_names)} kernels,"
+              f" copies and memsets aside); its counts equal the eager "
+              f"run's wrapper counts: "
+              f"{ {n: c for n, c in r_counts.items() if c} }")
+
+    def masked_fused_vs_plain(pln, entries):
+        """Kernels 6 and 3 as each bucket's fused masked step calls them
+        at its first step, on that step's input: kernel 6 at m = m_cap
+        against the plain carry loop, kernel 3 at k = min(k_cap, m_cap)
+        with the m_t and k_t masks against the plain aggregate."""
+        ps = pe.store
+        for bucket, x in zip(pln.buckets, entries):
+            t = int(pln.ts[bucket.start])
+            m_cap, k_cap, p_cap, use_ix = pe._masked_caps(bucket.caps)
+            m_t, k_t, _, a, sig2 = (None if v is None else v[t] for v in
+                                    pe._masked_table(m_cap, k_cap, p_cap,
+                                                     use_ix))
+            k = min(k_cap, m_cap)
+            q = x / a
+            qp = pe._proxy_query(q)
+            gi, gv = fused_candidates(qp, q, ps.proxy, ps.X, m_cap,
+                                      ps.proxy_norms, ps.x_norms)
+            wi, wv = fused_candidates_scan(qp, q, ps.proxy, ps.X, m_cap,
+                                           ps.proxy_norms, ps.x_norms)
+            own = rel_err(ref.support_sqdist_ref(q, ps.X, ps.x_norms, gi),
+                          gv)
+            mean_err = float((fused_posterior(ps.X, gi, gv, k, sig2, m_t, k_t)
+                              - fused_posterior(ps.X, wi, wv, k, sig2, m_t,
+                                                k_t)).abs().max())
+            live = torch.arange(m_cap, device=gv.device) < m_t
+            vals, pos = torch.sort(torch.where(live, gv, float("inf")),
+                                   dim=-1, stable=True)
+            gid = torch.gather(gi, -1, pos[:, :k]).contiguous()
+            lg = torch.clamp_min(-vals[:, :k] / (2.0 * sig2), ref.NEG_INF)
+            lg = torch.where(torch.arange(k, device=lg.device) < k_t, lg,
+                             ref.NEG_INF).contiguous()
+            agg_err = float((golden_support_aggregate(ps.X, gid, lg)
+                             - ref.golden_support_aggregate_ref(ps.X, gid, lg)
+                             ).abs().max())
+            check(own <= DIST_RTOL and mean_err <= MEAN_ATOL
+                  and agg_err <= MEAN_ATOL,
+                  f"[plan] t={t} masked fused step: fused_candidates m="
+                  f"{m_cap} own-row rel {own:.3g}, posterior mean max abs "
+                  f"{mean_err:.3g}; golden_support_aggregate k={k} max abs "
+                  f"{agg_err:.3g}")
+            for n, e in (("fused_candidates", mean_err),
+                         ("golden_support_aggregate", agg_err)):
+                results[n]["max_abs_err"] = max(results[n]["max_abs_err"], e)
+            print(f"[plan] bucket [{bucket.start}, {bucket.stop}) at t={t} "
+                  f"(N={N}, B={x.shape[0]}): fused_candidates m={m_cap} vs "
+                  f"the plain carry loop: own-row rel {own:.3g} (tolerance "
+                  f"{DIST_RTOL}), masked posterior mean (m_t={int(m_t)}, "
+                  f"k_t={int(k_t)}) max abs {mean_err:.3g}; "
+                  f"golden_support_aggregate k={k} with the NEG_INF masks vs "
+                  f"the plain aggregate max abs {agg_err:.3g} (tolerance "
+                  f"{MEAN_ATOL})")
+
+    copy_names = set(kernel_names(lambda: (x_T.clone(),
+                                           torch.empty_like(x_T).copy_(x_T))))
+    x_plan = plan_run(peng.denoiser, plan, x_T)
+    x_eager, entries = replay_vs_eager(peng.denoiser, plan, x_T, "auto")
+    replay_measured(peng.denoiser, plan, x_T, "auto plan")
+    check(p_route == "fused", f"[plan] auto serves the {p_route} route")
+    masked_fused_vs_plain(plan, entries)
+    check(torch.equal(x_plan, x_eager), "[plan] chained replays != eager")
+    x_static = sample(eng.denoiser, sched, (B, D), num_steps=STEPS,
+                      x_init=x_T)
+    err = float((x_plan - x_static).abs().max())
+    check(err <= TRAJ_TOL, f"[plan] plan vs static trajectory {err:.3g}")
+    print(f"[plan] graph replays bit-equal to the eager segments "
+          f"({plan.num_buckets} buckets at B={B}); plan vs static trajectory "
+          f"max abs {err:.3g} (tolerance {TRAJ_TOL})")
+
+    # the indexed plan at INDEXED_CFG + SCALE_PROBES
+    ix_plan = build_plan(ixe, STEPS)
+    for line in ix_plan.describe().splitlines():
+        print(f"[plan] indexed: {line}")
+    t0 = time.perf_counter()
+    plan_run(den_ix, ix_plan, x_T)                    # captures
+    cap_s = time.perf_counter() - t0
+    x_ixp, dt, counts = counted(lambda: plan_run(den_ix, ix_plan, x_T))
+    check(counts == expected("indexed", STEPS),
+          f"[plan] indexed plan launches {counts}")
+    replay_vs_eager(den_ix, ix_plan, x_T, "indexed")
+    replay_measured(den_ix, ix_plan, x_T, "indexed plan")
+    err = float((x_ixp - outs["indexed"]).abs().max())
+    check(err <= TRAJ_TOL, f"[plan] indexed plan vs static {err:.3g}")
+    path_counts["plan_indexed"] = counts
+    print(f"[plan] indexed plan: {ix_plan.num_buckets} graphs captured in "
+          f"{cap_s:.2f} s (with one eager run each); trajectory {dt * 1e3:.2f}"
+          f" ms; replays bit-equal to eager; vs the static indexed trajectory "
+          f"max abs {err:.3g}; launches {counts}")
+    gsrv = ServeEngine(gst, num_steps=STEPS, max_batch=B, gd_cfg=indexed_cfg,
+                       index=gix, index_mode="always")
+    gstats = gsrv.warmup()
+    for label, srv in (("static", static_srv["serve_gmm_indexed"]),
+                       ("plan", gsrv), ("plan", gsrv),
+                       ("static", static_srv["serve_gmm_indexed"])):
+        served, total, counts = counted(lambda: srv.serve(reqs))
+        check(counts == expected("indexed", STEPS * len(served)),
+              f"[plan] gmm {label} waves launches {counts}")
+        check(all(bool(torch.isfinite(torch.from_numpy(r.images)).all())
+                  for r in served), f"[plan] gmm {label}: non-finite")
+        print(f"[plan] gmm index_mode='always' {label} serve: wave latency "
+              + ", ".join(f"{r.latency_s * 1e3:.2f}" for r in served)
+              + f" ms, {B * len(served) / total:.1f} images/s"
+              + (f" ({gstats['programs_compiled']} graphs captured in "
+                 f"{gstats['warmup_s']:.2f} s, {gsrv.plan.num_buckets} plan "
+                 f"buckets)" if label == "plan" else ""))
+
+    # where the time goes: plan (graph replays) against static, one call,
+    # on the auto route at B=16, 4, 1 and on the indexed route at B=16
+    for b, gd_plan, gd_static in ((B, (peng.denoiser, plan), eng.denoiser),
+                                  (4, (peng.denoiser, plan), eng.denoiser),
+                                  (1, (peng.denoiser, plan), eng.denoiser),
+                                  (B, (den_ix, ix_plan), den_ix)):
+        xb = x_T[:b].contiguous()
+        tag = "indexed" if gd_static is den_ix else p_route
+        fns = {f"plan {tag}": lambda: plan_run(*gd_plan, xb),
+               f"static {tag}": lambda: sample(gd_static, sched, (b, D),
+                                               num_steps=STEPS, x_init=xb)}
+        walls = {label: [] for label in fns}
+        for label in (f"static {tag}", f"plan {tag}", f"plan {tag}",
+                      f"static {tag}"):
+            walls[label].append(wall_ms(fns[label], iters=10))
+        for label, fn in fns.items():
+            print(f"[plan] B={b} {label} trajectory walls (mean of 10, in "
+                  f"turns): {', '.join(f'{w:.3f}' for w in walls[label])} ms")
+            profile_line(f"{label} trajectory B={b}", min(walls[label]), fn)
+    check(pe._captures == n_graphs, "[plan] profiling captured a graph")
+    print(f"[plan] phase {time.perf_counter() - t_phase:.1f} s")
+    # each kernel's launches come from an eager run of the route that owns
+    # it, where the wrappers count at their launches (a replay adds the
+    # counts its capture recorded; replay_measured holds those to the card)
+    path_of = {"pdist": "staged", "support_sqdist": "staged",
+               "golden_support_aggregate": "serve_fused",
+               "golden_aggregate": "full_scan", "screen_topm": "streamed",
+               "fused_candidates": "serve_fused",
+               "centroid_scan": "indexed"}
+    for n, p in path_of.items():
+        check(path_counts[p][n] > 0, f"{n} never launched on the {p} path")
+
 
     # -- 8. reference: small store, card against CPU plain versions ------------
     small = make_dataset("cifar_like", n=2048, seed=1, device="cpu")
@@ -1534,16 +1791,29 @@ def main() -> None:
                       ("golddiff indexed", dict(
                           cfg=indexed_cfg, index=small_ix,
                           probe_schedule=scale_probes, index_mode="always")),
-                      ("full_scan", None)):
+                      ("full_scan", None),
+                      ("plan auto", {}),
+                      ("plan indexed", dict(
+                          cfg=indexed_cfg, index=small_ix,
+                          probe_schedule=scale_probes, index_mode="always"))):
         def build(dev):
             den = OptimalDenoiser(small, sched, device=dev)
             return den if kw is None else GoldDiff(den, **kw)
-        got = sample(build("cuda"), sched, (B, small.dim), x_init=x0).cpu()
-        want = sample(build("cpu"), sched, (B, small.dim), x_init=x0)
+
+        def traj(dev):
+            den = build(dev)
+            if not label.startswith("plan"):
+                return sample(den, sched, (B, small.dim), x_init=x0).cpu()
+            return plan_run(den, build_plan(den.engine, STEPS),
+                            x0.to(dev)).cpu()
+        t0 = time.perf_counter()
+        got, want = traj("cuda"), traj("cpu")
+        ref_s = time.perf_counter() - t0
         err = float((got - want).abs().max())
         check(err <= TRAJ_TOL, f"reference {label}: card vs CPU {err:.3g}")
         print(f"[reference] {label}: N=2048, {STEPS} steps, card vs CPU "
-              f"plain versions max abs {err:.3g} (tolerance {TRAJ_TOL})")
+              f"plain versions max abs {err:.3g} (tolerance {TRAJ_TOL}; "
+              f"{ref_s:.1f} s)")
 
     # -- 9. the reduced-LLM slice: prefill and golden decode ------------------
     llm_results, path_counts["llm_decode"] = llm_phases(kernels)

@@ -24,8 +24,13 @@ the port's own per-platform constants below.  Every stage goes through
 ``repro_torch.kernels.ops``: the kernels on the card, their plain
 versions on CPU.
 
-PyTorch runs eagerly, so there is no program cache: each step runs its
-own static (m_t, k_t), which is the paper's per-step FLOP saving.
+Static steps (``denoise``) run eagerly at their own (m_t, k_t), the
+paper's per-step FLOP saving.  The masked step (``denoise_masked``)
+pads the shapes to a plan bucket's caps (or the worst case) and takes
+the sizes as fp32 device values, so a run of its steps can be captured
+as one CUDA graph (``jitter``); ``program`` caches what is built, one
+entry per (plan bucket, batch shape) as the reference caches compiled
+programs.
 """
 from __future__ import annotations
 
@@ -36,7 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.dataset import DatasetStore, downsample_proxy
-from repro_torch.core.schedules import Schedule
+from repro_torch.core.schedules import Schedule, take
 from repro_torch.index.schedule import ProbeSchedule
 from repro_torch.index.store import GoldenIndex
 from repro_torch.kernels import ops
@@ -106,6 +111,21 @@ def schedule_sizes(cfg: GoldDiffConfig, schedule: Schedule, t: int,
     return max(1, min(m_t, n)), max(1, min(k_t, m_t, n))
 
 
+def masked_sizes(cfg: GoldDiffConfig, schedule: Schedule, t, n: int,
+                 device=None) -> tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """``(g, m_t, k_t)`` of the masked path for a Python int or an
+    integer tensor ``t`` (any shape, on ``device``): g in fp32 from the
+    schedule's table, the sizes by Eqs. 4/6 in fp32 then truncated to
+    int32, as the reference computes them under ``jit``.  Uncapped;
+    ``schedule_sizes`` is the static (float64) form."""
+    m_min, m_max, k_min, k_max = cfg.sizes(n)
+    g = schedule.g(t, device)
+    m_t = torch.floor(m_min + (m_max - m_min) * (1.0 - g)).to(torch.int32)
+    k_t = torch.floor(k_min + (k_max - k_min) * g).to(torch.int32)
+    return g, m_t, k_t
+
+
 class GoldDiffEngine:
     """Kernel routing for the GoldDiff pipeline on one device.
 
@@ -141,9 +161,12 @@ class GoldDiffEngine:
         self.probe_schedule = probe_schedule or ProbeSchedule()
         if index is not None:
             # ascending-occupancy cumsum: the fewest rows any P probed
-            # windows hold (the nprobe occupancy floor); a host constant
+            # windows hold (the nprobe occupancy floor); a host constant,
+            # and an int32 device copy for the masked path's floor
             self._occ_cum = np.cumsum(np.sort(np.diff(
                 index.offsets.cpu().numpy())))
+            self._occ_cum_dev = torch.as_tensor(
+                self._occ_cum.astype(np.int32), device=self.store.device)
         self._nprobe: dict[int, int] = {}
         self.schedule = schedule
         self.cfg = cfg or GoldDiffConfig()
@@ -160,6 +183,58 @@ class GoldDiffEngine:
                          else "dense")
         self._consts: dict[int, tuple[float, float]] = {}
         self._sizes: dict[int, tuple[int, int]] = {}
+        self._programs: dict = {}
+        self._builds = 0          # programs built (graphs on the card)
+        self._captures = 0        # CUDA graphs captured by ``jitter``
+        self._graph_pool = None   # the memory pool every graph shares
+        self._graph_stream = None  # ... and the stream that captures them
+        self._masked_tables: dict = {}
+
+    @property
+    def X(self) -> torch.Tensor:
+        return self.store.X
+
+    @property
+    def proxy(self) -> torch.Tensor:
+        return self.store.proxy
+
+    # -- programs: the cache and the CUDA graphs ------------------------------
+    def program(self, key, build):
+        """The program cache: ``build()`` once per key (the reference
+        keys compiled programs the same way), counted in ``_builds``."""
+        if key not in self._programs:
+            self._programs[key] = build()
+            self._builds += 1
+        return self._programs[key]
+
+    def jitter(self, fn, *specs, label: str | None = None):
+        """The counterpart of the reference's ``jit`` + AOT compile: on
+        the card, ``fn`` captured as one CUDA graph; on the CPU, ``fn``.
+
+        ``specs`` give ``fn``'s inputs: a shape (an fp32 input) or a
+        ``(shape, dtype)`` pair.  On the card this allocates one static
+        input of each, runs ``fn`` once eagerly on a side stream (which
+        builds the kernels, sets their shared-memory attributes and
+        warms cub), captures it into the memory pool all of this
+        engine's graphs share, and returns a callable that copies its
+        arguments into the static inputs, replays and returns a clone of
+        the static output.  Graphs in one pool must not be replayed
+        concurrently (each may reuse another's temporaries): the
+        serving loop replays them one at a time on one stream.  The
+        store and the static buffers never move, so addresses baked into
+        the graph stay valid (kernel 1's TMA tensor maps encode them).
+
+        The kernels' ``launches`` counts move at capture, when nothing
+        runs: the capture's counts are taken back and added at every
+        replay.  A capture that fails raises, naming ``label``."""
+        if self.store.device.type != "cuda":
+            return fn
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+            self._graph_stream = torch.cuda.Stream(self.store.device)
+        self._captures += 1
+        return capture(fn, specs, self._graph_stream, self._graph_pool,
+                       label or getattr(fn, "__qualname__", repr(fn)))
 
     # -- precomputed per-timestep constants ----------------------------------
     def sizes(self, t: int) -> tuple[int, int]:
@@ -206,14 +281,22 @@ class GoldDiffEngine:
             return True
         return self.padded_m(t) <= self.crossover_frac * self.store.n
 
+    def strategy_for(self, t: int) -> str:
+        """Per-step strategy: indexed steps gather (their candidate set
+        is the probed capacity); exact steps keep the build-time one."""
+        return "gather" if self.use_index(t) else self.strategy
+
     def use_fused(self, t: int) -> bool:
         """Route this step through the fused single-pass body?  Indexed
         steps never fuse (the fused pass reads every store row).  True
         fuses every other step; "auto" fuses where the reference's rule
         does on one host, when the build-time strategy is "dense"."""
-        if self.fused is False:
-            return False
-        if self.use_index(t):
+        return self._fused_masked(self.use_index(t))
+
+    def _fused_masked(self, use_ix: bool) -> bool:
+        """The fused decision for a step indexed or not (``use_ix``): the
+        masked path takes it once a bucket, ``use_fused`` once a step."""
+        if self.fused is False or use_ix:
             return False
         if self.fused is True:
             return True
@@ -252,15 +335,16 @@ class GoldDiffEngine:
                               ix.centroids, ix.centroid_norms, m,
                               nprobe_max, ix.max_cluster, nprobe=nprobe)
 
-    def probe(self, q: torch.Tensor, nprobe_max: int):
+    def probe(self, q: torch.Tensor, nprobe_max: int, nprobe=None):
         """IVF level 1 of rescaled queries (``ops.ivf_probe``: on the card
         one launch from ``q`` to the probed candidates' dataset ids and
-        validity, the proxy pooled inside it)."""
+        validity, the proxy pooled inside it); ``nprobe`` (a 0-d device
+        tensor on the masked path) masks the probes beyond it."""
         ix = self.index
         return ops.ivf_probe(q, self.store.image_shape, self.cfg.proxy_factor,
                              ix.centroids, ix.centroid_norms, ix.offsets,
                              ix.perm, ix.n, nprobe_max, ix.max_cluster,
-                             fields=("ids", "valid"))
+                             nprobe=nprobe, fields=("ids", "valid"))
 
     def _select_body(self, q: torch.Tensor, t: int
                      ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -321,9 +405,170 @@ class GoldDiffEngine:
             return self._fused_body(x_t, t)
         return self._denoise_body(x_t, t)
 
+    # -- masked (graph-capturable) path -----------------------------------------
+    def _masked_nprobe_pad(self) -> int:
+        """Worst-case nprobe_t over the whole t grid (the static pad of
+        ``caps=None``)."""
+        if not hasattr(self, "_nprobe_pad"):
+            T = self.schedule.num_steps
+            self._nprobe_pad = max(self.nprobe(t) for t in range(1, T + 1))
+        return self._nprobe_pad
+
+    def _use_index_masked(self) -> bool:
+        """``caps=None`` is one body for every step, so the indexed/exact
+        choice is global: index only when even the worst-case probe width
+        stays under the crossover ("always" skips that guard and then
+        pays worst-case probes at every step)."""
+        if self.index is None:
+            return False
+        if self.index_mode == "always":
+            return True
+        touched = self._masked_nprobe_pad() * self.index.max_cluster
+        return touched <= self.crossover_frac * self.store.n
+
+    def _masked_caps(self, caps) -> tuple[int, int, int, bool]:
+        """``(m_cap, k_cap, nprobe_cap, use_index)`` of a plan bucket's
+        ``caps`` (a ``plan.BucketCaps``), or the worst case over the
+        whole schedule for ``caps=None``."""
+        n = self.store.n
+        _, m_max, _, k_max = self.cfg.sizes(n)
+        if caps is None:
+            use_ix = self._use_index_masked()
+            return (m_max, k_max,
+                    self._masked_nprobe_pad() if use_ix else 0, use_ix)
+        use_ix = bool(caps.indexed) and self.index is not None
+        return (min(int(caps.m_cap), n), int(caps.k_cap),
+                int(caps.nprobe_cap), use_ix)
+
+    def _masked_nprobe_t(self, g: torch.Tensor, m_t: torch.Tensor,
+                         k_t: torch.Tensor, p_cap: int) -> torch.Tensor:
+        """The probe count as an int32 device tensor: ``nprobe``'s
+        rule in fp32, its occupancy floor at this k_t (a
+        ``searchsorted`` on the device copy of the cumsum), clipped to
+        the bucket's pad."""
+        c = self.index.num_clusters
+        nprobe_t = self.probe_schedule.nprobe_tensor(g, m_t, self.store.n, c)
+        need = torch.searchsorted(self._occ_cum_dev, k_t.reshape(-1),
+                                  out_int32=True).reshape(k_t.shape) + 1
+        nprobe_t = torch.maximum(nprobe_t, torch.clamp_max(need, c))
+        return torch.clamp(nprobe_t, 1, p_cap)
+
+    def _masked_table(self, m_cap: int, k_cap: int, p_cap: int,
+                      use_ix: bool) -> tuple:
+        """The masked step's per-timestep values over t = 0..T at one set
+        of caps, as device tensors: ``(m_t, k_t, nprobe_t or None, a_t,
+        sigma_t^2)``, the sizes by ``masked_sizes`` capped, nprobe_t by
+        ``_masked_nprobe_t``, the schedule's in fp32; each element the
+        same fp32 operations as for one t.  Built once, before any
+        capture (a table first built inside one would live in the graph's
+        memory, so it is then not kept), so a captured step reads views
+        of it and launches nothing for them."""
+        key = (m_cap, k_cap, p_cap, use_ix)
+        if key in self._masked_tables:
+            return self._masked_tables[key]
+        dev = self.store.device
+        t = torch.arange(self.schedule.num_steps + 1, device=dev)
+        g, m_t, k_t = masked_sizes(self.cfg, self.schedule, t, self.store.n)
+        m_t, k_t = torch.clamp_max(m_t, m_cap), torch.clamp_max(k_t, k_cap)
+        sig = self.schedule.sigma(t)
+        tab = (m_t, k_t,
+               self._masked_nprobe_t(g, m_t, k_t, p_cap) if use_ix else None,
+               self.schedule.tables(dev)[0], sig * sig)
+        if not (dev.type == "cuda" and torch.cuda.is_current_stream_capturing()):
+            self._masked_tables[key] = tab
+        return tab
+
+    def denoise_masked(self, x_t: torch.Tensor, t, caps=None) -> torch.Tensor:
+        """The masked step: shapes padded to ``caps`` (a plan bucket's,
+        or the worst case for None), the sizes m_t, k_t and nprobe_t
+        entering only as masks.  ``t`` is a Python int or a 0-d integer
+        tensor on the store's device; a_t, sigma_t, m_t, k_t and nprobe_t
+        are fp32 device values, as the reference computes them under
+        ``jit`` (``_masked_table``), so the step touches no host value and
+        a CUDA graph can capture it.  Exact distances are computed once a
+        step."""
+        m_cap, k_cap, p_cap, use_ix = self._masked_caps(caps)
+        m_t, k_t, nprobe_t, a, sig2 = (
+            None if v is None else take(v, t)
+            for v in self._masked_table(m_cap, k_cap, p_cap, use_ix))
+        q = x_t / a
+        if self._fused_masked(use_ix):
+            out = ops.fused_step(q, self._proxy_query(q), self.X, self.proxy,
+                                 m_cap, min(k_cap, m_cap), sig2,
+                                 x_norms=self.store.x_norms,
+                                 proxy_norms=self.store.proxy_norms,
+                                 stream=self.use_stream(x_t.shape[0]),
+                                 tile=self.screen_tile, m_t=m_t, k_t=k_t)
+            return out.to(x_t.dtype)
+        if use_ix:
+            # every probed row is a candidate (IVF-Flat): the time-aware
+            # budget is nprobe_t, padded to the bucket's probe width
+            m_pad = p_cap * self.index.max_cluster
+            pr = self.probe(q, p_cap, nprobe_t)
+            cand, live = pr.ids, pr.valid
+        else:
+            m_pad = m_cap
+            cand = self.coarse(q, m_pad)                    # top-m sorted
+            live = torch.arange(m_pad, device=q.device) < m_t
+        k_pad = min(k_cap, m_pad)
+        idx, d2 = ops.golden_rerank(q, self.X, cand, k_pad,
+                                    x_norms=self.store.x_norms, valid=live)
+        lg = torch.clamp_min(-d2 / (2.0 * sig2), NEG_INF)
+        lg = torch.where(torch.arange(k_pad, device=q.device) < k_t, lg,
+                         NEG_INF)
+        out = ops.golden_support_aggregate(self.X, idx, lg)
+        return out.to(x_t.dtype)
+
     def full_scan(self, x_t: torch.Tensor, t: int) -> torch.Tensor:
         """Exact posterior mean over the whole store (Eq. 2)."""
         a, sig2 = self.constants(int(t))
         return ops.golden_aggregate(x_t / a, self.store.X, sig2,
                                     x_norms=self.store.x_norms
                                     ).to(x_t.dtype)
+
+
+def capture(fn, specs, side: torch.cuda.Stream, pool, label: str):
+    """``GoldDiffEngine.jitter``'s capture on the card (see there).  The
+    warm run and the capture run on the engine's own stream ``side``:
+    the pool's blocks are kept per stream, so one stream lets a capture
+    reuse what the graphs before it freed, and a failed capture leaves
+    no state on a stream anything else uses (the outer stream context
+    restores the caller's stream even when the capture's own exit
+    raises)."""
+    device = side.device
+    inputs = [torch.zeros(shape, dtype=dtype, device=device)
+              for shape, dtype in map(_spec, specs)]
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn(*inputs)              # builds the kernels, sets their attributes
+        before = [k.launches for k in ops.COUNTED]
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, pool=pool, stream=side):
+                out = fn(*inputs)
+        except RuntimeError as e:
+            raise RuntimeError(f"CUDA graph capture of {label} failed: "
+                               f"{e}") from e
+        finally:
+            delta = [k.launches - b for k, b in zip(ops.COUNTED, before)]
+            for k, b in zip(ops.COUNTED, before):
+                k.launches = b
+    torch.cuda.current_stream(device).wait_stream(side)
+
+    def replay(*args):
+        for buf, arg in zip(inputs, args):
+            buf.copy_(arg)
+        graph.replay()
+        for k, d in zip(ops.COUNTED, delta):
+            k.launches += d
+        return out.clone()
+
+    return replay
+
+
+def _spec(s) -> tuple[tuple, torch.dtype]:
+    """``(shape, dtype)`` of a ``jitter`` input spec: a shape (fp32) or
+    a ``(shape, dtype)`` pair."""
+    if len(s) == 2 and isinstance(s[1], torch.dtype):
+        return tuple(s[0]), s[1]
+    return tuple(s), torch.float32

@@ -1,11 +1,12 @@
 """GoldDiff: Dynamic Time-Aware Golden Subset selection (paper Sec. 3.4).
 
-Counterpart of ``repro.core.golddiff`` in static mode: each timestep
-screens a candidate set C_t of size m_t by proxy distance (Eq. 4),
-re-ranks it exactly to the golden support S_t of size k_t (Eq. 6), and
-evaluates the Optimal base's unbiased softmax on S_t.  Execution is
-delegated to :class:`repro_torch.core.engine.GoldDiffEngine`, on the
-base denoiser's device.
+Counterpart of ``repro.core.golddiff``: each timestep screens a
+candidate set C_t of size m_t by proxy distance (Eq. 4), re-ranks it
+exactly to the golden support S_t of size k_t (Eq. 6), and evaluates
+the Optimal base's unbiased softmax on S_t.  ``__call__`` runs a static
+step; ``call_masked`` the masked step that plans and scans chain.
+Execution is delegated to :class:`repro_torch.core.engine.GoldDiffEngine`,
+on the base denoiser's device.
 """
 from __future__ import annotations
 
@@ -60,3 +61,10 @@ class GoldDiff:
         if support is not None:
             return self.base(x_t, t, support=support)
         return self.engine.denoise(x_t, int(t))
+
+    def call_masked(self, x_t: torch.Tensor, t, caps=None) -> torch.Tensor:
+        """The masked step (``GoldDiffEngine.denoise_masked``): shapes
+        padded to ``caps`` (a ``plan.BucketCaps``; None pads to the worst
+        case), m_t and k_t entering as masks; ``t`` a Python int or a
+        0-d integer tensor on the store's device."""
+        return self.engine.denoise_masked(x_t, t, caps)

@@ -3,7 +3,9 @@
 Counterpart of ``repro.core.schedules``: every schedule is the affine
 form ``x_t = a_t * x_0 + b_t * eps`` with host-side numpy ``a``/``b``
 (built by the same numpy code, so the grids are equal), and the DDIM
-update acts on tensors.
+update acts on tensors.  ``sigma(t)`` / ``g(t)`` are the traced forms
+of the masked path: fp32, as the reference computes them under default
+(non-x64) JAX, read from tables built once per schedule and device.
 """
 from __future__ import annotations
 
@@ -21,6 +23,9 @@ class Schedule:
     name: str
     a: np.ndarray  # signal coefficient, shape [T+1]
     b: np.ndarray  # noise coefficient, shape [T+1]
+    # fp32 (a, b, g) tables per device, filled by ``tables``
+    _tables: dict = dataclasses.field(default_factory=dict, init=False,
+                                      repr=False, compare=False)
 
     @property
     def num_steps(self) -> int:
@@ -39,6 +44,38 @@ class Schedule:
         return float(np.clip((np.log(self.sigma_np(t)) - lo) / (hi - lo),
                              0.0, 1.0))
 
+    def tables(self, device) -> tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+        """fp32 ``(a, b, g)`` tables [T+1] on ``device``, built once.
+
+        ``g`` is computed on the CPU in fp32 (``torch.log``) and moved,
+        so every device reads the same values, and a CUDA graph that
+        indexes them captures no host-to-device copy."""
+        device = torch.device(device)
+        if device not in self._tables:
+            a = torch.tensor(self.a, dtype=torch.float32)
+            b = torch.tensor(self.b, dtype=torch.float32)
+            sig = torch.log(b[1:] / a[1:])
+            lo, hi = sig.min(), sig.max()
+            t = torch.arange(self.num_steps + 1).clamp(1, self.num_steps)
+            g = torch.clamp((torch.log(b[t] / a[t]) - lo) / (hi - lo),
+                            0.0, 1.0)
+            self._tables[device] = tuple(v.to(device) for v in (a, b, g))
+        return self._tables[device]
+
+    def sigma(self, t, device=None) -> torch.Tensor:
+        """fp32 sigma_t = b_t / a_t for an integer tensor ``t`` (or a
+        Python int, read on ``device``)."""
+        a, b, _ = self.tables(t.device if isinstance(t, torch.Tensor)
+                              else device)
+        return take(b, t) / take(a, t)
+
+    def g(self, t, device=None) -> torch.Tensor:
+        """fp32 g(sigma_t) for an integer tensor ``t`` (or a Python int,
+        read on ``device``); t is clipped to [1, T], as in ``g_np``."""
+        return take(self.tables(t.device if isinstance(t, torch.Tensor)
+                                else device)[2], t)
+
     def ddim_step(self, x_t: torch.Tensor, x0_hat: torch.Tensor, t: int,
                   t_prev: int, eta: float = 0.0,
                   noise: torch.Tensor | None = None) -> torch.Tensor:
@@ -55,6 +92,15 @@ class Schedule:
         sig = f32(eta * b_p / b_t) * root / f32(b_t)
         dir_coeff = np.sqrt(np.maximum(f32(b_p**2) - sig * sig, f32(0.0)))
         return a_p * x0_hat + float(dir_coeff) * eps_hat + float(sig) * noise
+
+
+def take(table: torch.Tensor, t) -> torch.Tensor:
+    """``table[t]`` for a Python int or an integer tensor of any shape on
+    the table's device, without a host round trip (an int gives a view;
+    a tensor an ``index_select``, which a CUDA graph can capture)."""
+    if not isinstance(t, torch.Tensor):
+        return table[int(t)]
+    return torch.index_select(table, 0, t.reshape(-1)).reshape(t.shape)
 
 
 def ddpm_linear(num_steps: int = 1000, beta_start: float = 1e-4,

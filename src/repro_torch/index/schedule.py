@@ -19,6 +19,8 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import torch
+
 
 @dataclasses.dataclass(frozen=True)
 class ProbeSchedule:
@@ -35,6 +37,18 @@ class ProbeSchedule:
         snr = math.ceil(c * (self.f_lo + (self.f_hi - self.f_lo) * g))
         cap = math.ceil(self.safety * m_t * c / n)
         return int(min(max(snr, cap, self.min_probes, 1), c))
+
+    def nprobe_tensor(self, g: torch.Tensor, m_t: torch.Tensor, n: int,
+                      num_clusters: int) -> torch.Tensor:
+        """Tensor mirror of :meth:`nprobe` for the masked path (the
+        counterpart of the reference's ``nprobe_jnp``): fp32 ``g`` and
+        integer ``m_t`` on the device, the same ``ceil``, ``max`` and
+        ``clip`` order in fp32; int32."""
+        c = num_clusters
+        snr = torch.ceil(c * (self.f_lo + (self.f_hi - self.f_lo) * g))
+        cap = torch.ceil(self.safety * m_t.to(torch.float32) * c / n)
+        lo = torch.clamp_min(torch.maximum(snr, cap), float(self.min_probes))
+        return torch.clamp(lo, 1, c).to(torch.int32)
 
 
 __all__ = ["ProbeSchedule"]

@@ -121,14 +121,25 @@ fused_candidates.launches = 0
 
 
 def fused_posterior(x: torch.Tensor, idx: torch.Tensor, d2: torch.Tensor,
-                    k: int, sigma2: float) -> torch.Tensor:
+                    k: int, sigma2, m_t=None, k_t=None) -> torch.Tensor:
     """Candidates with exact distances -> posterior mean [B, D] fp32:
     the exact top-k inside the candidate list (ties to the lowest slot),
     logits ``max(-d2 / (2 sigma2), NEG_INF)``, and the softmax-weighted
-    mean of the k golden rows, loaded by index."""
+    mean of the k golden rows, loaded by index.
+
+    ``sigma2`` is a float or a 0-d tensor; ``m_t`` / ``k_t`` (optional
+    0-d integer tensors, the masked path's scheduled sizes) mask slots:
+    candidate slots at or past ``m_t`` re-rank at +inf, logit slots at
+    or past ``k_t`` clamp to ``NEG_INF`` (an all-masked row averages its
+    gathered rows uniformly, never NaN)."""
+    if m_t is not None:
+        live = torch.arange(d2.shape[-1], device=d2.device) < m_t
+        d2 = torch.where(live, d2, float("inf"))
     vals, pos = torch.sort(d2, dim=-1, stable=True)
     gid = torch.gather(idx, -1, pos[:, :k]).contiguous()
     lg = torch.clamp_min(-vals[:, :k] / (2.0 * sigma2), NEG_INF)
+    if k_t is not None:
+        lg = torch.where(torch.arange(k, device=lg.device) < k_t, lg, NEG_INF)
     if x.device.type == "cpu":
         return ref.golden_support_aggregate_ref(x, gid, lg)
     return _sagg(x, gid, lg.contiguous())

@@ -41,6 +41,13 @@ from repro_torch.kernels.golden_support_aggregate import (
 from repro_torch.kernels.pdist import pdist as _pdist
 
 
+# Every kernel wrapper, each counting the launches it makes in its
+# ``launches`` attribute; ``GoldDiffEngine.jitter`` replays a captured
+# graph's counts with the graph, so each count stays what the card ran.
+COUNTED = (_pdist, _sqd, _sagg, _agg, _screen.screen_topm,
+           _fused.fused_candidates, _probe.centroid_scan, _flash, _gattn)
+
+
 def _on_cpu(t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
 
@@ -197,9 +204,9 @@ def ivf_screen(qp, proxy_sorted, proxy_norms_sorted, offsets, centroids,
     return torch.gather(pr.pos, -1, sel[:, :m]), vals[:, :m]
 
 
-def fused_step(q, qp, x, proxy, m: int, k: int, sigma2: float,
+def fused_step(q, qp, x, proxy, m: int, k: int, sigma2,
                x_norms=None, proxy_norms=None, stream: bool = True,
-               tile: int | None = None):
+               tile: int | None = None, m_t=None, k_t=None):
     """One fused GoldDiff step: the posterior mean [B, D] fp32 of
     rescaled queries ``q`` [B, D] with proxy queries ``qp`` [B, dp].
 
@@ -210,7 +217,9 @@ def fused_step(q, qp, x, proxy, m: int, k: int, sigma2: float,
     ``fused_candidates`` kernel.  On the CPU ``stream=True`` takes the
     plain carry loop, ``stream=False`` the materialized screen with
     exact distances by index (surplus slots marked +inf, as in the
-    streamed forms)."""
+    streamed forms).  ``sigma2`` may be a 0-d tensor; ``m_t`` / ``k_t``
+    (optional 0-d integer tensors) mask the scheduled sizes for the
+    masked path (``fused_posterior``)."""
     if x_norms is None:
         x_norms = (x.float() ** 2).sum(-1)
     if proxy_norms is None:
@@ -227,7 +236,7 @@ def fused_step(q, qp, x, proxy, m: int, k: int, sigma2: float,
         idx, pd2 = screen_topm(qp, proxy, m, x_norms=proxy_norms)
         d2 = torch.where(torch.isinf(pd2), float("inf"),
                          support_distances(q, x, idx, x_norms))
-    return _fused.fused_posterior(x, idx, d2, k, sigma2)
+    return _fused.fused_posterior(x, idx, d2, k, sigma2, m_t, k_t)
 
 
 def flash_attention(q, k, v, causal: bool = True, qc: int = 256,

@@ -1,13 +1,21 @@
 """Batched analytical-diffusion sampling engine (the paper's serving kind).
 
-Counterpart of ``repro.launch.serve`` in static mode.  A request is
-(num_images, seed); ``ServeEngine`` packs requests into waves of at
-most ``max_batch`` rows, pads each wave to a power-of-two batch bucket,
-chunks oversized requests across waves, and runs GoldDiff DDIM sampling
-with per-step static (m_t, k_t).  The reference picks its ``plan``
-mode for the Optimal base because plans bound XLA compiles; eager
-PyTorch compiles nothing, so static mode keeps the exact per-step FLOPs
-at no cost.
+Counterpart of ``repro.launch.serve``.  A request is (num_images,
+seed); ``ServeEngine`` packs requests into waves of at most
+``max_batch`` rows, pads each wave to a power-of-two batch bucket,
+chunks oversized requests across waves, and runs GoldDiff DDIM
+sampling in one of three modes (``mode=``, "auto" by default):
+
+* ``"plan"`` -- the default with the Optimal base: ``sample_plan`` over a
+  ``repro_torch.core.plan.TrajectoryPlan``, one segment per shape
+  bucket, each padded only to its bucket's (m_cap, k_cap, nprobe_cap);
+* ``"scan"`` -- one masked body padded to (m_max, k_max) at every step;
+* ``"static"`` -- per-step static steps, eager.
+
+On the card every plan and scan segment is one captured CUDA graph per
+batch bucket (``GoldDiffEngine.jitter``), the port's form of the
+reference's compiled programs; ``warmup()`` captures them all before
+traffic.
 
 Every request owns its noise: row i of a request draws x_T from a CPU
 ``torch.Generator`` seeded from ``(request.seed, i)`` alone, so its
@@ -20,7 +28,7 @@ too: a ``repro_torch.index.GoldenIndex`` of the store routes the coarse
 screen of the steps ``index_mode`` picks through the index.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --dataset cifar_like \
-      --n 50000 --requests 3 --batch 16 --steps 10 [--fused on]
+      --n 50000 --requests 3 --batch 16 --steps 10 [--buckets 4]
 """
 from __future__ import annotations
 
@@ -32,8 +40,9 @@ from typing import Iterable
 import numpy as np
 import torch
 
-from repro_torch.core import (GoldDiff, GoldDiffConfig, make_denoiser,
-                              make_schedule, sample, sampling_timesteps)
+from repro_torch.core import (GoldDiff, GoldDiffConfig, build_plan,
+                              make_denoiser, make_schedule, sample,
+                              sample_plan, sample_scan, sampling_timesteps)
 from repro_torch.core.dataset import DatasetStore
 from repro_torch.data import make_dataset
 from repro_torch.utils import resolve_device
@@ -62,20 +71,35 @@ def row_seed(seed: int, row: int) -> int:
 class ServeEngine:
     """Training-free generation service over a fixed dataset store, on
     ``device`` (the CUDA card unless the caller passes another; raises
-    when there is none)."""
+    when there is none).
+
+    * **batch buckets** -- waves are padded to the next power-of-two
+      batch size, so the set of batch shapes is logarithmic in
+      ``max_batch``;
+    * **per-request noise** -- every row draws x_T from a generator
+      seeded by ``(request.seed, row)``, so outputs do not depend on how
+      requests are packed into waves;
+    * **warmup** -- ``warmup()`` builds every (batch bucket x plan
+      bucket) segment before traffic (on the card: captures its CUDA
+      graph), so serving any request mix afterwards builds nothing.
+
+    ``plan_threshold`` / ``max_buckets`` forward to ``build_plan``:
+    lower thresholds give more, tighter buckets, at the cost of more
+    graphs to capture.  The graphs of one engine share a memory pool
+    and are replayed one at a time: ``serve`` is sequential, and no two
+    threads may serve one engine at once."""
 
     def __init__(self, dataset: str | DatasetStore,
                  dataset_kw: dict | None = None, base: str = "optimal",
                  schedule: str = "ddpm_linear", num_steps: int = 10,
                  gd_cfg: GoldDiffConfig | None = None, max_batch: int = 16,
-                 mode: str = "auto", clip_value: float | None = 3.0,
-                 device=None, fused: str | bool = "auto", index=None,
+                 mode: str = "auto", plan_threshold: float = 0.15,
+                 max_buckets: int | None = None,
+                 clip_value: float | None = 3.0, device=None,
+                 fused: str | bool = "auto", index=None,
                  index_mode: str = "auto"):
-        if mode not in ("auto", "static"):
-            raise NotImplementedError(
-                f"serve mode {mode!r} is not ported yet (ROADMAP Queue 1: "
-                f"serving runtime); the port serves mode='static'")
-        self.mode = "static"
+        if mode not in ("auto", "plan", "scan", "static"):
+            raise ValueError(f"unknown serve mode {mode!r}")
         self.device = resolve_device(device)
         self.store = (dataset.to(self.device)
                       if isinstance(dataset, DatasetStore)
@@ -90,9 +114,17 @@ class ServeEngine:
         self.denoiser = GoldDiff(base_den, gd_cfg or GoldDiffConfig(),
                                  fused=fused, index=index,
                                  index_mode=index_mode)
+        # auto is plan mode: the Optimal base, the only one ported, serves
+        # the masked body (the reference falls back to static for others)
+        self.mode = "plan" if mode == "auto" else mode
+        self.plan = (build_plan(self.engine, num_steps,
+                                threshold=plan_threshold,
+                                max_buckets=max_buckets)
+                     if self.mode == "plan" else None)
 
     @property
     def engine(self):
+        """The program cache's owner (``core.GoldDiffEngine``)."""
         return self.denoiser.engine
 
     # -- batch buckets -------------------------------------------------------
@@ -131,12 +163,68 @@ class ServeEngine:
         return (b_t0 * torch.stack(rows)).to(self.device)
 
     # -- sampling ------------------------------------------------------------
+    def _scan_program(self, shape: tuple):
+        """The cached one-masked-body trajectory for a batch shape (on
+        the card one CUDA graph of every step)."""
+        key = ("serve_scan", tuple(shape), self.num_steps,
+               None if self.clip_value is None else float(self.clip_value))
+
+        def body(x_init):
+            return sample_scan(self.denoiser.call_masked, self.schedule,
+                               shape, num_steps=self.num_steps,
+                               clip_value=self.clip_value, x_init=x_init)
+
+        return self.engine.program(key, lambda: self.engine.jitter(
+            body, tuple(shape), label=f"scan trajectory at shape {shape}"))
+
     def _sample_bucket(self, x_init: torch.Tensor) -> np.ndarray:
         """Run one wave at a (padded) batch-bucket size."""
-        x = sample(self.denoiser, self.schedule, tuple(x_init.shape),
-                   num_steps=self.num_steps, clip_value=self.clip_value,
-                   x_init=x_init)
+        shape = tuple(x_init.shape)
+        if self.mode == "plan":
+            x = sample_plan(self.denoiser.call_masked, self.schedule, shape,
+                            self.plan, clip_value=self.clip_value,
+                            x_init=x_init, program_cache=self.engine.program,
+                            jitter=self.engine.jitter)
+        elif self.mode == "scan":
+            x = self._scan_program(shape)(x_init)
+        else:
+            x = sample(self.denoiser, self.schedule, shape,
+                       num_steps=self.num_steps, clip_value=self.clip_value,
+                       x_init=x_init)
         return x.cpu().numpy().reshape((x.shape[0],) + self.store.image_shape)
+
+    def warmup(self) -> dict:
+        """Build every (batch bucket x shape bucket) program before
+        traffic; a warm engine builds nothing more.  Plan and scan
+        segments are built without sampling (on the card: captured, each
+        run once on zeros first); static mode has no programs and warms
+        its kernels with one trajectory a batch bucket.
+
+        ``programs_compiled`` is batch buckets x plan buckets in plan
+        mode: the reference's count less its two programs a batch bucket
+        that derive the row keys and draw x_T, since the port draws the
+        noise on the host."""
+        n0 = len(self.engine._programs)
+        t0 = time.perf_counter()
+        for b in self.batch_buckets():
+            shape = (b, self.store.dim)
+            if self.mode == "plan":
+                sample_plan(self.denoiser.call_masked, self.schedule, shape,
+                            self.plan, clip_value=self.clip_value,
+                            program_cache=self.engine.program,
+                            compile_only=True, jitter=self.engine.jitter)
+            elif self.mode == "scan":
+                self._scan_program(shape)
+            else:
+                self._sample_bucket(self._init_noise([], b))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return {"programs_compiled": len(self.engine._programs) - n0,
+                "batch_buckets": self.batch_buckets(),
+                "shape_buckets": (self.plan.num_buckets if self.plan
+                                  else (1 if self.mode == "scan"
+                                        else self.num_steps)),
+                "warmup_s": time.perf_counter() - t0}
 
     def serve(self, requests: Iterable[Request]) -> list[Result]:
         """Greedy batching: requests are packed up to max_batch per wave,
@@ -198,15 +286,37 @@ def main(argv=None):
     ap.add_argument("--fused", choices=sorted(FUSED_FLAG), default="auto",
                     help="single-pass fused step: on, off, or auto (the "
                          "engine's crossover decides)")
+    ap.add_argument("--plan", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="bucketed trajectory plan (default); --no-plan "
+                         "serves one worst-case-padded masked body (scan)")
+    ap.add_argument("--buckets", type=int, default=None,
+                    help="at most this many shape buckets (floor: one per "
+                         "indexed/exact routing region; default: greedy "
+                         "merge under --threshold)")
+    ap.add_argument("--threshold", type=float, default=0.15,
+                    help="max padded-FLOP overhead per bucket")
+    ap.add_argument("--no-warmup", action="store_true",
+                    help="skip building the (batch x shape) buckets first")
     args = ap.parse_args(argv)
 
     t0 = time.perf_counter()
     eng = ServeEngine(args.dataset, {"n": args.n}, num_steps=args.steps,
                       max_batch=args.batch, device=args.device,
-                      fused=FUSED_FLAG[args.fused])
+                      fused=FUSED_FLAG[args.fused],
+                      mode="plan" if args.plan else "scan",
+                      plan_threshold=args.threshold,
+                      max_buckets=args.buckets)
     print(f"store: {args.dataset} N={eng.store.n} D={eng.store.dim} on "
           f"{eng.device} in {time.perf_counter() - t0:.2f}s; fused steps: "
-          f"{eng.engine.use_fused(0)}")
+          f"{eng.engine.use_fused(0)}; mode {eng.mode}")
+    if eng.plan is not None:
+        print(eng.plan.describe())
+    if not args.no_warmup:
+        stats = eng.warmup()
+        print(f"warmup: {stats['programs_compiled']} programs (batch "
+              f"buckets {stats['batch_buckets']} x {stats['shape_buckets']} "
+              f"shape buckets) in {stats['warmup_s']:.2f}s")
     reqs = [Request(i, args.batch, seed=100 + i) for i in range(args.requests)]
     t0 = time.perf_counter()
     results = eng.serve(reqs)

@@ -978,3 +978,122 @@ def test_model_steps_do_not_synchronize(card):
                           params, cache, toks[:, -1], 255)
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+# -- plan mode: masked segments as CUDA graphs ---------------------------------
+# Every kernel on the masked path is deterministic, so a replayed graph
+# equals the same segment run eagerly bit for bit.
+
+def plan_route(card, route):
+    """A GoldDiff on a cifar_like store (N=1024) on the card for one
+    masked route, its plan and an x_T of 8 rows."""
+    from repro_torch.core import GoldDiffConfig, build_plan
+    from repro_torch.index import ProbeSchedule
+    store = make_dataset("cifar_like", n=1024, seed=0, device="cpu")
+    sched = make_schedule("ddpm_linear", 1000)
+    kw = {"fused": dict(fused=True),
+          "staged": dict(fused=False, screen="materialized"),
+          "streamed": dict(fused=False, screen="streamed"),
+          "indexed": dict(cfg=GoldDiffConfig(1 / 64, 1 / 32, 1 / 128, 1 / 64),
+                          index=build_index(store),
+                          probe_schedule=ProbeSchedule(1 / 16, 1 / 4),
+                          index_mode="always")}[route]
+    gd = GoldDiff(OptimalDenoiser(store, sched, device=card), **kw)
+    x = float(sched.b[1000]) * torch.randn(
+        8, store.dim, generator=torch.Generator().manual_seed(3))
+    return gd, sched, build_plan(gd.engine, 10), x.to(card)
+
+
+def counts():
+    return [k.launches for k in ops.COUNTED]
+
+
+@pytest.mark.parametrize("route", ["fused", "staged", "streamed", "indexed"])
+def test_plan_graph_bit_equal_eager(card, route):
+    """Each bucket's segment replayed from its graph equals the segment
+    run eagerly; N replays add N times the eager launches."""
+    from repro_torch.core import plan_segment
+    gd, sched, plan, x = plan_route(card, route)
+    assert all(b.caps.indexed == (route == "indexed") for b in plan.buckets)
+    for bucket in plan.buckets:
+        seg = plan_segment(gd.call_masked, sched, plan, bucket)
+        c0 = counts()
+        eager = seg(x)
+        once = [b - a for a, b in zip(c0, counts())]
+        graph = gd.engine.jitter(seg, tuple(x.shape), label=route)
+        c1 = counts()
+        for _ in range(3):
+            got = graph(x)
+        assert [b - a for a, b in zip(c1, counts())] == [3 * n for n in once]
+        assert torch.equal(got, eager), (route, bucket)
+        assert got.data_ptr() != graph(x).data_ptr()     # a clone each call
+        x = eager
+    assert gd.engine._captures == plan.num_buckets
+
+
+def test_plan_graph_replays_new_input(card):
+    from repro_torch.core import plan_segment
+    gd, sched, plan, x = plan_route(card, "fused")
+    seg = plan_segment(gd.call_masked, sched, plan, plan.buckets[0])
+    graph = gd.engine.jitter(seg, tuple(x.shape))
+    first = graph(x)
+    y = x.flip(0) * 0.5
+    second = graph(y)
+    assert torch.equal(second, seg(y)) and not torch.equal(second, first)
+    assert torch.equal(graph(x), first)
+
+
+def test_mixed_segment_captured(card):
+    from repro_torch.core import plan_segment, plan_segment_mixed
+    gd, sched, plan, x = plan_route(card, "fused")
+    bucket = plan.buckets[-1]
+    pos = torch.tensor([bucket.start, 0, bucket.start, 1, bucket.start, 2,
+                        bucket.start, 3], dtype=torch.int32, device=card)
+    mixed = plan_segment_mixed(gd.call_masked, sched, plan, bucket)
+    graph = gd.engine.jitter(mixed, tuple(x.shape), ((8,), torch.int32))
+    got = graph(x, pos)
+    assert torch.equal(got, mixed(x, pos))
+    active = pos == bucket.start
+    plain = plan_segment(gd.call_masked, sched, plan, bucket)(x)
+    assert torch.equal(got[active], plain[active])
+    assert torch.equal(got[~active], x[~active])
+
+
+@pytest.mark.parametrize("mode", ["plan", "scan"])
+def test_serve_captures_nothing_after_warmup(card, mode):
+    """warmup() captures every (batch bucket x plan bucket) graph; a mixed
+    request stream then captures none, and plan serving on the card
+    agrees with the CPU."""
+    from repro_torch.launch.serve import Request, ServeEngine
+    store = make_dataset("cifar_like", n=1024, seed=0, device="cpu")
+    eng = ServeEngine(store, num_steps=10, max_batch=4, mode=mode,
+                      device=card)
+    stats = eng.warmup()
+    buckets = eng.plan.num_buckets if mode == "plan" else 1
+    assert stats["programs_compiled"] == 3 * buckets
+    assert eng.engine._captures == 3 * buckets
+    n0 = eng.engine._builds
+    reqs = [Request(0, 1, seed=1), Request(1, 3, seed=2),
+            Request(2, 2, seed=3), Request(3, 4, seed=4)]
+    got = eng.serve(reqs)
+    assert eng.engine._builds == n0 and eng.engine._captures == 3 * buckets
+    want = ServeEngine(store, num_steps=10, max_batch=4, mode=mode,
+                       device="cpu").serve(reqs)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.images, w.images, rtol=1e-3, atol=1e-3)
+
+
+def test_plan_capture_failure_raises(card):
+    """A segment that reads a value back to the host cannot be captured:
+    the capture raises, naming the segment, and the card works on."""
+    gd, _, _, x = plan_route(card, "fused")
+
+    def reads_back(y):
+        return y * float(y.abs().max())
+
+    with pytest.raises(RuntimeError, match="reads-back segment"):
+        gd.engine.jitter(reads_back, tuple(x.shape),
+                         label="reads-back segment")
+    assert gd.engine._builds == 0
+    assert torch.cuda.current_stream(card) == torch.cuda.default_stream(card)
+    assert float(torch.ones(4, device=card).sum()) == 4.0

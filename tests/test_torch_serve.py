@@ -73,10 +73,107 @@ def test_cli_on_cpu(capsys):
 
 def test_unported_modes_and_bases_raise():
     store = make_dataset("gmm", n=32, dim=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeEngine(store, mode="plan", device="cpu")
+    with pytest.raises(ValueError, match="bogus"):
+        ServeEngine(store, mode="bogus", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServeEngine(store, base="pca", device="cpu")
+
+
+# -- plan mode (the reference's tests/test_serve_plan.py:35-131) -----------------
+
+@pytest.fixture(scope="module")
+def gmm_engine():
+    return ServeEngine("gmm", {"n": 1024, "dim": 16}, num_steps=6,
+                       max_batch=8, device="cpu")
+
+
+def test_plan_mode_is_the_default(gmm_engine):
+    assert gmm_engine.mode == "plan"
+    assert gmm_engine.plan is not None and gmm_engine.plan.num_steps == 6
+    assert gmm_engine.batch_buckets() == [1, 2, 4, 8]
+    assert [gmm_engine._bucket_for(n) for n in (1, 3, 8, 100)] == [1, 4, 8, 8]
+    odd = ServeEngine("gmm", {"n": 256, "dim": 8}, num_steps=3, max_batch=6,
+                      device="cpu")
+    assert odd.batch_buckets() == [1, 2, 4, 6]
+
+
+def test_plan_serve_seed_determinism(gmm_engine):
+    """Same request alone and co-batched (another wave and batch bucket)
+    -> the same images; other seeds differ."""
+    alone = gmm_engine.serve([Request(0, 2, seed=7)])[0].images
+    res = gmm_engine.serve([Request(0, 2, seed=7), Request(1, 3, seed=9)])
+    np.testing.assert_allclose(res[0].images, alone, rtol=0, atol=1e-6)
+    res2 = gmm_engine.serve([Request(1, 3, seed=9), Request(0, 2, seed=7)])
+    np.testing.assert_allclose(res2[1].images, alone, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(res2[0].images, res[1].images, rtol=0,
+                               atol=1e-6)
+    other = gmm_engine.serve([Request(0, 2, seed=8)])[0].images
+    assert not np.allclose(alone, other)
+
+
+def test_plan_serve_oversized_request(gmm_engine):
+    res = gmm_engine.serve([Request(0, 19, seed=5)])       # max_batch = 8
+    assert res[0].images.shape[0] == 19 and np.isfinite(res[0].images).all()
+    wide = ServeEngine("gmm", {"n": 1024, "dim": 16}, num_steps=6,
+                       max_batch=32, device="cpu")
+    np.testing.assert_allclose(res[0].images,
+                               wide.serve([Request(0, 19, seed=5)])[0].images,
+                               rtol=0, atol=1e-6)
+    res0 = gmm_engine.serve([Request(1, 0, seed=1), Request(2, 2, seed=2)])
+    assert [r.images.shape[0] for r in res0] == [0, 2]
+
+
+@pytest.mark.parametrize("mode", ["plan", "scan"])
+def test_warmup_then_nothing_built(mode):
+    eng = ServeEngine("gmm", {"n": 512, "dim": 16}, num_steps=5,
+                      max_batch=4, mode=mode, device="cpu")
+    stats = eng.warmup()
+    n_batch = len(eng.batch_buckets())
+    buckets = eng.plan.num_buckets if mode == "plan" else 1
+    assert stats["programs_compiled"] == n_batch * buckets
+    assert stats["shape_buckets"] == buckets
+    assert stats["batch_buckets"] == [1, 2, 4] and stats["warmup_s"] >= 0
+    n0 = eng.engine._builds
+    eng.serve([Request(0, 1, seed=1), Request(1, 3, seed=2),
+               Request(2, 2, seed=3), Request(3, 4, seed=4)])
+    assert eng.engine._builds == n0, "serving built a program after warmup"
+
+
+def test_serve_modes_agree():
+    """plan == scan == static on identical requests."""
+    reqs = [Request(0, 2, seed=3), Request(1, 2, seed=4)]
+    outs = {}
+    for mode in ("plan", "scan", "static"):
+        e = ServeEngine("gmm", {"n": 512, "dim": 16}, num_steps=5,
+                        max_batch=4, mode=mode, device="cpu")
+        assert e.mode == mode and (e.plan is not None) == (mode == "plan")
+        outs[mode] = np.concatenate([r.images.reshape(r.images.shape[0], -1)
+                                     for r in e.serve(list(reqs))])
+    np.testing.assert_allclose(outs["plan"], outs["static"], rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(outs["plan"], outs["scan"], rtol=1e-4,
+                               atol=1e-5)
+
+
+def test_serve_mode_validation():
+    store = make_dataset("gmm", n=64, dim=8, device="cpu")
+    with pytest.raises(ValueError, match="unknown serve mode"):
+        ServeEngine(store, mode="masked", device="cpu")
+    e = ServeEngine(store, num_steps=3, mode="static", device="cpu")
+    assert e.mode == "static" and e.plan is None
+    assert e.warmup()["programs_compiled"] == 0
+
+
+def test_cli_plan_flags(capsys):
+    main(["--n", "64", "--requests", "1", "--batch", "2", "--steps", "4",
+          "--device", "cpu", "--buckets", "1"])
+    out = capsys.readouterr().out
+    assert "mode plan" in out and "-> 1 buckets" in out
+    assert "warmup: 2 programs" in out and "finite=True" in out
+    main(["--n", "64", "--requests", "1", "--batch", "2", "--steps", "4",
+          "--device", "cpu", "--no-plan", "--no-warmup"])
+    out = capsys.readouterr().out
+    assert "mode scan" in out and "warmup" not in out
 
 
 def test_entry_points_need_a_card_or_cpu(monkeypatch):

@@ -9,6 +9,7 @@ tree's package with it.  Every function here needs a CUDA card.
 """
 from __future__ import annotations
 
+import contextlib
 import subprocess
 import time
 
@@ -26,6 +27,8 @@ GMM_N, GMM_DIM, GMM_MODES, GMM_SPREAD, GMM_C = 65536, 64, 256, 0.10, 512
 T_BUCKETS = (900, 300, 100, 20)
 SPIN_CYCLES = 4_000_000        # ~2 ms at the H100's clock (time_ms): more
                                # than a GoldDiff step's host enqueue
+PROFILE_PAD_S = 0.05           # device_profile's pauses: nine times the worst
+                               # clock skew scripts/torch_profiler_skew.py saw
 
 
 def card() -> str:
@@ -86,17 +89,46 @@ def launch_name(name: str) -> str:
     return short(name).split("(")[0].split("<")[0].strip()
 
 
+@contextlib.contextmanager
+def device_profile(cpu: bool = False):
+    """A ``torch.profiler`` session over the card's activity (and the
+    host's, with ``cpu``) that opens and closes with a host pause of
+    ``PROFILE_PAD_S``.  The profiler keeps only the device events whose
+    times, moved onto the host's clock, fall inside its session, and on
+    the H100 hosts that move is off by milliseconds either way
+    (``scripts/torch_profiler_skew.py``): without the pauses a short
+    call's kernels can fall outside, some or all of them.  The pauses
+    lie outside what the caller times inside the session."""
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU]
+                                            if cpu else [])
+    torch.cuda.synchronize()
+    with profile(activities=activities) as prof:
+        time.sleep(PROFILE_PAD_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+
+
+def device_events(fn, tries: int = 3) -> list:
+    """The device events of one call of ``fn`` in launch order, from a
+    ``device_profile`` session.  Every caller's ``fn`` launches work, so
+    a session that kept no device event lost them: it is read again,
+    at most ``tries`` times in all, and ``fn`` runs once a try."""
+    from torch.autograd import DeviceType
+    for _ in range(tries):
+        with device_profile() as prof:
+            fn()
+        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if ev:
+            break
+    return sorted(ev, key=lambda e: e.time_range.start)
+
+
 def device_kernels(fn) -> tuple[float, list[str]]:
     """The device busy ms of one call of ``fn`` and the kernels it
-    launches, in launch order (``launch_name``), from ``torch.profiler``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    ev = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                key=lambda e: e.time_range.start)
+    launches, in launch order (``launch_name``), from ``device_events``."""
+    ev = device_events(fn)
     busy = sum(e.time_range.elapsed_us() for e in ev) / 1e3
     return busy, [launch_name(e.name) for e in ev]
 

@@ -86,6 +86,16 @@ def store_from_numpy(X, proxy, x_norms, proxy_norms, image_shape: tuple,
         labels=None if labels is None else t(labels, np.int64))
 
 
+def restrict(store: DatasetStore, idx) -> DatasetStore:
+    """The sub-store at integer indices ``idx`` (e.g. one class), on the
+    store's device."""
+    idx = torch.as_tensor(idx, device=store.device)
+    return DatasetStore(
+        X=store.X[idx], proxy=store.proxy[idx], x_norms=store.x_norms[idx],
+        proxy_norms=store.proxy_norms[idx], image_shape=store.image_shape,
+        labels=None if store.labels is None else store.labels[idx])
+
+
 def pairwise_sq_dists(q: torch.Tensor, x: torch.Tensor,
                       x_norms: torch.Tensor | None = None) -> torch.Tensor:
     """||q - x_i||^2 for q: [B, D], x: [N, D] -> [B, N] via the matmul form."""

@@ -3,8 +3,12 @@
 Counterpart of ``repro.core.golddiff``: each timestep screens a
 candidate set C_t of size m_t by proxy distance (Eq. 4), re-ranks it
 exactly to the golden support S_t of size k_t (Eq. 6), and evaluates
-the Optimal base's unbiased softmax on S_t.  ``__call__`` runs a static
-step; ``call_masked`` the masked step that plans and scans chain.
+the base denoiser with ``support=S_t`` and the unbiased softmax.
+``__call__`` runs a static step: over the Optimal base the engine's
+whole step (the selection distances reused by the aggregate); over a
+patch base (Kamb, PCA) the engine's selection, then the base's own
+feature-space posterior on the support.  ``call_masked`` is the masked
+step that plans and scans chain, for the Optimal base only.
 Execution is delegated to :class:`repro_torch.core.engine.GoldDiffEngine`,
 on the base denoiser's device.
 """
@@ -12,20 +16,42 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.dataset import DatasetStore
+from repro_torch.core.dataset import DatasetStore, downsample_proxy
 from repro_torch.core.denoisers import OptimalDenoiser
 from repro_torch.core.engine import (GoldDiffConfig, GoldDiffEngine,
                                      schedule_sizes)
 from repro_torch.core.schedules import Schedule
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import materialized_topm
 
-__all__ = ["GoldDiff", "GoldDiffConfig", "GoldDiffEngine", "schedule_sizes"]
+__all__ = ["GoldDiff", "GoldDiffConfig", "GoldDiffEngine", "schedule_sizes",
+           "coarse_screen", "golden_select"]
+
+
+def coarse_screen(store: DatasetStore, q: torch.Tensor, m: int,
+                  proxy_factor: int) -> torch.Tensor:
+    """Top-m candidate indices by proxy distance, ties to the lowest
+    index.  q: [B, D] -> [B, m]."""
+    q_img = q.reshape(q.shape[:-1] + tuple(store.image_shape))
+    qp = downsample_proxy(q_img, proxy_factor)
+    d2 = ops.pdist(qp, store.proxy, x_norms=store.proxy_norms)
+    return materialized_topm(d2, m)[0]
+
+
+def golden_select(store: DatasetStore, q: torch.Tensor, cand: torch.Tensor,
+                  k: int) -> torch.Tensor:
+    """Exact re-ranking inside the candidate set (Eq. 5). Returns [B, k]."""
+    return ops.golden_rerank(q, store.X, cand, k, x_norms=store.x_norms)[0]
 
 
 class GoldDiff:
     """Plug-and-play wrapper: GoldDiff(base_denoiser) (paper Tab. 5).
 
-    ``screen=``/``screen_tile=`` pick the streamed or materialized
-    coarse screen, ``fused=`` the single-pass fused step, and
+    GoldDiff always aggregates with the unbiased softmax: a base built
+    with ``weighting="wss"`` is switched to "ss" (the base object
+    itself, as in the reference).  ``screen=``/``screen_tile=`` pick the
+    streamed or materialized coarse screen, ``fused=`` the single-pass
+    fused step (Optimal base), and
     ``index=repro_torch.index.build_index(store)`` routes the coarse
     screen through the Golden Index (probe width by
     ``probe_schedule=``, steps by ``index_mode=``); all as in
@@ -35,15 +61,12 @@ class GoldDiff:
                  screen: str = "auto", screen_tile: int | None = None,
                  fused: str | bool = "auto", index=None,
                  probe_schedule=None, index_mode: str = "auto"):
-        if not isinstance(base, OptimalDenoiser):
-            raise NotImplementedError(
-                "GoldDiff over a patch-family base is not ported yet "
-                "(ROADMAP Queue 1: the rest of core/); the port wraps "
-                "OptimalDenoiser")
         self.base = base
         self.cfg = cfg or GoldDiffConfig()
         self.store: DatasetStore = base.store
         self.schedule: Schedule = base.schedule
+        if getattr(base, "weighting", "ss") == "wss":
+            base.weighting = "ss"
         self.name = f"golddiff+{base.name}"
         self.engine = GoldDiffEngine(self.store, self.schedule, self.cfg,
                                      device=self.store.device, screen=screen,
@@ -60,11 +83,21 @@ class GoldDiff:
                  support: torch.Tensor | None = None) -> torch.Tensor:
         if support is not None:
             return self.base(x_t, t, support=support)
-        return self.engine.denoise(x_t, int(t))
+        t = int(t)
+        if isinstance(self.base, OptimalDenoiser):
+            return self.engine.denoise(x_t, t)
+        # a patch base computes its own logits on S_t (a PCA base builds
+        # its feature cache for the step's patch size on first use)
+        return self.base(x_t, t, support=self.select(x_t, t))
 
     def call_masked(self, x_t: torch.Tensor, t, caps=None) -> torch.Tensor:
         """The masked step (``GoldDiffEngine.denoise_masked``): shapes
         padded to ``caps`` (a ``plan.BucketCaps``; None pads to the worst
         case), m_t and k_t entering as masks; ``t`` a Python int or a
-        0-d integer tensor on the store's device."""
+        0-d integer tensor on the store's device.  Optimal base only: a
+        patch base needs the static patch size of each step."""
+        if not isinstance(self.base, OptimalDenoiser):
+            raise ValueError(
+                f"the masked step needs the Optimal base; {self.name} "
+                f"serves in static mode only (GoldDiff.__call__)")
         return self.engine.denoise_masked(x_t, t, caps)

@@ -12,7 +12,12 @@ x0-prediction clipping:
   ``repro_torch.core.plan.TrajectoryPlan``, each padded only to its
   bucket's caps.  With ``program_cache`` and ``jitter`` (the engine's)
   each segment is built once per batch shape: on the card one captured
-  CUDA graph, where the reference compiles one program.
+  CUDA graph, where the reference compiles one program;
+* ``sample_conditional`` -- class-conditional generation through a
+  denoiser over one class's sub-store (paper Tab. 3);
+* ``denoise_trajectory`` -- deterministic DDIM from a given x_T, every
+  step's state returned (paired comparisons: all methods from the same
+  initial noise, Fig. 4).
 
 ``x_init`` replaces the internal terminal-noise draw with a
 caller-supplied x_T (the serving engine's per-row noise, and how the
@@ -55,8 +60,11 @@ def sample(denoiser: Callable, schedule: Schedule, shape: tuple,
            generator: torch.Generator | None = None, num_steps: int = 10,
            eta: float = 0.0, clip_value: float | None = 3.0,
            x_init: torch.Tensor | None = None,
-           noise: Sequence[torch.Tensor] | None = None) -> torch.Tensor:
-    """Per-step DDIM sampling on the denoiser's store device; returns x0.
+           noise: Sequence[torch.Tensor] | None = None,
+           trace: bool = False):
+    """Per-step DDIM sampling on the denoiser's store device; returns x0,
+    and with ``trace=True`` also the stacked clipped x0 predictions of
+    every step, [steps, *shape].
 
     ``generator`` (a CPU ``torch.Generator``) draws x_T when ``x_init``
     is None and, for ``eta > 0``, the per-step noise when ``noise``
@@ -64,6 +72,7 @@ def sample(denoiser: Callable, schedule: Schedule, shape: tuple,
     device = denoiser.store.device
     ts = sampling_timesteps(schedule, num_steps)
     x = _init_noise(schedule, int(ts[0]), shape, generator, device, x_init)
+    traj = []
     for i, (t, t_prev) in enumerate(zip(ts[:-1], ts[1:])):
         x0_hat = _clip(denoiser(x, int(t)), clip_value)
         step_noise = None
@@ -73,7 +82,35 @@ def sample(denoiser: Callable, schedule: Schedule, shape: tuple,
                           else _normal(shape, generator, device))
         x = schedule.ddim_step(x, x0_hat, int(t), int(t_prev), eta,
                                step_noise)
+        if trace:
+            traj.append(x0_hat)
+    if trace:
+        return x, torch.stack(traj)
     return x
+
+
+def sample_conditional(make_denoiser_for_class: Callable[[int], Callable],
+                       schedule: Schedule, shape: tuple, class_id: int,
+                       **kw):
+    """``sample`` with the denoiser ``make_denoiser_for_class(class_id)``
+    (e.g. one over ``dataset.restrict(store, rows of the class)``)."""
+    return sample(make_denoiser_for_class(class_id), schedule, shape, **kw)
+
+
+def denoise_trajectory(denoiser: Callable, schedule: Schedule,
+                       x_T: torch.Tensor, num_steps: int = 10,
+                       clip_value: float | None = 3.0
+                       ) -> tuple[torch.Tensor, list[torch.Tensor]]:
+    """Deterministic DDIM from a given terminal noise ``x_T`` (moved to
+    the denoiser's store device): ``(x_0, [x_T, ..., x_0])``."""
+    ts = sampling_timesteps(schedule, num_steps)
+    x = torch.as_tensor(x_T).to(denoiser.store.device)
+    xs = [x]
+    for t, t_prev in zip(ts[:-1], ts[1:]):
+        x0_hat = _clip(denoiser(x, int(t)), clip_value)
+        x = schedule.ddim_step(x, x0_hat, int(t), int(t_prev))
+        xs.append(x)
+    return x, xs
 
 
 def _masked_step(denoise_masked: Callable, schedule: Schedule,

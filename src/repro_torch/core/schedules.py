@@ -2,10 +2,13 @@
 
 Counterpart of ``repro.core.schedules``: every schedule is the affine
 form ``x_t = a_t * x_0 + b_t * eps`` with host-side numpy ``a``/``b``
-(built by the same numpy code, so the grids are equal), and the DDIM
-update acts on tensors.  ``sigma(t)`` / ``g(t)`` are the traced forms
-of the masked path: fp32, as the reference computes them under default
-(non-x64) JAX, read from tables built once per schedule and device.
+(built by the same numpy code, so the grids are equal): ``ddpm_linear``,
+``cosine``, ``edm_vp`` and ``edm_ve`` (VE: ``a_t = 1``, sigma up to
+100).  The DDIM update and ``add_noise`` act on tensors.  ``sigma(t)``
+/ ``g(t)`` are the traced forms of the masked path: fp32, as the
+reference computes them under default (non-x64) JAX, read from tables
+built once per schedule and device (the CPU for a Python int ``t``
+and no ``device``).
 """
 from __future__ import annotations
 
@@ -51,7 +54,7 @@ class Schedule:
         ``g`` is computed on the CPU in fp32 (``torch.log``) and moved,
         so every device reads the same values, and a CUDA graph that
         indexes them captures no host-to-device copy."""
-        device = torch.device(device)
+        device = torch.device("cpu" if device is None else device)
         if device not in self._tables:
             a = torch.tensor(self.a, dtype=torch.float32)
             b = torch.tensor(self.b, dtype=torch.float32)
@@ -75,6 +78,18 @@ class Schedule:
         read on ``device``); t is clipped to [1, T], as in ``g_np``."""
         return take(self.tables(t.device if isinstance(t, torch.Tensor)
                                 else device)[2], t)
+
+    def add_noise(self, x0: torch.Tensor, eps: torch.Tensor,
+                  t) -> torch.Tensor:
+        """x_t = a_t x0 + b_t eps, a_t and b_t rounded to ``x0``'s dtype;
+        ``t`` an int or an integer tensor of per-row timesteps."""
+        a = torch.as_tensor(self.a, dtype=x0.dtype, device=x0.device)
+        b = torch.as_tensor(self.b, dtype=x0.dtype, device=x0.device)
+        a, b = a[t], b[t]
+        if isinstance(t, torch.Tensor) and t.ndim:
+            a = a.reshape((-1,) + (1,) * (x0.ndim - 1))
+            b = b.reshape((-1,) + (1,) * (x0.ndim - 1))
+        return a * x0 + b * eps
 
     def ddim_step(self, x_t: torch.Tensor, x0_hat: torch.Tensor, t: int,
                   t_prev: int, eta: float = 0.0,
@@ -112,14 +127,41 @@ def ddpm_linear(num_steps: int = 1000, beta_start: float = 1e-4,
     return Schedule("ddpm_linear", a, b)
 
 
-SCHEDULES = {"ddpm_linear": ddpm_linear}
+def cosine(num_steps: int = 1000, s: float = 8e-3) -> Schedule:
+    t = np.arange(num_steps + 1) / num_steps
+    f = np.cos((t + s) / (1 + s) * np.pi / 2) ** 2
+    alpha_bar = np.clip(f / f[0], 1e-8, 1.0)
+    return Schedule("cosine", np.sqrt(alpha_bar),
+                    np.sqrt(np.maximum(1.0 - alpha_bar, 1e-8)))
+
+
+def edm_vp(num_steps: int = 1000, beta_d: float = 19.9,
+           beta_min: float = 0.1) -> Schedule:
+    """EDM's VP parameterization (Karras et al. 2022, Table 1)."""
+    t = np.linspace(1e-3, 1.0, num_steps + 1)
+    log_abar = -0.5 * (0.5 * beta_d * t**2 + beta_min * t)
+    a = np.exp(log_abar)
+    b = np.sqrt(np.maximum(1.0 - a**2, 1e-8))
+    return Schedule("edm_vp", a, b)
+
+
+def edm_ve(num_steps: int = 1000, sigma_min: float = 2e-2,
+           sigma_max: float = 100.0) -> Schedule:
+    """VE: x_t = x_0 + sigma_t eps with geometric sigma grid; a_t = 1."""
+    sig = np.concatenate([[sigma_min * 0.5],
+                          np.geomspace(sigma_min, sigma_max, num_steps)])
+    return Schedule("edm_ve", np.ones(num_steps + 1), sig)
+
+
+SCHEDULES = {
+    "ddpm_linear": ddpm_linear,
+    "cosine": cosine,
+    "edm_vp": edm_vp,
+    "edm_ve": edm_ve,
+}
 
 
 def make_schedule(name: str, num_steps: int = 1000, **kw) -> Schedule:
-    if name not in SCHEDULES:
-        raise NotImplementedError(
-            f"schedule {name!r} is not ported yet; the port has "
-            f"{sorted(SCHEDULES)}")
     return SCHEDULES[name](num_steps=num_steps, **kw)
 
 

@@ -4,13 +4,17 @@ Counterpart of ``repro.launch.serve``.  A request is (num_images,
 seed); ``ServeEngine`` packs requests into waves of at most
 ``max_batch`` rows, pads each wave to a power-of-two batch bucket,
 chunks oversized requests across waves, and runs GoldDiff DDIM
-sampling in one of three modes (``mode=``, "auto" by default):
+sampling in one of three modes (``mode=``, "auto" by default: plan
+with the Optimal base, static with a patch base):
 
 * ``"plan"`` -- the default with the Optimal base: ``sample_plan`` over a
   ``repro_torch.core.plan.TrajectoryPlan``, one segment per shape
   bucket, each padded only to its bucket's (m_cap, k_cap, nprobe_cap);
 * ``"scan"`` -- one masked body padded to (m_max, k_max) at every step;
-* ``"static"`` -- per-step static steps, eager.
+* ``"static"`` -- per-step static steps, eager; the only mode of a
+  patch base (``base="pca"`` or ``"kamb"``: each step has its own patch
+  size), whose ``warmup()`` builds the PCA feature cache of every patch
+  size the trajectory takes.
 
 On the card every plan and scan segment is one captured CUDA graph per
 batch bucket (``GoldDiffEngine.jitter``), the port's form of the
@@ -28,7 +32,8 @@ too: a ``repro_torch.index.GoldenIndex`` of the store routes the coarse
 screen of the steps ``index_mode`` picks through the index.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --dataset cifar_like \
-      --n 50000 --requests 3 --batch 16 --steps 10 [--buckets 4]
+      --n 50000 --requests 3 --batch 16 --steps 10 [--buckets 4] \
+      [--base pca]
 """
 from __future__ import annotations
 
@@ -40,9 +45,10 @@ from typing import Iterable
 import numpy as np
 import torch
 
-from repro_torch.core import (GoldDiff, GoldDiffConfig, build_plan,
-                              make_denoiser, make_schedule, sample,
-                              sample_plan, sample_scan, sampling_timesteps)
+from repro_torch.core import (GoldDiff, GoldDiffConfig, OptimalDenoiser,
+                              PatchDenoiser, build_plan, make_denoiser,
+                              make_schedule, sample, sample_plan,
+                              sample_scan, sampling_timesteps)
 from repro_torch.core.dataset import DatasetStore
 from repro_torch.data import make_dataset
 from repro_torch.utils import resolve_device
@@ -114,9 +120,13 @@ class ServeEngine:
         self.denoiser = GoldDiff(base_den, gd_cfg or GoldDiffConfig(),
                                  fused=fused, index=index,
                                  index_mode=index_mode)
-        # auto is plan mode: the Optimal base, the only one ported, serves
-        # the masked body (the reference falls back to static for others)
-        self.mode = "plan" if mode == "auto" else mode
+        if mode == "auto":
+            mode = "plan" if self._scan_compatible() else "static"
+        if mode in ("plan", "scan") and not self._scan_compatible():
+            raise ValueError(f"mode={mode!r} needs the masked (Optimal-"
+                             f"base) denoiser body; base {base!r} serves "
+                             f"mode='static' only")
+        self.mode = mode
         self.plan = (build_plan(self.engine, num_steps,
                                 threshold=plan_threshold,
                                 max_buckets=max_buckets)
@@ -126,6 +136,11 @@ class ServeEngine:
     def engine(self):
         """The program cache's owner (``core.GoldDiffEngine``)."""
         return self.denoiser.engine
+
+    def _scan_compatible(self) -> bool:
+        """Masked-body serving needs a GoldDiff over the Optimal base
+        (patch bases require static per-step patch sizes)."""
+        return isinstance(self.denoiser.base, OptimalDenoiser)
 
     # -- batch buckets -------------------------------------------------------
     def batch_buckets(self) -> list[int]:
@@ -198,7 +213,9 @@ class ServeEngine:
         traffic; a warm engine builds nothing more.  Plan and scan
         segments are built without sampling (on the card: captured, each
         run once on zeros first); static mode has no programs and warms
-        its kernels with one trajectory a batch bucket.
+        its kernels with one trajectory a batch bucket, after building
+        the PCA feature caches (``feature_cache_bytes``: the device bytes
+        they hold).
 
         ``programs_compiled`` is batch buckets x plan buckets in plan
         mode: the reference's count less its two programs a batch bucket
@@ -206,6 +223,10 @@ class ServeEngine:
         noise on the host."""
         n0 = len(self.engine._programs)
         t0 = time.perf_counter()
+        cache_bytes = 0
+        if isinstance(self.denoiser.base, PatchDenoiser):
+            ts = sampling_timesteps(self.schedule, self.num_steps)
+            cache_bytes = self.denoiser.base.build_caches(ts[:-1])
         for b in self.batch_buckets():
             shape = (b, self.store.dim)
             if self.mode == "plan":
@@ -224,6 +245,7 @@ class ServeEngine:
                 "shape_buckets": (self.plan.num_buckets if self.plan
                                   else (1 if self.mode == "scan"
                                         else self.num_steps)),
+                "feature_cache_bytes": cache_bytes,
                 "warmup_s": time.perf_counter() - t0}
 
     def serve(self, requests: Iterable[Request]) -> list[Result]:
@@ -280,6 +302,10 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=3)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--base", default="optimal",
+                    choices=["optimal", "pca", "kamb"],
+                    help="base denoiser; a patch base (pca, kamb) serves "
+                         "in static mode")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "the plain PyTorch versions)")
@@ -300,23 +326,31 @@ def main(argv=None):
                     help="skip building the (batch x shape) buckets first")
     args = ap.parse_args(argv)
 
+    mode = "auto"
+    if args.base == "optimal":
+        mode = "plan" if args.plan else "scan"
     t0 = time.perf_counter()
-    eng = ServeEngine(args.dataset, {"n": args.n}, num_steps=args.steps,
+    eng = ServeEngine(args.dataset, {"n": args.n}, base=args.base,
+                      num_steps=args.steps,
                       max_batch=args.batch, device=args.device,
-                      fused=FUSED_FLAG[args.fused],
-                      mode="plan" if args.plan else "scan",
+                      fused=FUSED_FLAG[args.fused], mode=mode,
                       plan_threshold=args.threshold,
                       max_buckets=args.buckets)
+    # the fused route is the Optimal base's; a patch base only selects
+    fused = (f"fused steps: {eng.engine.use_fused(0)}; "
+             if args.base == "optimal" else "")
     print(f"store: {args.dataset} N={eng.store.n} D={eng.store.dim} on "
-          f"{eng.device} in {time.perf_counter() - t0:.2f}s; fused steps: "
-          f"{eng.engine.use_fused(0)}; mode {eng.mode}")
+          f"{eng.device} in {time.perf_counter() - t0:.2f}s; {fused}base "
+          f"{args.base}, mode {eng.mode}")
     if eng.plan is not None:
         print(eng.plan.describe())
     if not args.no_warmup:
         stats = eng.warmup()
         print(f"warmup: {stats['programs_compiled']} programs (batch "
               f"buckets {stats['batch_buckets']} x {stats['shape_buckets']} "
-              f"shape buckets) in {stats['warmup_s']:.2f}s")
+              f"shape buckets), feature caches "
+              f"{stats['feature_cache_bytes'] / 2**20:.1f} MiB, in "
+              f"{stats['warmup_s']:.2f}s")
     reqs = [Request(i, args.batch, seed=100 + i) for i in range(args.requests)]
     t0 = time.perf_counter()
     results = eng.serve(reqs)

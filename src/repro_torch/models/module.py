@@ -50,7 +50,8 @@ def _init_leaf(spec: ParamSpec, generator: torch.Generator,
         return torch.ones(spec.shape, dtype=spec.dtype, device=device)
     if spec.init not in ("normal", "embed"):
         raise NotImplementedError(f"init {spec.init!r} (Mamba-2 leaves: "
-                                  f"ROADMAP Queue 1 item 14)")
+                                  f"ROADMAP Queue 1: the other model "
+                                  f"families)")
     fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
     std = spec.scale if spec.scale is not None else 1.0 / math.sqrt(fan_in)
     if spec.init == "embed":

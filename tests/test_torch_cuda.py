@@ -19,6 +19,7 @@ agree with the CPU's to 1e-4.
 """
 import ctypes
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -762,11 +763,16 @@ def test_ivf_probe_is_one_launch(card):
     assert_probe_equal(got, want)
     before = centroid_scan.launches
     torch.cuda.synchronize()
+    # the pauses keep the launch inside the session, whose window the
+    # card's clock skew can otherwise push it out of
+    # (scripts/card_timing.device_profile)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
         ops.ivf_probe(q, IMAGE, 4, ix["centroids"], ix["centroid_norms"],
                       ix["offsets"], ix["perm"], ix["n"], 8, 12,
                       fields=("ids", "valid"))
         torch.cuda.synchronize()
+        time.sleep(0.05)
     names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
     assert centroid_scan.launches == before + 1
     assert len(names) == 1 and "ivf_probe_kernel" in names[0], names
@@ -1097,3 +1103,92 @@ def test_plan_capture_failure_raises(card):
     assert gd.engine._builds == 0
     assert torch.cuda.current_stream(card) == torch.cuda.default_stream(card)
     assert float(torch.ones(4, device=card).sum()) == 4.0
+
+
+# -- the patch bases (Kamb, PCA) and GoldDiff over them ----------------------
+
+def test_patch_convolutions_fp32_with_tf32_on(card):
+    """The PCA projection and the Kamb box sum compute in fp32 even with
+    cuDNN's TF32 flag on (the denoisers turn it off around their
+    convolutions and restore it): within 1e-5 relative of a float64
+    convolution on the CPU."""
+    import torch.nn.functional as F
+    from repro_torch.core import PCADenoiser
+    from repro_torch.core.denoisers import _box_patch_dist
+    store = make_dataset("cifar_like", n=128, seed=0, device=card)
+    den = PCADenoiser(store, make_schedule("ddpm_linear", 1000), device=card)
+    imgs = store.X[:16].reshape(16, 32, 32, 3)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        feats = {p: den.features(imgs, p) for p in (3, 7, 11)}
+        box = _box_patch_dist(imgs[:4], imgs[4:8], 9)
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+
+    def rel(got, want):
+        return float((got.double().cpu() - want).abs().max()
+                     / want.abs().max())
+
+    x64 = imgs.double().cpu().permute(0, 3, 1, 2)
+    for p, f in feats.items():
+        w64 = den._basis(p).double().cpu().permute(3, 2, 0, 1)
+        want = F.conv2d(x64, w64, padding=p // 2).permute(0, 2, 3, 1)
+        assert rel(f, want) <= 1e-5, p
+    d64 = ((imgs[:4, None] - imgs[None, 4:8]) ** 2).sum(-1).double().cpu()
+    want = F.conv2d(F.pad(d64.reshape(-1, 1, 32, 32), (4,) * 4),
+                    torch.ones(1, 1, 9, 9, dtype=torch.float64))
+    assert rel(box, want.reshape(d64.shape)) <= 1e-5
+
+
+@pytest.mark.parametrize("base", ["kamb", "pca"])
+def test_golddiff_patch_base_card_matches_cpu(card, base):
+    """GoldDiff over a patch base on the card: kernels 1 and 2 once a
+    step (the selection) and no other; supports equal to the CPU's on
+    noisy data; a 10-step trajectory within 1e-3 of the CPU's."""
+    from repro_torch.core import denoise_trajectory, make_denoiser
+    store = make_dataset("cifar_like", n=1024, seed=2, device="cpu")
+    sched = make_schedule("ddpm_linear", 1000)
+    gds = {dev: GoldDiff(make_denoiser(base, store, sched, device=dev))
+           for dev in (card, "cpu")}
+    g = torch.Generator().manual_seed(3)
+    x_T = float(sched.b[1000]) * torch.randn(4, store.dim, generator=g)
+    for k in ops.COUNTED:
+        k.launches = 0
+    got, _ = denoise_trajectory(gds[card], sched, x_T)
+    assert pdist.launches == 10 and support_sqdist.launches == 10
+    assert sum(k.launches for k in ops.COUNTED) == 20
+    want, _ = denoise_trajectory(gds["cpu"], sched, x_T)
+    assert float((got.cpu() - want).abs().max()) <= 1e-3
+    t = 500
+    x_t = (float(sched.a[t]) * store.X[:4] + float(sched.b[t])
+           * torch.randn(4, store.dim, generator=g))
+    s_card = gds[card].select(x_t.to(card), t).cpu()
+    s_cpu = gds["cpu"].select(x_t, t)
+    assert torch.equal(s_card.sort(-1).values, s_cpu.sort(-1).values)
+    np.testing.assert_allclose(gds[card](x_t.to(card), t).cpu().numpy(),
+                               gds["cpu"](x_t, t).numpy(), rtol=0,
+                               atol=1e-4)
+
+
+def test_static_pca_serve_builds_nothing_after_warmup(card):
+    """ServeEngine(base="pca") serves static mode; warmup() builds the
+    feature cache of every patch size the trajectory takes, and serving
+    then builds no cache, program or graph."""
+    from repro_torch.launch.serve import Request, ServeEngine
+    store = make_dataset("cifar_like", n=512, seed=0, device="cpu")
+    eng = ServeEngine(store, base="pca", num_steps=4, max_batch=4,
+                      device=card)
+    assert eng.mode == "static" and eng.plan is None
+    base = eng.denoiser.base
+    stats = eng.warmup()
+    patches = {base.patch_size(t) for t in (1000, 750, 500, 250)}
+    assert set(base._features) == patches
+    assert stats["feature_cache_bytes"] == base.feature_cache_bytes() \
+        == len(patches) * 512 * 32 * 32 * 8 * 4
+    n0 = (len(base._features), eng.engine._builds, eng.engine._captures)
+    out = eng.serve([Request(0, 3, seed=1), Request(1, 4, seed=2)])
+    assert [r.images.shape[0] for r in out] == [3, 4]
+    assert all(np.isfinite(r.images).all() for r in out)
+    assert (len(base._features), eng.engine._builds,
+            eng.engine._captures) == n0

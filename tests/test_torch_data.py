@@ -36,6 +36,18 @@ def test_make_dataset_bit_equal(name, kw):
                                rtol=1e-6)
 
 
+@pytest.mark.parametrize("n,h,c,classes,batch", [(300, 28, 1, 10, 64),
+                                                  (130, 32, 3, 10, 50),
+                                                  (50, 16, 3, 40, 7)])
+def test_procedural_images_bit_equal_in_batches(n, h, c, classes, batch):
+    """The threaded generator (row slices on a pool, several batches,
+    more prototypes than a slice) gives the reference's arrays."""
+    want = jsynth.procedural_images(n, h, h, c, classes, seed=3, batch=batch)
+    got = tsynth.procedural_images(n, h, h, c, classes, seed=3, batch=batch)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
 def test_image_store_small_images_bit_equal():
     js = jsynth.image_store(40, 16, 16, 3, seed=7)
     ts = tsynth.image_store(40, 16, 16, 3, seed=7, device="cpu")
@@ -95,5 +107,28 @@ def test_ddim_step_matches(eta):
 
 
 def test_unported_schedule_raises():
-    with pytest.raises(NotImplementedError):
-        tsched.make_schedule("cosine", 1000)
+    """The port has every schedule of the reference; a name neither
+    package knows raises in both."""
+    assert sorted(tsched.SCHEDULES) == sorted(jsched.SCHEDULES)
+    with pytest.raises(KeyError):
+        tsched.make_schedule("bogus", 1000)
+    with pytest.raises(KeyError):
+        jsched.make_schedule("bogus", 1000)
+
+
+@pytest.mark.parametrize("name", ["ddpm_linear", "cosine", "edm_vp",
+                                  "edm_ve"])
+def test_schedule_matches(name):
+    """Each schedule's grids bit-equal, and one DDIM step on it within
+    fp32 ulps (1e-6)."""
+    js, ts = jsched.make_schedule(name, 1000), tsched.make_schedule(name,
+                                                                    1000)
+    np.testing.assert_array_equal(ts.a, js.a)
+    np.testing.assert_array_equal(ts.b, js.b)
+    rng = np.random.default_rng(2)
+    x, x0 = (rng.normal(size=(3, 12)).astype(np.float32) for _ in range(2))
+    want = np.asarray(js.ddim_step(jnp.asarray(x), jnp.asarray(x0), 700,
+                                   600))
+    got = ts.ddim_step(torch.from_numpy(x), torch.from_numpy(x0), 700,
+                       600).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)

@@ -71,12 +71,38 @@ def test_cli_on_cpu(capsys):
     assert "served 4 images" in out and "finite=True" in out
 
 
+@pytest.mark.parametrize("base", ["pca", "kamb"])
+def test_cli_patch_base_on_cpu(capsys, base):
+    main(["--n", "64", "--requests", "2", "--batch", "2", "--steps", "3",
+          "--device", "cpu", "--base", base])
+    out = capsys.readouterr().out
+    assert f"base {base}, mode static" in out
+    assert "served 4 images" in out and "finite=True" in out
+
+
 def test_unported_modes_and_bases_raise():
+    """An unknown mode raises; a patch base serves static mode ("auto"),
+    and asking it for the masked body (plan, scan) raises the
+    reference's ``ValueError`` (``src/repro/launch/serve.py:158-161``)."""
     store = make_dataset("gmm", n=32, dim=4, device="cpu")
     with pytest.raises(ValueError, match="bogus"):
         ServeEngine(store, mode="bogus", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeEngine(store, base="pca", device="cpu")
+    img = make_dataset("cifar_like", n=64, seed=0, device="cpu")
+    pca = ServeEngine(img, base="pca", num_steps=3, max_batch=2,
+                      device="cpu")
+    assert pca.mode == "static" and pca.plan is None
+    assert pca.denoiser.base.weighting == "ss"
+    for mode in ("plan", "scan"):
+        with pytest.raises(ValueError, match="static"):
+            ServeEngine(img, base="pca", mode=mode, device="cpu")
+    stats = pca.warmup()
+    base = pca.denoiser.base
+    patches = {base.patch_size(int(t)) for t in (1000, 667, 333)}
+    assert set(base._features) == patches
+    assert stats["feature_cache_bytes"] == len(patches) * 64 * 32 * 32 * 8 * 4
+    out = pca.serve([Request(0, 3, seed=4)])[0].images
+    assert out.shape == (3, 32, 32, 3) and np.isfinite(out).all()
+    assert set(base._features) == patches
 
 
 # -- plan mode (the reference's tests/test_serve_plan.py:35-131) -----------------

@@ -68,6 +68,17 @@ Phases:
      SCALE_PROBES; gmm index_mode="always" plan waves; plan and static
      trajectories timed in turns and profiled at B=16, 4 and 1 (the
      earlier [serve] phases are pinned to mode="static");
+  7c. bf16 (``bf16_phase``): the engine with bf16 store rows
+     (``storage_dtype=torch.bfloat16``): each of kernels 1-7's bf16
+     instance against its plain version on the same bf16 rows at the
+     main path's shapes (integer data bit-equal, floats within 1e-5 rel
+     / 1e-4 abs), timed against its bf16 bound beside the fp32
+     instance; the fp32 and bf16 trajectories of every route (full
+     scan, fused, staged, streamed, indexed, the fused plan on CUDA
+     graphs) from one x_T, each counted alone (a bf16 route launches
+     only bf16 instances, each once a step), timed in turns and
+     profiled; the static step's bf16-vs-fp32 error at t = 800, 400,
+     100; the operands' bytes and a step's peak; strategy="measure";
   8. reference: a small store's trajectories on the card against the
      same trajectories on the CPU (plain versions), for every route
      (the indexed one with an index built on the CPU and moved over),
@@ -127,6 +138,7 @@ except ImportError:
              f"{Path(__file__).name}")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12       # H100 SXM data sheet, fp32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12      # H100 SXM data sheet, dense TF32 tensor cores
 DP, D, M, K = 192, 3072, 12500, 5000
 M_LOW = 5000                   # the smallest m_t of the 10-step schedule
 # integer checks of the top-m kernels: the path's m_t, one past the
@@ -884,6 +896,423 @@ def presets_phase(kernels: dict) -> None:
           f"box sums rel {rel['box sums']:.3g} (tolerance {FEAT_RTOL}); the "
           f"same conv without the pin rel {rel['unpinned conv']:.3g}")
     print(f"[presets] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+BF16 = torch.bfloat16
+# the bf16-row instances each route launches once a step
+BF16_ROUTES = {
+    "fused": ("fused_candidates", "golden_support_aggregate"),
+    "staged": ("pdist", "support_sqdist", "golden_support_aggregate"),
+    "streamed": ("screen_topm", "support_sqdist", "golden_support_aggregate"),
+    "indexed": ("centroid_scan", "support_sqdist",
+                "golden_support_aggregate"),
+    "full_scan": ("golden_aggregate",),
+    "plan": ("fused_candidates", "golden_support_aggregate")}
+# each instance's launches in the kernels line: its first route above
+BF16_PATH = {n: r for r, names in reversed(BF16_ROUTES.items())
+             for n in names}
+
+
+def bf16_phase(ctx: dict) -> tuple[dict, dict]:
+    """[bf16]: the engine with bf16 store rows (``storage_dtype``).
+
+    Each kernel's bf16-row instance against its plain version on the same
+    bf16 rows at the main path's shapes (B=16, N=50000, D=3072, dp=192,
+    m=12500, k=5000; integer data bit-equal, floats within DIST_RTOL /
+    MEAN_ATOL), timed (CUDA events, L2 flushed) against its bf16 bound
+    and beside the fp32 instance's time; then the fp32 and bf16
+    trajectories of every route from one x_T (full scan, fused static,
+    staged, streamed, indexed at INDEXED_CFG, the fused plan on CUDA
+    graphs), each counted alone (a bf16 route launches its routes' bf16
+    instances once a step and no fp32 instance), timed in turns and
+    profiled; the bf16-vs-fp32 error of the static step at t in {800,
+    400, 100} and over the trajectory; the operands' bytes and the peak
+    over what is held; and ``strategy="measure"`` on the card.  Returns
+    the bf16 instances' numbers and the bf16 routes' counts."""
+    from repro_torch.core import (FullScan, GoldDiff, OptimalDenoiser,
+                                  build_plan, sample, sample_plan)
+    from repro_torch.core.engine import measure_crossover
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.fused_step import (
+        fused_candidates, fused_candidates_scan, fused_posterior)
+    from repro_torch.kernels.golden_aggregate import golden_aggregate
+    from repro_torch.kernels.golden_rerank import support_sqdist
+    from repro_torch.kernels.golden_support_aggregate import (
+        golden_support_aggregate)
+    from repro_torch.kernels.pdist import pdist
+    from repro_torch.kernels.screen import screen_topm, screen_topm_scan
+
+    t_phase = time.perf_counter()
+    st, sched, x_T = ctx["store"], ctx["sched"], ctx["x_T"]
+    fp32 = ctx["results"]
+    kern = {k.__name__: k for k in ops.COUNTED_BF16}
+    check(set(kern) == set(BF16_PATH),
+          f"[bf16] the bf16 instances' wrappers {sorted(kern)}")
+
+    # the operands: bf16 rows beside the fp32 master, fp32 norms
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    full = OptimalDenoiser(st, sched)
+    gd = GoldDiff(full, storage_dtype=BF16)
+    eng = gd.engine
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - before
+    op_bytes = {"X": eng.X.numel() * 2, "proxy": eng.proxy.numel() * 2}
+    check(eng.X.dtype == eng.proxy.dtype == BF16
+          and eng.x_norms.dtype == torch.float32
+          and st.X.dtype == torch.float32, "[bf16] engine operand dtypes")
+    check(eng.strategy == "dense" and eng.use_fused(500),
+          f"[bf16] fused='auto' at m_max/N 0.25: strategy {eng.strategy}")
+
+    a, sig2 = eng.constants(500)
+    q = ctx["q"]                                  # the rescaled query
+    qp = eng._proxy_query(q)                      # rounded to bf16, fp32
+    check(torch.equal(qp, qp.to(BF16).float()), "[bf16] qp not rounded")
+    qpn = (qp * qp).sum(-1)
+    xb, pb, xn, pn = eng.X, eng.proxy, eng.x_norms, eng.proxy_norms
+    res = {}
+
+    def ints_bf16(shape, seed):
+        return ints(shape, seed).to(BF16)
+
+    def row(name, err, ms, plain_ms, nbytes, flops, rate=FP32_FLOPS_PER_S):
+        b_ms, b_by = bound(nbytes, flops, rate)
+        res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        print(f"[bf16] {name} bf16 rows: max abs {err:.3g}; kernel "
+              f"{ms:.4f} ms (fp32 instance {fp32[name]['ms']:.4f} ms, "
+              f"bf16/fp32 {ms / fp32[name]['ms']:.3f}), bound {b_ms:.4f} ms "
+              f"({b_by}: {nbytes / 1e6:.1f} MB; fp32 bound "
+              f"{fp32[name]['bound_ms']:.4f} ms), {b_ms / ms:.3f} of the "
+              f"bound; plain {plain_ms:.4f} ms")
+
+    # kernel 1
+    qi, xi = ints((B, DP), 60), ints_bf16((N, DP), 61)
+    qin, xin = (qi * qi).sum(-1), (xi.float() ** 2).sum(-1)
+    check(torch.equal(pdist(qi, xi, qin, xin),
+                      ref.pdist_ref(qi, xi, qin, xin)),
+          "[bf16] pdist: not bit-equal on integer data")
+    d2k = pdist(qp, pb, qpn, pn)
+    d2r = ref.pdist_ref(qp, pb, qpn, pn)
+    rel = rel_err(d2k, d2r)
+    check(rel <= DIST_RTOL, f"[bf16] pdist: relative error {rel:.3g}")
+    cand = ref.materialized_topm(d2k, M)[0]
+    row("pdist", float((d2k - d2r).abs().max()),
+        time_ms(lambda: pdist(qp, pb, qpn, pn)),
+        time_ms(lambda: ref.pdist_ref(qp, pb, qpn, pn)),
+        4 * (B * DP + B + N + B * N) + 2 * N * DP, 4 * B * N * DP,
+        TF32_FLOPS_PER_S)
+    del d2k, d2r
+
+    # kernel 2
+    qfi, xfi = ints((B, D), 62), ints_bf16((N, D), 63)
+    xfin = (xfi.float() ** 2).sum(-1)
+    ci = ref.materialized_topm(ref.pdist_ref(qi, xi, qin, xin), M)[0]
+    check(torch.equal(support_sqdist(qfi, xfi, xfin, ci),
+                      ref.support_sqdist_ref(qfi, xfi, xfin, ci)),
+          "[bf16] support_sqdist: not bit-equal on integer data")
+    sk = support_sqdist(q, xb, xn, cand)
+    sr = ref.support_sqdist_ref(q, xb, xn, cand)
+    rel = rel_err(sk, sr)
+    check(rel <= DIST_RTOL, f"[bf16] support_sqdist: relative error "
+          f"{rel:.3g}")
+    gold, gd2 = ops.golden_rerank(q, xb, cand, K, xn)
+    u = int(torch.unique(cand).numel())
+    row("support_sqdist", float((sk - sr).abs().max()),
+        time_ms(lambda: support_sqdist(q, xb, xn, cand)),
+        time_ms(lambda: ref.support_sqdist_ref(q, xb, xn, cand), iters=3),
+        2 * u * D + 4 * u + 4 * B * D + 12 * B * M, 2 * B * M * D)
+    del sr
+
+    # kernel 3: integer rows and the path's rows against the plain
+    # aggregate within MEAN_ATOL (the softmax's exponentials are not
+    # exact, so no bit-equality), each with [check]'s all-NEG_INF row
+    # (the mean of its rows) and the plan's k_t mask (slots >= K/2 at
+    # NEG_INF)
+    gold_i, gd2_i = ops.golden_rerank(qfi, xfi, ci, K, xfin)
+    lg = torch.clamp_min(-gd2 / (2.0 * sig2), ref.NEG_INF)
+    kept = torch.arange(K, device=lg.device) < K // 2
+    err = 0.0
+    for label, rows, ids, lgs in (
+            ("integer rows", xfi, gold_i,
+             torch.clamp_min(-gd2_i / 40.0, ref.NEG_INF)),
+            ("path rows", xb, gold, lg)):
+        lg_none = lgs.clone()
+        lg_none[0] = ref.NEG_INF
+        for case, lgc in (("", lgs), (" k_t mask", torch.where(
+                kept, lgs, ref.NEG_INF)), (" all-NEG_INF row", lg_none)):
+            got = golden_support_aggregate(rows, ids, lgc)
+            e = float((got - ref.golden_support_aggregate_ref(rows, ids, lgc))
+                      .abs().max())
+            check(e <= MEAN_ATOL, f"[bf16] golden_support_aggregate "
+                  f"{label}{case}: max abs {e:.3g}")
+            err = max(err, e)
+        e = float((got[0] - rows[ids[0]].float().mean(0)).abs().max())
+        check(e <= MEAN_ATOL, f"[bf16] golden_support_aggregate {label}: "
+              f"the all-NEG_INF row is not the mean of its rows ({e:.3g})")
+    del gold_i, gd2_i, lg_none, got
+    ak = golden_support_aggregate(xb, gold, lg)
+    check(torch.equal(ak, golden_support_aggregate(xb, gold, lg)),
+          "[bf16] golden_support_aggregate: two calls differ")
+    print(f"[bf16] golden_support_aggregate: integer and path rows, k_t "
+          f"mask and all-NEG_INF row within {MEAN_ATOL}: max abs {err:.3g}")
+    u3 = int(torch.unique(gold).numel())
+    row("golden_support_aggregate", err,
+        time_ms(lambda: golden_support_aggregate(xb, gold, lg)),
+        time_ms(lambda: ref.golden_support_aggregate_ref(xb, gold, lg),
+                iters=3),
+        2 * u3 * D + 4 * B * D + 12 * B * K, 2 * B * K * D)
+
+    # kernel 4: integer rows and the path's rows against the plain full
+    # scan within MEAN_ATOL; the integer rows also bit-equal to the fp32
+    # instance on the widened rows; sigma2=0 on the path's rows is their
+    # mean, as in [check]
+    fk = golden_aggregate(q, xb, sig2, xn)
+    err = float((fk - ref.golden_aggregate_ref(q, xb, sig2, xn)).abs().max())
+    check(err <= MEAN_ATOL, f"[bf16] golden_aggregate: {err:.3g}")
+    fi = golden_aggregate(qfi, xfi, 20.0, xfin)
+    err_i = float((fi - ref.golden_aggregate_ref(qfi, xfi, 20.0, xfin))
+                  .abs().max())
+    check(err_i <= MEAN_ATOL, f"[bf16] golden_aggregate: integer rows, max "
+          f"abs {err_i:.3g}")
+    check(torch.equal(fi, golden_aggregate(qfi, xfi.float(), 20.0, xfin)),
+          "[bf16] golden_aggregate: integer rows differ from the fp32 "
+          "instance on the widened rows")
+    fd = golden_aggregate(q, xb, 0.0, xn)
+    err_d = float((fd - xb.float().mean(0)).abs().max())
+    check(bool(torch.isfinite(fd).all()) and err_d <= MEAN_ATOL,
+          f"[bf16] golden_aggregate: sigma2=0 is not the rows' mean "
+          f"({err_d:.3g})")
+    print(f"[bf16] golden_aggregate: path rows max abs {err:.3g}, integer "
+          f"rows {err_i:.3g} (bit-equal to the fp32 instance on the widened "
+          f"rows), sigma2=0 -> the rows' mean to {err_d:.3g}")
+    del fi, fd
+    # two products of two TF32 MMAs each (hi and lo query terms; a bf16
+    # row is exact in TF32)
+    row("golden_aggregate", max(err, err_i),
+        time_ms(lambda: golden_aggregate(q, xb, sig2, xn)),
+        time_ms(lambda: ref.golden_aggregate_ref(q, xb, sig2, xn)),
+        2 * N * D + 4 * (N + 2 * B * D + B), 8 * B * N * D, TF32_FLOPS_PER_S)
+
+    # kernel 5
+    xin_inf = xin.clone()
+    xin_inf[7] = float("inf")
+    for m in (M, 2049):
+        gk = screen_topm(qi, xi, m, qin, xin_inf)
+        gr = screen_topm_scan(qi, xi, m, qin, xin_inf)
+        check(torch.equal(gk[0], gr[0]) and torch.equal(gk[1], gr[1]),
+              f"[bf16] screen_topm: not bit-equal on integer data at m={m}")
+    gi, gv = screen_topm(qp, pb, M, qpn, pn)
+    wi, wv = screen_topm_scan(qp, pb, M, qpn, pn)
+    rel = rel_err(gv, wv)
+    check(rel <= DIST_RTOL, f"[bf16] screen_topm: relative error {rel:.3g}")
+    print(f"[bf16] screen_topm m={M}: overlap {overlap(gi, wi):.6f} (exact "
+          f"order {torch.equal(gi, wi)})")
+    row("screen_topm", float((gv - wv).abs().max()),
+        time_ms(lambda: screen_topm(qp, pb, M, qpn, pn)),
+        time_ms(lambda: screen_topm_scan(qp, pb, M, qpn, pn), iters=3),
+        4 * (B * DP + B + N) + 2 * N * DP + 12 * B * M, 2 * B * N * DP)
+
+    # kernel 6
+    xfin_inf = xfin.clone()
+    xfin_inf[11] = float("inf")
+    for m in (M, 2049):
+        gk = fused_candidates(qi, qfi, xi, xfi, m, xin_inf, xfin_inf)
+        gr = fused_candidates_scan(qi, qfi, xi, xfi, m, xin_inf, xfin_inf)
+        check(torch.equal(gk[0], gr[0]) and torch.equal(gk[1], gr[1]),
+              f"[bf16] fused_candidates: not bit-equal on integer data at "
+              f"m={m}")
+    del qfi, xfi, xfin, xfin_inf, gk, gr
+    gi, gv = fused_candidates(qp, q, pb, xb, M, pn, xn)
+    wi, wv = fused_candidates_scan(qp, q, pb, xb, M, pn, xn)
+    own = rel_err(ref.support_sqdist_ref(q, xb, xn, gi), gv)
+    mean_err = float((fused_posterior(xb, gi, gv, K, sig2)
+                      - fused_posterior(xb, wi, wv, K, sig2)).abs().max())
+    check(own <= DIST_RTOL and mean_err <= MEAN_ATOL,
+          f"[bf16] fused_candidates: own-row rel {own:.3g}, mean "
+          f"{mean_err:.3g}")
+    same = gi == wi
+    row("fused_candidates", max(float((gv - wv)[same].abs().max()),
+                                mean_err),
+        time_ms(lambda: fused_candidates(qp, q, pb, xb, M, pn, xn)),
+        time_ms(lambda: fused_candidates_scan(qp, q, pb, xb, M, pn, xn),
+                iters=3),
+        2 * (N * D + N * DP) + 4 * (2 * N + B * D + B * DP + 2 * B)
+        + 12 * B * M, 2 * B * N * (D + DP))
+    del gi, gv, wi, wv
+
+    # kernel 7: the probe launch with the pooled query rounded to bf16
+    ixe = GoldDiff(full, ctx["indexed_cfg"], index=ctx["cix"],
+                   probe_schedule=ctx["probes"], storage_dtype=BF16).engine
+    cix = ixe.index
+    p_step = max(ixe.nprobe(t) for t in ctx["steps"])
+
+    def probe(qq, cents, cn, fields=ref.PROBE_FIELDS):
+        return ops.ivf_probe(qq, st.image_shape, 4, cents, cn, cix.offsets,
+                             cix.perm, cix.n, p_step, cix.max_cluster,
+                             fields=fields, round_bf16=True)
+
+    def probe_plain(qq, cents, cn):
+        qpp = ref.downsample_proxy(qq.reshape((B,) + tuple(st.image_shape)),
+                                   4).to(BF16).float()
+        return ref.ivf_probe_ref(qpp, cents, cn, cix.offsets, cix.perm,
+                                 cix.n, p_step, cix.max_cluster)
+
+    w, dpc = cix.centroids.shape
+    qi7 = ints((B, D), 64)
+    ci7 = ints((w, dpc), 65)
+    cn7 = (ci7 * ci7).sum(-1)
+    for field, g, r in zip(ref.PROBE_FIELDS, probe(qi7, ci7, cn7),
+                           probe_plain(qi7, ci7, cn7)):
+        check(torch.equal(g, r), f"[bf16] ivf_probe: {field} not bit-equal "
+              f"on integer data")
+    got = probe(q, cix.centroids, cix.centroid_norms)
+    want = probe_plain(q, cix.centroids, cix.centroid_norms)
+    qpp = ref.downsample_proxy(q.reshape((B,) + tuple(st.image_shape)),
+                               4).to(BF16).float()
+    d2c = ref.centroid_scan_ref(qpp, cix.centroids, cix.centroid_norms)
+    chosen = torch.gather(d2c, 1, got.probe)
+    wanted = torch.gather(d2c, 1, want.probe)
+    p_err = float((chosen - wanted).abs().max())
+    check(bool(((chosen - wanted).abs()
+                <= DIST_RTOL * wanted.abs().clamp_min(1.0)).all()),
+          f"[bf16] ivf_probe: probe lists differ beyond near-ties {p_err}")
+    print(f"[bf16] ivf_probe cifar_like P={p_step}: integer bit-equal in "
+          f"every field; float probe lists equal "
+          f"{torch.equal(got.probe, want.probe)}")
+    slots = B * p_step * cix.max_cluster
+    touched = int(torch.unique(got.pos[got.valid]).numel())
+    row("centroid_scan", p_err,
+        time_ms(lambda: probe(q, cix.centroids, cix.centroid_norms,
+                              ("ids", "valid"))),
+        time_ms(lambda: probe_plain(q, cix.centroids, cix.centroid_norms)),
+        4 * (B * D + w * dpc + w) + 8 * (w + 1) + 8 * touched + 9 * slots,
+        2 * B * w * dpc + B * D)
+    del cand, gold, gd2, lg, ak, fk, sk
+    print(f"[bf16] kernel checks done at {time.perf_counter() - t_phase:.1f}"
+          f" s into the phase")
+
+    # the routes: fp32 and bf16 from one x_T, each counted alone
+    def counted(fn):
+        for k in ops.COUNTED:
+            k.launches = 0
+        for k in ops.COUNTED_BF16:
+            k.launches_bf16 = 0
+        torch.cuda.synchronize()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, ({n: k.launches for n, k in kern.items()},
+                     {n: k.launches_bf16 for n, k in kern.items()})
+
+    cfgs = {"full_scan": None, "fused": {}, "plan": {},
+            "staged": dict(screen="materialized", fused=False),
+            "streamed": dict(screen="streamed", fused=False),
+            "indexed": dict(cfg=ctx["indexed_cfg"], index=ctx["cix"],
+                            probe_schedule=ctx["probes"])}
+    trajs, outs, walls, route_counts = {}, {}, {}, {}
+    for route, kw in cfgs.items():
+        for sd in (None, BF16):
+            tag = f"{route} {'bf16' if sd else 'fp32'}"
+            if kw is None:
+                den = FullScan(GoldDiff(full, storage_dtype=sd).engine)
+            else:
+                den = GoldDiff(full, storage_dtype=sd, **kw)
+            if route == "plan":
+                e = den.engine
+                plan = build_plan(e, STEPS)
+                trajs[tag] = (lambda den=den, plan=plan, e=e: sample_plan(
+                    den.call_masked, sched, (B, D), plan, x_init=x_T,
+                    program_cache=e.program, jitter=e.jitter))
+            else:
+                trajs[tag] = (lambda den=den: sample(
+                    den, sched, (B, D), num_steps=STEPS, x_init=x_T))
+            trajs[tag]()                      # warm-up (and the capture)
+            outs[tag], (c32, c16) = counted(trajs[tag])
+            want = {n: STEPS if n in BF16_ROUTES[route] else 0 for n in kern}
+            if sd is None:
+                check(c32 == want and not any(c16.values()),
+                      f"[bf16] {tag} launches {c32} {c16}")
+            else:
+                check(c16 == want and not any(c32.values()),
+                      f"[bf16] {tag} launches fp32 {c32}, bf16 {c16}")
+                route_counts[route] = c16
+            check(bool(torch.isfinite(outs[tag]).all()),
+                  f"[bf16] {tag} trajectory not finite")
+    for route in cfgs:
+        pair = (f"{route} fp32", f"{route} bf16")
+        for tag in pair + pair[::-1]:
+            walls.setdefault(tag, []).append(wall_ms(trajs[tag], iters=5))
+    busy = {}
+    for tag, fn in trajs.items():
+        idle, busy[tag] = profile_line(f"[bf16] {tag} trajectory B={B}",
+                                       min(walls[tag]), fn)
+        walls[tag] = (walls[tag], idle)
+    for route in cfgs:
+        f32, b16 = f"{route} fp32", f"{route} bf16"
+        err = float((outs[b16] - outs[f32]).abs().max())
+        rel = err / float(outs[f32].abs().max())
+        print(f"[bf16] {route} trajectory (B={B}, {STEPS} steps, one x_T): "
+              f"fp32 walls {[round(v, 3) for v in walls[f32][0]]} ms, busy "
+              f"{busy[f32]:.3f} ms, idle {walls[f32][1]:.3f}; bf16 walls "
+              f"{[round(v, 3) for v in walls[b16][0]]} ms, busy "
+              f"{busy[b16]:.3f} ms, idle {walls[b16][1]:.3f}; bf16/fp32 "
+              f"wall {min(walls[b16][0]) / min(walls[f32][0]):.3f}, busy "
+              f"{busy[b16] / busy[f32]:.3f}; bf16 vs fp32 max abs "
+              f"{err:.3g} (relative to max |x0| {rel:.3g}); bf16 launches "
+              f"{route_counts[route]}")
+    pw = min(walls["plan bf16"][0])
+    print(f"[bf16] the open question at bf16 (B={B}): the bf16 plan takes "
+          f"{pw / min(walls['plan fp32'][0]):.3f}x the fp32 plan's wall and "
+          f"{pw / min(walls['full_scan bf16'][0]):.3f}x the bf16 full "
+          f"scan's ({pw:.3f} ms against "
+          f"{min(walls['full_scan bf16'][0]):.3f} ms); busy "
+          f"{busy['plan bf16'] / busy['full_scan bf16']:.3f}x")
+    ref_err = float((outs["fused bf16"] - outs["full_scan bf16"]).abs().max())
+    print(f"[bf16] |fused bf16 - full scan bf16| max {ref_err:.3g}")
+
+    # quality: the static step, bf16 against fp32, as the reference reports
+    g32 = GoldDiff(full)
+    for t in (800, 400, 100):
+        xt = (float(sched.a[t]) * st.X[:B]
+              + float(sched.b[t]) * torch.randn(
+                  B, D, generator=torch.Generator().manual_seed(t)).cuda())
+        o32, o16 = g32(xt, t), gd(xt, t)
+        rel = float((o16 - o32).abs().max() / (o32.abs().max() + 1e-9))
+        print(f"[bf16] static step t={t} (fused): bf16 vs fp32 relative "
+              f"error {rel:.3g} (max |diff| / max |fp32|)")
+        check(rel <= 5e-2, f"[bf16] static step t={t}: {rel:.3g} > 5e-2")
+
+    # memory: the operands and the peak over what is held during a step
+    xs = x_T.clone()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gd(xs, 500)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    print(f"[bf16] operands: X {op_bytes['X'] / 1e6:.1f} MB, proxy "
+          f"{op_bytes['proxy'] / 1e6:.1f} MB in bf16 (norms fp32 "
+          f"{8 * st.n / 1e6:.1f} MB shared with the store); the engine "
+          f"allocated {held / 1e6:.1f} MB beside the fp32 master; a fused "
+          f"bf16 step's peak over what is held {peak / 1e6:.1f} MB")
+
+    # strategy="measure" on the card
+    for label, x, xnorm in (("fp32", st.X, st.x_norms), ("bf16", xb, xn)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frac = measure_crossover(x, xnorm)
+        secs = time.perf_counter() - t0
+        m_frac = ctx["m_max_frac"]
+        pick = "gather" if m_frac <= frac else "dense"
+        print(f"[bf16] strategy='measure' on {label} rows: crossover "
+              f"fraction {frac:.4f}, picks {pick!r} at m_max/N {m_frac}, "
+              f"{secs:.3f} s (the constant's 'cuda' entry "
+              f"{ctx['crossover_frac']})")
+        check(0.0 < frac <= 1.0, f"[bf16] measured fraction {frac}")
+    m = GoldDiff(full, storage_dtype=BF16, strategy="measure").engine
+    check(m.strategy in ("gather", "dense"), f"[bf16] {m.strategy}")
+    print(f"[bf16] phase {time.perf_counter() - t_phase:.1f} s")
+    return res, route_counts
 
 
 def main() -> None:
@@ -2140,6 +2569,15 @@ def main() -> None:
     for n, p in path_of.items():
         check(path_counts[p][n] > 0, f"{n} never launched on the {p} path")
 
+    # -- 7c. bf16: the engine with bf16 store rows (storage_dtype) -------------
+    bf16_results, bf16_counts = bf16_phase(dict(
+        store=st, sched=sched, x_T=x_T, q=q, results=results, cix=cix,
+        indexed_cfg=indexed_cfg, probes=scale_probes, steps=steps,
+        m_max_frac=GoldDiffConfig().sizes(N)[1] / N,
+        crossover_frac=engine_mod.GATHER_CROSSOVER_FRAC["cuda"]))
+    for n, p in BF16_PATH.items():
+        check(bf16_counts[p][n] > 0,
+              f"{n}'s bf16 instance never launched on the bf16 {p} path")
 
     # -- 8. reference: small store, card against CPU plain versions ------------
     small = make_dataset("cifar_like", n=2048, seed=1, device="cpu")
@@ -2213,6 +2651,12 @@ def main() -> None:
              replaces=sources[n][1], path=path_of[n],
              launches=path_counts[path_of[n]][n], **results[n])
         for n in kernels]}
+    line["kernels"] += [
+        dict(name=f"{n}[bf16]", route="cuda",
+             source=f"src/repro_torch/kernels/{sources[n][0]}",
+             replaces=sources[n][1], path=f"bf16 {p}",
+             launches=bf16_counts[p][n], **bf16_results[n])
+        for n, p in BF16_PATH.items()]
     for n in ("flash_attention", "golden_attention_decode"):
         check(path_counts["llm_decode"][n] > 0,
               f"{n} never launched on the llm_decode path")

@@ -5,7 +5,8 @@ from repro_torch.core.denoisers import (DENOISERS, OptimalDenoiser,
                                         PCADenoiser, PatchDenoiser,
                                         WienerDenoiser, make_denoiser)
 from repro_torch.core.engine import GoldDiffEngine
-from repro_torch.core.golddiff import GoldDiff, GoldDiffConfig, schedule_sizes
+from repro_torch.core.golddiff import (FullScan, GoldDiff, GoldDiffConfig,
+                                      schedule_sizes)
 from repro_torch.core.plan import (BucketCaps, PlanBucket, StepShape,
                                    TrajectoryPlan, build_plan,
                                    full_scan_costs, fused_step_costs,
@@ -21,7 +22,8 @@ __all__ = [
     "DatasetStore", "downsample_proxy", "make_store", "store_from_numpy",
     "DENOISERS", "OptimalDenoiser", "PCADenoiser", "PatchDenoiser",
     "WienerDenoiser", "make_denoiser",
-    "GoldDiff", "GoldDiffConfig", "GoldDiffEngine", "schedule_sizes",
+    "FullScan", "GoldDiff", "GoldDiffConfig", "GoldDiffEngine",
+    "schedule_sizes",
     "BucketCaps", "PlanBucket", "StepShape", "TrajectoryPlan", "build_plan",
     "full_scan_costs", "fused_step_costs", "step_shapes", "step_stage_costs",
     "plan_segment", "plan_segment_key", "plan_segment_mixed",

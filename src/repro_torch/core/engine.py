@@ -24,6 +24,15 @@ the port's own per-platform constants below.  Every stage goes through
 ``repro_torch.kernels.ops``: the kernels on the card, their plain
 versions on CPU.
 
+``storage_dtype=torch.bfloat16`` keeps the engine's store operands (X,
+the proxy and the index's cluster-sorted proxy) in bf16, half the
+bytes, with the row norms fp32 from the store's fp32 master copy; the
+proxy query is rounded to bf16 (the exact query stays fp32), and every
+distance, softmax and sum is fp32, in the kernels' bf16-row instances
+on the card.  ``strategy=`` ("auto", "measure", "gather", "dense")
+picks the build-time gather-vs-dense strategy that ``fused="auto"``
+reads, as the reference's does.
+
 Static steps (``denoise``) run eagerly at their own (m_t, k_t), the
 paper's per-step FLOP saving.  The masked step (``denoise_masked``)
 pads the shapes to a plan bucket's caps (or the worst case) and takes
@@ -36,6 +45,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 
 import numpy as np
 import torch
@@ -80,6 +90,54 @@ GATHER_CROSSOVER_FRAC = {"cpu": 0.10, "cuda": 0.10}
 # the steps that take this rule (those "auto" does not fuse, below m/N
 # 0.10) have small m, where the materialized top-k is cheap.
 SCREEN_MATERIALIZE_BYTES = {"cpu": 1 << 31, "cuda": 1 << 29}
+
+STRATEGIES = ("auto", "measure", "gather", "dense")
+STORAGE_DTYPES = (None, torch.bfloat16)
+
+
+def measure_crossover(x: torch.Tensor, x_norms: torch.Tensor,
+                      batch: int = 8, rows: int = 2048,
+                      repeats: int = 3) -> float:
+    """Probe the store's device for the gather/dense crossover fraction.
+
+    Times the dense form (``ops.pdist`` over all N rows, then a lookup of
+    ``rows`` touched rows) against the gather form (``ops.support_distances``
+    at those rows), best of ``repeats`` on host clocks with the card
+    synchronized around each (the plain versions on the CPU), and
+    extrapolates the touched fraction at which they break even (the
+    gather's cost is about linear in rows, the dense one's constant): the
+    reference's formula and clip.  A coarse estimate is enough: it only
+    picks a strategy, both of which are exact."""
+    n = x.shape[0]
+    rows = min(rows, n)
+    dev = x.device
+    q = torch.zeros((batch, x.shape[1]), dtype=torch.float32, device=dev)
+    idx = ((torch.arange(rows, device=dev) * 997) % n).repeat(batch, 1)
+
+    def dense():
+        return torch.take_along_dim(ops.pdist(q, x, x_norms=x_norms), idx,
+                                    -1)
+
+    def gather():
+        return ops.support_distances(q, x, idx, x_norms)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def best(fn):
+        fn()
+        sync()
+        ts = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            ts.append(time.perf_counter() - t0)
+        return min(ts)
+
+    t_dense, t_gather = best(dense), best(gather)
+    return float(np.clip((t_dense / t_gather) * (rows / n), 1e-3, 1.0))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,7 +193,10 @@ class GoldDiffEngine:
     carry loop's N-tile (None: its default); ``fused`` "auto", True or
     False; ``index`` a GoldenIndex of this store (or None), probed by
     ``probe_schedule`` (default ``ProbeSchedule()``) on the steps
-    ``index_mode`` ("auto" or "always") routes to it."""
+    ``index_mode`` ("auto" or "always") routes to it.  ``storage_dtype``
+    is None (fp32 rows) or ``torch.bfloat16``; ``strategy`` "auto" (the
+    platform's crossover fraction), "measure" (``measure_crossover`` on
+    the store's device), "gather" or "dense"."""
 
     def __init__(self, store: DatasetStore, schedule: Schedule,
                  cfg: GoldDiffConfig | None = None, device=None,
@@ -143,7 +204,14 @@ class GoldDiffEngine:
                  fused: str | bool = "auto",
                  index: GoldenIndex | None = None,
                  probe_schedule: ProbeSchedule | None = None,
-                 index_mode: str = "auto"):
+                 index_mode: str = "auto", storage_dtype=None,
+                 strategy: str = "auto"):
+        if strategy not in STRATEGIES:
+            raise ValueError(f"unknown strategy {strategy!r}; expected one "
+                             f"of {STRATEGIES}")
+        if storage_dtype not in STORAGE_DTYPES:
+            raise ValueError(f"unknown storage_dtype {storage_dtype!r}; "
+                             f"expected None or torch.bfloat16")
         if screen not in ("auto", "streamed", "materialized"):
             raise ValueError(f"unknown screen mode {screen!r}")
         if index_mode not in ("auto", "always"):
@@ -157,6 +225,17 @@ class GoldDiffEngine:
         self.store = store.to(resolve_device(device))
         self.index = (None if index is None
                       else index.to(self.store.device))
+        # the engine's own store operands: the rows in the storage dtype,
+        # the norms fp32 from the store's fp32 master copy (which stays,
+        # for the base denoiser), as the reference's StoreOperands
+        self.storage_dtype = storage_dtype
+        sd = storage_dtype or torch.float32
+        self.X = self.store.X.to(sd)
+        self.proxy = self.store.proxy.to(sd)
+        self.x_norms = self.store.x_norms.float()
+        self.proxy_norms = self.store.proxy_norms.float()
+        self.proxy_sorted = (None if self.index is None
+                             else self.index.proxy_sorted.to(sd))
         self.index_mode = index_mode
         self.probe_schedule = probe_schedule or ProbeSchedule()
         if index is not None:
@@ -175,12 +254,18 @@ class GoldDiffEngine:
         self.fused = fused
         platform = self.store.device.type
         self._screen_budget = SCREEN_MATERIALIZE_BYTES[platform]
-        self.crossover_frac = GATHER_CROSSOVER_FRAC[platform]
-        # the reference's build-time strategy: past the crossover the
-        # staged re-rank would touch too many rows by index
-        m_max_frac = self.cfg.sizes(self.store.n)[1] / self.store.n
-        self.strategy = ("gather" if m_max_frac <= self.crossover_frac
-                         else "dense")
+        if strategy == "measure":
+            self.crossover_frac = measure_crossover(self.X, self.x_norms)
+        else:
+            self.crossover_frac = GATHER_CROSSOVER_FRAC[platform]
+        if strategy in ("gather", "dense"):
+            self.strategy = strategy
+        else:
+            # the reference's build-time rule: past the crossover the
+            # staged re-rank would touch too many rows by index
+            m_max_frac = self.cfg.sizes(self.store.n)[1] / self.store.n
+            self.strategy = ("gather" if m_max_frac <= self.crossover_frac
+                             else "dense")
         self._consts: dict[int, tuple[float, float]] = {}
         self._sizes: dict[int, tuple[int, int]] = {}
         self._programs: dict = {}
@@ -189,14 +274,6 @@ class GoldDiffEngine:
         self._graph_pool = None   # the memory pool every graph shares
         self._graph_stream = None  # ... and the stream that captures them
         self._masked_tables: dict = {}
-
-    @property
-    def X(self) -> torch.Tensor:
-        return self.store.X
-
-    @property
-    def proxy(self) -> torch.Tensor:
-        return self.store.proxy
 
     # -- programs: the cache and the CUDA graphs ------------------------------
     def program(self, key, build):
@@ -313,14 +390,19 @@ class GoldDiffEngine:
 
     # -- pipeline stages ------------------------------------------------------
     def _proxy_query(self, q: torch.Tensor) -> torch.Tensor:
+        """The pooled proxy query, rounded to the storage dtype (and held
+        in fp32) as the reference rounds it."""
         q_img = q.reshape(q.shape[:-1] + tuple(self.store.image_shape))
-        return downsample_proxy(q_img, self.cfg.proxy_factor)
+        qp = downsample_proxy(q_img, self.cfg.proxy_factor)
+        if self.storage_dtype is not None:
+            qp = qp.to(self.storage_dtype).float()
+        return qp
 
     def coarse(self, q: torch.Tensor, m: int) -> torch.Tensor:
         """Top-m candidates by exact proxy distance; [B, m], streamed or
         materialized by ``use_stream``."""
-        return ops.screen_topm(self._proxy_query(q), self.store.proxy, m,
-                               x_norms=self.store.proxy_norms,
+        return ops.screen_topm(self._proxy_query(q), self.proxy, m,
+                               x_norms=self.proxy_norms,
                                tile=self.screen_tile,
                                stream=self.use_stream(q.shape[0]))[0]
 
@@ -330,7 +412,7 @@ class GoldDiffEngine:
         in cluster-sorted row space, +inf ``d2`` on capacity padding
         (``ops.ivf_screen``; capacity mode when ``m = nprobe_max * L``)."""
         ix = self.index
-        return ops.ivf_screen(self._proxy_query(q), ix.proxy_sorted,
+        return ops.ivf_screen(self._proxy_query(q), self.proxy_sorted,
                               ix.proxy_norms_sorted, ix.offsets,
                               ix.centroids, ix.centroid_norms, m,
                               nprobe_max, ix.max_cluster, nprobe=nprobe)
@@ -338,13 +420,15 @@ class GoldDiffEngine:
     def probe(self, q: torch.Tensor, nprobe_max: int, nprobe=None):
         """IVF level 1 of rescaled queries (``ops.ivf_probe``: on the card
         one launch from ``q`` to the probed candidates' dataset ids and
-        validity, the proxy pooled inside it); ``nprobe`` (a 0-d device
-        tensor on the masked path) masks the probes beyond it."""
+        validity, the proxy pooled inside it, rounded as ``_proxy_query``
+        rounds it); ``nprobe`` (a 0-d device tensor on the masked path)
+        masks the probes beyond it."""
         ix = self.index
         return ops.ivf_probe(q, self.store.image_shape, self.cfg.proxy_factor,
                              ix.centroids, ix.centroid_norms, ix.offsets,
                              ix.perm, ix.n, nprobe_max, ix.max_cluster,
-                             nprobe=nprobe, fields=("ids", "valid"))
+                             nprobe=nprobe, fields=("ids", "valid"),
+                             round_bf16=self.storage_dtype is not None)
 
     def _select_body(self, q: torch.Tensor, t: int
                      ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -354,13 +438,11 @@ class GoldDiffEngine:
         m_t, k_t = self.sizes(t)
         if self.use_index(t):
             pr = self.probe(q, self.nprobe(t))
-            return ops.golden_rerank(q, self.store.X, pr.ids,
+            return ops.golden_rerank(q, self.X, pr.ids,
                                      min(k_t, self.padded_m(t)),
-                                     x_norms=self.store.x_norms,
-                                     valid=pr.valid)
+                                     x_norms=self.x_norms, valid=pr.valid)
         cand = self.coarse(q, m_t)
-        return ops.golden_rerank(q, self.store.X, cand, k_t,
-                                 x_norms=self.store.x_norms)
+        return ops.golden_rerank(q, self.X, cand, k_t, x_norms=self.x_norms)
 
     def _select_ids_body(self, q: torch.Tensor, t: int) -> torch.Tensor:
         """Golden support as dataset row ids."""
@@ -373,7 +455,7 @@ class GoldDiffEngine:
         q = x_t / a
         idx, d2 = self._select_body(q, t)
         lg = torch.clamp_min(-d2 / (2.0 * sig2), NEG_INF)
-        out = ops.golden_support_aggregate(self.store.X, idx, lg)
+        out = ops.golden_support_aggregate(self.X, idx, lg)
         return out.to(x_t.dtype)
 
     def _fused_body(self, x_t: torch.Tensor, t: int) -> torch.Tensor:
@@ -383,10 +465,9 @@ class GoldDiffEngine:
         a, sig2 = self.constants(t)
         m_t, k_t = self.sizes(t)
         q = x_t / a
-        out = ops.fused_step(q, self._proxy_query(q), self.store.X,
-                             self.store.proxy, m_t, k_t, sig2,
-                             x_norms=self.store.x_norms,
-                             proxy_norms=self.store.proxy_norms,
+        out = ops.fused_step(q, self._proxy_query(q), self.X, self.proxy,
+                             m_t, k_t, sig2, x_norms=self.x_norms,
+                             proxy_norms=self.proxy_norms,
                              stream=self.use_stream(x_t.shape[0]),
                              tile=self.screen_tile)
         return out.to(x_t.dtype)
@@ -495,8 +576,8 @@ class GoldDiffEngine:
         if self._fused_masked(use_ix):
             out = ops.fused_step(q, self._proxy_query(q), self.X, self.proxy,
                                  m_cap, min(k_cap, m_cap), sig2,
-                                 x_norms=self.store.x_norms,
-                                 proxy_norms=self.store.proxy_norms,
+                                 x_norms=self.x_norms,
+                                 proxy_norms=self.proxy_norms,
                                  stream=self.use_stream(x_t.shape[0]),
                                  tile=self.screen_tile, m_t=m_t, k_t=k_t)
             return out.to(x_t.dtype)
@@ -512,7 +593,7 @@ class GoldDiffEngine:
             live = torch.arange(m_pad, device=q.device) < m_t
         k_pad = min(k_cap, m_pad)
         idx, d2 = ops.golden_rerank(q, self.X, cand, k_pad,
-                                    x_norms=self.store.x_norms, valid=live)
+                                    x_norms=self.x_norms, valid=live)
         lg = torch.clamp_min(-d2 / (2.0 * sig2), NEG_INF)
         lg = torch.where(torch.arange(k_pad, device=q.device) < k_t, lg,
                          NEG_INF)
@@ -522,9 +603,8 @@ class GoldDiffEngine:
     def full_scan(self, x_t: torch.Tensor, t: int) -> torch.Tensor:
         """Exact posterior mean over the whole store (Eq. 2)."""
         a, sig2 = self.constants(int(t))
-        return ops.golden_aggregate(x_t / a, self.store.X, sig2,
-                                    x_norms=self.store.x_norms
-                                    ).to(x_t.dtype)
+        return ops.golden_aggregate(x_t / a, self.X, sig2,
+                                    x_norms=self.x_norms).to(x_t.dtype)
 
 
 def capture(fn, specs, side: torch.cuda.Stream, pool, label: str):
@@ -541,7 +621,7 @@ def capture(fn, specs, side: torch.cuda.Stream, pool, label: str):
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
         fn(*inputs)              # builds the kernels, sets their attributes
-        before = [k.launches for k in ops.COUNTED]
+        before = ops.launch_counts()
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(graph, pool=pool, stream=side):
@@ -550,17 +630,15 @@ def capture(fn, specs, side: torch.cuda.Stream, pool, label: str):
             raise RuntimeError(f"CUDA graph capture of {label} failed: "
                                f"{e}") from e
         finally:
-            delta = [k.launches - b for k, b in zip(ops.COUNTED, before)]
-            for k, b in zip(ops.COUNTED, before):
-                k.launches = b
+            delta = [a - b for a, b in zip(ops.launch_counts(), before)]
+            ops.add_launch_counts([-d for d in delta])
     torch.cuda.current_stream(device).wait_stream(side)
 
     def replay(*args):
         for buf, arg in zip(inputs, args):
             buf.copy_(arg)
         graph.replay()
-        for k, d in zip(ops.COUNTED, delta):
-            k.launches += d
+        ops.add_launch_counts(delta)
         return out.clone()
 
     return replay

@@ -54,13 +54,17 @@ class GoldDiff:
     fused step (Optimal base), and
     ``index=repro_torch.index.build_index(store)`` routes the coarse
     screen through the Golden Index (probe width by
-    ``probe_schedule=``, steps by ``index_mode=``); all as in
+    ``probe_schedule=``, steps by ``index_mode=``);
+    ``storage_dtype=torch.bfloat16`` keeps the engine's store rows in
+    bf16 (a patch base still reads its own fp32 store on the support),
+    and ``strategy=`` picks the gather-vs-dense strategy; all as in
     :class:`GoldDiffEngine`."""
 
     def __init__(self, base, cfg: GoldDiffConfig | None = None,
                  screen: str = "auto", screen_tile: int | None = None,
                  fused: str | bool = "auto", index=None,
-                 probe_schedule=None, index_mode: str = "auto"):
+                 probe_schedule=None, index_mode: str = "auto",
+                 storage_dtype=None, strategy: str = "auto"):
         self.base = base
         self.cfg = cfg or GoldDiffConfig()
         self.store: DatasetStore = base.store
@@ -73,7 +77,9 @@ class GoldDiff:
                                      screen_tile=screen_tile, fused=fused,
                                      index=index,
                                      probe_schedule=probe_schedule,
-                                     index_mode=index_mode)
+                                     index_mode=index_mode,
+                                     storage_dtype=storage_dtype,
+                                     strategy=strategy)
 
     def select(self, x_t: torch.Tensor, t: int) -> torch.Tensor:
         """Golden support S_t for each query; [B, k_t]."""
@@ -101,3 +107,15 @@ class GoldDiff:
                 f"the masked step needs the Optimal base; {self.name} "
                 f"serves in static mode only (GoldDiff.__call__)")
         return self.engine.denoise_masked(x_t, t, caps)
+
+
+class FullScan:
+    """The engine's full scan (``GoldDiffEngine.full_scan``) over its own
+    store rows, bf16 ones under ``storage_dtype``, as a denoiser: the
+    exact posterior mean GoldDiff is held against on the same rows."""
+
+    def __init__(self, engine: GoldDiffEngine):
+        self.engine, self.store = engine, engine.store
+
+    def __call__(self, x_t: torch.Tensor, t: int) -> torch.Tensor:
+        return self.engine.full_scan(x_t, t)

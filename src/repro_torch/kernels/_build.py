@@ -84,19 +84,26 @@ def build(names) -> dict[str, str]:
     return reports
 
 
+# template arguments in a mangled kernel name: integer and bool values,
+# and the store rows' types (fp32 and bf16 instances)
+_TEMPLATE_ARG = r"L[ib](\d+)E|(f)|(13__nv_bfloat16)"
+
+
 def instances(report: str, entry: str):
     """(instance, registers, shared memory, spills) of each kernel whose
     name starts with ``entry`` in a ``-Xptxas -v`` report, template
-    arguments written out (``flash_sm90_kernel<3,128>``)."""
+    arguments written out (``flash_sm90_kernel<3,128>``,
+    ``radix_pass<bf16,1>``)."""
     out, cur, spill = [], None, ""
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '([^']*)'", line)
         if m:
-            k = re.search(rf"({entry}\w*?)(?:I((?:L[ib]\d+E)+)E|E)",
+            k = re.search(rf"({entry}\w*?)(?:I((?:{_TEMPLATE_ARG})+)E|E)",
                           m.group(1))
             cur, spill = k and k.group(1), ""
             if k and k.group(2):
-                args = re.findall(r"L[ib](\d+)E", k.group(2))
+                args = [v or ("float" if f else "bf16") for v, f, _ in
+                        re.findall(_TEMPLATE_ARG, k.group(2))]
                 cur += "<" + ",".join(args) + ">"
             continue
         if cur and "spill" in line:
@@ -163,6 +170,41 @@ def require_dtype(name: str, dtype: torch.dtype, **tensors) -> None:
     for arg, t in tensors.items():
         if t.dtype != dtype:
             raise ValueError(f"{name}: {arg} must be {dtype}, got {t.dtype}")
+
+
+# the store rows' types a kernel has an instance for: fp32, and bf16 (the
+# engine's storage_dtype; every kernel widens it to fp32 as it loads it)
+ROW_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def require_rows(name: str, **rows) -> bool:
+    """The store-row operands: all fp32, or all bf16.  Returns True for
+    bf16 (the kernel's bf16-row instance); raises ``ValueError`` naming
+    the kernel otherwise.  Queries, norms and logits stay fp32
+    (``require_dtype``)."""
+    dtypes = {t.dtype for t in rows.values()}
+    if len(dtypes) != 1 or not dtypes <= set(ROW_DTYPES):
+        got = ", ".join(f"{k} {t.dtype}" for k, t in rows.items())
+        raise ValueError(f"{name}: store rows must be all float32 or all "
+                         f"bfloat16, got {got}")
+    return dtypes.pop() == torch.bfloat16
+
+
+def vec4(t: torch.Tensor) -> int:
+    """1 when the rows of t can be read four values a load: its last
+    dimension a multiple of 4 and its start aligned to four elements (16
+    bytes of fp32, 8 of bf16)."""
+    return int(t.shape[-1] % 4 == 0
+               and t.data_ptr() % (4 * t.element_size()) == 0)
+
+
+def count(fn, bf16: bool) -> None:
+    """One launch of ``fn``'s kernel: the fp32 instance counts in
+    ``fn.launches``, the bf16-row instance in ``fn.launches_bf16``."""
+    if bf16:
+        fn.launches_bf16 += 1
+    else:
+        fn.launches += 1
 
 
 def require_shape(name: str, arg: str, t: torch.Tensor, shape: tuple) -> None:

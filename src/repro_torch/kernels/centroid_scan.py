@@ -13,6 +13,10 @@ query, its intermediates in shared memory.
 Two wrappers launch the one kernel, and both count into
 ``centroid_scan.launches``: ``ivf_probe`` (the indexed step) and
 ``centroid_scan`` (the distance stage alone, ``ops.centroid_scan``).
+An engine with bf16 store rows (``storage_dtype``) probes with the
+pooled query rounded to bf16 inside the launch (``round_bf16``), its
+bf16 instance, counted in ``centroid_scan.launches_bf16``; the
+centroids stay fp32 and capacity mode reads no proxy row.
 The host plan is here: ``pool_geometry`` (how the query is pooled) and
 ``plan`` (windows a rank, threads a key, slots a rank, shared memory;
 the window cap).  Their plain versions are
@@ -38,7 +42,7 @@ SMEM_BYTES = 232448      # what an H100 CTA may take (227 KB)
 _ARGS = ([ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
          + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_longlong]
          + [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_longlong]
-         + [ctypes.c_int] * 2 + [ctypes.c_longlong, ctypes.c_int]
+         + [ctypes.c_int] * 3 + [ctypes.c_longlong, ctypes.c_int]
          + [ctypes.c_void_p] * 7)
 
 
@@ -106,7 +110,7 @@ def _nprobe_arg(nprobe, p: int, device: torch.device):
 
 def _launch(q, geometry, centroids, c_norms, plan_, p: int, l: int,
             offsets=None, perm=None, n: int = 0, nprobe=None,
-            out=None) -> None:
+            out=None, round_bf16: bool = False) -> None:
     w, ch, f, dp = geometry
     b, d = q.shape
     c = centroids.shape[0]
@@ -119,13 +123,13 @@ def _launch(q, geometry, centroids, c_norms, plan_, p: int, l: int,
 
     err = fn(_build.ptr(q), b, d, w, ch, f, dp, _build.ptr(centroids),
              _build.ptr(c_norms), c, ptr(offsets), ptr(perm),
-             n, p, l, ptr(nptr), nval,
+             n, p, l, ptr(nptr), nval, int(round_bf16),
              plan_.rows, plan_.group, plan_.chunk, plan_.smem,
              ptr(out.get("d2")), ptr(out.get("probe")), ptr(out.get("pos")),
              ptr(out.get("ids")), ptr(out.get("valid")),
              ptr(out.get("marker")), _build.stream(q.device))
     _build.check("centroid_scan", err)
-    centroid_scan.launches += 1
+    _build.count(centroid_scan, round_bf16)
 
 
 def centroid_scan(q: torch.Tensor, centroids: torch.Tensor,
@@ -148,17 +152,19 @@ def centroid_scan(q: torch.Tensor, centroids: torch.Tensor,
 
 
 centroid_scan.launches = 0
+centroid_scan.launches_bf16 = 0
 
 
 def ivf_probe(q: torch.Tensor, image_shape, factor: int,
               centroids: torch.Tensor, c_norms: torch.Tensor,
               offsets: torch.Tensor, perm: torch.Tensor | None, n: int,
               nprobe_max: int, max_cluster: int, nprobe=None,
-              fields=PROBE_FIELDS) -> Probe:
+              fields=PROBE_FIELDS, round_bf16: bool = False) -> Probe:
     """IVF level 1 of rescaled queries q [B, D] (fp32, CUDA): pooled by
-    ``pool_geometry(image_shape, factor)``, the ``nprobe_max`` nearest
-    windows, and their ``max_cluster`` slots each over an index of ``n``
-    rows.  Writes only ``fields`` (of ``PROBE_FIELDS``; the others come
+    ``pool_geometry(image_shape, factor)`` (and rounded to bf16 when
+    ``round_bf16``, its norm from the rounded values), the ``nprobe_max``
+    nearest windows, and their ``max_cluster`` slots each over an index
+    of ``n`` rows.  Writes only ``fields`` (of ``PROBE_FIELDS``; the others come
     back None); ``perm`` is needed for "ids" only.  ``nprobe`` (int or
     0-d integer tensor on the card) masks the probes beyond it."""
     name = "centroid_scan"
@@ -198,5 +204,5 @@ def ivf_probe(q: torch.Tensor, image_shape, factor: int,
     out = {k: torch.empty(s, dtype=t, device=dev)
            for k, (s, t) in shapes.items() if k in fields}
     _launch(q, geometry, centroids, c_norms, plan_, p, l, offsets, perm, n,
-            nprobe, out)
+            nprobe, out, round_bf16)
     return Probe(**{k: out.get(k) for k in PROBE_FIELDS})

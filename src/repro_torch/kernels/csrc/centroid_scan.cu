@@ -32,6 +32,10 @@
 //      Every output is optional (a null pointer is not written).
 // With P = 0 the launch is the distance stage alone (ops.centroid_scan):
 // it writes d2 [B, C] and returns after step 2.
+// round_q (an engine with bf16 store rows, storage_dtype): the pooled
+// query is rounded to bf16 (ties to even) before step 2, and its norm
+// taken from the rounded values, as the reference rounds _proxy_query;
+// the centroids stay fp32.
 //
 // Bound on the H100: one launch's latency.  At B=16 the call reads well
 // under 1 MB (the queries, the centroid table per cluster from L2, the
@@ -76,7 +80,7 @@ ivf_probe_kernel(const float* __restrict__ q, int D, int W, int Ch, int f,
                  const int64_t* __restrict__ offsets,
                  const int64_t* __restrict__ perm, int64_t N, int P, int L,
                  const int64_t* __restrict__ nprobe_ptr, int64_t nprobe_val,
-                 int rows, int group, int64_t chunk,
+                 int round_q, int rows, int group, int64_t chunk,
                  float* __restrict__ d2_out, int64_t* __restrict__ probe_out,
                  int64_t* __restrict__ pos_out, int64_t* __restrict__ ids_out,
                  bool* __restrict__ valid_out,
@@ -137,10 +141,12 @@ ivf_probe_kernel(const float* __restrict__ q, int D, int W, int Ch, int f,
         for (int u = 0; u < kPool; ++u)   // the first sample as it is (-0.0)
           if (k0 + u < ff) acc = k0 + u == 0 ? v[u] : __fadd_rn(acc, v[u]);
       }
-      qp[o] = __fdiv_rn(acc, static_cast<float>(ff));
+      const float v = __fdiv_rn(acc, static_cast<float>(ff));
+      qp[o] = round_q ? round_bf16(v) : v;
     }
   } else {
-    for (int o = tid; o < dp; o += kThreads) qp[o] = qb[o];
+    for (int o = tid; o < dp; o += kThreads)
+      qp[o] = round_q ? round_bf16(qb[o]) : qb[o];
   }
   __syncthreads();
   if (warp == 0) {
@@ -246,14 +252,15 @@ ivf_probe_kernel(const float* __restrict__ q, int D, int W, int Ch, int f,
 }  // namespace
 
 // q [B, D] fp32; pooled when f > 0 (D = H W Ch, dp = (H/f)(W/f) Ch),
-// else dp = D.  P = 0: distances only into d2_out [B, C].  The plan
-// (rows, group, chunk, smem) comes from kernels/centroid_scan.py.
+// else dp = D.  P = 0: distances only into d2_out [B, C].  round_q: the
+// pooled query rounded to bf16.  The plan (rows, group, chunk, smem)
+// comes from kernels/centroid_scan.py.
 RT_EXPORT int ivf_probe_launch(
     const float* q, int B, int D, int W, int Ch, int f, int dp,
     const float* cents, const float* cn, int C, const int64_t* offsets,
     const int64_t* perm, long long N, int P, int L,
-    const int64_t* nprobe_ptr, long long nprobe_val, int rows, int group,
-    long long chunk, int smem, float* d2_out, int64_t* probe_out,
+    const int64_t* nprobe_ptr, long long nprobe_val, int round_q, int rows,
+    int group, long long chunk, int smem, float* d2_out, int64_t* probe_out,
     int64_t* pos_out, int64_t* ids_out, bool* valid_out, float* marker_out,
     void* stream) {
   if (B <= 0 || C <= 0) return static_cast<int>(cudaGetLastError());
@@ -266,7 +273,7 @@ RT_EXPORT int ivf_probe_launch(
   ivf_probe_kernel<<<grid, kThreads, smem,
                      static_cast<cudaStream_t>(stream)>>>(
       q, D, W, Ch, f, dp, cents, cn, C, offsets, perm, N, P, L, nprobe_ptr,
-      nprobe_val, rows, group, chunk, d2_out, probe_out, pos_out, ids_out,
-      valid_out, marker_out);
+      nprobe_val, round_q, rows, group, chunk, d2_out, probe_out, pos_out,
+      ids_out, valid_out, marker_out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -39,8 +39,17 @@
 // issuing warp waits, so every warp issues two rows of a tile).
 // Kernel 1 copies 32-column boxes through a tensor map with 128-byte
 // swizzle (Sw128 below): six copies a 64-row tile instead of 64.  Both
-// need rows of a multiple of 4 floats, 16-byte aligned: the wrappers
-// pad when they are not (kernels/golden_aggregate.py ``pad4``).
+// need rows of a multiple of 16 bytes, 16-byte aligned: the wrappers
+// pad fp32 rows when they are not and refuse such bf16 rows
+// (kernels/golden_aggregate.py ``rows16``).
+//
+// bf16 store rows (the engine's storage_dtype): the staged rows are
+// bf16, half the bytes, in the same layouts counted in elements (a row's
+// shift is still 16 bytes; a swizzled box is 64 columns of 128 bytes).
+// A bf16 value is exact in TF32, so a store fragment's lo is 0 and the
+// hi_a lo_b product vanishes: the bf16 instances issue two MMAs, lo_a
+// hi_b + hi_a hi_b, with the same sums as the three (Rows / Sw128
+// kExact).
 #pragma once
 
 #include "common.cuh"
@@ -55,13 +64,10 @@ __host__ __device__ constexpr int dt_stride(int cols) {
   return (cols + 31) / 32 * 32 + 8;
 }
 
-// staged row r of a tile at base
-__device__ __forceinline__ float* row_at(float* base, int stride, int r) {
-  return base + r * stride + (r & 4);
-}
-__device__ __forceinline__ const float* row_at(const float* base, int stride,
-                                               int r) {
-  return base + r * stride + (r & 4);
+// staged row r of a tile at base (rows 4-7 of every 8 shift 16 bytes)
+template <typename T>
+__device__ __forceinline__ T* row_at(T* base, int stride, int r) {
+  return base + r * stride + (r & 4) * (4 / (int)sizeof(T));
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -147,6 +153,15 @@ __device__ __forceinline__ BFrag b_split(float b0, float b1) {
   return f;
 }
 
+// a bf16 pair is exact in TF32: hi is the widened value, lo is 0
+__device__ __forceinline__ BFrag b_split(bf16_t b0, bf16_t b1) {
+  BFrag f;
+  f.h[0] = __float_as_uint(widen(b0));
+  f.h[1] = __float_as_uint(widen(b1));
+  f.l[0] = f.l[1] = 0u;
+  return f;
+}
+
 // The three MMAs of the 3xTF32 split, one pass each: callers issue a pass
 // over several independent accumulators before the next, so that no MMA
 // waits on the one just before it.
@@ -166,25 +181,32 @@ __device__ __forceinline__ void mma_hi_hi(float (&d)[4],
   mma(d, ah, b.h[0], b.h[1]);
 }
 
-// Staged rows as laid out above (kernel 4's bulk copies).
+// Staged rows as laid out above (kernel 4's bulk copies), of fp32 or
+// bf16 (kExact: lo fragments are 0).
+template <typename T>
 struct Rows {
-  const float* base;
+  static constexpr bool kExact = sizeof(T) == 2;
+  const T* base;
   int stride;
-  __device__ __forceinline__ const float* at(int r, int c) const {
+  __device__ __forceinline__ const T* at(int r, int c) const {
     return row_at(base, stride, r) + c;
   }
 };
 
 // Staged rows as a TMA tensor copy with 128-byte swizzle lays them out
-// (kernel 1): boxes of `rows` rows x 32 columns, box b at b rows 32
-// floats; the 16-byte chunk j of row r of a box sits at chunk j ^ (r % 8).
-// Conflict-free for Q X^T's fragments (row g: chunk j ^ g).
+// (kernel 1): boxes of `rows` rows x 128 bytes (BC = 32 fp32 or 64 bf16
+// columns), box b at b rows BC elements; the 16-byte chunk j (E = 4 fp32
+// or 8 bf16) of row r of a box sits at chunk j ^ (r % 8).  Conflict-free
+// for Q X^T's fragments of fp32 (row g: chunk j ^ g).
+template <typename T>
 struct Sw128 {
-  const float* base;
+  static constexpr bool kExact = sizeof(T) == 2;
+  static constexpr int E = 16 / sizeof(T), BC = 128 / sizeof(T);
+  const T* base;
   int rows;
-  __device__ __forceinline__ const float* at(int r, int c) const {
-    return base + (c >> 5) * rows * 32 + r * 32 +
-           ((((c >> 2) & 7) ^ (r & 7)) << 2) + (c & 3);
+  __device__ __forceinline__ const T* at(int r, int c) const {
+    return base + (c / BC) * rows * BC + r * BC +
+           ((((c / E) & 7) ^ (r & 7)) * E) + (c % E);
   }
 };
 
@@ -227,11 +249,13 @@ __device__ __forceinline__ void qxt_pair(float (&acc)[2][2][4],
   if (two)
 #pragma unroll
     for (int n = 0; n < 2; ++n) mma_lo_hi(acc[1][n], al1, b[1][n]);
+  if (!L::kExact) {
 #pragma unroll
-  for (int n = 0; n < 2; ++n) mma_hi_lo(acc[0][n], ah0, b[0][n]);
-  if (two)
+    for (int n = 0; n < 2; ++n) mma_hi_lo(acc[0][n], ah0, b[0][n]);
+    if (two)
 #pragma unroll
-    for (int n = 0; n < 2; ++n) mma_hi_lo(acc[1][n], ah1, b[1][n]);
+      for (int n = 0; n < 2; ++n) mma_hi_lo(acc[1][n], ah1, b[1][n]);
+  }
 #pragma unroll
   for (int n = 0; n < 2; ++n) mma_hi_hi(acc[0][n], ah0, b[0][n]);
   if (two)

@@ -12,7 +12,10 @@
 // carries row 0 and exact d2 = +inf.
 // Bound on the H100: bytes.  At B=16, N=50000, D=3072, dp=192 the store
 // is 614.4 MB and the proxy 38.4 MB (0.195 ms at 3.35 TB/s), against
-// 2 * 16 * 50000 * 3264 = 5.2 GFLOP (0.078 ms of fp32 FMA work).
+// 2 * 16 * 50000 * 3264 = 5.2 GFLOP (0.078 ms of fp32 FMA work).  The
+// bf16 instance (store and proxy rows in bf16, the engine's
+// storage_dtype) reads half the bytes and widens each value as it loads
+// it: the same fp32 arithmetic, the same keys, on the widened rows.
 // Design: the proxy selection runs first, as in screen_topm.cu (radix
 // passes over the 38.4 MB proxy store, which L2 mostly holds).  Then one
 // pass over the whole store: a block takes 128 rows for up to 16
@@ -30,11 +33,11 @@ namespace {
 
 using namespace topm;
 
-template <bool PVEC, bool XVEC>
+template <typename T, bool PVEC, bool XVEC>
 __global__ void __launch_bounds__(THREADS)
-fused_pass(const float* __restrict__ qp, const float* __restrict__ proxy,
+fused_pass(const float* __restrict__ qp, const T* __restrict__ proxy,
            const float* __restrict__ qpn, const float* __restrict__ pn,
-           const float* __restrict__ q, const float* __restrict__ x,
+           const float* __restrict__ q, const T* __restrict__ x,
            const float* __restrict__ qn, const float* __restrict__ xn, int B,
            int N, int dp, int D, const State* __restrict__ st,
            int* __restrict__ cnt, u64* __restrict__ keys,
@@ -44,7 +47,8 @@ fused_pass(const float* __restrict__ qp, const float* __restrict__ proxy,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float acc[QPT][RPT];
   float ex[QPT][RPT];
-  tile_dot<XVEC>(q, x, N, D, B, q0, row0, acc, sm, threadIdx.x, 0);  // exact
+  tile_dot<T, XVEC>(q, x, N, D, B, q0, row0, acc, sm, threadIdx.x,
+                    0);                                   // exact
 #pragma unroll
   for (int i = 0; i < QPT; ++i) {
     const int b = q0 + 4 * warp + i;
@@ -55,8 +59,8 @@ fused_pass(const float* __restrict__ qp, const float* __restrict__ proxy,
       ex[i][r] = row < N ? clamped_d2(qnb, xn[row], acc[i][r]) : 0.f;
     }
   }
-  tile_dot<PVEC>(qp, proxy, N, dp, B, q0, row0, acc, sm, threadIdx.x,
-                 0);                                          // proxy keys
+  tile_dot<T, PVEC>(qp, proxy, N, dp, B, q0, row0, acc, sm, threadIdx.x,
+                    0);                                       // proxy keys
   bool sel[QPT][RPT];
   u64 key[QPT][RPT];
 #pragma unroll
@@ -79,21 +83,47 @@ fused_pass(const float* __restrict__ qp, const float* __restrict__ proxy,
   compact_write<true>(sel, key, ex, B, q0, L, cnt, keys, pays);
 }
 
-template <bool PVEC, bool XVEC>
-cudaError_t fused(const float* qp, const float* proxy, const float* qpn,
-                  const float* pn, const float* q, const float* x,
+template <typename T, bool PVEC, bool XVEC>
+cudaError_t fused(const float* qp, const T* proxy, const float* qpn,
+                  const float* pn, const float* q, const T* x,
                   const float* qn, const float* xn, int B, int N, int dp,
                   int D, int m, int cap, const int* passes, int npasses,
                   State* st, int* work, u64* keys, float* pays,
                   cudaStream_t s) {
-  cudaError_t err = select_phase<PVEC>(qp, proxy, qpn, pn, B, N, dp, m, cap,
-                                       passes, npasses, st, work + B, s);
+  cudaError_t err = select_phase<T, PVEC>(qp, proxy, qpn, pn, B, N, dp, m,
+                                          cap, passes, npasses, st, work + B,
+                                          s);
   if (err != cudaSuccess) return err;
-  fused_pass<PVEC, XVEC>
+  fused_pass<T, PVEC, XVEC>
       <<<dim3((N + BN - 1) / BN, (B + BQ - 1) / BQ), THREADS, 0, s>>>(
           qp, proxy, qpn, pn, q, x, qn, xn, B, N, dp, D, st, work, keys,
           pays, cap);
   return cudaGetLastError();
+}
+
+// the instance for the rows' type T and the two alignments
+template <typename T>
+cudaError_t launch_rows(const T* proxy, const T* x, const float* qp,
+                        const float* qpn, const float* pn, const float* q,
+                        const float* qn, const float* xn, int B, int N,
+                        int dp, int D, int m, int pvec, int xvec, int cap,
+                        const int* passes, int npasses, State* st, int* work,
+                        u64* keys, float* pays, cudaStream_t s) {
+  if (pvec && xvec)
+    return fused<T, true, true>(qp, proxy, qpn, pn, q, x, qn, xn, B, N, dp,
+                                D, m, cap, passes, npasses, st, work, keys,
+                                pays, s);
+  if (pvec)
+    return fused<T, true, false>(qp, proxy, qpn, pn, q, x, qn, xn, B, N, dp,
+                                 D, m, cap, passes, npasses, st, work, keys,
+                                 pays, s);
+  if (xvec)
+    return fused<T, false, true>(qp, proxy, qpn, pn, q, x, qn, xn, B, N, dp,
+                                 D, m, cap, passes, npasses, st, work, keys,
+                                 pays, s);
+  return fused<T, false, false>(qp, proxy, qpn, pn, q, x, qn, xn, B, N, dp,
+                                D, m, cap, passes, npasses, st, work, keys,
+                                pays, s);
 }
 
 }  // namespace
@@ -102,35 +132,29 @@ cudaError_t fused(const float* qp, const float* proxy, const float* qpn,
 // [B + npasses * (ceil(B/16) + B * 2112)] int32 (counters, tickets,
 // histograms; the entry point clears it), keys [2 * B * cap] uint64 and
 // pays [2 * B * cap] fp32.  cap / passes / npasses / chunk: the host's
-// plan, as for screen_topm_launch.  pvec / xvec: dp / D % 4 == 0 and
-// 16-byte aligned proxy / store.
+// plan, as for screen_topm_launch.  proxy and x: both fp32, or both bf16
+// when rows_bf16.  pvec / xvec: dp / D % 4 == 0 and proxy / store aligned
+// to 4 values.
 RT_EXPORT int fused_candidates_launch(
-    const float* qp, const float* proxy, const float* qpn, const float* pn,
-    const float* q, const float* x, const float* qn, const float* xn, int B,
-    int N, int dp, int D, int m, int pvec, int xvec, int cap,
-    const int* passes, int npasses, int chunk, void* st, int* work,
+    const float* qp, const void* proxy, const float* qpn, const float* pn,
+    const float* q, const void* x, const float* qn, const float* xn,
+    int rows_bf16, int B, int N, int dp, int D, int m, int pvec, int xvec,
+    int cap, const int* passes, int npasses, int chunk, void* st, int* work,
     void* keys, float* pays, int64_t* idx_out, float* d2_out, void* stream) {
   if (B <= 0 || m <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   u64* k = static_cast<u64*>(keys);
   State* state = static_cast<State*>(st);
   cudaMemsetAsync(work, 0, sizeof(int) * (size_t)work_ints(B, npasses), s);
-  cudaError_t err;
-  if (pvec && xvec)
-    err = fused<true, true>(qp, proxy, qpn, pn, q, x, qn, xn, B, N, dp, D, m,
-                            cap, passes, npasses, state, work, k, pays, s);
-  else if (pvec)
-    err = fused<true, false>(qp, proxy, qpn, pn, q, x, qn, xn, B, N, dp, D,
-                             m, cap, passes, npasses, state, work, k, pays,
-                             s);
-  else if (xvec)
-    err = fused<false, true>(qp, proxy, qpn, pn, q, x, qn, xn, B, N, dp, D,
-                             m, cap, passes, npasses, state, work, k, pays,
-                             s);
-  else
-    err = fused<false, false>(qp, proxy, qpn, pn, q, x, qn, xn, B, N, dp, D,
-                              m, cap, passes, npasses, state, work, k, pays,
-                              s);
+  cudaError_t err = rows_bf16
+      ? launch_rows(static_cast<const bf16_t*>(proxy),
+                    static_cast<const bf16_t*>(x), qp, qpn, pn, q, qn, xn, B,
+                    N, dp, D, m, pvec, xvec, cap, passes, npasses, state,
+                    work, k, pays, s)
+      : launch_rows(static_cast<const float*>(proxy),
+                    static_cast<const float*>(x), qp, qpn, pn, q, qn, xn, B,
+                    N, dp, D, m, pvec, xvec, cap, passes, npasses, state,
+                    work, k, pays, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(
       sort_emit<true>(k, pays, work, B, cap, chunk, m, idx_out, d2_out, s));

@@ -53,6 +53,11 @@
 // (the warps' sum, the ranks' exchange, the softmax) outlast them;
 // chip_smoke.py prints the cluster pass's rate beside a plain read of
 // the store ([time] golden_aggregate split).
+// bf16 store rows (the engine's storage_dtype; 307.2 MB at the shape
+// above, 0.092 ms): the ring stages the bf16 rows as they are stored,
+// and both products take them widened, exact in TF32, in two MMAs
+// (dist_tile.cuh): the same fp32 sums as the fp32 instance on the
+// widened rows.  D % 8 == 0 (16-byte rows).
 #include <cooperative_groups.h>
 
 #include "dist_tile.cuh"
@@ -71,11 +76,11 @@ constexpr int PS = Q + 4;     // a query's row of weights (A-fragment loads)
 
 constexpr int BARS = 32;      // floats: full[8] and xchg[2] mbarriers
 
-// shared memory of a CTA for a slice of ds columns, `stages` stages and
-// C CTAs a cluster
-__host__ __device__ size_t agg_smem(int ds, int stages, int C) {
-  return sizeof(float) * (BARS                // mbarriers
-                          + (size_t)stages * R * dtile::dt_stride(ds)  // ring
+// shared memory of a CTA for a slice of ds columns, `stages` stages of
+// rows of `esize` bytes an element and C CTAs a cluster
+__host__ __device__ size_t agg_smem(int ds, int stages, int C, int esize) {
+  return (size_t)esize * stages * R * dtile::dt_stride(ds)     // ring
+         + sizeof(float) * (BARS                // mbarriers
                           + WARPS * Q * R     // warp partials
                           + 2 * C * Q * R     // the ranks' partials
                           + 2 * Q * PS        // weights
@@ -110,8 +115,8 @@ __device__ __forceinline__ void st_async(uint32_t addr, float v,
 // o = o * sc + P X over a staged tile: the warp's KW n-tiles of 8
 // columns from column n0, P [16 queries][16 rows] (row stride PS).  The
 // MMAs go in passes over 4 n-tiles at a time.
-template <int KW>
-__device__ __forceinline__ void weigh_rows(float (&o)[KW][4], const float* xs,
+template <typename T, int KW>
+__device__ __forceinline__ void weigh_rows(float (&o)[KW][4], const T* xs,
                                            int st, const float* p,
                                            const float* sc, int n0,
                                            int lane) {
@@ -130,8 +135,8 @@ __device__ __forceinline__ void weigh_rows(float (&o)[KW][4], const float* xs,
     dtile::split(p[(g + 8) * PS + 8 * ks + t], ph[1], pl[1]);
     dtile::split(p[g * PS + 8 * ks + t + 4], ph[2], pl[2]);
     dtile::split(p[(g + 8) * PS + 8 * ks + t + 4], ph[3], pl[3]);
-    const float* r0 = dtile::row_at(xs, st, 8 * ks + t) + n0 + g;
-    const float* r4 = dtile::row_at(xs, st, 8 * ks + t + 4) + n0 + g;
+    const T* r0 = dtile::row_at(xs, st, 8 * ks + t) + n0 + g;
+    const T* r4 = dtile::row_at(xs, st, 8 * ks + t + 4) + n0 + g;
 #pragma unroll
     for (int j0 = 0; j0 < KW; j0 += JG) {
       dtile::BFrag b[JG];
@@ -141,9 +146,10 @@ __device__ __forceinline__ void weigh_rows(float (&o)[KW][4], const float* xs,
 #pragma unroll
       for (int j = j0; j < j0 + JG && j < KW; ++j)
         dtile::mma_lo_hi(o[j], pl, b[j - j0]);
+      if (!dtile::Rows<T>::kExact)
 #pragma unroll
-      for (int j = j0; j < j0 + JG && j < KW; ++j)
-        dtile::mma_hi_lo(o[j], ph, b[j - j0]);
+        for (int j = j0; j < j0 + JG && j < KW; ++j)
+          dtile::mma_hi_lo(o[j], ph, b[j - j0]);
 #pragma unroll
       for (int j = j0; j < j0 + JG && j < KW; ++j)
         dtile::mma_hi_hi(o[j], ph, b[j - j0]);
@@ -160,9 +166,9 @@ __device__ __forceinline__ void weigh_rows(float (&o)[KW][4], const float* xs,
 // Every warp issues the bulk copies of two rows of a tile: the copy
 // engine takes them one at a time and the issuing warp waits, so one
 // warp issuing all 16 held the CTA's next barrier.
-template <int KW>
+template <typename T, int KW>
 __global__ void __launch_bounds__(THREADS, 1)
-agg_cluster(const float* __restrict__ q, const float* __restrict__ x,
+agg_cluster(const float* __restrict__ q, const T* __restrict__ x,
             const float* __restrict__ qn, const float* __restrict__ xn,
             float inv, float* __restrict__ part_acc,
             float* __restrict__ part_m, float* __restrict__ part_l,
@@ -180,8 +186,9 @@ agg_cluster(const float* __restrict__ q, const float* __restrict__ x,
   constexpr int ST = dtile::dt_stride(DS);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);   // [stages]
   uint64_t* xchg = full + 8;                            // [2] the sums
-  float* ring = smem + BARS;                      // [stages][R][ST]
-  float* red = ring + (size_t)stages * R * ST;    // [WARPS][Q][R]
+  T* ring = reinterpret_cast<T*>(smem + BARS);    // [stages][R][ST]
+  float* red = reinterpret_cast<float*>(ring + (size_t)stages * R * ST);
+                                                  // [WARPS][Q][R]
   float* part = red + WARPS * Q * R;              // [2][C][Q][R]
   float* pw = part + 2 * C * Q * R;               // [2][Q][PS] weights
   float* scl = pw + 2 * Q * PS;                   // [2][Q]
@@ -198,7 +205,8 @@ agg_cluster(const float* __restrict__ q, const float* __restrict__ x,
     dtile::mbar_init(xchg + 1, 1);
     dtile::fence_barrier_init();
   }
-  dtile::zero_smem(ring, stages * R * ST, tid, THREADS);
+  dtile::zero_smem(reinterpret_cast<float*>(ring),
+                   stages * R * ST * (int)sizeof(T) / 4, tid, THREADS);
   cluster.sync();      // every CTA's mbarriers exist before any sum is sent
 
   // tile t into stage t % stages: thread 0 expects the bytes, and the
@@ -207,11 +215,13 @@ agg_cluster(const float* __restrict__ q, const float* __restrict__ x,
     if (t >= ntiles) return;
     const int s = t % stages;
     const int r0 = row0 + t * R, nr = min(R, row1 - r0);
-    if (tid == 0) dtile::mbar_expect(full + s, 4u * nr * max(cols, 0));
+    if (tid == 0)
+      dtile::mbar_expect(full + s, (uint32_t)sizeof(T) * nr * max(cols, 0));
     const int r = 2 * warp + lane;
     if (lane < 2 && r < nr && cols > 0)
       dtile::bulk_copy(dtile::row_at(ring + (size_t)s * R * ST, ST, r),
-                       x + (int64_t)(r0 + r) * D + c0, 4u * cols, full + s);
+                       x + (int64_t)(r0 + r) * D + c0,
+                       (uint32_t)sizeof(T) * cols, full + s);
   };
   for (int t = 0; t < stages - 2; ++t) load_tile(t);
 
@@ -241,7 +251,7 @@ agg_cluster(const float* __restrict__ q, const float* __restrict__ x,
 
   for (int t = 0; t < ntiles; ++t) {
     const int buf = t & 1;
-    const float* xs = ring + (size_t)(t % stages) * R * ST;
+    const T* xs = ring + (size_t)(t % stages) * R * ST;
     dtile::mbar_wait(full + t % stages, (t / stages) & 1);   // tile t landed
     __syncthreads();              // and every thread is done with tile t - 2
     load_tile(t + stages - 2);
@@ -256,7 +266,7 @@ agg_cluster(const float* __restrict__ q, const float* __restrict__ x,
     for (int j = 0; j < KW; j += 2) {
       const int j1 = j + 1 < KW ? j + 1 : j;
       dtile::qxt_pair(s2, qh[j], ql[j], qh[j1], ql[j1], j + 1 < KW,
-                      dtile::Rows{xs, ST}, 0, n0 + 8 * j, 8, lane);
+                      dtile::Rows<T>{xs, ST}, 0, n0 + 8 * j, 8, lane);
     }
     float s[2][4];
 #pragma unroll
@@ -275,7 +285,7 @@ agg_cluster(const float* __restrict__ q, const float* __restrict__ x,
 
     // (2) while the cluster arrives: the previous tile's weighted rows
     if (t > 0)
-      weigh_rows<KW>(o, ring + (size_t)((t - 1) % stages) * R * ST, ST,
+      weigh_rows<T, KW>(o, ring + (size_t)((t - 1) % stages) * R * ST, ST,
                      pw + (buf ^ 1) * Q * PS, scl + (buf ^ 1) * Q, n0, lane);
     cluster_wait();
     dtile::mbar_wait(xchg + buf, (t >> 1) & 1);   // the C ranks' sums
@@ -314,7 +324,7 @@ agg_cluster(const float* __restrict__ q, const float* __restrict__ x,
   __syncthreads();
   if (ntiles > 0) {
     const int t = ntiles - 1;
-    weigh_rows<KW>(o, ring + (size_t)(t % stages) * R * ST, ST,
+    weigh_rows<T, KW>(o, ring + (size_t)(t % stages) * R * ST, ST,
                    pw + (t & 1) * Q * PS, scl + (t & 1) * Q, n0, lane);
   }
 
@@ -359,28 +369,31 @@ __global__ void merge_kernel(const float* __restrict__ part_acc,
   out[(int64_t)b * D + c] = acc / fmaxf(L, 1e-30f);
 }
 
-using Kernel = void (*)(const float*, const float*, const float*,
-                        const float*, float, float*, float*, float*, float*,
-                        int, int, int, int, int);
+template <typename T>
+using Kernel = void (*)(const float*, const T*, const float*, const float*,
+                        float, float*, float*, float*, float*, int, int, int,
+                        int, int);
 
-// the instance for a slice of ds columns (the plan's SLICES)
-Kernel pick(int ds) {
+// the instance for rows of T and a slice of ds columns (the plan's SLICES)
+template <typename T>
+Kernel<T> pick(int ds) {
   switch (ds) {
-    case 64: return agg_cluster<1>;
-    case 128: return agg_cluster<2>;
-    case 256: return agg_cluster<4>;
-    case 448: return agg_cluster<7>;
-    case 768: return agg_cluster<12>;
+    case 64: return agg_cluster<T, 1>;
+    case 128: return agg_cluster<T, 2>;
+    case 256: return agg_cluster<T, 4>;
+    case 448: return agg_cluster<T, 7>;
+    case 768: return agg_cluster<T, 12>;
     default: return nullptr;
   }
 }
 
 // The launch configuration of the cluster pass; sets the kernel's
 // shared-memory and cluster-size attributes.
-cudaError_t configure(Kernel k, int C, int ds, int stages, int splits,
+template <typename T>
+cudaError_t configure(Kernel<T> k, int C, int ds, int stages, int splits,
                       int groups, cudaStream_t st, cudaLaunchConfig_t* cfg,
                       cudaLaunchAttribute* attr) {
-  const size_t smem = agg_smem(ds, stages, C);
+  const size_t smem = agg_smem(ds, stages, C, sizeof(T));
   cudaError_t err = cudaFuncSetAttribute(
       k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -404,21 +417,13 @@ cudaError_t configure(Kernel k, int C, int ds, int stages, int splits,
 }
 
 bool valid(int C, int ds, int stages) {
-  return C >= 1 && C <= 16 && pick(ds) != nullptr && stages >= 3 &&
+  return C >= 1 && C <= 16 && pick<float>(ds) != nullptr && stages >= 3 &&
          stages <= 8;
 }
 
-}  // namespace
-
-RT_EXPORT size_t golden_aggregate_smem_bytes(int ds, int stages, int C) {
-  return agg_smem(ds, stages, C);
-}
-
-// Clusters of C CTAs of this configuration the card keeps resident at
-// once (cudaOccupancyMaxActiveClusters), or minus a CUDA error code.
-RT_EXPORT int golden_aggregate_active_clusters(int C, int ds, int stages) {
-  if (!valid(C, ds, stages)) return -(int)cudaErrorInvalidValue;
-  Kernel k = pick(ds);
+template <typename T>
+int active_clusters(int C, int ds, int stages) {
+  Kernel<T> k = pick<T>(ds);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t err = configure(k, C, ds, stages, 1, 1, nullptr, &cfg, &attr);
@@ -432,27 +437,14 @@ RT_EXPORT int golden_aggregate_active_clusters(int C, int ds, int stages) {
   return n;
 }
 
-// q [B, D], x [N, D], qn [B], xn [N]; part_acc [splits, B, D], part_m /
-// part_l [splits, B]: caller-allocated scratch; out [B, D].  Rows
-// [s * rps, (s + 1) * rps) go to split s; every split must hold at
-// least one row.  C CTAs a cluster, each a slice of ds columns (C ds >=
-// D).  D % 4 == 0 and x 16-byte aligned (the bulk copies' rows); dbg
-// may be null.
-RT_EXPORT int golden_aggregate_launch(const float* q, const float* x,
-                                      const float* qn, const float* xn,
-                                      float inv, float* part_acc,
-                                      float* part_m, float* part_l,
-                                      float* out, float* dbg, int B, int N,
-                                      int D, int C, int ds, int stages,
-                                      int splits, int rps, void* stream) {
-  if (B <= 0 || D <= 0) return static_cast<int>(cudaGetLastError());
-  if (!valid(C, ds, stages) || C * ds < D || D % 4 != 0 ||
-      reinterpret_cast<uintptr_t>(x) % 16 != 0 || splits < 1 ||
-      (int64_t)(splits - 1) * rps >= N)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+template <typename T>
+cudaError_t launch_cluster(const float* q, const T* x, const float* qn,
+                           const float* xn, float inv, float* part_acc,
+                           float* part_m, float* part_l, float* dbg, int B,
+                           int N, int D, int C, int ds, int stages,
+                           int splits, int rps, cudaStream_t st) {
   const int groups = (B + Q - 1) / Q;
-  Kernel k = pick(ds);
+  Kernel<T> k = pick<T>(ds);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t err = configure(k, C, ds, stages, splits, groups, st, &cfg,
@@ -460,6 +452,55 @@ RT_EXPORT int golden_aggregate_launch(const float* q, const float* x,
   if (err == cudaSuccess)
     err = cudaLaunchKernelEx(&cfg, k, q, x, qn, xn, inv, part_acc, part_m,
                              part_l, dbg, B, N, D, stages, rps);
+  return err;
+}
+
+}  // namespace
+
+// esize: 4 (fp32 rows) or 2 (bf16 rows)
+RT_EXPORT size_t golden_aggregate_smem_bytes(int ds, int stages, int C,
+                                             int esize) {
+  return agg_smem(ds, stages, C, esize);
+}
+
+// Clusters of C CTAs of this configuration (x_bf16: the bf16 instance)
+// the card keeps resident at once (cudaOccupancyMaxActiveClusters), or
+// minus a CUDA error code.
+RT_EXPORT int golden_aggregate_active_clusters(int C, int ds, int stages,
+                                               int x_bf16) {
+  if (!valid(C, ds, stages)) return -(int)cudaErrorInvalidValue;
+  return x_bf16 ? active_clusters<bf16_t>(C, ds, stages)
+                : active_clusters<float>(C, ds, stages);
+}
+
+// q [B, D], x [N, D], qn [B], xn [N]; part_acc [splits, B, D], part_m /
+// part_l [splits, B]: caller-allocated scratch; out [B, D].  Rows
+// [s * rps, (s + 1) * rps) go to split s; every split must hold at
+// least one row.  C CTAs a cluster, each a slice of ds columns (C ds >=
+// D).  x: fp32, or bf16 when x_bf16; its rows a multiple of 16 bytes (D %
+// 4 == 0, or D % 8 == 0 for bf16) and x 16-byte aligned (the bulk copies'
+// rows); dbg may be null.
+RT_EXPORT int golden_aggregate_launch(const float* q, const void* x,
+                                      int x_bf16, const float* qn,
+                                      const float* xn,
+                                      float inv, float* part_acc,
+                                      float* part_m, float* part_l,
+                                      float* out, float* dbg, int B, int N,
+                                      int D, int C, int ds, int stages,
+                                      int splits, int rps, void* stream) {
+  if (B <= 0 || D <= 0) return static_cast<int>(cudaGetLastError());
+  if (!valid(C, ds, stages) || C * ds < D || D % (x_bf16 ? 8 : 4) != 0 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 || splits < 1 ||
+      (int64_t)(splits - 1) * rps >= N)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      x_bf16 ? launch_cluster(q, static_cast<const bf16_t*>(x), qn, xn, inv,
+                              part_acc, part_m, part_l, dbg, B, N, D, C, ds,
+                              stages, splits, rps, st)
+             : launch_cluster(q, static_cast<const float*>(x), qn, xn, inv,
+                              part_acc, part_m, part_l, dbg, B, N, D, C, ds,
+                              stages, splits, rps, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -37,7 +37,10 @@
 //   5. sagg_merge: out[b, c] = (sum over tiles in order) / max(l, 1e-30).
 // NEG_INF logits get weight exp(NEG_INF - max) = 0; an all-NEG_INF query
 // has max = NEG_INF and weight 1 everywhere, which is the uniform mean.
-// Deterministic: two calls give bit-equal outputs.
+// Deterministic: two calls give bit-equal outputs.  The bf16 instance
+// (store rows in bf16, the engine's storage_dtype) loads each row slice
+// as 4 bf16 (8 bytes) and widens it: half the row bytes, the same fp32
+// sums in the same order.
 #include "row_union.cuh"
 
 namespace {
@@ -118,9 +121,9 @@ sagg_weigh(const int64_t* __restrict__ idx, const float* __restrict__ logits,
 
 // part[t, b, c..c+3] = sum over the tile's list rows s of
 // W[g, s, b] * x[rows[g, s], c..c+3] for the group's queries b.
-template <bool VEC>
+template <typename XT, bool VEC>
 __global__ void __launch_bounds__(ROW_THREADS)
-sagg_rows(const float* __restrict__ x, const int* __restrict__ rows,
+sagg_rows(const XT* __restrict__ x, const int* __restrict__ rows,
           const int* __restrict__ ucount, const float* __restrict__ W,
           float* __restrict__ part, int B, int D, int ucap) {
   __shared__ float4 ws[BATCH][QG / 4];
@@ -146,22 +149,29 @@ sagg_rows(const float* __restrict__ x, const int* __restrict__ rows,
     __syncthreads();
     if (nc == 0) continue;
     for (int u0 = 0; u0 < nb; u0 += LOADS) {
-      float4 v[LOADS];              // LOADS rows' slices in flight at once
+      // LOADS rows' slices in flight at once, as loaded (VEC; widened
+      // below, after every load of the batch is issued)
+      typename Raw4<XT>::type raw[LOADS];
+      float4 v[LOADS];
 #pragma unroll
       for (int u = 0; u < LOADS; ++u) {
+        raw[u] = typename Raw4<XT>::type{};
         v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
         if (u0 + u < nb) {
-          const float* xr = x + rs[u0 + u] * D + c;
+          const XT* xr = x + rs[u0 + u] * D + c;
           if (VEC) {
-            v[u] = __ldg(reinterpret_cast<const float4*>(xr));
+            raw[u] = ldg_raw4(xr);
           } else {
-            v[u].x = __ldg(xr);
-            if (nc > 1) v[u].y = __ldg(xr + 1);
-            if (nc > 2) v[u].z = __ldg(xr + 2);
-            if (nc > 3) v[u].w = __ldg(xr + 3);
+            v[u].x = ldg1(xr);
+            if (nc > 1) v[u].y = ldg1(xr + 1);
+            if (nc > 2) v[u].z = ldg1(xr + 2);
+            if (nc > 3) v[u].w = ldg1(xr + 3);
           }
         }
       }
+      if (VEC)
+#pragma unroll
+        for (int u = 0; u < LOADS; ++u) v[u] = widen4(raw[u]);
 #pragma unroll
       for (int u = 0; u < LOADS; ++u) {
         if (u0 + u >= nb) break;
@@ -208,6 +218,19 @@ __global__ void sagg_merge(const float* __restrict__ part,
   out[e] = s / fmaxf(stat[e / D].y, 1e-30f);
 }
 
+// the row pass for the rows' type T
+template <typename T>
+void launch_rows(dim3 grid, cudaStream_t st, int vec, const T* x,
+                 const int* rows, const int* ucount, const float* W,
+                 float* part, int B, int D, int ucap) {
+  if (vec)
+    sagg_rows<T, true><<<grid, ROW_THREADS, 0, st>>>(x, rows, ucount, W,
+                                                     part, B, D, ucap);
+  else
+    sagg_rows<T, false><<<grid, ROW_THREADS, 0, st>>>(x, rows, ucount, W,
+                                                      part, B, D, ucap);
+}
+
 }  // namespace
 
 // zero (the host's golden_support_aggregate.scratch_sizes, zeroed here):
@@ -215,10 +238,12 @@ __global__ void sagg_merge(const float* __restrict__ part,
 // 16-byte words.
 // work (int32): stat [B] (max, l) as fp32 pairs, chunk counts
 // [G, chunks], ucount [G], rows [G, ucap].  part: [T, B, D] fp32, T = tiles.
+// x: fp32, or bf16 when x_bf16; vec: D % 4 == 0 and x aligned to 4 values.
 RT_EXPORT int golden_support_aggregate_launch(
-    const float* x, const int64_t* idx, const float* logits, float* out,
-    int B, int K, int N, int D, int vec, int G, int ucap, int chunks,
-    int tiles, void* zero, int* work, float* part, void* stream) {
+    const void* x, int x_bf16, const int64_t* idx, const float* logits,
+    float* out, int B, int K, int N, int D, int vec, int G, int ucap,
+    int chunks, int tiles, void* zero, int* work, float* part,
+    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B <= 0 || D <= 0) return static_cast<int>(cudaGetLastError());
   if (K <= 0) {                        // an empty softmax: zeros
@@ -242,12 +267,12 @@ RT_EXPORT int golden_support_aggregate_launch(
   sagg_weigh<<<slots, THREADS, 0, st>>>(idx, logits, map, stat, tally, W, K,
                                         N, ucap);
   const dim3 grid((D + SLICE - 1) / SLICE, tiles, G);
-  if (vec)
-    sagg_rows<true><<<grid, ROW_THREADS, 0, st>>>(x, rows, ucount, W, part, B,
-                                                  D, ucap);
+  if (x_bf16)
+    launch_rows(grid, st, vec, static_cast<const bf16_t*>(x), rows, ucount,
+                W, part, B, D, ucap);
   else
-    sagg_rows<false><<<grid, ROW_THREADS, 0, st>>>(x, rows, ucount, W, part,
-                                                   B, D, ucap);
+    launch_rows(grid, st, vec, static_cast<const float*>(x), rows, ucount, W,
+                part, B, D, ucap);
   const int64_t total = (int64_t)B * D;
   sagg_merge<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(part, stat, out,
                                                               B, D, tiles);

@@ -24,6 +24,11 @@
 // map's row pitch is a multiple of 16 bytes).  +inf norms give +inf
 // distances (inf - finite = inf).  Integer data is exact in TF32 and
 // sums exactly in any order, so it is bit-equal to ref.pdist_ref.
+// bf16 proxy rows (the engine's storage_dtype; 19.2 MB at the shape
+// above): a bf16 tensor map whose boxes are 64 columns (still 128 bytes,
+// the same swizzle), the queries' map fp32 as before, and two MMAs a
+// product (a bf16 value is exact in TF32: dist_tile.cuh).  The wrapper
+// refuses bf16 rows whose d is not a multiple of 8.
 #include <cuda.h>
 
 #include "dist_tile.cuh"
@@ -34,35 +39,45 @@ using dtile::Q;
 
 constexpr int THREADS = 256;
 constexpr int TILE = 64;          // store rows a tile
-constexpr int BOX = 32;           // columns a box (128 bytes)
+constexpr int BOX = 32;           // fp32 columns a box (128 bytes)
+constexpr int BOXB = 128;         // bytes a box row, fp32 or bf16
 constexpr int SLAB = 8 * BOX;     // columns a slab at most
-constexpr int XBOX = TILE * BOX;  // floats of a store box
-constexpr int QBOX = Q * BOX;     // floats of a query box
+constexpr int XBOXB = TILE * BOXB;  // bytes of a store box
+constexpr int QBOXB = Q * BOXB;     // bytes of a query box (fp32)
 constexpr int LD = TILE + 4;      // row stride of the finished tile
-constexpr int SLACK = 256;        // floats: aligns the boxes to 1024 bytes
+constexpr int SLACK = 1024;       // bytes: aligns the boxes to 1024 bytes
 constexpr int BARS = 16;          // floats for the stages' mbarriers (<= 8)
 
+// columns a store box of T holds (32 fp32, 64 bf16)
+template <typename T>
+__host__ __device__ constexpr int box_cols() {
+  return BOXB / (int)sizeof(T);
+}
+
 struct Plan {
-  int nbox, nslab, resident, stage;   // stage: floats a stage
+  int nxbox, nqbox, nslab, resident, stage;   // resident, stage: bytes
 };
 
-__host__ __device__ inline Plan plan_of(int d) {
+// esize: bytes of a store element (4 fp32, 2 bf16)
+__host__ __device__ inline Plan plan_of(int d, int esize) {
   Plan p;
+  const int xcols = BOXB / esize;
   p.nslab = d > SLAB ? (d + SLAB - 1) / SLAB : 1;
-  p.nbox = p.nslab == 1 ? (d + BOX - 1) / BOX : SLAB / BOX;
+  p.nqbox = p.nslab == 1 ? (d + BOX - 1) / BOX : SLAB / BOX;
+  p.nxbox = p.nslab == 1 ? (d + xcols - 1) / xcols : SLAB / xcols;
   // one slab: the queries stay resident; more: each stage has its slab
-  p.resident = p.nslab == 1 ? p.nbox * QBOX : 0;
-  p.stage = p.nbox * (XBOX + (p.nslab > 1 ? QBOX : 0));
+  p.resident = p.nslab == 1 ? p.nqbox * QBOXB : 0;
+  p.stage = p.nxbox * XBOXB + (p.nslab > 1 ? p.nqbox * QBOXB : 0);
   return p;
 }
 
-__host__ __device__ inline size_t pdist_smem(int d, int stages) {
-  const Plan p = plan_of(d);
-  return sizeof(float) * (SLACK + p.resident + (size_t)stages * p.stage +
-                          2 * Q * LD + BARS);
+__host__ __device__ inline size_t pdist_smem(int d, int stages, int esize) {
+  const Plan p = plan_of(d, esize);
+  return SLACK + p.resident + (size_t)stages * p.stage +
+         sizeof(float) * (2 * Q * LD + BARS);
 }
 
-__device__ __forceinline__ void tma_2d(float* dst, const CUtensorMap* map,
+__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map,
                                        int c, int r, uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
@@ -71,24 +86,29 @@ __device__ __forceinline__ void tma_2d(float* dst, const CUtensorMap* map,
       "r"(dtile::smem_addr(bar)) : "memory");
 }
 
-// NK: the slab's 8-column steps (4 a box).  QREG: one slab, whose query
-// fragments each warp splits once into registers (its NK / 2 steps);
-// else the queries' slab comes with each item and is read from the stage.
-template <int NK, bool QREG>
+// T: the store rows' type (fp32 or bf16).  NK: the slab's 8-column steps
+// (4 an fp32 box).  QREG: one slab, whose query fragments each warp
+// splits once into registers (its NK / 2 steps); else the queries' slab
+// comes with each item and is read from the stage.
+template <typename T, int NK, bool QREG>
 __global__ void __launch_bounds__(THREADS, 1)
 pdist_kernel(const __grid_constant__ CUtensorMap xmap,
              const __grid_constant__ CUtensorMap qmap,
              const float* __restrict__ qn, const float* __restrict__ xn,
              float* __restrict__ out, int B, int N, int d, int stages,
              int vec_out) {
-  constexpr int NBOX = NK / 4, HALF = NK / 2;
+  constexpr int BC = box_cols<T>();
+  constexpr int NQBOX = NK / 4, NXBOX = (8 * NK + BC - 1) / BC;
+  constexpr int HALF = NK / 2;
   extern __shared__ __align__(16) float smem_raw[];
-  const Plan p = plan_of(d);
+  const Plan p = plan_of(d, sizeof(T));
   const int nslab = p.nslab;
-  float* qres = smem_raw + ((SLACK - (dtile::smem_addr(smem_raw) >> 2)) &
-                            (SLACK - 1));             // 1024-byte aligned
-  float* ring = qres + p.resident;                  // [stages][stage]
-  float* red = ring + (size_t)stages * p.stage;     // [2][Q][LD]
+  char* qres = reinterpret_cast<char*>(smem_raw) +
+               ((SLACK - (dtile::smem_addr(smem_raw) & (SLACK - 1))) &
+                (SLACK - 1));                        // 1024-byte aligned
+  char* ring = qres + p.resident;                   // [stages][stage]
+  float* red = reinterpret_cast<float*>(ring + (size_t)stages * p.stage);
+                                                    // [2][Q][LD]
   uint64_t* bar = reinterpret_cast<uint64_t*>(red + 2 * Q * LD);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int q0 = blockIdx.y * Q, nq = min(Q, B - q0);
@@ -106,20 +126,18 @@ pdist_kernel(const __grid_constant__ CUtensorMap xmap,
   // a box a lane; the resident queries come with item 0
   auto load = [&](int i) {
     if (i >= items) return;
-    float* s = ring + (size_t)(i % stages) * p.stage;
+    char* s = ring + (size_t)(i % stages) * p.stage;
     uint64_t* b = bar + i % stages;
     const int r0 = (bx + (i / nslab) * gx) * TILE;
     const int k0 = (i % nslab) * SLAB;
     const bool with_q = nslab > 1 || i == 0;
     if (lane == 0)
-      dtile::mbar_expect(b, 4u * NBOX * (XBOX + (with_q ? QBOX : 0)));
+      dtile::mbar_expect(b, NXBOX * XBOXB + (with_q ? NQBOX * QBOXB : 0));
     __syncwarp();
-    if (lane < NBOX) {
-      tma_2d(s + lane * XBOX, &xmap, k0 + lane * BOX, r0, b);
-      if (with_q)
-        tma_2d((nslab > 1 ? s + NBOX * XBOX : qres) + lane * QBOX, &qmap,
-               k0 + lane * BOX, q0, b);
-    }
+    if (lane < NXBOX) tma_2d(s + lane * XBOXB, &xmap, k0 + lane * BC, r0, b);
+    if (with_q && lane < NQBOX)
+      tma_2d((nslab > 1 ? s + NXBOX * XBOXB : qres) + lane * QBOXB, &qmap,
+             k0 + lane * BOX, q0, b);
   };
   if (warp == 0)
     for (int i = 0; i < stages - 1; ++i) load(i);
@@ -139,9 +157,10 @@ pdist_kernel(const __grid_constant__ CUtensorMap xmap,
     if (last && b < nq)           // this thread's norms, early
       for (int e = 0; e < 4; ++e)
         if (row + e < N) xv[e] = xn[row + e];
-    const float* s = ring + (size_t)(i % stages) * p.stage;
-    const dtile::Sw128 xs{s, TILE};
-    const dtile::Sw128 qs{QREG ? qres : s + NBOX * XBOX, Q};
+    const char* s = ring + (size_t)(i % stages) * p.stage;
+    const dtile::Sw128<T> xs{reinterpret_cast<const T*>(s), TILE};
+    const dtile::Sw128<float> qs{
+        reinterpret_cast<const float*>(QREG ? qres : s + NXBOX * XBOXB), Q};
     if (QREG && i == 0) {
 #pragma unroll
       for (int u = 0; u < (QREG ? HALF : 0); ++u)
@@ -196,18 +215,20 @@ pdist_kernel(const __grid_constant__ CUtensorMap xmap,
 using Kernel = void (*)(const CUtensorMap, const CUtensorMap, const float*,
                         const float*, float*, int, int, int, int, int);
 
-// the instance for d columns: one slab of 1..8 boxes, or slabs of 8
+// the instance for rows of T and d columns: one slab of 1..8 fp32 boxes'
+// columns, or slabs of 8
+template <typename T>
 Kernel pick(int d) {
-  if (d > SLAB) return pdist_kernel<32, false>;
+  if (d > SLAB) return pdist_kernel<T, 32, false>;
   switch ((d + BOX - 1) / BOX) {
-    case 1: return pdist_kernel<4, true>;
-    case 2: return pdist_kernel<8, true>;
-    case 3: return pdist_kernel<12, true>;
-    case 4: return pdist_kernel<16, true>;
-    case 5: return pdist_kernel<20, true>;
-    case 6: return pdist_kernel<24, true>;
-    case 7: return pdist_kernel<28, true>;
-    default: return pdist_kernel<32, true>;
+    case 1: return pdist_kernel<T, 4, true>;
+    case 2: return pdist_kernel<T, 8, true>;
+    case 3: return pdist_kernel<T, 12, true>;
+    case 4: return pdist_kernel<T, 16, true>;
+    case 5: return pdist_kernel<T, 20, true>;
+    case 6: return pdist_kernel<T, 24, true>;
+    case 7: return pdist_kernel<T, 28, true>;
+    default: return pdist_kernel<T, 32, true>;
   }
 }
 
@@ -231,17 +252,22 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// [rows, cols] fp32 (cols % 4 == 0), boxes of box_rows x 32 columns,
-// 128-byte swizzle; reads past rows or cols give zeros.
-bool make_map(CUtensorMap* map, const float* ptr, int cols, int rows,
-              int box_rows) {
+// [rows, cols] fp32 (cols % 4 == 0) or bf16 (cols % 8 == 0), boxes of
+// box_rows x 128 bytes (32 or 64 columns), 128-byte swizzle; reads past
+// rows or cols give zeros.
+bool make_map(CUtensorMap* map, const void* ptr, bool bf16, int cols,
+              int rows, int box_rows) {
   EncodeTiled enc = encoder();
   if (!enc) return false;
+  const int esize = bf16 ? 2 : 4;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 4};
-  const cuuint32_t box[2] = {BOX, (cuuint32_t)box_rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * esize};
+  const cuuint32_t box[2] = {(cuuint32_t)(BOXB / esize),
+                             (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(ptr),
+  return enc(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+             2, const_cast<void*>(ptr),
              dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -249,26 +275,30 @@ bool make_map(CUtensorMap* map, const float* ptr, int cols, int rows,
 
 }  // namespace
 
-RT_EXPORT size_t pdist_smem_bytes(int d, int stages) {
-  return pdist_smem(d, stages);
+// esize: 4 (fp32 rows) or 2 (bf16 rows)
+RT_EXPORT size_t pdist_smem_bytes(int d, int stages, int esize) {
+  return pdist_smem(d, stages, esize);
 }
 
 // ctas: the persistent CTAs of each group of 16 queries (grid x);
-// stages in [2, 8].  d % 4 == 0 and q, x 16-byte aligned (the tensor
-// maps' rows); vec_out: N % 4 == 0 and out 16-byte aligned.
-RT_EXPORT int pdist_launch(const float* q, const float* x, const float* qn,
-                           const float* xn, float* out, int B, int N, int d,
-                           int ctas, int stages, int vec_out, void* stream) {
+// stages in [2, 8].  x: fp32, or bf16 when x_bf16.  d % 4 == 0 (d % 8
+// == 0 for bf16) and q, x 16-byte aligned (the tensor maps' rows);
+// vec_out: N % 4 == 0 and out 16-byte aligned.
+RT_EXPORT int pdist_launch(const float* q, const void* x, int x_bf16,
+                           const float* qn, const float* xn, float* out,
+                           int B, int N, int d, int ctas, int stages,
+                           int vec_out, void* stream) {
   if (B <= 0 || N <= 0) return static_cast<int>(cudaGetLastError());
-  if (d <= 0 || d % 4 != 0 || ctas < 1 || stages < 2 || stages > 8 ||
-      reinterpret_cast<uintptr_t>(q) % 16 != 0 ||
+  if (d <= 0 || d % (x_bf16 ? 8 : 4) != 0 || ctas < 1 || stages < 2 ||
+      stages > 8 || reinterpret_cast<uintptr_t>(q) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(x) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap xm, qm;
-  if (!make_map(&xm, x, d, N, TILE) || !make_map(&qm, q, d, B, Q))
+  if (!make_map(&xm, x, x_bf16, d, N, TILE) ||
+      !make_map(&qm, q, false, d, B, Q))
     return static_cast<int>(cudaErrorInvalidValue);
-  Kernel k = pick(d);
-  const size_t smem = pdist_smem(d, stages);
+  Kernel k = x_bf16 ? pick<bf16_t>(d) : pick<float>(d);
+  const size_t smem = pdist_smem(d, stages, x_bf16 ? 2 : 4);
   cudaError_t err = cudaFuncSetAttribute(
       k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -33,6 +33,10 @@
 //      ks shares added in order; the plain version's formula and order,
 //      so integer data (exact sums) is bit-equal to ref.support_sqdist_ref.
 // fp32 throughout (no TF32).  Deterministic: no atomic decides a value.
+// The bf16 instance (store rows in bf16, the engine's storage_dtype)
+// stages the rows' bf16 slabs (8-byte cp.async copies of 4 values) and
+// widens each value as the dot pass reads it: half the bytes, the same
+// fp32 sums in the same order.
 #include "row_union.cuh"
 
 namespace {
@@ -50,11 +54,13 @@ constexpr int KS_MAX = 8;      // D shares a tile at most
 constexpr int ITEMS = 4;       // work items a CTA, at least
 constexpr int MARK_THREADS = 256;
 
+template <typename T>
 struct __align__(16) Stage {
-  float xs[BN][XS];           // a slab of the tile's rows, as stored
+  T xs[BN][XS];               // a slab of the tile's rows, as stored
   float qs[QG][BK];           // the same columns of the group's queries
 };
-constexpr int SMEM = STAGES * sizeof(Stage);
+template <typename T>
+constexpr int smem_of() { return STAGES * sizeof(Stage<T>); }
 
 // D shares of each tile for a group of U list rows on a grid of `grid`
 // CTAs and `nslab` slabs: enough for ITEMS work items a CTA, at most
@@ -71,6 +77,12 @@ __device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
   // bytes come into L2 with them
   asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\n"
                ::"r"(d), "l"(src), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp8(void* dst, const void* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 8 : 0));
 }
 
 __device__ __forceinline__ void cp4(void* dst, const void* src, bool ok) {
@@ -109,10 +121,11 @@ sqdist_mark(const float* __restrict__ q, const int64_t* __restrict__ idx,
 
 // Copy slab k0 of the tile's rows and of the group's queries into a
 // stage; rows past nr, queries past B and columns past D read as 0.
-// VEC: D % 4 == 0 and q, x 16-byte aligned (16-byte copies).
-template <bool VEC>
-__device__ __forceinline__ void load_slab(Stage& S,
-                                          const float* __restrict__ x,
+// VEC: D % 4 == 0, q 16-byte aligned and x aligned to 4 values (copies
+// of 4 values: 16 bytes of fp32, 8 of bf16).
+template <typename T, bool VEC>
+__device__ __forceinline__ void load_slab(Stage<T>& S,
+                                          const T* __restrict__ x,
                                           const float* __restrict__ q,
                                           const int64_t* rowid, int nr,
                                           int k0, int D, int B, int q0,
@@ -123,7 +136,11 @@ __device__ __forceinline__ void load_slab(Stage& S,
       const int e = tid + THREADS * i, r = e / (BK / 4);
       const int c = 4 * (e % (BK / 4));
       const bool ok = r < nr && k0 + c < D;
-      cp16(&S.xs[r][c], ok ? x + rowid[r] * D + k0 + c : x, ok);
+      const T* src = ok ? x + rowid[r] * D + k0 + c : x;
+      if constexpr (sizeof(T) == 4)
+        cp16(&S.xs[r][c], src, ok);
+      else
+        cp8(&S.xs[r][c], src, ok);
     }
 #pragma unroll
     for (int j = 0; j < QG * BK / 4 / THREADS; ++j) {
@@ -136,7 +153,10 @@ __device__ __forceinline__ void load_slab(Stage& S,
     for (int i = 0; i < BN * BK / THREADS; ++i) {
       const int e = tid + THREADS * i, r = e / BK, c = e % BK;
       const bool ok = r < nr && k0 + c < D;
-      cp4(&S.xs[r][c], ok ? x + rowid[r] * D + k0 + c : x, ok);
+      if constexpr (sizeof(T) == 4)
+        cp4(&S.xs[r][c], ok ? x + rowid[r] * D + k0 + c : x, ok);
+      else     // no 2-byte cp.async: a plain load and store
+        S.xs[r][c] = ok ? x[rowid[r] * D + k0 + c] : T(0.f);
     }
     for (int i = 0; i < QG * BK / THREADS; ++i) {
       const int e = tid + THREADS * i, qi = e / BK, c = e % BK;
@@ -148,7 +168,8 @@ __device__ __forceinline__ void load_slab(Stage& S,
 }
 
 // acc[u][r] += (this slab's dot of query 4 warp + u with row lane + 32 r).
-__device__ __forceinline__ void slab_dot(const Stage& S,
+template <typename T>
+__device__ __forceinline__ void slab_dot(const Stage<T>& S,
                                          float (&acc)[QPT][RPT], int lane,
                                          int warp) {
   float sl[QPT][RPT];
@@ -164,7 +185,7 @@ __device__ __forceinline__ void slab_dot(const Stage& S,
       qv[u] = *reinterpret_cast<const float4*>(&S.qs[4 * warp + u][kk]);
 #pragma unroll
     for (int r = 0; r < RPT; ++r)
-      xv[r] = *reinterpret_cast<const float4*>(&S.xs[lane + 32 * r][kk]);
+      xv[r] = lds4(&S.xs[lane + 32 * r][kk]);
 #pragma unroll
     for (int u = 0; u < QPT; ++u)
 #pragma unroll
@@ -183,14 +204,14 @@ __device__ __forceinline__ void slab_dot(const Stage& S,
 
 // dots[p, g, s, i] = share p of q[g QG + i] . x[rows[g, s]] for the
 // group's list slots s < ucount[g]; queries past B read as 0.
-template <bool VEC>
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(THREADS)
-sqdist_dots(const float* __restrict__ q, const float* __restrict__ x,
+sqdist_dots(const float* __restrict__ q, const T* __restrict__ x,
             const int* __restrict__ rows, const int* __restrict__ ucount,
             int* __restrict__ next, float* __restrict__ dots, int B, int D,
             int ucap, int G) {
   extern __shared__ __align__(16) unsigned char smem[];
-  Stage* st = reinterpret_cast<Stage*>(smem);
+  Stage<T>* st = reinterpret_cast<Stage<T>*>(smem);
   __shared__ int64_t rowid[BN];
   __shared__ int item;
   const int g = blockIdx.y, q0 = g * QG;
@@ -221,8 +242,8 @@ sqdist_dots(const float* __restrict__ q, const float* __restrict__ x,
 #pragma unroll
     for (int s = 0; s < STAGES - 1; ++s) {
       if (s < n)
-        load_slab<VEC>(st[s], x, q, rowid, nr, (sb + s) * BK, D, B, q0,
-                       tid);
+        load_slab<T, VEC>(st[s], x, q, rowid, nr, (sb + s) * BK, D, B, q0,
+                          tid);
       cp_commit();
     }
     for (int i = 0; i < n; ++i) {
@@ -231,8 +252,8 @@ sqdist_dots(const float* __restrict__ q, const float* __restrict__ x,
                                     // consumed, so its stage is free
       const int nx = i + STAGES - 1;
       if (nx < n)
-        load_slab<VEC>(st[nx % STAGES], x, q, rowid, nr, (sb + nx) * BK, D,
-                       B, q0, tid);
+        load_slab<T, VEC>(st[nx % STAGES], x, q, rowid, nr, (sb + nx) * BK,
+                          D, B, q0, tid);
       cp_commit();
       slab_dot(st[i % STAGES], acc, lane, warp);
     }
@@ -271,19 +292,46 @@ __global__ void sqdist_gather(const int64_t* __restrict__ idx,
   out[e] = fmaxf(d2, 0.f);
 }
 
+// The dot pass for the rows' type T: its shared-memory attribute set
+// once a device for the process, then the launch.
+template <typename T>
+void launch_dots(dim3 grid, cudaStream_t st, int vec, const float* q,
+                 const T* x, const int* rows, const int* ucount, int* next,
+                 float* dots, int B, int D, int ucap, int G) {
+  constexpr int SMEM = smem_of<T>();
+  static bool smem_set[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 64 || !smem_set[dev]) {
+    cudaFuncSetAttribute(sqdist_dots<T, true>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    cudaFuncSetAttribute(sqdist_dots<T, false>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (dev < 64) smem_set[dev] = true;
+  }
+  if (vec)
+    sqdist_dots<T, true><<<grid, THREADS, SMEM, st>>>(q, x, rows, ucount,
+                                                      next, dots, B, D, ucap,
+                                                      G);
+  else
+    sqdist_dots<T, false><<<grid, THREADS, SMEM, st>>>(q, x, rows, ucount,
+                                                       next, dots, B, D, ucap,
+                                                       G);
+}
+
 }  // namespace
 
 // work (int32, the host's golden_rerank.sqdist_scratch_sizes): the map
 // [G, N] of 16-byte words and the dot pass's item counters [G] (both
 // zeroed here), chunk counts [G, chunks], ucount [G], qn [B] (fp32), rows
 // [G, ucap].  dots: [KS_MAX, G, ucap, QG] fp32.  dot_ctas: the dot pass's
-// grid (golden_rerank.sqdist_plan).
-RT_EXPORT int support_sqdist_launch(const float* q, const float* x,
-                                    const float* x_norms, const int64_t* idx,
-                                    float* out, int B, int M, int N, int D,
-                                    int vec, int G, int ucap, int chunks,
-                                    int dot_ctas, int* work, float* dots,
-                                    void* stream) {
+// grid (golden_rerank.sqdist_plan).  x: fp32, or bf16 when x_bf16.
+RT_EXPORT int support_sqdist_launch(const float* q, const void* x,
+                                    int x_bf16, const float* x_norms,
+                                    const int64_t* idx, float* out, int B,
+                                    int M, int N, int D, int vec, int G,
+                                    int ucap, int chunks, int dot_ctas,
+                                    int* work, float* dots, void* stream) {
   if (B > 0 && M > 0) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     uint4* map = reinterpret_cast<uint4*>(work);
@@ -298,23 +346,12 @@ RT_EXPORT int support_sqdist_launch(const float* q, const float* x,
                   MARK_THREADS, 0, st>>>(q, idx, map, qn, M, N, D);
     runion::compact(map, ccount, rows, ucount, N, G, ucap, chunks, st);
     const dim3 grid(dot_ctas, G);
-    static bool smem_set[64] = {};    // once a device, for the process
-    int dev = 0;
-    cudaGetDevice(&dev);
-    if (dev >= 64 || !smem_set[dev]) {
-      cudaFuncSetAttribute(sqdist_dots<true>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-      cudaFuncSetAttribute(sqdist_dots<false>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-      if (dev < 64) smem_set[dev] = true;
-    }
-    if (vec)
-      sqdist_dots<true><<<grid, THREADS, SMEM, st>>>(q, x, rows, ucount, next,
-                                                     dots, B, D, ucap, G);
+    if (x_bf16)
+      launch_dots(grid, st, vec, q, static_cast<const bf16_t*>(x), rows,
+                  ucount, next, dots, B, D, ucap, G);
     else
-      sqdist_dots<false><<<grid, THREADS, SMEM, st>>>(q, x, rows, ucount,
-                                                      next, dots, B, D, ucap,
-                                                      G);
+      launch_dots(grid, st, vec, q, static_cast<const float*>(x), rows,
+                  ucount, next, dots, B, D, ucap, G);
     const int64_t total = (int64_t)B * M;
     sqdist_gather<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
         idx, x_norms, qn, map, ucount, dots, out, B, M, N, D, ucap, G,

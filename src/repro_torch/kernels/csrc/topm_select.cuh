@@ -123,13 +123,14 @@ __device__ __forceinline__ void tile_sync(int bar) {
 }
 
 // acc[i][r] = q[q0 + 4*warp + i] . x[row0 + lane + 32*r] over d columns,
-// for the tile's thread tid in [0, THREADS).  q is [B, d]; queries past
-// B and rows past N read as 0 (their keys are masked by the caller).
-// VEC: d % 4 == 0 and x 16-byte aligned, so a row slab is read with
-// float4 loads, prefetched into registers one slab ahead.
-template <bool VEC>
+// for the tile's thread tid in [0, THREADS).  q is [B, d] fp32, x [N, d]
+// fp32 or bf16 (T; widened as it is loaded); queries past B and rows past
+// N read as 0 (their keys are masked by the caller).  VEC: d % 4 == 0
+// and x aligned to 4 values, so a row slab is read 4 values a load (16
+// bytes of fp32, 8 of bf16), prefetched into registers one slab ahead.
+template <typename T, bool VEC>
 __device__ __forceinline__ void tile_dot(const float* __restrict__ q,
-                                         const float* __restrict__ x, int N,
+                                         const T* __restrict__ x, int N,
                                          int d, int B, int q0, int row0,
                                          float (&acc)[QPT][RPT],
                                          TileSmem& sm, int tid, int bar) {
@@ -139,7 +140,8 @@ __device__ __forceinline__ void tile_dot(const float* __restrict__ q,
 #pragma unroll
     for (int r = 0; r < RPT; ++r) acc[i][r] = 0.f;
 
-  float4 xv[8];       // VEC: this thread's share of the next row slab
+  typename Raw4<T>::type xv[8];  // VEC: this thread's share of the next
+                                 // row slab, as loaded (widened at store)
   float qv[4];        // its share of the next query slab: 4 queries of
                       // one column
   auto load = [&](int k0) {
@@ -148,10 +150,8 @@ __device__ __forceinline__ void tile_dot(const float* __restrict__ q,
       for (int i = 0; i < 8; ++i) {
         const int e = tid + THREADS * i, r = e >> 3, c = k0 + 4 * (e & 7);
         const int gr = row0 + r;
-        xv[i] = (gr < N && c < d)
-                    ? __ldg(reinterpret_cast<const float4*>(
-                          x + (int64_t)gr * d + c))
-                    : make_float4(0.f, 0.f, 0.f, 0.f);
+        xv[i] = (gr < N && c < d) ? ldg_raw4(x + (int64_t)gr * d + c)
+                                  : typename Raw4<T>::type{};
       }
     }
     const int c = k0 + lane;        // a warp reads 32 columns of a row
@@ -166,16 +166,17 @@ __device__ __forceinline__ void tile_dot(const float* __restrict__ q,
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const int e = tid + THREADS * i, r = e >> 3, c = 4 * (e & 7);
-        sm.xs[c][r] = xv[i].x;
-        sm.xs[c + 1][r] = xv[i].y;
-        sm.xs[c + 2][r] = xv[i].z;
-        sm.xs[c + 3][r] = xv[i].w;
+        const float4 v = widen4(xv[i]);
+        sm.xs[c][r] = v.x;
+        sm.xs[c + 1][r] = v.y;
+        sm.xs[c + 2][r] = v.z;
+        sm.xs[c + 3][r] = v.w;
       }
     } else {
       for (int i = 0; i < BK * BN / THREADS; ++i) {
         const int e = tid + THREADS * i, r = e >> 5, c = e & 31;
         const int gr = row0 + r, gc = k0 + c;
-        sm.xs[c][r] = (gr < N && gc < d) ? __ldg(x + (int64_t)gr * d + gc)
+        sm.xs[c][r] = (gr < N && gc < d) ? ldg1(x + (int64_t)gr * d + gc)
                                          : 0.f;
       }
     }
@@ -235,9 +236,9 @@ __device__ __forceinline__ int warp_incl(int v) {
 // coarse groups) and tickets [groups] start at zero.  Each strip of
 // THREADS threads takes every STRIPS-th tile; rows per block stay below
 // 65536, so a 16-bit count cannot overflow.
-template <bool VEC>
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(RADIX_THREADS)
-radix_pass(const float* __restrict__ q, const float* __restrict__ x,
+radix_pass(const float* __restrict__ q, const T* __restrict__ x,
            const float* __restrict__ qn, const float* __restrict__ xn,
            int B, int N, int d, int m, int cap, State* __restrict__ st,
            int* __restrict__ hist, int* __restrict__ tickets, int shift,
@@ -270,7 +271,8 @@ radix_pass(const float* __restrict__ q, const float* __restrict__ x,
        t += STRIPS * gridDim.x) {
     const int row0 = t * BN;
     float acc[QPT][RPT];
-    tile_dot<VEC>(q, x, N, d, B, q0, row0, acc, sm[strip], ht, 1 + strip);
+    tile_dot<T, VEC>(q, x, N, d, B, q0, row0, acc, sm[strip], ht,
+                     1 + strip);
 #pragma unroll
     for (int i = 0; i < QPT; ++i) {
       const int qi = 4 * hw + i, b = q0 + qi;
@@ -688,12 +690,12 @@ cudaError_t sort_emit(u64* keys, float* pays, const int* cnt, int B, int cap,
   return cudaGetLastError();
 }
 
-// The select phase over the proxy rows (x, xn): the radix passes of the
-// host's plan (passes[2 p], passes[2 p + 1] = shift, width), or, with no
-// pass (cap >= N), every row.  work: tickets [npasses][groups], then
-// hist [npasses][B][HIST_STRIDE], all zero.
-template <bool VEC>
-cudaError_t select_phase(const float* q, const float* x, const float* qn,
+// The select phase over the proxy rows (x, xn; x fp32 or bf16): the radix
+// passes of the host's plan (passes[2 p], passes[2 p + 1] = shift,
+// width), or, with no pass (cap >= N), every row.  work: tickets
+// [npasses][groups], then hist [npasses][B][HIST_STRIDE], all zero.
+template <typename T, bool VEC>
+cudaError_t select_phase(const float* q, const T* x, const float* qn,
                          const float* xn, int B, int N, int d, int m, int cap,
                          const int* passes, int npasses, State* st,
                          int* work, cudaStream_t s) {
@@ -705,7 +707,8 @@ cudaError_t select_phase(const float* q, const float* x, const float* qn,
     return cudaErrorInvalidValue;
   const int smem = HIST_SMEM + STRIPS * (int)sizeof(TileSmem);
   cudaError_t err = cudaFuncSetAttribute(
-      radix_pass<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      radix_pass<T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
@@ -721,7 +724,7 @@ cudaError_t select_phase(const float* q, const float* x, const float* qn,
   int* tickets = work;
   int* hist = work + (int64_t)npasses * groups;
   for (int p = 0; p < npasses; ++p) {
-    radix_pass<VEC><<<dim3(gx, groups), RADIX_THREADS, smem, s>>>(
+    radix_pass<T, VEC><<<dim3(gx, groups), RADIX_THREADS, smem, s>>>(
         q, x, qn, xn, B, N, d, m, cap, st,
         hist + (int64_t)p * B * HIST_STRIDE, tickets + p * groups,
         passes[2 * p], passes[2 * p + 1], p == 0);

@@ -18,7 +18,9 @@ re-ranks last and gets no weight.
   shared with ``screen_topm``), then reads the 614 MB store once for
   all queries of a block, computing every row's exact distance and
   keeping those of the selected rows, and sorts them by proxy key with
-  their exact distances.  Bound by the store's bytes.
+  their exact distances.  Bound by the store's bytes; its bf16-row
+  instance (the engine's ``storage_dtype``: proxy and store rows in
+  bf16) reads half of them and widens each value.
 * :func:`fused_candidates_scan` -- its plain PyTorch version, the tiled
   carry loop of ``repro.kernels.fused_step.fused_candidates_scan``.
 * :func:`fused_posterior` -- the shared epilogue: exact top-k inside the
@@ -72,7 +74,7 @@ def fused_candidates_scan(qp: torch.Tensor, q: torch.Tensor,
     return torch.clamp_max(idx, max(n - 1, 0)), ex
 
 
-_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
          + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7)
 
 
@@ -80,13 +82,14 @@ def fused_candidates(qp: torch.Tensor, q: torch.Tensor, proxy: torch.Tensor,
                      x: torch.Tensor, m: int, proxy_norms: torch.Tensor,
                      x_norms: torch.Tensor
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The kernel: qp [B, dp], q [B, D], proxy [N, dp], x [N, D] and the
-    store norms [N] (fp32, CUDA, contiguous) -> ``(idx [B, m] int64,
-    d2 [B, m] fp32)``."""
+    """The kernel: qp [B, dp], q [B, D] and the store norms [N] fp32,
+    proxy [N, dp] and x [N, D] both fp32 or both bf16 (CUDA, contiguous)
+    -> ``(idx [B, m] int64, d2 [B, m] fp32)``."""
     name = "fused_candidates"
     _build.require(name, q.device, qp=qp, q=q, proxy=proxy, x=x,
                    proxy_norms=proxy_norms, x_norms=x_norms)
-    _build.require_dtype(name, torch.float32, qp=qp, q=q, proxy=proxy, x=x,
+    bf16 = _build.require_rows(name, proxy=proxy, x=x)
+    _build.require_dtype(name, torch.float32, qp=qp, q=q,
                          proxy_norms=proxy_norms, x_norms=x_norms)
     b, dp = qp.shape
     n, d = x.shape
@@ -102,22 +105,22 @@ def fused_candidates(qp: torch.Tensor, q: torch.Tensor, proxy: torch.Tensor,
     qpn, qn = (qp * qp).sum(-1), (q * q).sum(-1)
     idx = torch.empty((b, m), dtype=torch.int64, device=dev)
     d2 = torch.empty((b, m), dtype=torch.float32, device=dev)
-    pvec = int(dp % 4 == 0 and proxy.data_ptr() % 16 == 0)
-    xvec = int(d % 4 == 0 and x.data_ptr() % 16 == 0)
     fn = _build.load(name, "fused_candidates_launch", _ARGS)
     err = fn(_build.ptr(qp), _build.ptr(proxy), _build.ptr(qpn),
              _build.ptr(proxy_norms), _build.ptr(q), _build.ptr(x),
-             _build.ptr(qn), _build.ptr(x_norms), b, n, dp, d, m, pvec, xvec,
-             s["cap"], s["passes"], s["npasses"], s["chunk"],
+             _build.ptr(qn), _build.ptr(x_norms), int(bf16), b, n, dp, d, m,
+             _build.vec4(proxy), _build.vec4(x), s["cap"], s["passes"],
+             s["npasses"], s["chunk"],
              _build.ptr(s["st"]), _build.ptr(s["work"]),
              _build.ptr(s["keys"]), _build.ptr(pays),
              _build.ptr(idx), _build.ptr(d2), _build.stream(dev))
     _build.check(name, err)
-    fused_candidates.launches += 1
+    _build.count(fused_candidates, bf16)
     return idx, d2
 
 
 fused_candidates.launches = 0
+fused_candidates.launches_bf16 = 0
 
 
 def fused_posterior(x: torch.Tensor, idx: torch.Tensor, d2: torch.Tensor,

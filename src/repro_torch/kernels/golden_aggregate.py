@@ -8,7 +8,9 @@ there.  D is split across a thread block cluster (:func:`plan`), the
 CTAs add their partial logits in rank order through distributed shared
 memory, N is split across the clusters the card keeps resident, and a
 second small kernel merges the clusters' (max, l, acc) states by
-log-sum-exp in split order.  Its plain version is
+log-sum-exp in split order.  Its bf16-row instance (the engine's
+``storage_dtype``) stages the rows in bf16 and widens them, two MMAs a
+product (``csrc/dist_tile.cuh``).  Its plain version is
 ``ref.golden_aggregate_ref``.
 """
 from __future__ import annotations
@@ -20,8 +22,9 @@ import torch
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.golden_rerank import H100_SMS
 
-_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_float] + [ctypes.c_void_p] * 5
-         + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+         + [ctypes.c_float] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+         + [ctypes.c_void_p])
 # shared memory a block may opt in to on Hopper (232,448 bytes)
 MAX_SMEM = 227 * 1024
 THREADS = 256          # a CTA's threads
@@ -40,42 +43,60 @@ def dt_stride(cols: int) -> int:
     return -(-cols // 32) * 32 + 8
 
 
-def smem_bytes(ds: int, stages: int, c: int) -> int:
-    """``agg_smem`` of the source: the mbarriers, the ring, the warps'
-    partial dots, the C ranks' partial dots (x2), the weights (x2) and the
+def smem_bytes(ds: int, stages: int, c: int, itemsize: int = 4) -> int:
+    """``agg_smem`` of the source: the ring of store rows of ``itemsize``
+    bytes an element (4 fp32, 2 bf16), the mbarriers, the warps' partial
+    dots, the C ranks' partial dots (x2), the weights (x2) and the
     rescale factors (x2)."""
     q, r = QUERY_GROUP, TILE_ROWS
-    return 4 * (BARS + stages * r * dt_stride(ds) + (THREADS // 32) * q * r
-                + 2 * c * q * r + 2 * q * WEIGHT_STRIDE + 2 * q)
+    return (itemsize * stages * r * dt_stride(ds)
+            + 4 * (BARS + (THREADS // 32) * q * r + 2 * c * q * r
+                   + 2 * q * WEIGHT_STRIDE + 2 * q))
 
 
 def pad4(t: torch.Tensor) -> torch.Tensor:
     """t [.., d] with its rows 16-byte aligned and a positive multiple of
-    4 floats: t itself when it is, else a copy padded with zero columns
-    (the copies' rows; zero columns add nothing to a dot or to a mean)."""
+    16 bytes (4 fp32 values, 8 bf16): t itself when it is, else a copy
+    padded with zero columns (the copies' rows; zero columns add nothing
+    to a dot or to a mean)."""
+    e = 16 // t.element_size()
     d = t.shape[-1]
-    if d and d % 4 == 0 and t.data_ptr() % 16 == 0:
+    if d and d % e == 0 and t.data_ptr() % 16 == 0:
         return t
-    return torch.nn.functional.pad(t, (0, -d % 4 or 4)).contiguous()
+    return torch.nn.functional.pad(t, (0, -d % e or e)).contiguous()
 
 
-def cluster_shape(d: int) -> dict:
+def rows16(name: str, x: torch.Tensor) -> torch.Tensor:
+    """Store rows x [n, d] as kernels 1 and 4 stage them (16-byte rows,
+    16-byte aligned): fp32 rows through ``pad4``; bf16 rows only as they
+    are, since padding them would copy the whole store on every call."""
+    if x.dtype == torch.bfloat16 and (x.shape[-1] % 8
+                                      or x.data_ptr() % 16):
+        raise ValueError(
+            f"{name}: bf16 store rows need d a multiple of 8 and a 16-byte "
+            f"aligned start (d={x.shape[-1]})")
+    return pad4(x)
+
+
+def cluster_shape(d: int, itemsize: int = 4) -> dict:
     """The smallest cluster whose CTAs each take at most SLICES[-1]
     columns: ``cluster`` (C), ``slice`` (ds, the least of SLICES that
-    covers ceil(D / C)), ``stages`` (the deepest ring that fits) and
-    ``smem`` (bytes a CTA)."""
+    covers ceil(D / C)), ``stages`` (the deepest ring of store rows of
+    ``itemsize`` bytes an element that fits) and ``smem`` (bytes a
+    CTA)."""
     c = next((c for c in CLUSTERS if -(-d // c) <= SLICES[-1]), None)
     if c is None:
         raise ValueError(f"golden_aggregate: D={d} needs more than "
                          f"{CLUSTERS[-1]} CTAs of {SLICES[-1]} columns")
     ds = next(s for s in SLICES if s >= -(-d // c))
-    stages = next(s for s in STAGES if smem_bytes(ds, s, c) <= MAX_SMEM)
+    stages = next(s for s in STAGES
+                  if smem_bytes(ds, s, c, itemsize) <= MAX_SMEM)
     return dict(cluster=c, slice=ds, stages=stages,
-                smem=smem_bytes(ds, stages, c))
+                smem=smem_bytes(ds, stages, c, itemsize))
 
 
 def plan(b: int, n: int, d: int, clusters: int | None = None,
-         sms: int = H100_SMS) -> dict:
+         sms: int = H100_SMS, itemsize: int = 4) -> dict:
     """:func:`cluster_shape` plus the grid: ``groups`` of 16 queries side
     by side, ``splits`` of N (the resident ``clusters`` shared among the
     groups, every split at least one tile), ``rows`` a split (a multiple
@@ -83,7 +104,7 @@ def plan(b: int, n: int, d: int, clusters: int | None = None,
     [splits, B, D]; ``part_ml`` fp32, m and l [splits, B] each).
     ``clusters`` defaults to sms // C, one CTA an SM; on the card it is
     what ``cudaOccupancyMaxActiveClusters`` reports."""
-    p = cluster_shape(d)
+    p = cluster_shape(d, itemsize)
     if clusters is None:
         clusters = max(1, sms // p["cluster"])
     groups = -(-b // QUERY_GROUP)
@@ -99,15 +120,19 @@ def plan(b: int, n: int, d: int, clusters: int | None = None,
 _ACTIVE: dict = {}
 
 
-def active_clusters(shape: dict, device: torch.device) -> int:
-    """Clusters of this shape the card keeps resident at once; raises if
-    the card refuses the cluster shape."""
-    key = (device.index, shape["cluster"], shape["slice"], shape["stages"])
+def active_clusters(shape: dict, device: torch.device,
+                    bf16: bool = False) -> int:
+    """Clusters of this shape (of the bf16-row instance when ``bf16``)
+    the card keeps resident at once; raises if the card refuses the
+    cluster shape."""
+    key = (device.index, shape["cluster"], shape["slice"], shape["stages"],
+           bf16)
     if key not in _ACTIVE:
         fn = _build.load("golden_aggregate", "golden_aggregate_active_"
-                         "clusters", [ctypes.c_int] * 3)
+                         "clusters", [ctypes.c_int] * 4)
         with torch.cuda.device(device):
-            got = fn(shape["cluster"], shape["slice"], shape["stages"])
+            got = fn(shape["cluster"], shape["slice"], shape["stages"],
+                     int(bf16))
         if got < 0:
             _build.check("golden_aggregate", -got)
         if got == 0:
@@ -123,7 +148,8 @@ def _launch(q: torch.Tensor, x: torch.Tensor, sigma2: float,
             x_norms: torch.Tensor, debug: bool):
     name = "golden_aggregate"
     _build.require(name, q.device, q=q, x=x, x_norms=x_norms)
-    _build.require_dtype(name, torch.float32, x=x, x_norms=x_norms)
+    bf16 = _build.require_rows(name, x=x)
+    _build.require_dtype(name, torch.float32, x_norms=x_norms)
     b, d = q.shape
     n = x.shape[0]
     _build.require_shape(name, "x", x, (n, d))
@@ -132,9 +158,14 @@ def _launch(q: torch.Tensor, x: torch.Tensor, sigma2: float,
         raise ValueError(f"{name}: the store is empty")
     q32 = q.float().contiguous()
     qn = (q32 * q32).sum(-1)
-    q32, x = pad4(q32), pad4(x)
+    x = rows16(name, x)
     dp = x.shape[1]
-    p = plan(b, n, dp, active_clusters(cluster_shape(dp), q.device))
+    if q32.shape[1] != dp:
+        q32 = torch.nn.functional.pad(q32, (0, dp - q32.shape[1]))
+    q32 = pad4(q32)
+    size = x.element_size()
+    p = plan(b, n, dp, active_clusters(cluster_shape(dp, size), q.device,
+                                       bf16), itemsize=size)
     dev = q.device
     part_acc = torch.empty(p["part_acc"], dtype=torch.float32, device=dev)
     part_ml = torch.empty(p["part_ml"], dtype=torch.float32, device=dev)
@@ -143,7 +174,7 @@ def _launch(q: torch.Tensor, x: torch.Tensor, sigma2: float,
                        2 + TILE_ROWS), float("nan"), device=dev)
            if debug else None)
     fn = _build.load(name, "golden_aggregate_launch", _ARGS)
-    err = fn(_build.ptr(q32), _build.ptr(x), _build.ptr(qn),
+    err = fn(_build.ptr(q32), _build.ptr(x), int(bf16), _build.ptr(qn),
              _build.ptr(x_norms), ref.finite_inv_two_sigma2(sigma2),
              _build.ptr(part_acc), _build.ptr(part_ml),
              ctypes.c_void_p(part_ml.data_ptr() + 4 * p["splits"] * b),
@@ -151,18 +182,20 @@ def _launch(q: torch.Tensor, x: torch.Tensor, sigma2: float,
              b, n, dp, p["cluster"], p["slice"], p["stages"], p["splits"],
              p["rows"], _build.stream(dev))
     _build.check(name, err)
-    golden_aggregate.launches += 1
+    _build.count(golden_aggregate, bf16)
     return out[:, :d].to(q.dtype), dbg
 
 
 def golden_aggregate(q: torch.Tensor, x: torch.Tensor, sigma2: float,
                      x_norms: torch.Tensor) -> torch.Tensor:
     """Full-scan posterior mean: q [B, D] (the rescaled query), x [N, D]
-    and x_norms [N] fp32 -> [B, D] in q's dtype (fp32 accumulation)."""
+    (fp32 or bf16 rows) and x_norms [N] fp32 -> [B, D] in q's dtype (fp32
+    accumulation)."""
     return _launch(q, x, sigma2, x_norms, debug=False)[0]
 
 
 golden_aggregate.launches = 0
+golden_aggregate.launches_bf16 = 0
 
 
 def cluster_states(q: torch.Tensor, x: torch.Tensor, sigma2: float,

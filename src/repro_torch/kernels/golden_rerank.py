@@ -8,7 +8,9 @@ batch names once per group of ``QUERY_GROUP`` queries, however many of
 them name it: a row map (``csrc/row_union.cuh``) lists the group's rows,
 one pass over that list computes every row's dot products with the
 group's queries, and a gather writes each slot's distance.  It is bound
-by the bytes of the distinct rows.  Its plain version is
+by the bytes of the distinct rows.  Its bf16-row instance (the
+engine's ``storage_dtype``) stages the rows in bf16, half the bytes,
+and widens them for the same fp32 sums.  Its plain version is
 ``ref.support_sqdist_ref``.
 
 The host plan (:func:`union_plan`, :func:`sqdist_plan`,
@@ -35,8 +37,8 @@ DOT_CTAS_PER_SM = 3  # dot-pass CTAs an SM holds (61 KB of stages each)
 CTAS_PER_SM = 4      # resident row-pass CTAs an SM is planned for
 H100_SMS = 132
 
-_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
-         + [ctypes.c_void_p] * 3)
+_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+         + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 3)
 
 
 def union_plan(b: int, n: int, s: int) -> dict:
@@ -99,11 +101,13 @@ def carve(device: torch.device, *nbytes: int):
 
 def support_sqdist(q: torch.Tensor, x: torch.Tensor, x_norms: torch.Tensor,
                    idx: torch.Tensor) -> torch.Tensor:
-    """Distances from q_b to rows x[idx[b]]: q [B, D], x [N, D],
-    x_norms [N] (fp32), idx [B, M] int64 in [0, N) -> [B, M] fp32."""
+    """Distances from q_b to rows x[idx[b]]: q [B, D] and x_norms [N]
+    fp32, x [N, D] fp32 or bf16, idx [B, M] int64 in [0, N) -> [B, M]
+    fp32."""
     name = "support_sqdist"
     _build.require(name, q.device, q=q, x=x, x_norms=x_norms, idx=idx)
-    _build.require_dtype(name, torch.float32, q=q, x=x, x_norms=x_norms)
+    bf16 = _build.require_rows(name, x=x)
+    _build.require_dtype(name, torch.float32, q=q, x_norms=x_norms)
     _build.require_dtype(name, torch.int64, idx=idx)
     b, d = q.shape
     n = x.shape[0]
@@ -116,16 +120,16 @@ def support_sqdist(q: torch.Tensor, x: torch.Tensor, x_norms: torch.Tensor,
     z = sqdist_scratch_sizes(b, n, m)
     scratch, (work, dots) = carve(dev, 4 * z["work"], 4 * z["dots"])
     out = torch.empty((b, m), dtype=torch.float32, device=dev)
-    vec = int(d % 4 == 0 and q.data_ptr() % 16 == 0
-              and x.data_ptr() % 16 == 0)
+    vec = int(_build.vec4(q) and _build.vec4(x))
     fn = _build.load(name, "support_sqdist_launch", _ARGS)
-    err = fn(_build.ptr(q), _build.ptr(x), _build.ptr(x_norms),
+    err = fn(_build.ptr(q), _build.ptr(x), int(bf16), _build.ptr(x_norms),
              _build.ptr(idx), _build.ptr(out), b, m, n, d, vec, p["groups"],
              p["ucap"], p["chunks"], p["dot_ctas"], work, dots,
              _build.stream(dev))
     _build.check(name, err)
-    support_sqdist.launches += 1
+    _build.count(support_sqdist, bf16)
     return out
 
 
 support_sqdist.launches = 0
+support_sqdist.launches_bf16 = 0

@@ -10,8 +10,10 @@ batch's row map (``csrc/row_union.cuh``, planned by
 and one pass over that list reads each row once for the group and
 accumulates its weighted columns for all of the group's queries in
 registers.  The CTAs' partial sums merge in a fixed order:
-deterministic, bound by the bytes of the distinct rows.  Its plain
-version is ``ref.golden_support_aggregate_ref``.
+deterministic, bound by the bytes of the distinct rows.  Its bf16-row
+instance (the engine's ``storage_dtype``) loads the rows in bf16, half
+the bytes, and widens them for the same fp32 sums.  Its plain version
+is ``ref.golden_support_aggregate_ref``.
 """
 from __future__ import annotations
 
@@ -27,8 +29,8 @@ from repro_torch.kernels.golden_rerank import (CTAS_PER_SM, H100_SMS,
 SLICE = 512          # columns one row-pass CTA takes (a float4 a thread)
 MIN_TILE_ROWS = 64   # fewest list rows a row-pass CTA is planned for
 
-_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
-         + [ctypes.c_void_p] * 4)
+_ARGS = ([ctypes.c_void_p] + [ctypes.c_int] + [ctypes.c_void_p] * 3
+         + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 4)
 
 
 def aggregate_plan(b: int, n: int, k: int, d: int,
@@ -63,12 +65,13 @@ def scratch_sizes(b: int, n: int, k: int, d: int,
 
 def golden_support_aggregate(x: torch.Tensor, idx: torch.Tensor,
                              logits: torch.Tensor) -> torch.Tensor:
-    """softmax(logits)-weighted mean of x[idx] per query: x [N, D] fp32,
-    idx [B, K] int64 in [0, N), logits [B, K] fp32 (NEG_INF entries get
-    zero weight) -> [B, D] fp32, ``acc / max(l, 1e-30)``."""
+    """softmax(logits)-weighted mean of x[idx] per query: x [N, D] fp32
+    or bf16, idx [B, K] int64 in [0, N), logits [B, K] fp32 (NEG_INF
+    entries get zero weight) -> [B, D] fp32, ``acc / max(l, 1e-30)``."""
     name = "golden_support_aggregate"
     _build.require(name, x.device, x=x, idx=idx, logits=logits)
-    _build.require_dtype(name, torch.float32, x=x, logits=logits)
+    bf16 = _build.require_rows(name, x=x)
+    _build.require_dtype(name, torch.float32, logits=logits)
     _build.require_dtype(name, torch.int64, idx=idx)
     n, d = x.shape
     b, k = idx.shape
@@ -80,15 +83,15 @@ def golden_support_aggregate(x: torch.Tensor, idx: torch.Tensor,
     scratch, (zero, work, part) = carve(dev, z["zero"], 4 * z["work"],
                                         4 * z["part"])
     out = torch.empty((b, d), dtype=torch.float32, device=dev)
-    vec = int(d % 4 == 0 and x.data_ptr() % 16 == 0)
     fn = _build.load(name, "golden_support_aggregate_launch", _ARGS)
-    err = fn(_build.ptr(x), _build.ptr(idx), _build.ptr(logits),
-             _build.ptr(out), b, k, n, d, vec, p["groups"], p["ucap"],
-             p["chunks"], p["tiles"], zero, work, part,
+    err = fn(_build.ptr(x), int(bf16), _build.ptr(idx), _build.ptr(logits),
+             _build.ptr(out), b, k, n, d, _build.vec4(x), p["groups"],
+             p["ucap"], p["chunks"], p["tiles"], zero, work, part,
              _build.stream(dev))
     _build.check(name, err)
-    golden_support_aggregate.launches += 1
+    _build.count(golden_support_aggregate, bf16)
     return out
 
 
 golden_support_aggregate.launches = 0
+golden_support_aggregate.launches_bf16 = 0

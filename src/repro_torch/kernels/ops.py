@@ -22,6 +22,14 @@ materialized on the card.
 The selections outside the kernels stay PyTorch (a stable sort, so
 ties go to the lowest index as with ``lax.top_k``); the streamed screen,
 the fused candidates and the indexed probe select inside their kernels.
+
+Store rows (``x``, ``proxy``, ``proxy_sorted``) may be fp32 or bf16 (the
+engine's ``storage_dtype``); queries, norms and logits are fp32, and
+every distance, softmax and sum is fp32.  On the CPU the plain versions
+upcast the rows; on the card each of kernels 1-6 has a bf16-row
+instance (kernel 7's bf16 instance rounds the pooled query, as the
+engine's bf16 proxy query is rounded), and no function copies bf16 rows
+up to fp32 to get past one.
 """
 from __future__ import annotations
 
@@ -46,6 +54,24 @@ from repro_torch.kernels.pdist import pdist as _pdist
 # graph's counts with the graph, so each count stays what the card ran.
 COUNTED = (_pdist, _sqd, _sagg, _agg, _screen.screen_topm,
            _fused.fused_candidates, _probe.centroid_scan, _flash, _gattn)
+# ... and those with a bf16-row instance, counted in ``launches_bf16``
+# (kernel 7's: the probe with the pooled query rounded to bf16)
+COUNTED_BF16 = COUNTED[:7]
+
+
+def launch_counts() -> list[int]:
+    """Every launch count: ``launches`` of COUNTED, then
+    ``launches_bf16`` of COUNTED_BF16."""
+    return ([k.launches for k in COUNTED]
+            + [k.launches_bf16 for k in COUNTED_BF16])
+
+
+def add_launch_counts(delta) -> None:
+    """Add ``delta`` (in ``launch_counts``' order) to the counts."""
+    for k, d in zip(COUNTED, delta):
+        k.launches += d
+    for k, d in zip(COUNTED_BF16, delta[len(COUNTED):]):
+        k.launches_bf16 += d
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -147,7 +173,8 @@ def centroid_scan(q, centroids, c_norms=None):
 
 def ivf_probe(q, image_shape, factor: int, centroids, centroid_norms,
               offsets, perm, n: int, nprobe_max: int, max_cluster: int,
-              nprobe=None, fields=ref.PROBE_FIELDS) -> ref.Probe:
+              nprobe=None, fields=ref.PROBE_FIELDS,
+              round_bf16: bool = False) -> ref.Probe:
     """IVF level 1 from rescaled queries q [B, D] of a store of
     ``image_shape``: the proxy (``downsample_proxy`` by ``factor``), the
     ``nprobe_max`` nearest windows in ``lax.top_k``'s order (ties, such
@@ -155,16 +182,21 @@ def ivf_probe(q, image_shape, factor: int, centroids, centroid_norms,
     window) and each window's ``max_cluster`` slots L over an index of
     ``n`` rows (``ref.Probe``: probe list, positions, ``perm`` ids,
     validity, 0 / +inf markers; ``nprobe``, int or 0-d tensor, masks the
-    probes beyond it).  On the card one launch of kernel 7 writing only
-    ``fields``; on the CPU ``ref.ivf_probe_ref`` (the other fields None
-    there too)."""
+    probes beyond it).  ``round_bf16`` (an engine with bf16 store rows)
+    rounds the pooled query to bf16 first, its norm taken from the
+    rounded values, as the reference rounds its proxy query.  On the card
+    one launch of kernel 7 writing only ``fields``; on the CPU
+    ``ref.ivf_probe_ref`` (the other fields None there too)."""
     _probe.pool_geometry(image_shape, factor)
     if not _on_cpu(q):
         return _probe.ivf_probe(q.float().contiguous(), image_shape, factor,
                                 centroids, centroid_norms, offsets, perm, n,
-                                nprobe_max, max_cluster, nprobe, fields)
+                                nprobe_max, max_cluster, nprobe, fields,
+                                round_bf16)
     qp = ref.downsample_proxy(q.reshape((q.shape[0],) + tuple(image_shape)),
                               factor)
+    if round_bf16:
+        qp = qp.to(torch.bfloat16).float()
     out = ref.ivf_probe_ref(qp, centroids, centroid_norms, offsets, perm, n,
                             nprobe_max, max_cluster, nprobe)
     return ref.Probe(*(v if k in fields else None

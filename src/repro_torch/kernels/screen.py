@@ -19,7 +19,8 @@ index 0 (the reference kernel's carry-first merge and clamp).
   soon as at most :func:`select_cap` keys lie at or below the bin that
   holds it; it compacts those keys, sorts them in chunks, merges the
   chunks (:func:`sort_plan`) and keeps the first m.  Bound by the bytes
-  of the store it reads.
+  of the store it reads; its bf16-row instance (the engine's
+  ``storage_dtype``) reads half of them and widens each value.
 * :func:`screen_topm_scan` -- its plain PyTorch version: the tiled
   carry loop of ``repro.kernels.screen.screen_topm_scan``, with a
   stable sort in place of ``lax.top_k``.
@@ -100,8 +101,9 @@ def screen_topm_scan(q: torch.Tensor, x: torch.Tensor, m: int,
     return torch.clamp_max(idx, max(n - 1, 0)), -vals
 
 
-_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-         + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6)
+_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+         + [ctypes.c_int] * 6 + [ctypes.c_void_p] + [ctypes.c_int] * 2
+         + [ctypes.c_void_p] * 6)
 
 
 def select_cap(n: int, m: int) -> int:
@@ -169,13 +171,14 @@ def scratch(b: int, n: int, m: int, device) -> dict:
 def screen_topm(q: torch.Tensor, x: torch.Tensor, m: int,
                 q_norms: torch.Tensor, x_norms: torch.Tensor
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The kernel: q [B, d], x [N, d], norms [B], [N] (fp32, CUDA,
-    contiguous; +inf norms allowed on x) -> ``(idx [B, m] int64,
-    d2 [B, m] fp32)``."""
+    """The kernel: q [B, d], x [N, d] (fp32 or bf16), norms [B], [N]
+    (fp32, CUDA, contiguous; +inf norms allowed on x) -> ``(idx [B, m]
+    int64, d2 [B, m] fp32)``."""
     name = "screen_topm"
     _build.require(name, q.device, q=q, x=x, q_norms=q_norms,
                    x_norms=x_norms)
-    _build.require_dtype(name, torch.float32, q=q, x=x, q_norms=q_norms,
+    bf16 = _build.require_rows(name, x=x)
+    _build.require_dtype(name, torch.float32, q=q, q_norms=q_norms,
                          x_norms=x_norms)
     b, d = q.shape
     n = x.shape[0]
@@ -187,16 +190,16 @@ def screen_topm(q: torch.Tensor, x: torch.Tensor, m: int,
     s = scratch(b, n, m, q.device)
     idx = torch.empty((b, m), dtype=torch.int64, device=q.device)
     d2 = torch.empty((b, m), dtype=torch.float32, device=q.device)
-    vec = int(d % 4 == 0 and x.data_ptr() % 16 == 0)
     fn = _build.load(name, "screen_topm_launch", _ARGS)
-    err = fn(_build.ptr(q), _build.ptr(x), _build.ptr(q_norms),
-             _build.ptr(x_norms), b, n, d, m, vec, s["cap"], s["passes"],
-             s["npasses"], s["chunk"], _build.ptr(s["st"]),
+    err = fn(_build.ptr(q), _build.ptr(x), int(bf16), _build.ptr(q_norms),
+             _build.ptr(x_norms), b, n, d, m, _build.vec4(x), s["cap"],
+             s["passes"], s["npasses"], s["chunk"], _build.ptr(s["st"]),
              _build.ptr(s["work"]), _build.ptr(s["keys"]), _build.ptr(idx),
              _build.ptr(d2), _build.stream(q.device))
     _build.check(name, err)
-    screen_topm.launches += 1
+    _build.count(screen_topm, bf16)
     return idx, d2
 
 
 screen_topm.launches = 0
+screen_topm.launches_bf16 = 0

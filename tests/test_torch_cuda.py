@@ -330,14 +330,16 @@ def test_full_scan_kernels_count_once_and_never_sync(card):
     assert (pdist.launches, golden_aggregate.launches) == \
         (before[0] + 1, before[1] + 1)
     agg_smem = _build.load("golden_aggregate", "golden_aggregate_smem_bytes",
-                           [ctypes.c_int] * 3, ctypes.c_size_t)
-    pd_smem = _build.load("pdist", "pdist_smem_bytes", [ctypes.c_int] * 2,
+                           [ctypes.c_int] * 4, ctypes.c_size_t)
+    pd_smem = _build.load("pdist", "pdist_smem_bytes", [ctypes.c_int] * 3,
                           ctypes.c_size_t)
-    for d in (2, 64, 784, 3072, 12288):
-        s = gagg_mod.cluster_shape(d)
-        assert agg_smem(s["slice"], s["stages"], s["cluster"]) == s["smem"]
-        p = pdist_mod.plan(16, 50000, d)
-        assert pd_smem(d, p["stages"]) == p["smem"]
+    for size in (4, 2):                      # fp32 rows, bf16 rows
+        for d in (2, 64, 784, 3072, 12288):
+            s = gagg_mod.cluster_shape(d, size)
+            assert agg_smem(s["slice"], s["stages"], s["cluster"],
+                            size) == s["smem"]
+            p = pdist_mod.plan(16, 50000, d, itemsize=size)
+            assert pd_smem(d, p["stages"], size) == p["smem"]
 
 
 def test_trajectory_card_matches_cpu(card):
@@ -1192,3 +1194,241 @@ def test_static_pca_serve_builds_nothing_after_warmup(card):
     assert all(np.isfinite(r.images).all() for r in out)
     assert (len(base._features), eng.engine._builds,
             eng.engine._captures) == n0
+
+
+# -- bf16 store rows (storage_dtype): each kernel's bf16-row instance ----------
+# Values in [-3, 3] are exact in bf16, so on integer data each instance
+# is bit-equal to its plain version on the same bf16 rows; on float data
+# the instances keep the fp32 tolerances (the rows widen exactly).  The
+# queries, norms and logits stay fp32.  Each call counts in
+# ``launches_bf16`` and not in ``launches``.
+
+BF = torch.bfloat16
+
+
+def bints(shape, dev, seed):
+    return ints(shape, dev, seed).to(BF)
+
+
+def counted_bf16(fn, *args):
+    """(result, fp32 launches added, bf16 launches added) of one call."""
+    before = ops.launch_counts()
+    out = fn(*args)
+    delta = [b - a for a, b in zip(before, ops.launch_counts())]
+    k = len(ops.COUNTED)
+    return out, sum(delta[:k]), sum(delta[k:])
+
+
+def relerr_d2(got, want):
+    return float(((got - want).abs() / want.abs().clamp_min(1.0)).max())
+
+
+@pytest.mark.parametrize("b,n,d", [(16, 5000, 192), (5, 333, 7),
+                                   (17, 64, 33), (1, 4099, 64),
+                                   (16, 777, 3072), (3, 100, 300)])
+def test_pdist_bf16_bit_equal_integer(card, b, n, d):
+    q, x = ints((b, d), card, 50), bints((n, d), card, 51)
+    qn, xn = norms(q), norms(x.float())
+    if d % 8:                       # no 16-byte rows: refused, not padded
+        with pytest.raises(ValueError, match="multiple of 8"):
+            pdist(q, x, qn, xn)
+        return
+    xn[3] = float("inf")
+    got, fp32, bf = counted_bf16(pdist, q, x, qn, xn)
+    assert (fp32, bf) == (0, 1)
+    assert torch.equal(got, ref.pdist_ref(q, x, qn, xn))
+    assert torch.isinf(got[:, 3]).all()
+
+
+@pytest.mark.parametrize("b,n,d", [(16, 5000, 192), (3, 700, 3072)])
+def test_pdist_bf16_float(card, b, n, d):
+    """An fp32 query (not rounded) against bf16 rows: the hi and lo
+    query terms, 1e-5 relative."""
+    g = torch.Generator().manual_seed(52)
+    x = torch.randn(n, d, generator=g).to(card)
+    q = torch.randn(b, d, generator=g).to(card)
+    xb = x.to(BF)
+    xn = norms(x)                        # from the fp32 master, as the engine
+    got = pdist(q, xb, norms(q), xn)
+    assert relerr_d2(got, ref.pdist_ref(q, xb, norms(q), xn)) <= 1e-5
+
+
+@pytest.mark.parametrize("kind,b,n,d,m", UNION_CASES)
+def test_support_sqdist_bf16(card, kind, b, n, d, m):
+    q, x = ints((b, d), card, 53), bints((n, d), card, 54)
+    xn = norms(x.float())
+    idx = union_idx(kind, b, n, m, card, 55)
+    got, fp32, bf = counted_bf16(support_sqdist, q, x, xn, idx)
+    assert (fp32, bf) == (0, 1)
+    assert torch.equal(got, ref.support_sqdist_ref(q, x, xn, idx))
+    g = torch.Generator().manual_seed(56)
+    xf = torch.randn(n, d, generator=g).to(card)
+    qf = torch.randn(b, d, generator=g).to(card)
+    got = support_sqdist(qf, xf.to(BF), norms(xf), idx)
+    want = ref.support_sqdist_ref(qf, xf.to(BF), norms(xf), idx)
+    assert relerr_d2(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("kind,b,n,d,k", UNION_CASES)
+def test_golden_support_aggregate_bf16(card, kind, b, n, d, k):
+    g = torch.Generator().manual_seed(57)
+    x = torch.randn(n, d, generator=g).to(card).to(BF)
+    idx = union_idx(kind, b, n, k, card, 58)
+    lg = (3 * torch.randn(b, k, generator=g)).to(card)
+    lg[0] = ref.NEG_INF
+    got, fp32, bf = counted_bf16(golden_support_aggregate, x, idx, lg)
+    assert (fp32, bf) == (0, 1)
+    torch.testing.assert_close(
+        got, ref.golden_support_aggregate_ref(x, idx, lg), rtol=1e-5,
+        atol=1e-5)
+    assert torch.equal(got, golden_support_aggregate(x, idx, lg))
+
+
+@pytest.mark.parametrize("b,n,d", [(16, 5000, 3072), (3, 77, 10),
+                                   (1, 40, 12288), (17, 2001, 784),
+                                   (16, 999, 3000), (5, 300, 3001)])
+@pytest.mark.parametrize("sigma2", [0.5, 20.0, 0.0])
+def test_golden_aggregate_bf16(card, b, n, d, sigma2):
+    g = torch.Generator().manual_seed(59)
+    x = (torch.randn(n, d, generator=g) / d ** 0.5).to(card)
+    q = x[:b] + 0.1 * torch.randn(b, d, generator=g).to(card)
+    xb, xn = x.to(BF), norms(x)
+    if d % 8:                       # no 16-byte rows: refused, not padded
+        with pytest.raises(ValueError, match="multiple of 8"):
+            golden_aggregate(q, xb, sigma2, xn)
+        return
+    got, fp32, bf = counted_bf16(golden_aggregate, q, xb, sigma2, xn)
+    assert (fp32, bf) == (0, 1)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref.golden_aggregate_ref(q, xb, sigma2,
+                                                             xn),
+                               rtol=1e-4, atol=1e-5)
+    if sigma2 == 0.5:
+        out, ranks = gagg_mod.cluster_states(q, xb, 0.5, xn)
+        assert torch.equal(ranks, ranks[:, :1].expand_as(ranks))
+        assert torch.equal(out, got)
+
+
+def test_golden_aggregate_bf16_integer(card):
+    """Integer rows: the logits' distances are exact, so the bf16 instance
+    equals the fp32 instance on the widened rows bit for bit."""
+    q, x = ints((16, 3072), card, 60), bints((700, 3072), card, 61)
+    xn = norms(x.float())
+    assert torch.equal(golden_aggregate(q, x, 20.0, xn),
+                       golden_aggregate(q, x.float(), 20.0, xn))
+
+
+@pytest.mark.parametrize("b,n,d,m", [(16, 5000, 192, 700), (3, 6000, 8, 2500),
+                                     (5, 300, 7, 400), (17, 4000, 64, 2049)])
+def test_screen_topm_bf16_bit_equal_integer(card, b, n, d, m):
+    q, x = ints((b, d), card, 62), bints((n, d), card, 63)
+    qn, xn = norms(q), norms(x.float())
+    xn[4] = float("inf")
+    (gi, gv), fp32, bf = counted_bf16(screen_topm, q, x, m, qn, xn)
+    assert (fp32, bf) == (0, 1)
+    wi, wv = screen_topm_scan(q, x, m, qn, xn)
+    assert torch.equal(gi, wi) and torch.equal(gv, wv)
+
+
+@pytest.mark.parametrize("b,n,dp,d,m", [(16, 3000, 192, 3072, 700),
+                                        (3, 6000, 8, 16, 2500),
+                                        (5, 200, 7, 10, 300)])
+def test_fused_candidates_bf16_bit_equal_integer(card, b, n, dp, d, m):
+    qp, q = ints((b, dp), card, 64), ints((b, d), card, 65)
+    proxy, x = bints((n, dp), card, 66), bints((n, d), card, 67)
+    pn, xn = norms(proxy.float()), norms(x.float())
+    pn[3] = float("inf")
+    (gi, gv), fp32, bf = counted_bf16(fused_candidates, qp, q, proxy, x, m,
+                                      pn, xn)
+    assert (fp32, bf) == (0, 1)
+    wi, wv = fused_candidates_scan(qp, q, proxy, x, m, pn, xn)
+    assert torch.equal(gi, wi) and torch.equal(gv, wv)
+
+
+def test_fused_candidates_refuses_mixed_rows(card):
+    q, x = ints((2, 8), card, 68), ints((9, 8), card, 69)
+    with pytest.raises(ValueError, match="all float32 or all bfloat16"):
+        fused_candidates(q, q, x.to(BF), x, 4, norms(x), norms(x))
+    with pytest.raises(ValueError, match="all float32 or all bfloat16"):
+        pdist(q, x.half(), norms(q), norms(x))
+
+
+@pytest.mark.parametrize("c", [5, 230])
+def test_ivf_probe_bf16_integer(card, c):
+    """Integer pooled queries are exact in bf16: the rounding launch is
+    bit-equal to the plain version in every field."""
+    ix = probe_index(c, 12, card, seed=70 + c)
+    q = ints((16, 3072), card, 71)
+    args = (ix["centroids"], ix["centroid_norms"], ix["offsets"], ix["perm"],
+            ix["n"], min(8, c), ix["L"])
+    got, fp32, bf = counted_bf16(lambda: ops.ivf_probe(
+        q, IMAGE, 4, *args, round_bf16=True))
+    assert (fp32, bf) == (0, 1)
+    qp = ref.downsample_proxy(q.reshape(16, *IMAGE), 4).to(BF).float()
+    assert_probe_equal(got, ref.ivf_probe_ref(qp, *args))
+
+
+def test_ivf_probe_bf16_float(card):
+    """Float queries: the launch rounds the pooled query to bf16 as the
+    CPU path does; the probe lists equal the plain version's up to
+    near-ties of the rounded distances."""
+    g = torch.Generator().manual_seed(72)
+    ix = probe_index(230, 12, card, seed=73)
+    ix["centroids"] = torch.randn(230, 192, generator=g).to(card)
+    ix["centroid_norms"] = norms(ix["centroids"])
+    q = torch.randn(16, 3072, generator=g).to(card)
+    args = (ix["centroids"], ix["centroid_norms"], ix["offsets"], ix["perm"],
+            ix["n"], 40, ix["L"])
+    cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+    got = ops.ivf_probe(q, IMAGE, 4, *args, round_bf16=True)
+    want = ops.ivf_probe(q.cpu(), IMAGE, 4, *cpu, round_bf16=True)
+    qp = ref.downsample_proxy(q.cpu().reshape(16, *IMAGE), 4).to(BF).float()
+    d2 = ref.centroid_scan_ref(qp, cpu[0], cpu[1])
+    diff = got.probe.cpu() != want.probe
+    a = torch.gather(d2, 1, got.probe.cpu())[diff]
+    w = torch.gather(d2, 1, want.probe)[diff]
+    assert ((a - w).abs() <= 1e-5 * w.abs().clamp_min(1.0)).all()
+
+
+@pytest.mark.parametrize("route", ["fused", "staged", "streamed", "indexed",
+                                   "full_scan", "plan"])
+def test_bf16_routes_card_match_cpu(card, route):
+    """Ten bf16-storage steps on the card against the same route on the
+    CPU (plain versions on the same bf16 rows); the card launches bf16
+    instances only."""
+    from repro_torch.core import (FullScan, GoldDiffConfig, build_plan,
+                                  sample_plan)
+    from repro_torch.index import ProbeSchedule
+    cpu_store = make_dataset("cifar_like", n=1024, seed=0, device="cpu")
+    sched = make_schedule("ddpm_linear", 1000)
+    kw = {"fused": dict(fused=True), "plan": {}, "full_scan": {},
+          "staged": dict(fused=False, screen="materialized"),
+          "streamed": dict(fused=False, screen="streamed"),
+          "indexed": dict(cfg=GoldDiffConfig(1 / 64, 1 / 32, 1 / 128, 1 / 64),
+                          index=build_index(cpu_store),
+                          probe_schedule=ProbeSchedule(1 / 16, 1 / 4),
+                          index_mode="always")}[route]
+    x_T = float(sched.b[1000]) * torch.randn(
+        8, cpu_store.dim, generator=torch.Generator().manual_seed(4))
+    outs = []
+    for dev in ("cpu", card):
+        den = OptimalDenoiser(cpu_store, sched, device=dev)
+        gd = GoldDiff(den, storage_dtype=BF, **kw)
+        assert gd.engine.X.dtype == BF and gd.engine.x_norms.dtype == \
+            torch.float32
+
+        def run():
+            x0 = x_T.to(dev)
+            if route == "full_scan":
+                return sample(FullScan(gd.engine), sched, tuple(x_T.shape),
+                              x_init=x0)
+            if route == "plan":
+                return sample_plan(gd.call_masked, sched, tuple(x_T.shape),
+                                   build_plan(gd.engine, 10), x_init=x0)
+            return sample(gd, sched, tuple(x_T.shape), x_init=x0)
+        out, fp32, bf = counted_bf16(run)
+        if dev != "cpu":
+            assert fp32 == 0 and bf >= 10, (fp32, bf)
+        outs.append(out.cpu())
+    assert np.isfinite(outs[1].numpy()).all()
+    torch.testing.assert_close(outs[1], outs[0], rtol=1e-3, atol=1e-3)

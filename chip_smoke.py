@@ -79,6 +79,24 @@ Phases:
      only bf16 instances, each once a step), timed in turns and
      profiled; the static step's bf16-vs-fp32 error at t = 800, 400,
      100; the operands' bytes and a step's peak; strategy="measure";
+  7d. the live store (``live_store_phase``): [lifecycle] the cifar_like
+     store and its index laid out by ``StoreLifecycle.create`` (capacity-
+     padded windows and spares), the create, append, commit and open
+     (replay) seconds and bytes; kernels 1-7 against their plain
+     versions on the padded operands (integer data bit-equal; no +inf-
+     norm row or spare window ranks before a real one, none weighs);
+     the padded indexed plan against the unpadded one from one x_T;
+     [runtime] ``ServeRuntime`` over the padded plan-mode engine:
+     warmup's graphs on two operand slots, 32 requests arriving two a
+     scheduler step (p50/p99, images/s, host share, mixed segments), two
+     hot swaps (one with a wave in flight: bit-equal to its old-epoch
+     run; later deliveries bit-equal to a fresh eager engine; 0 builds
+     and 0 captures), the seeded fault ladder, a NaN storm (the exact
+     rung: kernel 1) and an evict storm (graphs recaptured and counted,
+     the scan rung), every ticket done and finite; a fused=True engine's
+     NaN storm (its exact rung: kernel 6 in captured graphs); the
+     tracer's cost; the runtime path must launch kernels 2, 3, 7 and 5
+     or 6;
   8. reference: a small store's trajectories on the card against the
      same trajectories on the CPU (plain versions), for every route
      (the indexed one with an index built on the CPU and moved over),
@@ -114,6 +132,7 @@ card's name and power limit, a JSON line of per-kernel numbers, and
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import subprocess
 import sys
@@ -1315,6 +1334,559 @@ def bf16_phase(ctx: dict) -> tuple[dict, dict]:
     return res, route_counts
 
 
+LIVE_APPEND = 1024      # rows an append of the live-store phase (~2% of N)
+LIVE_REQS = 32          # requests the runtime serves (1-4 images each)
+
+
+def live_store_phase(ctx: dict) -> dict:
+    """[lifecycle] and [runtime] on the cifar_like cell (N=50000, the
+    index at C=224, INDEXED_FRACS): the capacity-padded store's create,
+    append, commit and open (replay) seconds and bytes; kernels 1-7
+    against their plain versions on the padded operands at the path's
+    shapes (no +inf-norm slot or spare window ranks before a real one,
+    none weighs); the padded indexed plan against the unpadded one from
+    one x_T; then ``ServeRuntime`` over a plan-mode ServeEngine on the
+    padded view (max_batch 16, 10 steps): warmup's graphs for two slots,
+    32 requests served continuously, two hot swaps (one with a wave in
+    flight) that capture and build nothing, the fault ladder, NaN and
+    evict storms, a fused engine's exact rung and the tracer's cost.
+    Returns the launch counts of the runtime path."""
+    from repro_torch.index import IngestConfig, StoreLifecycle
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.fused_step import (fused_candidates,
+                                                fused_candidates_scan)
+    from repro_torch.kernels.screen import screen_topm, screen_topm_scan
+    from repro_torch.launch.faults import FaultConfig, injected
+    from repro_torch.launch.runtime import RuntimeConfig, ServeRuntime
+    from repro_torch.launch.serve import Request, ServeEngine
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.core import sample_plan, sampling_timesteps
+    st, cix, sched = ctx["store"], ctx["cix"], ctx["sched"]
+    cfg, probes, x_T, kernels = (ctx["indexed_cfg"], ctx["probes"],
+                                 ctx["x_T"], ctx["kernels"])
+    dev = st.device          # the card (a CPU store rehearses the phase)
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="live_store_")
+    root = tmp.name
+
+    def on_disk() -> int:
+        return sum(f.stat().st_size for f in Path(root).rglob("*")
+                   if f.is_file())
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0
+
+    def dints(shape, seed: int) -> torch.Tensor:
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randint(-3, 4, shape, generator=g, device=dev).float()
+
+    def memory() -> tuple[int, int]:
+        if dev.type != "cuda":
+            return 0, 0
+        sync()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+
+    # -- [lifecycle] the capacity-padded layout -------------------------------
+    lc, create_s = timed(lambda: StoreLifecycle.create(
+        root, dataclasses.replace(st, labels=None), cix, IngestConfig()))
+    n_rows, n_cap, w = lc.n_rows, lc.n_capacity, lc.num_windows
+    spares = int(np.isinf(lc._cnorm).sum())
+    w_real = w - spares
+    print(f"[lifecycle] create: cifar_like N={n_rows}, {cix.num_clusters} "
+          f"windows of at most L={cix.max_cluster} -> {w} windows ({w_real} + "
+          f"{spares} spare) of L_cap={lc.capacity} slots, n_cap={n_cap} "
+          f"({n_cap / n_rows:.3f}x the rows; X {lc._X.nbytes / 1e9:.3f} GB "
+          f"for {n_rows * D * 4 / 1e9:.3f} GB of rows); epoch 0 in "
+          f"{create_s:.2f} s, {on_disk()} bytes on disk")
+    rng = np.random.default_rng(0)
+
+    def new_rows(b: int) -> np.ndarray:
+        """Rows near the store's: a real row plus N(0, 0.1^2) noise."""
+        src = lc._X[rng.integers(0, st.n, b)]
+        return (src + 0.1 * rng.standard_normal(src.shape, np.float32)
+                ).astype(np.float32)
+
+    (ds0, ix0), view_s = timed(lambda: lc.view(device=dev))
+    print(f"[lifecycle] view: the padded store and index copied to the card "
+          f"in {view_s:.2f} s")
+    srv = ServeEngine(ds0, num_steps=STEPS, max_batch=B, gd_cfg=cfg,
+                      index=ix0, probe_schedule=probes, device=dev)
+    pe, plan = srv.engine, srv.plan
+    check(srv.mode == "plan" and plan.num_buckets >= 2,
+          f"[runtime] ServeEngine serves {srv.mode} with "
+          f"{plan.num_buckets} plan buckets (a wave in flight needs two)")
+    o = pe.current_operands()
+    moved = o.perm != ix0.perm
+    remapped = int(moved.sum())
+    check(bool(torch.isinf(o.x_norms[o.perm[moved]]).all()),
+          "[lifecycle] empty slots not pointed at +inf-norm rows")
+    print(f"[lifecycle] engine operands: {remapped} empty slots of the "
+          f"windows point at a +inf-norm padding row (the reference's "
+          f"capacity-mode screen reads dataset row 0 there)")
+
+    # kernels 1-7 on the padded operands, at the path's shapes
+    t = 500
+    a, sig2 = pe.constants(t)
+    g = torch.Generator().manual_seed(7)
+    rows = torch.randint(0, st.n, (B,), generator=g).to(dev)
+    q = (a * st.X[rows] + float(sched.b[t]) * torch.randn(
+        B, D, generator=g).to(dev)) / a
+    qp = pe._proxy_query(q)
+    qpn = (qp * qp).sum(-1)
+    m_pad, _, _, k_pad = cfg.sizes(n_cap)
+    errs = {}
+    # kernel 1 (pdist) and kernel 5 (screen_topm): integer data bit-equal,
+    # padding rows (+inf norms) always after every real row
+    qi, xi = dints((B, DP), 71), dints((n_cap, DP), 72)
+    xi[n_rows:] = 0.0
+    qin, xin = (qi * qi).sum(-1), (xi * xi).sum(-1)
+    xin[n_rows:] = float("inf")
+    d2k = ops.pdist(qi, xi, qin, xin)
+    check(torch.equal(d2k, ref.pdist_ref(qi, xi, qin, xin)),
+          "[lifecycle] pdist: not bit-equal on integer padded data")
+    idx_k, d2_k = ref.materialized_topm(d2k, n_rows + 64)
+    check(bool(torch.isfinite(d2_k[:, :n_rows]).all()
+               and torch.isinf(d2_k[:, n_rows:]).all()
+               and (idx_k[:, n_rows:] >= n_rows).all()),
+          "[lifecycle] pdist: a padding row ranks before a real one")
+    for m in (m_pad, n_rows + 64):
+        gk = screen_topm(qi, xi, m, qin, xin)
+        gr = screen_topm_scan(qi, xi, m, qin, xin)
+        check(torch.equal(gk[0], gr[0]) and torch.equal(gk[1], gr[1]),
+              f"[lifecycle] screen_topm: not bit-equal on integer padded "
+              f"data at m={m}")
+        fin = torch.isfinite(gk[1])
+        check(bool((gk[0][fin] < n_rows).all())
+              and int(fin.sum(1).min()) == min(m, n_rows),
+              f"[lifecycle] screen_topm: padding ranks before a real row "
+              f"at m={m}")
+    d2f = ops.pdist(qp, o.proxy, qpn, o.proxy_norms)
+    d2r = ref.pdist_ref(qp, o.proxy, qpn, o.proxy_norms)
+    fin = torch.isfinite(d2r)
+    check(torch.equal(torch.isfinite(d2f), fin)
+          and bool(fin[:, :n_rows].all()) and not bool(fin[:, n_rows:].any()),
+          "[lifecycle] pdist: +inf pattern of the padded store")
+    errs["pdist"] = rel_err(d2f[fin], d2r[fin])
+    gk = screen_topm(qp, o.proxy, m_pad, qpn, o.proxy_norms)
+    gr = screen_topm_scan(qp, o.proxy, m_pad, qpn, o.proxy_norms)
+    errs["screen_topm"] = rel_err(gk[1], gr[1])
+    check(errs["pdist"] <= DIST_RTOL and errs["screen_topm"] <= DIST_RTOL,
+          f"[lifecycle] pdist / screen_topm float errors {errs}")
+    del d2k, d2f, d2r, idx_k, d2_k
+    # kernel 6 (fused_candidates): integer data bit-equal
+    qfi, xfi = dints((B, D), 73), dints((n_cap, D), 74)
+    xfi[n_rows:] = 0.0
+    xfin = (xfi * xfi).sum(-1)
+    xfin[n_rows:] = float("inf")
+    for m in (m_pad, n_rows + 64):
+        gk = fused_candidates(qi, qfi, xi, xfi, m, xin, xfin)
+        gr = fused_candidates_scan(qi, qfi, xi, xfi, m, xin, xfin)
+        check(torch.equal(gk[0], gr[0]) and torch.equal(gk[1], gr[1]),
+              f"[lifecycle] fused_candidates: not bit-equal on integer "
+              f"padded data at m={m}")
+    del qfi, xfi, xfin, qi, xi, qin, xin
+    gi, gv = fused_candidates(qp, q, o.proxy, o.X, m_pad, o.proxy_norms,
+                              o.x_norms)
+    own = rel_err(ref.support_sqdist_ref(q, o.X, o.x_norms, gi), gv)
+    errs["fused_candidates"] = own
+    check(own <= DIST_RTOL and bool((gi < n_rows).all()),
+          f"[lifecycle] fused_candidates: own-row rel {own:.3g} or a "
+          f"padding row among the candidates")
+    # kernel 7 (the probe launch): integer data bit-equal in every field;
+    # spare windows (+inf centroid norms) never probed before a real one
+    steps = sampling_timesteps(sched, STEPS)[:-1]
+    p_step = max(pe.nprobe(int(tt)) for tt in steps)
+    cents = ix0.centroids
+    dpc = cents.shape[1]
+    ci, qi7 = dints((w, dpc), 75), dints((B, D), 76)
+    spare = torch.isinf(ix0.centroid_norms)
+    ci[spare] = 0.0
+    cn = (ci * ci).sum(-1)
+    cn[spare] = float("inf")
+    for p in (p_step, w):
+        got = ops.ivf_probe(qi7, st.image_shape, 4, ci, cn, o.offsets,
+                            o.perm, n_cap, p, lc.capacity)
+        want = ref.ivf_probe_ref(
+            ref.downsample_proxy(qi7.reshape((B,) + tuple(st.image_shape)),
+                                 4), ci, cn, o.offsets, o.perm, n_cap, p,
+            lc.capacity)
+        for field, gg, rr in zip(ref.PROBE_FIELDS, got, want):
+            check(torch.equal(gg, rr), f"[lifecycle] ivf_probe P={p}: "
+                  f"{field} not bit-equal on integer padded data")
+        ranks = spare[got.probe]
+        check(not bool(ranks[:, :min(p, w_real)].any())
+              and bool(ranks[:, w_real:].all()),
+              f"[lifecycle] ivf_probe P={p}: a spare window probed before "
+              f"a real one")
+    pr = ops.ivf_probe(q, st.image_shape, 4, cents, ix0.centroid_norms,
+                       o.offsets, o.perm, n_cap, p_step, lc.capacity)
+    pr_ref = ref.ivf_probe_ref(qp, cents, ix0.centroid_norms, o.offsets,
+                               o.perm, n_cap, p_step, lc.capacity)
+    check(not bool(spare[pr.probe].any()),
+          "[lifecycle] a spare window among the float probes")
+    near = torch.equal(pr.ids, pr_ref.ids) and torch.equal(pr.valid,
+                                                           pr_ref.valid)
+    # kernel 2 (support_sqdist, in golden_rerank) and kernel 3 (the
+    # aggregate) over the probed slots, empty ones included
+    d2s = ops.support_distances(q, o.X, pr.ids, o.x_norms)
+    d2s_r = ref.support_sqdist_ref(q, o.X, o.x_norms, pr.ids)
+    fin = torch.isfinite(d2s_r)
+    check(torch.equal(torch.isfinite(d2s), fin), "[lifecycle] "
+          "support_sqdist: +inf pattern on the probed slots")
+    errs["support_sqdist"] = rel_err(d2s[fin], d2s_r[fin])
+    empty = ~torch.isfinite(ix0.proxy_norms_sorted[pr.pos])
+    check(bool(torch.isinf(d2s[empty & pr.valid]).all()),
+          "[lifecycle] an empty slot re-ranked finite")
+    idx, d2 = ops.golden_rerank(q, o.X, pr.ids, k_pad, x_norms=o.x_norms,
+                                valid=pr.valid)
+    fin = torch.isfinite(d2)
+    check(bool((idx[fin] < n_rows).all()) and bool(
+        (fin.long().diff(dim=1) <= 0).all()),
+        "[lifecycle] golden set: a padding row ranks before a real row")
+    lg = torch.clamp_min(-d2 / (2.0 * sig2), -1e30)
+    agg = ops.golden_support_aggregate(o.X, idx, lg)
+    errs["golden_support_aggregate"] = float(
+        (agg - ref.golden_support_aggregate_ref(o.X, idx, lg)).abs().max())
+    w_pad = torch.softmax(lg, -1)[~fin]
+    check(w_pad.numel() == 0 or float(w_pad.max()) == 0.0,
+          "[lifecycle] a padding row got a weight")
+    # kernel 4 (the full scan): padded equals unpadded
+    fs = ops.golden_aggregate(q, o.X, sig2, o.x_norms)
+    errs["golden_aggregate"] = float(
+        (fs - ref.golden_aggregate_ref(q, o.X, sig2, o.x_norms)).abs().max())
+    unpadded = float((fs - ops.golden_aggregate(q, st.X, sig2, st.x_norms)
+                      ).abs().max())
+    check(errs["support_sqdist"] <= DIST_RTOL
+          and errs["golden_support_aggregate"] <= MEAN_ATOL
+          and errs["golden_aggregate"] <= MEAN_ATOL and unpadded <= MEAN_ATOL,
+          f"[lifecycle] kernel errors on padded operands {errs}, full scan "
+          f"padded vs unpadded {unpadded:.3g}")
+    print(f"[lifecycle] kernels 1-7 on the padded operands (B={B}, n_cap="
+          f"{n_cap}, m={m_pad}, k={k_pad}, P={p_step} of {w} windows): "
+          f"integer data bit-equal (pdist, screen_topm and fused_candidates "
+          f"at m={m_pad} and {n_rows + 64}, ivf_probe at P={p_step} and "
+          f"{w}); float errors " + ", ".join(f"{k} {v:.3g}" for k, v in
+                                             errs.items())
+          + f"; full scan padded vs unpadded max abs {unpadded:.3g}; no "
+          f"+inf-norm row or spare window ranks before a real one, none "
+          f"weighs; float probe ids equal the plain version's {near}")
+    del gi, gv, d2s, d2s_r, fs, agg
+
+    # the layout's price: padded vs unpadded indexed plan, one x_T
+    upe = ServeEngine(st, num_steps=STEPS, max_batch=B, gd_cfg=cfg,
+                      index=cix, probe_schedule=probes, device=dev)
+
+    def plan_run(s):
+        e = s.engine
+        return sample_plan(s.denoiser.call_masked, sched, (B, D), s.plan,
+                           x_init=x_T, program_cache=e.program,
+                           jitter=e.jitter)
+
+    for line in plan.describe().splitlines():
+        print(f"[lifecycle] padded plan: {line}")
+    for line in upe.plan.describe().splitlines():
+        print(f"[lifecycle] unpadded plan: {line}")
+
+    # -- [runtime] warmup: every rung on two slots ----------------------------
+    alloc0, res0 = memory()
+    rcfg = dict(max_queue=64, backoff_base_s=0.001, backoff_max_s=0.01,
+                breaker_cooldown_s=0.5)
+    rt = ServeRuntime(srv, RuntimeConfig(**rcfg))
+    _, wiener_s = timed(rt._wiener_den)
+    stats = rt.warmup()
+    alloc1, res1 = memory()
+    slot_bytes = sum(t_.numel() * t_.element_size()
+                     for t_ in pe.current_operands() if t_ is not None)
+    print(f"[runtime] warmup: {stats['graphs_captured']} CUDA graphs on "
+          f"slots {stats['slots']} ({stats['programs_total']} programs with "
+          f"the slot-free Gaussian segments) in "
+          f"{stats['runtime_warmup_s']:.2f} s after {wiener_s:.2f} s for the "
+          f"Wiener rung's host SVD of the padded store; device memory held "
+          f"after: {(alloc1 - alloc0) / 2**30:.3f} GiB allocated, "
+          f"{(res1 - res0) / 2**30:.3f} GiB reserved "
+          f"(a slot's operands {slot_bytes / 2**30:.3f} GiB)")
+    c0, b0 = pe._captures, pe._builds
+    # padded vs unpadded plan walls (the padded one on the warmed graphs)
+    x_pad = plan_run(srv)
+    x_unp = plan_run(upe)
+    walls = {"padded": [], "unpadded": []}
+    for which in ("padded", "unpadded", "unpadded", "padded"):
+        s_ = srv if which == "padded" else upe
+        walls[which].append(wall_ms(lambda: plan_run(s_), iters=10))
+    busy = {k: device_kernels(lambda: plan_run(srv if k == "padded"
+                                               else upe))[0]
+            for k in walls}
+    diff = float((x_pad - x_unp).abs().max())
+    check(bool(torch.isfinite(x_pad).all()), "[lifecycle] padded plan "
+          "not finite")
+    ratio = min(walls["padded"]) / min(walls["unpadded"])
+    print("[lifecycle] indexed plan from one x_T, B=16, 10 steps: "
+          + "; ".join(
+        f"{k} wall {min(v):.2f} ms (runs {[round(x, 2) for x in v]}), busy "
+        f"{busy[k]:.2f} ms, idle {1 - busy[k] / min(v):.3f}"
+        for k, v in walls.items())
+        + f"; padded/unpadded wall {ratio:.3f}"
+        f"; |padded - unpadded| max {diff:.3g} (m_t, k_t follow n_cap)")
+    del upe
+
+    # -- [runtime] continuous serving -----------------------------------------
+    sizes = np.random.default_rng(1).integers(1, 5, LIVE_REQS)
+    rid = [0]
+
+    def serve(n_reqs=LIVE_REQS, runtime=None, seed0=1000, burst=2):
+        """``n_reqs`` requests arriving ``burst`` at a time, one burst
+        a scheduler step, then drained: later arrivals join waves in
+        flight (continuous batching)."""
+        r = runtime or rt
+        tickets = []
+        for i in range(n_reqs):
+            tickets.append(r.submit(Request(
+                rid[0], int(sizes[i % LIVE_REQS]), seed=seed0 + i)))
+            rid[0] += 1
+            if (i + 1) % burst == 0:
+                r.pump()
+        r.run_until_idle()
+        return tickets
+
+    def zero():
+        for kfn in kernels.values():
+            kfn.launches = 0
+
+    def counts() -> dict:
+        return {n: f.launches for n, f in kernels.items()}
+
+    path_counts = Counter()
+    serve()                                          # warm the host path
+    zero()
+    mixed0, joins0 = rt.counters["mixed_segments"], rt.counters["joins"]
+    tickets, wall = timed(serve)
+    path_counts.update(counts())
+    lat = np.array([t_.latency_s for t_ in tickets]) * 1e3
+    check(all(t_.status == "done" and np.isfinite(t_.images).all()
+              for t_ in tickets), "[runtime] a ticket failed or is not finite")
+    busy_ms = device_kernels(serve)[0]
+    n_img = int(sizes.sum())
+    print(f"[runtime] served {LIVE_REQS} requests ({n_img} images, 1-4 each,"
+          f" two arriving a scheduler step) in {wall * 1e3:.1f} ms: "
+          f"{n_img / wall:.1f} images/s, latency p50 "
+          f"{np.percentile(lat, 50):.1f} ms p99 {np.percentile(lat, 99):.1f} "
+          f"ms; {rt.counters['mixed_segments'] - mixed0} mixed segments, "
+          f"{rt.counters['joins'] - joins0} joins; device busy "
+          f"{busy_ms:.1f} ms of the wall: host share at the seams "
+          f"{1 - busy_ms / (wall * 1e3):.3f}; launches {dict(path_counts)}")
+    check(pe._captures == c0 and pe._builds == b0,
+          "[runtime] serving captured or built after warmup")
+
+    # -- [runtime] two hot swaps, one with a wave in flight -------------------
+    def one(seed, n=4):
+        t_ = rt.submit(Request(rid[0], n, seed=seed))
+        rid[0] += 1
+        return t_
+
+    base = one(77)
+    rt.run_until_idle()
+    app = [timed(lambda: lc.append(new_rows(LIVE_APPEND)))[1]
+           for _ in range(2)]
+    bytes0 = on_disk()
+    e1, commit1_s = timed(lc.commit)
+    print(f"[lifecycle] append {LIVE_APPEND} rows: {app[0]:.3f} s and "
+          f"{app[1]:.3f} s (journal fsync'd first); commit epoch {e1} in "
+          f"{commit1_s:.2f} s, {on_disk() - bytes0} bytes written net "
+          f"(the new epoch less the truncated journal)")
+    view1 = lc.view(device=dev)
+    inflight = one(77)
+    check(rt.pump() and inflight.status == "running",
+          "[runtime] no wave in flight before the swap")
+    rt.hot_swap(*view1)
+    sw1 = dict(rt.last_swap)
+    rt.run_until_idle()
+    check(inflight.status == "done" and np.array_equal(inflight.images,
+                                                       base.images),
+          "[runtime] the in-flight wave differs from its old-epoch run")
+
+    def fresh_check(view, label):
+        t_ = one(91)
+        rt.run_until_idle()
+        fe = ServeEngine(view[0], num_steps=STEPS, max_batch=B, gd_cfg=cfg,
+                         index=view[1], probe_schedule=probes, device=dev)
+        x0 = fe._init_noise([(t_.request, 0, 4)], 4)
+        want = sample_plan(fe.denoiser.call_masked, sched, (4, D), fe.plan,
+                           x_init=x0).cpu().numpy()
+        check(np.array_equal(t_.images.reshape(4, D), want),
+              f"[runtime] delivery after {label} differs from a fresh eager "
+              f"engine on the new view")
+        return t_
+
+    fresh_check(view1, "swap 1")
+    del view1
+    lc.append(new_rows(LIVE_APPEND))
+    live = {k: v.copy() for k, v in lc._arrays().items()}
+    reopened, open_s = timed(lambda: StoreLifecycle.open(root))
+    check(reopened.replayed_frames == 1 and all(
+        np.array_equal(v, reopened._arrays()[k]) for k, v in live.items()),
+        "[lifecycle] open: the replayed store differs from the live one")
+    del reopened, live
+    bytes0 = on_disk()
+    e2, commit2_s = timed(lc.commit)
+    view2 = lc.view(device=dev)
+    rt.hot_swap(*view2)
+    sw2 = dict(rt.last_swap)
+    fresh_check(view2, "swap 2")
+    del view2
+    h = rt.health()
+    check(pe._captures == c0 and pe._builds == b0
+          and h["compiles_post_warmup"] == 0 and h["epochs_resident"] == 1,
+          f"[runtime] the swaps captured {pe._captures - c0} graphs, built "
+          f"{pe._builds - b0}; {h['epochs_resident']} epochs resident")
+    print(f"[lifecycle] open (load epoch {e1}, validate, replay 1 frame of "
+          f"{LIVE_APPEND} rows) {open_s:.2f} s, bit-equal to the live store; "
+          f"commit epoch {e2} {commit2_s:.2f} s, {on_disk() - bytes0} bytes "
+          f"net; {lc.n_rows} rows in {n_cap} slots")
+    print(f"[runtime] hot swap 1 (a wave in flight): install copy "
+          f"{sw1['install_s'] * 1e3:.1f} ms, probe {sw1['probe_s'] * 1e3:.1f}"
+          f" ms, flip {sw1['flip_s'] * 1e3:.3f} ms; hot swap 2: install "
+          f"{sw2['install_s'] * 1e3:.1f} ms, probe {sw2['probe_s'] * 1e3:.1f}"
+          f" ms, flip {sw2['flip_s'] * 1e3:.3f} ms; 0 builds and 0 captures "
+          f"after warmup; the in-flight wave bit-equal to its old-epoch run, "
+          f"deliveries after each swap bit-equal to a fresh eager engine on "
+          f"the new view")
+
+    # -- [runtime] the fault ladder -------------------------------------------
+    lad = ServeRuntime(srv, RuntimeConfig(breaker_threshold=1, **rcfg))
+    lad.warmup()
+    fc = FaultConfig(seed=3, nan_rate=0.05, error_rate=0.05, oom_rate=0.03,
+                     evict_rate=0.02)
+    zero()
+    c1 = pe._captures
+    with injected(fc) as inj:
+        tickets = serve(runtime=lad, seed0=5000)
+    path_counts.update(counts())
+    check(all(t_.status == "done" and np.isfinite(t_.images).all()
+              for t_ in tickets)
+          and lad.counters["completed"] == len(tickets),
+          f"[runtime] ladder: {Counter(t_.status for t_ in tickets)}")
+    kinds = Counter(e[0] for e in inj.events)
+    hl = lad.health()
+    rates = {k: v for k, v in dataclasses.asdict(fc).items()
+             if k.endswith("_rate") and v}
+    print(f"[runtime] fault ladder, seed {fc.seed}, rates {rates}: "
+          f"{len(tickets)} tickets done and "
+          f"finite ({sum(t_.degraded for t_ in tickets)} degraded); faults "
+          f"{dict(kinds)}; counters " + ", ".join(
+              f"{k} {v}" for k, v in lad.counters.items() if v)
+          + f"; breakers " + ", ".join(
+              f"{k[8:]} {hl[k]}" for k in hl if k.startswith("breaker_"))
+          + f"; {pe._captures - c1} graphs recaptured after evictions")
+
+    # a NaN storm trips the screen breaker: the next wave takes the
+    # exact rung (the exact coarse screen: kernel 1 at these fractions)
+    storm = ServeRuntime(srv, RuntimeConfig(breaker_threshold=1, **rcfg))
+    storm.warmup()
+    zero()
+    with injected(FaultConfig(seed=4, nan_rate=1.0)):
+        tickets = [serve(1, runtime=storm, seed0=6000, burst=1)[0]
+                   for _ in range(2)]
+    path_counts.update(counts())
+    check(all(t_.status == "done" and t_.degraded
+              and np.isfinite(t_.images).all() for t_ in tickets)
+          and storm.counters["exact_waves"] >= 1,
+          f"[runtime] NaN storm: {storm.counters}")
+    print(f"[runtime] NaN storm (every segment's output corrupted): 2 "
+          f"tickets done, degraded and finite; finite trips "
+          f"{storm.counters['finite_trips']}, Gaussian segments "
+          f"{storm.counters['gauss_segments']}, exact waves "
+          f"{storm.counters['exact_waves']}; launches {counts()}")
+
+    # an evict storm: every program lookup drops its graph, so each
+    # dispatch recaptures one after warmup (the collector must not run
+    # inside those captures) and the compile breaker opens: the scan rung
+    ev = ServeRuntime(srv, RuntimeConfig(breaker_threshold=1, **rcfg))
+    ev.warmup()
+    zero()
+    c1, b1 = pe._captures, pe._builds
+    with injected(FaultConfig(seed=5, evict_rate=1.0)) as inj:
+        tickets = [serve(1, runtime=ev, seed0=6500, burst=1)[0]
+                   for _ in range(2)]
+    path_counts.update(counts())
+    recaptured, rebuilt = pe._captures - c1, pe._builds - b1
+    check(all(t_.status == "done" and np.isfinite(t_.images).all()
+              for t_ in tickets) and ev.counters["scan_waves"] >= 1
+          and rebuilt > 0 and ev.health()["compiles_post_warmup"] == rebuilt
+          and (recaptured == rebuilt or dev.type != "cuda"),
+          f"[runtime] evict storm: {ev.counters}, {rebuilt} builds, "
+          f"{recaptured} captures")
+    print(f"[runtime] evict storm (every lookup evicts): 2 tickets done and "
+          f"finite; {len(inj.events)} evictions, {recaptured} graphs "
+          f"recaptured after warmup, builds counted "
+          f"{ev.health()['compiles_post_warmup']}, scan waves "
+          f"{ev.counters['scan_waves']}, breaker compile "
+          f"{ev.health()['breaker_compile']}; launches {counts()}")
+    del ev
+
+    # a fused engine on the same view: its exact rung (the screen
+    # breaker's) runs kernel 6 on the padded operands in captured graphs
+    fsrv = ServeEngine(ds0, num_steps=STEPS, max_batch=B, gd_cfg=cfg,
+                       index=ix0, probe_schedule=probes, device=dev,
+                       fused=True)
+    fst = ServeRuntime(fsrv, RuntimeConfig(breaker_threshold=1, **rcfg))
+    fst._wiener = rt._wiener        # same store: the same host SVD
+    fstats = fst.warmup()
+    zero()
+    cf = fsrv.engine._captures
+    with injected(FaultConfig(seed=4, nan_rate=1.0)):
+        tickets = [serve(1, runtime=fst, seed0=6000, burst=1)[0]
+                   for _ in range(2)]
+    fcounts = counts()
+    path_counts.update(fcounts)
+    check(all(t_.status == "done" and t_.degraded
+              and np.isfinite(t_.images).all() for t_ in tickets)
+          and fst.counters["exact_waves"] >= 1
+          and fcounts["fused_candidates"] > 0
+          and fsrv.engine._captures == cf,
+          f"[runtime] fused NaN storm: {fst.counters}, launches {fcounts}")
+    print(f"[runtime] fused engine (fused=True; warmup "
+          f"{fstats['graphs_captured']} graphs in "
+          f"{fstats['runtime_warmup_s']:.2f} s): NaN storm, 2 tickets done, "
+          f"degraded and finite, exact waves {fst.counters['exact_waves']} "
+          f"on captured graphs (0 captures after warmup); launches {fcounts}")
+    del fst, fsrv
+
+    # -- [runtime] the tracer's cost ------------------------------------------
+    prev = obs_trace.tracer()
+    walls = {"off": [], "on": []}
+    for mode in ("off", "on", "on", "off") * 3:
+        tr = obs_trace.Tracer(capacity=1 << 16) if mode == "on" else None
+        obs_trace.set_tracer(tr)
+        try:
+            walls[mode].append(timed(lambda: serve(16, seed0=7000))[1] * 1e3)
+        finally:
+            obs_trace.set_tracer(prev)
+    med = {k: float(np.median(v)) for k, v in walls.items()}
+    print(f"[runtime] 16 requests traced vs not, 6 runs each in turns: on "
+          + ", ".join(f"{v:.1f}" for v in walls["on"]) + " ms, off "
+          + ", ".join(f"{v:.1f}" for v in walls["off"]) + f" ms; medians "
+          f"{med['on']:.1f} and {med['off']:.1f} ms (on/off "
+          f"{med['on'] / med['off']:.3f})")
+    need = ("support_sqdist", "golden_support_aggregate", "centroid_scan")
+    check(all(path_counts[n] > 0 for n in need)
+          and (path_counts["screen_topm"]
+               + path_counts["fused_candidates"]) > 0,
+          f"[runtime] the runtime path's launches {dict(path_counts)}")
+    tmp.cleanup()
+    print(f"[runtime] phase {time.perf_counter() - t_phase:.1f} s; runtime "
+          f"path launches {dict(path_counts)}")
+    return dict(path_counts)
+
+
 def main() -> None:
     # -- 1. environment ------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2383,8 +2955,9 @@ def main() -> None:
         for bucket in pln.buckets:
             entries.append(x)
             seg = plan_segment(gd.call_masked, sched, pln, bucket)
-            graph = gd.engine._programs.get(plan_segment_key(
-                pln, bucket, tuple(x.shape), "float32", 3.0))
+            graph = gd.engine._programs.get(gd.engine.program_key(
+                plan_segment_key(pln, bucket, tuple(x.shape), "float32",
+                                 3.0)))
             check(graph is not None, f"[plan] {label}: no graph for {bucket}")
             got, want = graph(x), seg(x)
             check(torch.equal(got, want),
@@ -2578,6 +3151,11 @@ def main() -> None:
     for n, p in BF16_PATH.items():
         check(bf16_counts[p][n] > 0,
               f"{n}'s bf16 instance never launched on the bf16 {p} path")
+
+    # -- 7d. the live store: the lifecycle and the serving runtime ------------
+    path_counts["runtime"] = live_store_phase(dict(
+        store=st, cix=cix, sched=sched, indexed_cfg=indexed_cfg,
+        probes=scale_probes, x_T=x_T, kernels=kernels))
 
     # -- 8. reference: small store, card against CPU plain versions ------------
     small = make_dataset("cifar_like", n=2048, seed=1, device="cpu")

@@ -13,6 +13,7 @@ from repro_torch.core.plan import (BucketCaps, PlanBucket, StepShape,
                                    step_shapes, step_stage_costs)
 from repro_torch.core.sampler import (denoise_trajectory, plan_segment,
                                       plan_segment_key, plan_segment_mixed,
+                                      plan_segment_mixed_key,
                                       sample, sample_conditional,
                                       sample_plan, sample_scan)
 from repro_torch.core.schedules import (Schedule, make_schedule,
@@ -27,6 +28,7 @@ __all__ = [
     "BucketCaps", "PlanBucket", "StepShape", "TrajectoryPlan", "build_plan",
     "full_scan_costs", "fused_step_costs", "step_shapes", "step_stage_costs",
     "plan_segment", "plan_segment_key", "plan_segment_mixed",
+    "plan_segment_mixed_key",
     "sample", "sample_plan", "sample_scan", "sample_conditional",
     "denoise_trajectory",
     "Schedule", "make_schedule", "sampling_timesteps",

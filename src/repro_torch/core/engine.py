@@ -40,21 +40,41 @@ the sizes as fp32 device values, so a run of its steps can be captured
 as one CUDA graph (``jitter``); ``program`` caches what is built, one
 entry per (plan bucket, batch shape) as the reference caches compiled
 programs.
+
+Store epochs (``install_epoch`` / ``set_serving_epoch`` / ``at_epoch``
+/ ``retire_epoch``) let a serving runtime swap in a grown golden store
+of the same shapes (``repro_torch.index.ingest``) without building
+anything.  The reference passes the operands as a jit argument; a
+captured CUDA graph instead bakes their addresses.  So an epoch's
+operands (:class:`StoreOperands`) live in a *slot*, engine-owned device
+buffers at fixed addresses, and on the card the program keys carry the
+slot: ``reserve_standby()`` adds a second slot, the runtime's warmup
+captures every program for both, and ``install_epoch`` copies the new
+epoch into a free slot in place, so its graphs (and kernel 1's tensor
+maps) stay valid.  A third live epoch takes a new slot whose graphs are
+captured on demand and counted in ``_builds``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import math
+import threading
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.dataset import DatasetStore, downsample_proxy
+from repro_torch.core.plan import (full_scan_costs, fused_step_costs,
+                                   step_stage_costs)
 from repro_torch.core.schedules import Schedule, take
 from repro_torch.index.schedule import ProbeSchedule
 from repro_torch.index.store import GoldenIndex
 from repro_torch.kernels import ops
+from repro_torch.obs import trace as obs_trace
 from repro_torch.utils import resolve_device
 
 NEG_INF = -1e30
@@ -92,6 +112,34 @@ GATHER_CROSSOVER_FRAC = {"cpu": 0.10, "cuda": 0.10}
 SCREEN_MATERIALIZE_BYTES = {"cpu": 1 << 31, "cuda": 1 << 29}
 
 STRATEGIES = ("auto", "measure", "gather", "dense")
+
+# program kinds that read no store operand (the serving runtime's
+# Gaussian fallback): one program serves every slot
+SLOTLESS_KINDS = ("gauss_seg",)
+# the epoch id ``reserve_standby`` gives the standby slot until the first
+# ``install_epoch`` takes it (the runtime's warmup pins it so)
+STANDBY_EPOCH = -1
+
+
+class StoreOperands(NamedTuple):
+    """The engine's device operands for one store/index epoch: one
+    *slot*.  Every body reads these (through the engine's properties),
+    never the construction store.  Index fields are None on an engine
+    without an index.  ``perm`` maps the empty slots of a
+    capacity-padded window (+inf ``proxy_norms_sorted``) to a store row
+    with a +inf norm, so an empty slot that a probe reaches ranks after
+    every real row and weighs 0 (``_make_operands``)."""
+
+    X: torch.Tensor                  # [N, D] rows (storage dtype)
+    proxy: torch.Tensor              # [N, dp] proxy rows (storage dtype)
+    x_norms: torch.Tensor            # [N] fp32
+    proxy_norms: torch.Tensor        # [N] fp32
+    proxy_sorted: torch.Tensor | None = None         # [N, dp] sorted
+    proxy_norms_sorted: torch.Tensor | None = None   # [N] fp32, +inf pads
+    perm: torch.Tensor | None = None                 # [N] int64
+    offsets: torch.Tensor | None = None              # [C+1] int64
+    centroids: torch.Tensor | None = None            # [C, dp] fp32
+    centroid_norms: torch.Tensor | None = None       # [C] (+inf spares)
 STORAGE_DTYPES = (None, torch.bfloat16)
 
 
@@ -225,17 +273,17 @@ class GoldDiffEngine:
         self.store = store.to(resolve_device(device))
         self.index = (None if index is None
                       else index.to(self.store.device))
-        # the engine's own store operands: the rows in the storage dtype,
-        # the norms fp32 from the store's fp32 master copy (which stays,
-        # for the base denoiser), as the reference's StoreOperands
+        # the engine's store operands: epoch 0 in slot 0 (see the module
+        # docstring); the construction store stays, for the base denoiser
         self.storage_dtype = storage_dtype
-        sd = storage_dtype or torch.float32
-        self.X = self.store.X.to(sd)
-        self.proxy = self.store.proxy.to(sd)
-        self.x_norms = self.store.x_norms.float()
-        self.proxy_norms = self.store.proxy_norms.float()
-        self.proxy_sorted = (None if self.index is None
-                             else self.index.proxy_sorted.to(sd))
+        self._tls = threading.local()
+        self._lock = threading.RLock()   # graph replay, install, capture
+        self._slots: dict[int, StoreOperands] = {
+            0: self._make_operands(self.store, self.index)}
+        self._epochs: dict[int, int] = {0: 0}     # epoch -> slot
+        self._kept_slots = [0]   # slots recycled when free, never freed
+        self._free_slots: list[int] = []
+        self._serving_epoch = 0
         self.index_mode = index_mode
         self.probe_schedule = probe_schedule or ProbeSchedule()
         if index is not None:
@@ -268,6 +316,7 @@ class GoldDiffEngine:
                              else "dense")
         self._consts: dict[int, tuple[float, float]] = {}
         self._sizes: dict[int, tuple[int, int]] = {}
+        self._stage_costs: dict = {}
         self._programs: dict = {}
         self._builds = 0          # programs built (graphs on the card)
         self._captures = 0        # CUDA graphs captured by ``jitter``
@@ -275,14 +324,251 @@ class GoldDiffEngine:
         self._graph_stream = None  # ... and the stream that captures them
         self._masked_tables: dict = {}
 
+    # -- store epochs on operand slots ------------------------------------------
+    def _make_operands(self, store: DatasetStore,
+                       index: GoldenIndex | None) -> StoreOperands:
+        """One epoch's operands on the engine's device: the rows in the
+        storage dtype, the norms fp32 from the store's fp32 master copy,
+        as the reference's StoreOperands.  An empty slot of a
+        capacity-padded window (``proxy_norms_sorted`` +inf while
+        ``perm`` names a real row, row 0 by the layout's convention) is
+        pointed at a padding row (+inf ``x_norms``), so that a probe
+        which reaches it re-ranks +inf there and gives it no weight; the
+        reference's capacity-mode screen re-ranks row 0 there instead."""
+        dev, sd = self.store.device, self.storage_dtype or torch.float32
+        kw = {}
+        if index is not None:
+            xn = store.x_norms.to(dev, torch.float32)
+            perm = index.perm.to(dev)
+            pns = index.proxy_norms_sorted.to(dev, torch.float32)
+            alias = ~torch.isfinite(pns) & torch.isfinite(xn[perm])
+            pad = torch.nonzero(~torch.isfinite(xn))
+            if bool(alias.any()) and pad.numel():
+                perm = torch.where(alias, pad[0, 0], perm)
+            kw = dict(proxy_sorted=index.proxy_sorted.to(dev, sd),
+                      proxy_norms_sorted=pns, perm=perm,
+                      offsets=index.offsets.to(dev),
+                      centroids=index.centroids.to(dev, torch.float32),
+                      centroid_norms=index.centroid_norms.to(
+                          dev, torch.float32))
+        return StoreOperands(X=store.X.to(dev, sd),
+                             proxy=store.proxy.to(dev, sd),
+                             x_norms=store.x_norms.to(dev, torch.float32),
+                             proxy_norms=store.proxy_norms.to(
+                                 dev, torch.float32), **kw)
+
+    def _slot(self) -> int:
+        """The slot of ``call_epoch``: the one this thread's next
+        dispatch reads."""
+        return self._epochs[self.call_epoch]
+
+    def current_operands(self) -> StoreOperands:
+        return self._slots[self._slot()]
+
+    @property
+    def call_epoch(self) -> int:
+        """The epoch the next dispatch in this thread reads: the one
+        pinned by an enclosing ``at_epoch`` (in-flight waves finish on
+        the epoch they were admitted under), else the serving epoch."""
+        pinned = getattr(self._tls, "pinned", None)
+        return self._serving_epoch if pinned is None else pinned
+
+    @property
+    def serving_epoch(self) -> int:
+        return self._serving_epoch
+
+    @property
+    def X(self) -> torch.Tensor:
+        return self.current_operands().X
+
+    @property
+    def proxy(self) -> torch.Tensor:
+        return self.current_operands().proxy
+
+    @property
+    def x_norms(self) -> torch.Tensor:
+        return self.current_operands().x_norms
+
+    @property
+    def proxy_norms(self) -> torch.Tensor:
+        return self.current_operands().proxy_norms
+
+    @property
+    def proxy_sorted(self) -> torch.Tensor | None:
+        return self.current_operands().proxy_sorted
+
+    @property
+    def proxy_norms_sorted(self) -> torch.Tensor | None:
+        return self.current_operands().proxy_norms_sorted
+
+    @property
+    def index_perm(self) -> torch.Tensor | None:
+        return self.current_operands().perm
+
+    def swap_compat(self, store: DatasetStore,
+                    index: GoldenIndex | None) -> str | None:
+        """None when ``(store, index)`` can hot-swap into this engine's
+        programs, else the reason: every static ingredient of a program
+        and of the host per-timestep constants must be unchanged (array
+        shapes, indexed-ness, cluster count, padded probe width, and the
+        CSR offsets, which feed the nprobe occupancy floor).  The
+        appendable store lifecycle keeps all of them across appends; a
+        capacity rebuild needs a fresh engine."""
+        if (store.n, store.dim) != (self.store.n, self.store.dim):
+            return (f"store shape ({store.n}, {store.dim}) != engine's "
+                    f"({self.store.n}, {self.store.dim})")
+        if (index is None) != (self.index is None):
+            return "indexed-ness differs from the engine's"
+        if index is not None:
+            if index.num_clusters != self.index.num_clusters:
+                return (f"num_clusters {index.num_clusters} != "
+                        f"{self.index.num_clusters}")
+            if index.max_cluster != self.index.max_cluster:
+                return (f"max_cluster {index.max_cluster} != "
+                        f"{self.index.max_cluster}")
+            if not torch.equal(index.offsets.cpu(), self.index.offsets.cpu()):
+                return ("CSR offsets differ (the static nprobe "
+                        "occupancy floor depends on them)")
+        return None
+
+    def _drop_slot_programs(self, slot: int) -> None:
+        """Forget the graphs captured on ``slot`` (card only: on the CPU
+        programs read their operands when called and carry no slot)."""
+        tag = ("slot", slot)
+        self._programs = {k: v for k, v in self._programs.items()
+                          if not (isinstance(k, tuple) and k[-1:] == (tag,))}
+
+    def _own_slot(self, slot: int) -> None:
+        """Give ``slot`` buffers of its own where it shares storage with
+        the construction store or index (an fp32 slot 0 does), so that
+        recycling it never writes into a caller's tensors; its graphs
+        baked the old addresses and are dropped."""
+        ops_ = self._slots[slot]
+        outside = {t.data_ptr() for obj in (self.store, self.index)
+                   if obj is not None
+                   for t in (getattr(obj, f.name)
+                             for f in dataclasses.fields(obj))
+                   if isinstance(t, torch.Tensor)}
+        if any(t is not None and t.data_ptr() in outside for t in ops_):
+            self._slots[slot] = StoreOperands(
+                *(None if t is None else t.clone() for t in ops_))
+            self._drop_slot_programs(slot)
+
+    def reserve_standby(self) -> list[int]:
+        """Keep two slots warm: the serving slot (given buffers of its
+        own) and one standby, a copy of it, that ``install_epoch`` fills
+        in place.  A free kept slot is held by ``STANDBY_EPOCH`` so that
+        ``at_epoch`` can pin it; retiring that epoch frees the slot for
+        the first install.  Idempotent; returns an epoch for each kept
+        slot, which the runtime's warmup captures every program on."""
+        with self._lock:
+            serving = self._epochs[self._serving_epoch]
+            self._own_slot(serving)
+            if serving not in self._kept_slots:
+                self._kept_slots.append(serving)
+            if len(self._kept_slots) < 2:
+                s = max(self._slots) + 1
+                self._slots[s] = StoreOperands(
+                    *(None if t is None else t.clone()
+                      for t in self._slots[serving]))
+                self._kept_slots.append(s)
+                self._free_slots.append(s)
+            if self._free_slots and STANDBY_EPOCH not in self._epochs:
+                self._epochs[STANDBY_EPOCH] = self._free_slots.pop(0)
+            return [e for e, s in self._epochs.items()
+                    if s in self._kept_slots]
+
+    def install_epoch(self, epoch: int, store: DatasetStore,
+                      index: GoldenIndex | None = None) -> None:
+        """Install ``(store, index)`` as a standby epoch: copied in place
+        into a free kept slot (no allocation; the slot's graphs stay
+        valid, so nothing is built or captured), else into a new slot,
+        whose programs are then built on demand and counted in
+        ``_builds``.  Shapes must match (``swap_compat``).  The serving
+        epoch is unchanged until ``set_serving_epoch``."""
+        reason = self.swap_compat(store, index)
+        if reason is not None:
+            raise ValueError(f"epoch {epoch} cannot hot-swap: {reason}")
+        epoch = int(epoch)
+        new = self._make_operands(store, index)
+        with self._lock:
+            if epoch in self._epochs:
+                self.retire_epoch(epoch)
+            if self._free_slots:
+                slot = self._free_slots.pop(0)
+                for dst, src in zip(self._slots[slot], new):
+                    if dst is not None:
+                        dst.copy_(src)
+            else:
+                slot = max(self._slots) + 1
+                self._slots[slot] = StoreOperands(
+                    *(None if t is None else t.clone() for t in new))
+            self._epochs[epoch] = slot
+
+    def set_serving_epoch(self, epoch: int) -> None:
+        if int(epoch) not in self._epochs:
+            raise KeyError(f"epoch {epoch} is not installed "
+                           f"(have {sorted(self._epochs)})")
+        self._serving_epoch = int(epoch)
+
+    def retire_epoch(self, epoch: int) -> None:
+        """Drop a standby epoch.  Its slot, once no epoch reads it, goes
+        back to the free list when it is one of the two kept slots (its
+        memory stays held, its graphs stay valid), and is freed with its
+        graphs otherwise.  (The reference frees the epoch's memory.)"""
+        epoch = int(epoch)
+        if epoch == self._serving_epoch:
+            raise ValueError(f"cannot retire the serving epoch {epoch}")
+        with self._lock:
+            slot = self._epochs.pop(epoch, None)
+            if slot is None or slot in self._epochs.values():
+                return
+            if slot in self._kept_slots:
+                self._free_slots.append(slot)
+            else:
+                del self._slots[slot]
+                self._drop_slot_programs(slot)
+
+    @contextlib.contextmanager
+    def at_epoch(self, epoch: int):
+        """Pin this thread's dispatches to ``epoch``'s operands (the
+        serving runtime runs each wave's segments so)."""
+        prev = getattr(self._tls, "pinned", None)
+        self._tls.pinned = int(epoch)
+        try:
+            yield
+        finally:
+            self._tls.pinned = prev
+
     # -- programs: the cache and the CUDA graphs ------------------------------
+    def program_key(self, key):
+        """The cache key of ``key`` as this thread would dispatch it: on
+        the card a graph bakes its slot's addresses, so the key carries
+        the slot (except ``SLOTLESS_KINDS``); on the CPU a program reads
+        its operands when called."""
+        if self.store.device.type != "cuda" or key[0] in SLOTLESS_KINDS:
+            return key
+        return tuple(key) + (("slot", self._slot()),)
+
     def program(self, key, build):
         """The program cache: ``build()`` once per key (the reference
-        keys compiled programs the same way), counted in ``_builds``."""
+        keys compiled programs the same way), counted in ``_builds``.
+
+        This lookup is the dispatch seam: an installed hook
+        (``ops.set_dispatch_hook``) sees the key before the hit/miss
+        check (it may evict) and may wrap the returned callable; with
+        none the cached object itself is returned."""
+        key = self.program_key(key)
+        hook = ops.dispatch_hook()
+        if hook is not None:
+            hook.on_program(self, key)
         if key not in self._programs:
             self._programs[key] = build()
             self._builds += 1
-        return self._programs[key]
+        fn = self._programs[key]
+        if hook is not None:
+            return hook.wrap(key, fn)
+        return fn
 
     def jitter(self, fn, *specs, label: str | None = None):
         """The counterpart of the reference's ``jit`` + AOT compile: on
@@ -297,9 +583,11 @@ class GoldDiffEngine:
         arguments into the static inputs, replays and returns a clone of
         the static output.  Graphs in one pool must not be replayed
         concurrently (each may reuse another's temporaries): the
-        serving loop replays them one at a time on one stream.  The
-        store and the static buffers never move, so addresses baked into
-        the graph stay valid (kernel 1's TMA tensor maps encode them).
+        serving loop replays them one at a time on one stream, and the
+        engine's lock keeps replays, captures and ``install_epoch``'s
+        copies apart.  The slots and the static buffers never move, so
+        addresses baked into the graph stay valid (kernel 1's TMA tensor
+        maps encode them).
 
         The kernels' ``launches`` counts move at capture, when nothing
         runs: the capture's counts are taken back and added at every
@@ -309,9 +597,15 @@ class GoldDiffEngine:
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
             self._graph_stream = torch.cuda.Stream(self.store.device)
-        self._captures += 1
-        return capture(fn, specs, self._graph_stream, self._graph_pool,
-                       label or getattr(fn, "__qualname__", repr(fn)))
+        with self._lock:
+            self._captures += 1
+            replay = capture(fn, specs, self._graph_stream, self._graph_pool,
+                             label or getattr(fn, "__qualname__", repr(fn)))
+
+        def locked(*args):
+            with self._lock:
+                return replay(*args)
+        return locked
 
     # -- precomputed per-timestep constants ----------------------------------
     def sizes(self, t: int) -> tuple[int, int]:
@@ -411,11 +705,12 @@ class GoldDiffEngine:
         """Candidates via the Golden Index: ``(pos, d2)`` with positions
         in cluster-sorted row space, +inf ``d2`` on capacity padding
         (``ops.ivf_screen``; capacity mode when ``m = nprobe_max * L``)."""
-        ix = self.index
-        return ops.ivf_screen(self._proxy_query(q), self.proxy_sorted,
-                              ix.proxy_norms_sorted, ix.offsets,
-                              ix.centroids, ix.centroid_norms, m,
-                              nprobe_max, ix.max_cluster, nprobe=nprobe)
+        o = self.current_operands()
+        return ops.ivf_screen(self._proxy_query(q), o.proxy_sorted,
+                              o.proxy_norms_sorted, o.offsets,
+                              o.centroids, o.centroid_norms, m,
+                              nprobe_max, self.index.max_cluster,
+                              nprobe=nprobe)
 
     def probe(self, q: torch.Tensor, nprobe_max: int, nprobe=None):
         """IVF level 1 of rescaled queries (``ops.ivf_probe``: on the card
@@ -423,10 +718,10 @@ class GoldDiffEngine:
         validity, the proxy pooled inside it, rounded as ``_proxy_query``
         rounds it); ``nprobe`` (a 0-d device tensor on the masked path)
         masks the probes beyond it."""
-        ix = self.index
+        o, ix = self.current_operands(), self.index
         return ops.ivf_probe(q, self.store.image_shape, self.cfg.proxy_factor,
-                             ix.centroids, ix.centroid_norms, ix.offsets,
-                             ix.perm, ix.n, nprobe_max, ix.max_cluster,
+                             o.centroids, o.centroid_norms, o.offsets,
+                             o.perm, ix.n, nprobe_max, ix.max_cluster,
                              nprobe=nprobe, fields=("ids", "valid"),
                              round_bf16=self.storage_dtype is not None)
 
@@ -472,19 +767,61 @@ class GoldDiffEngine:
                              tile=self.screen_tile)
         return out.to(x_t.dtype)
 
+    # -- observability: spans around the static entry points -----------------
+    def stage_costs(self, kind: str, t: int, batch: int) -> dict:
+        """Cached analytic per-stage FLOPs/bytes (``core.plan``) of one
+        entry call; ``select`` drops the aggregate stage."""
+        key = (kind, int(t), int(batch))
+        if key not in self._stage_costs:
+            if kind == "full_scan":
+                costs = full_scan_costs(self, batch)
+            elif kind == "fused_step":
+                costs = fused_step_costs(self, t, batch)
+            else:
+                costs = step_stage_costs(self, t, batch)
+                if kind == "select":
+                    costs = {s: c for s, c in costs.items()
+                             if s != "aggregate"}
+            self._stage_costs[key] = costs
+        return self._stage_costs[key]
+
+    def _traced(self, kind: str, t: int, x_t: torch.Tensor, fn):
+        """``fn(x_t)`` inside an ``engine.<kind>`` span with one
+        ``stage.*`` point event a stage.  Only reached with the tracer
+        enabled; the card is synchronized inside the span, so its
+        duration is the device work's.  The port runs static steps
+        eagerly, so ``compile`` is always False."""
+        tr = obs_trace.tracer()
+        with tr.span(f"engine.{kind}", t=int(t), backend=self.store.device.type,
+                     shape=tuple(x_t.shape), compile=False,
+                     indexed=bool(self.use_index(t))):
+            for stage, c in self.stage_costs(kind, t, x_t.shape[0]).items():
+                tr.event(f"stage.{stage}", t=int(t), flops=c["flops"],
+                         bytes=c["bytes"])
+            out = fn(x_t)
+            if out.device.type == "cuda":
+                torch.cuda.synchronize(out.device)
+        return out
+
     # -- public entry points --------------------------------------------------
     def select(self, x_t: torch.Tensor, t: int) -> torch.Tensor:
         """Golden support S_t for each query; [B, k_t]."""
         t = int(t)
         a, _ = self.constants(t)
-        return self._select_ids_body(x_t / a, t)
+        fn = lambda x: self._select_ids_body(x / a, t)
+        if not obs_trace.tracer().enabled:
+            return fn(x_t)
+        return self._traced("select", t, x_t, fn)
 
     def denoise(self, x_t: torch.Tensor, t: int) -> torch.Tensor:
         """Full GoldDiff step for the Optimal base (unbiased SS on S_t)."""
         t = int(t)
-        if self.use_fused(t):
-            return self._fused_body(x_t, t)
-        return self._denoise_body(x_t, t)
+        fused = self.use_fused(t)
+        body = self._fused_body if fused else self._denoise_body
+        if not obs_trace.tracer().enabled:
+            return body(x_t, t)
+        return self._traced("fused_step" if fused else "denoise", t, x_t,
+                            lambda x: body(x, t))
 
     # -- masked (graph-capturable) path -----------------------------------------
     def _masked_nprobe_pad(self) -> int:
@@ -601,10 +938,17 @@ class GoldDiffEngine:
         return out.to(x_t.dtype)
 
     def full_scan(self, x_t: torch.Tensor, t: int) -> torch.Tensor:
-        """Exact posterior mean over the whole store (Eq. 2)."""
-        a, sig2 = self.constants(int(t))
-        return ops.golden_aggregate(x_t / a, self.X, sig2,
-                                    x_norms=self.x_norms).to(x_t.dtype)
+        """Exact posterior mean over the whole store (Eq. 2); rows with
+        a +inf norm (capacity padding) weigh 0."""
+        t = int(t)
+        a, sig2 = self.constants(t)
+
+        def fn(x):
+            return ops.golden_aggregate(x / a, self.X, sig2,
+                                        x_norms=self.x_norms).to(x.dtype)
+        if not obs_trace.tracer().enabled:
+            return fn(x_t)
+        return self._traced("full_scan", t, x_t, fn)
 
 
 def capture(fn, specs, side: torch.cuda.Stream, pool, label: str):
@@ -623,6 +967,11 @@ def capture(fn, specs, side: torch.cuda.Stream, pool, label: str):
         fn(*inputs)              # builds the kernels, sets their attributes
         before = ops.launch_counts()
         graph = torch.cuda.CUDAGraph()
+        # no garbage collection inside the capture: a collected graph
+        # (a retired slot's, a finished caller's) resets as it is freed,
+        # which the capture mode forbids, and the capture is invalidated
+        collect = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, pool=pool, stream=side):
                 out = fn(*inputs)
@@ -630,6 +979,8 @@ def capture(fn, specs, side: torch.cuda.Stream, pool, label: str):
             raise RuntimeError(f"CUDA graph capture of {label} failed: "
                                f"{e}") from e
         finally:
+            if collect:
+                gc.enable()
             delta = [a - b for a, b in zip(ops.launch_counts(), before)]
             ops.add_launch_counts([-d for d in delta])
     torch.cuda.current_stream(device).wait_stream(side)

@@ -35,6 +35,7 @@ from typing import Callable, Sequence
 import torch
 
 from repro_torch.core.schedules import Schedule, sampling_timesteps, take
+from repro_torch.obs import trace as obs_trace
 
 
 def _clip(x0: torch.Tensor, clip_value: float | None) -> torch.Tensor:
@@ -198,6 +199,15 @@ def plan_segment_mixed(denoise_masked: Callable, schedule: Schedule, plan,
     return segment
 
 
+def plan_segment_mixed_key(plan, bucket, shape: tuple, dtype_str: str,
+                           clip_value: float | None) -> tuple:
+    """The program-cache key of a mixed-cursor segment: the anatomy of
+    :func:`plan_segment_key` under its own kind, so the plain and the
+    mixed program of one bucket live side by side and both get warmed."""
+    return ("plan_seg_mix",) + plan_segment_key(plan, bucket, shape,
+                                                 dtype_str, clip_value)[1:]
+
+
 def _dtype_str(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
@@ -221,7 +231,9 @@ def sample_plan(denoise_masked: Callable, schedule: Schedule, shape: tuple,
     keeps each segment per batch shape: ``plan.num_buckets`` builds the
     first time, none afterwards.  ``jitter`` (e.g.
     ``GoldDiffEngine.jitter``) builds each cached segment: on the card
-    one captured CUDA graph.  ``compile_only=True`` fills the cache for
+    one captured CUDA graph.  With the tracer enabled each segment runs
+    in a ``plan.segment`` span (the card synchronized inside it).
+    ``compile_only=True`` fills the cache for
     an fp32 input of ``shape`` without sampling a trajectory (the
     serving warmup; each capture runs its segment once on zeros) and
     returns None."""
@@ -246,7 +258,8 @@ def sample_plan(denoise_masked: Callable, schedule: Schedule, shape: tuple,
 
     x = _init_noise(schedule, int(plan.ts[0]), shape, generator,
                     _device_of(denoise_masked), x_init)
-    for bucket in plan.buckets:
+    tr = obs_trace.tracer()
+    for bi, bucket in enumerate(plan.buckets):
         shp = tuple(x.shape)
         if program_cache is None:
             fn = plan_segment(denoise_masked, schedule, plan, bucket,
@@ -256,5 +269,13 @@ def sample_plan(denoise_masked: Callable, schedule: Schedule, shape: tuple,
                                                 _dtype_str(x.dtype),
                                                 clip_value),
                                build(bucket, shp))
-        x = fn(x)
+        if not tr.enabled:
+            x = fn(x)
+            continue
+        with tr.span("plan.segment", bucket=bi, start=bucket.start,
+                     stop=bucket.stop, caps=bucket.caps.sig(),
+                     shape=tuple(x.shape)):
+            x = fn(x)
+            if x.device.type == "cuda":
+                torch.cuda.synchronize(x.device)
     return x

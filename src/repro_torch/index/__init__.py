@@ -10,7 +10,10 @@ Counterpart of ``repro.index`` for one device:
   ``save_index``/``load_index`` in the reference's file format, and
   ``index_from_numpy`` to carry a reference index across;
 * :mod:`repro_torch.index.schedule` — :class:`ProbeSchedule`, the
-  time-aware probe count nprobe_t.
+  time-aware probe count nprobe_t;
+* :mod:`repro_torch.index.ingest`   — :class:`StoreLifecycle`, the
+  appendable capacity-padded store with epochs and a journal, in the
+  reference's on-disk format.
 
 ``GoldDiffEngine(index=...)`` routes the coarse stage through it:
 ``ops.ivf_probe`` (on the card one launch of a hand-written kernel)
@@ -18,6 +21,8 @@ pools the query, scans the centroids and expands the probed CSR
 windows, O(C d + nprobe_t L) instead of O(N d).
 """
 from repro_torch.index.build import kmeans, kmeans_plusplus
+from repro_torch.index.ingest import (CURRENT_FILE, JOURNAL_FILE,
+                                      IngestConfig, StoreLifecycle)
 from repro_torch.index.schedule import ProbeSchedule
 from repro_torch.index.store import (GoldenIndex, StoreCapacityError,
                                      StoreCorruptionError, StoreError,
@@ -30,4 +35,5 @@ __all__ = ["GoldenIndex", "build_index", "default_num_clusters",
            "index_from_numpy", "save_index", "load_index", "kmeans",
            "kmeans_plusplus", "ProbeSchedule", "screening_recall",
            "validate_index", "StoreError", "StoreCorruptionError",
-           "StoreVersionError", "StoreCapacityError"]
+           "StoreVersionError", "StoreCapacityError", "IngestConfig",
+           "StoreLifecycle", "CURRENT_FILE", "JOURNAL_FILE"]

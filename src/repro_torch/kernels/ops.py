@@ -74,6 +74,32 @@ def add_launch_counts(delta) -> None:
         k.launches_bf16 += d
 
 
+# -- the dispatch seam --------------------------------------------------------
+# ``GoldDiffEngine.program`` (the program cache) consults this hook on
+# every lookup.  With none installed (the default) the cache returns its
+# own callables unchanged.  ``repro_torch.launch.faults`` installs its
+# seeded injector here and ``repro_torch.obs.trace`` its TraceHook;
+# nothing else sets it.
+_DISPATCH_HOOK = None
+
+
+def set_dispatch_hook(hook):
+    """Install (or clear, with None) the dispatch hook; returns the hook
+    it replaces.  A hook provides ``on_program(engine, key)`` (every
+    cache lookup, before the hit/miss check; it may evict) and
+    ``wrap(key, fn) -> fn`` (every dispatch; it may return ``fn`` or a
+    wrapped callable)."""
+    global _DISPATCH_HOOK
+    prev = _DISPATCH_HOOK
+    _DISPATCH_HOOK = hook
+    return prev
+
+
+def dispatch_hook():
+    """The installed dispatch hook (None when off)."""
+    return _DISPATCH_HOOK
+
+
 def _on_cpu(t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
 

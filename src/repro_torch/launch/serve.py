@@ -27,13 +27,18 @@ images depend neither on the wave that co-batched it nor on the device.
 
 ``fused`` forwards to the engine (``GoldDiffEngine(fused=...)``): True
 runs every step through the single-pass fused kernel, "auto" where the
-engine's crossover says it pays.  ``index``/``index_mode`` forward
-too: a ``repro_torch.index.GoldenIndex`` of the store routes the coarse
-screen of the steps ``index_mode`` picks through the index.
+engine's crossover says it pays.  ``index``/``index_mode``/
+``probe_schedule`` forward too: a ``repro_torch.index.GoldenIndex`` of
+the store routes the coarse screen of the steps ``index_mode`` picks
+through the index.
+
+``ServeRuntime`` (``repro_torch.launch.runtime``) wraps a warmed plan-
+or scan-mode engine in admission, deadlines, retries, the degradation
+ladder and store hot swaps.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --dataset cifar_like \
       --n 50000 --requests 3 --batch 16 --steps 10 [--buckets 4] \
-      [--base pca]
+      [--base pca] [--trace-out PATH] [--metrics]
 """
 from __future__ import annotations
 
@@ -51,6 +56,8 @@ from repro_torch.core import (GoldDiff, GoldDiffConfig, OptimalDenoiser,
                               sample_scan, sampling_timesteps)
 from repro_torch.core.dataset import DatasetStore
 from repro_torch.data import make_dataset
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 from repro_torch.utils import resolve_device
 
 
@@ -59,6 +66,7 @@ class Request:
     request_id: int
     num_images: int
     seed: int
+    deadline_s: float | None = None   # relative; ServeRuntime enforces it
 
 
 @dataclasses.dataclass
@@ -103,7 +111,7 @@ class ServeEngine:
                  max_buckets: int | None = None,
                  clip_value: float | None = 3.0, device=None,
                  fused: str | bool = "auto", index=None,
-                 index_mode: str = "auto"):
+                 index_mode: str = "auto", probe_schedule=None):
         if mode not in ("auto", "plan", "scan", "static"):
             raise ValueError(f"unknown serve mode {mode!r}")
         self.device = resolve_device(device)
@@ -119,7 +127,8 @@ class ServeEngine:
                                  device=self.device)
         self.denoiser = GoldDiff(base_den, gd_cfg or GoldDiffConfig(),
                                  fused=fused, index=index,
-                                 index_mode=index_mode)
+                                 index_mode=index_mode,
+                                 probe_schedule=probe_schedule)
         if mode == "auto":
             mode = "plan" if self._scan_compatible() else "static"
         if mode in ("plan", "scan") and not self._scan_compatible():
@@ -162,9 +171,13 @@ class ServeEngine:
 
     # -- per-request noise ----------------------------------------------------
     def _init_noise(self, wave: list, bucket: int) -> torch.Tensor:
-        """x_T = b_T * eps for a wave of ``(request, ofs, n)`` chunks:
-        row i of a chunk draws from ``row_seed(request.seed, ofs + i)``;
-        padding rows (sliced off) draw from seed 0."""
+        """``_noise_rows`` on the engine's device."""
+        return self._noise_rows(wave, bucket).to(self.device)
+
+    def _noise_rows(self, wave: list, bucket: int) -> torch.Tensor:
+        """x_T = b_T * eps on the host for a wave of ``(request, ofs,
+        n)`` chunks: row i of a chunk draws from ``row_seed(request.seed,
+        ofs + i)``; padding rows (sliced off) draw from seed 0."""
         ts = sampling_timesteps(self.schedule, self.num_steps)
         b_t0 = float(self.schedule.b[int(ts[0])])
         seeds = [row_seed(r.seed, ofs + i) for r, ofs, n in wave
@@ -175,7 +188,7 @@ class ServeEngine:
         for s in seeds:
             gen.manual_seed(s)
             rows.append(torch.randn(self.store.dim, generator=gen))
-        return (b_t0 * torch.stack(rows)).to(self.device)
+        return b_t0 * torch.stack(rows)
 
     # -- sampling ------------------------------------------------------------
     def _scan_program(self, shape: tuple):
@@ -324,7 +337,22 @@ def main(argv=None):
                     help="max padded-FLOP overhead per bucket")
     ap.add_argument("--no-warmup", action="store_true",
                     help="skip building the (batch x shape) buckets first")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="enable tracing (engine spans, plan segments, "
+                         "dispatch events; the card synchronized inside "
+                         "each span) and write the events as JSONL to PATH "
+                         "on exit")
+    ap.add_argument("--metrics", action="store_true",
+                    help="count dispatches and builds per program kind and "
+                         "print a Prometheus text snapshot on exit")
     args = ap.parse_args(argv)
+
+    tracer = (obs_trace.Tracer(capacity=1 << 16) if args.trace_out
+              else obs_trace.NULL_TRACER)
+    if args.trace_out or args.metrics:
+        obs_trace.set_tracer(tracer)
+        obs_trace.install_dispatch_tracing(
+            tracer, obs_metrics.REGISTRY if args.metrics else None)
 
     mode = "auto"
     if args.base == "optimal":
@@ -362,6 +390,12 @@ def main(argv=None):
     n_img = sum(r.images.shape[0] for r in results)
     print(f"served {n_img} images in {total:.3f}s "
           f"({n_img / max(total, 1e-9):.1f} images/s, {args.steps} steps)")
+    if args.trace_out:
+        tracer.dump(args.trace_out)
+        print(f"trace: {len(tracer.events())} events "
+              f"({tracer.dropped} dropped) -> {args.trace_out}")
+    if args.metrics:
+        print(obs_metrics.REGISTRY.prometheus(), end="")
 
 
 if __name__ == "__main__":

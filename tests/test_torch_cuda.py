@@ -30,6 +30,7 @@ import torch  # noqa: E402
 
 from repro_torch.core import (GoldDiff, OptimalDenoiser,  # noqa: E402
                               make_schedule, sample)
+from repro_torch.core.engine import STANDBY_EPOCH  # noqa: E402
 from repro_torch.data import make_dataset  # noqa: E402
 from repro_torch.index import build_index  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
@@ -1432,3 +1433,140 @@ def test_bf16_routes_card_match_cpu(card, route):
         outs.append(out.cpu())
     assert np.isfinite(outs[1].numpy()).all()
     torch.testing.assert_close(outs[1], outs[0], rtol=1e-3, atol=1e-3)
+
+
+# -- store epochs on operand slots and the runtime's hot swap ------------------
+
+def _lifecycle_engine(card, tmp_path, **kw):
+    """A padded gmm lifecycle and a plan-mode ServeEngine on its view."""
+    from repro_torch.index import IngestConfig, StoreLifecycle
+    from repro_torch.launch.serve import ServeEngine
+    store = make_dataset("gmm", n=2048, dim=32, seed=3, device="cpu")
+    store = dataclasses.replace(store, labels=None)
+    lc = StoreLifecycle.create(str(tmp_path), store,
+                               build_index(store, 16), IngestConfig())
+    ds, ix = lc.view(device=card)
+    eng = ServeEngine(ds, num_steps=6, max_batch=4, index=ix,
+                      index_mode="always", device=card, **kw)
+    return lc, eng
+
+
+def _grow(lc, b, seed, card):
+    lc.append(np.random.default_rng(seed).normal(
+        size=(b, lc.dim)).astype(np.float32))
+    lc.commit()
+    return lc.view(device=card)
+
+
+def test_standby_slot_graph_replays_installed_epoch(card, tmp_path):
+    """A segment captured on the standby slot before any epoch lives
+    there, replayed after ``install_epoch`` copied a new epoch into the
+    slot, is bit-equal to the segment run eagerly on that epoch."""
+    from repro_torch.core import plan_segment
+    lc, srv = _lifecycle_engine(card, tmp_path)
+    eng, plan = srv.engine, srv.plan
+    assert eng.reserve_standby() == [0, STANDBY_EPOCH]
+    seg = plan_segment(srv.denoiser.call_masked, srv.schedule, plan,
+                       plan.buckets[0])
+    x = torch.randn(4, 32, generator=torch.Generator().manual_seed(0)).to(card)
+    with eng.at_epoch(STANDBY_EPOCH):
+        graph = eng.jitter(seg, (4, 32), label="standby segment")
+    eng.retire_epoch(STANDBY_EPOCH)               # the slot goes free
+    c0 = eng._captures
+    eng.install_epoch(1, *_grow(lc, 64, 1, card))
+    assert eng._epochs[1] == 1 and eng._captures == c0
+    with eng.at_epoch(1):
+        assert torch.equal(graph(x), seg(x))
+        eager1 = seg(x)
+    assert not torch.equal(eager1, seg(x))       # epoch 0 still serves
+
+
+def test_runtime_two_swaps_capture_nothing(card, tmp_path):
+    """Two hot swaps, one with a wave in flight, capture and build
+    nothing after warmup; the in-flight wave equals its no-swap run,
+    and a request after each swap equals a fresh engine on that view."""
+    from repro_torch.core import sample_plan
+    from repro_torch.launch.runtime import RuntimeConfig, ServeRuntime
+    from repro_torch.launch.serve import Request, ServeEngine
+    lc, srv = _lifecycle_engine(card, tmp_path)
+    rt = ServeRuntime(srv, RuntimeConfig())
+    stats = rt.warmup()
+    assert stats["slots"] == [0, 1] and stats["graphs_captured"] > 0
+    c0, b0 = srv.engine._captures, srv.engine._builds
+
+    def serve(rid, seed):
+        t = rt.submit(Request(rid, 2, seed=seed))
+        rt.run_until_idle()
+        assert t.status == "done"
+        return t.images
+
+    base = serve(0, 7)
+    t = rt.submit(Request(1, 2, seed=7))
+    assert rt.pump()
+    rt.hot_swap(*_grow(lc, 64, 1, card))           # mid-trajectory
+    rt.run_until_idle()
+    assert np.array_equal(t.images, base)
+    for swap in range(2):
+        if swap:
+            rt.hot_swap(*_grow(lc, 32, 2, card))
+        got = serve(2 + swap, 9)
+        ds, ix = lc.view(device=card)
+        fresh = ServeEngine(ds, num_steps=6, max_batch=4, index=ix,
+                            index_mode="always", device=card)
+        x = fresh._init_noise([(Request(0, 2, seed=9), 0, 2)], 2)
+        want = sample_plan(fresh.denoiser.call_masked, fresh.schedule,
+                           (2, 32), fresh.plan, x_init=x)
+        np.testing.assert_array_equal(got, want.cpu().numpy())
+    assert srv.engine._captures == c0 and srv.engine._builds == b0
+    assert rt.health()["compiles_post_warmup"] == 0
+    assert rt.health()["epochs_resident"] == 1
+
+
+def test_third_live_epoch_builds_are_counted(card, tmp_path):
+    """With both kept slots live, a third epoch takes a new slot: its
+    first dispatch captures its graph and counts a build; retiring it
+    frees the slot and drops the graph."""
+    lc, srv = _lifecycle_engine(card, tmp_path)
+    eng = srv.engine
+    srv.warmup()
+    eng.reserve_standby()
+    eng.retire_epoch(STANDBY_EPOCH)
+    eng.install_epoch(1, *_grow(lc, 16, 1, card))
+    eng.install_epoch(2, *_grow(lc, 16, 2, card))
+    assert eng._epochs == {0: 0, 1: 1, 2: 2}
+    n0, b0 = len(eng._programs), eng._builds
+    x = torch.zeros(4, 32, device=card)
+    from repro_torch.core import sample_plan
+    with eng.at_epoch(2):
+        sample_plan(srv.denoiser.call_masked, srv.schedule, (4, 32),
+                    srv.plan, x_init=x, program_cache=eng.program,
+                    jitter=eng.jitter)
+    assert eng._builds == b0 + srv.plan.num_buckets
+    eng.retire_epoch(2)
+    assert sorted(eng._slots) == [0, 1] and len(eng._programs) == n0
+
+
+def test_capture_is_not_invalidated_by_dying_graphs(card):
+    """An engine's graphs die in a reference cycle (its replay closures
+    hold the engine), so the garbage collector frees them; a collection
+    inside another capture would reset them there, which the capture
+    forbids.  With collections forced at every allocation, a capture
+    still succeeds and replays."""
+    import gc
+    from repro_torch.core import GoldDiffEngine
+    store = make_dataset("gmm", n=256, dim=8, seed=0, device=card)
+    sched = make_schedule("ddpm_linear", 1000)
+    old = GoldDiffEngine(store, sched, device=card)
+    for i in range(4):
+        old.program(("seg", i), lambda: old.jitter(lambda v: v * 2.0,
+                                                   (4, 8)))
+    del old
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        eng = GoldDiffEngine(store, sched, device=card)
+        graph = eng.jitter(lambda v: v + 1.0, (4, 8), label="after")
+    finally:
+        gc.set_threshold(*thresholds)
+    x = torch.ones(4, 8, device=card)
+    assert torch.equal(graph(x), x + 1.0)

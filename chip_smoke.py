@@ -131,6 +131,7 @@ card's name and power limit, a JSON line of per-kernel numbers, and
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -964,7 +965,8 @@ def bf16_phase(ctx: dict) -> tuple[dict, dict]:
     t_phase = time.perf_counter()
     st, sched, x_T = ctx["store"], ctx["sched"], ctx["x_T"]
     fp32 = ctx["results"]
-    kern = {k.__name__: k for k in ops.COUNTED_BF16}
+    kern = {k.__name__: k for k in ops.COUNTED_BF16
+            if k not in ops.STATE_ENTRIES}
     check(set(kern) == set(BF16_PATH),
           f"[bf16] the bf16 instances' wrappers {sorted(kern)}")
 
@@ -1360,6 +1362,8 @@ def live_store_phase(ctx: dict) -> dict:
     from repro_torch.launch.runtime import RuntimeConfig, ServeRuntime
     from repro_torch.launch.serve import Request, ServeEngine
     from repro_torch.obs import trace as obs_trace
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.obs.quality import QualityMonitor
     from repro_torch.core import sample_plan, sampling_timesteps
     st, cix, sched = ctx["store"], ctx["cix"], ctx["sched"]
     cfg, probes, x_T, kernels = (ctx["indexed_cfg"], ctx["probes"],
@@ -1876,6 +1880,32 @@ def live_store_phase(ctx: dict) -> dict:
           + ", ".join(f"{v:.1f}" for v in walls["off"]) + f" ms; medians "
           f"{med['on']:.1f} and {med['off']:.1f} ms (on/off "
           f"{med['on'] / med['off']:.3f})")
+    # -- [runtime] the quality monitor on the same engine ----------------------
+    mon = QualityMonitor(pe, registry=MetricsRegistry(), sample_rate=1.0)
+    mrt = ServeRuntime(srv, RuntimeConfig(**rcfg), monitor=mon)
+    c1 = pe._captures
+    mstats = mrt.warmup()
+    warm_caps = pe._captures - c1
+    c1, b1 = pe._captures, pe._builds
+    tickets = serve(8, runtime=mrt, seed0=8000)
+    hm = mrt.health()
+    check(all(t_.status == "done" and np.isfinite(t_.images).all()
+              for t_ in tickets) and pe._captures == c1
+          and pe._builds == b1 and hm["compiles_post_warmup"] == 0
+          and hm["n_recall_probes"] > 0,
+          f"[runtime] monitor: {hm}, {pe._captures - c1} captures")
+    print(f"[runtime] QualityMonitor (sample rate 1.0, 2 probe rows): "
+          f"warmup {mstats['probe_ts_warmed']} probe timesteps, "
+          f"{warm_caps} graphs captured for the probes on the kept slots; "
+          f"8 requests: {hm['n_recall_probes']:.0f} recall probes, recall "
+          f"last {hm['screen_recall_last']:.4f}, p50 "
+          f"{hm['screen_recall_p50']:.4f}, min "
+          f"{mon.recall_hist.quantile(0.0):.4f}; steps observed "
+          f"{hm['n_steps_observed']:.0f}, k_t/N p50 "
+          f"{hm['subset_frac_p50']:.4f}, occupancy p50 "
+          f"{hm['probe_occupancy_p50']:.4f}; 0 builds and 0 captures after "
+          f"warmup")
+    del mrt, mon
     need = ("support_sqdist", "golden_support_aggregate", "centroid_scan")
     check(all(path_counts[n] > 0 for n in need)
           and (path_counts["screen_topm"]
@@ -1885,6 +1915,505 @@ def live_store_phase(ctx: dict) -> dict:
     print(f"[runtime] phase {time.perf_counter() - t_phase:.1f} s; runtime "
           f"path launches {dict(path_counts)}")
     return dict(path_counts)
+
+
+SHARDS = (2, 8)            # LocalMesh sizes of the [sharded] phase
+SGS, SGA = "golden_support_aggregate_state", "golden_aggregate_state"
+# the kernels each sharded route launches S times a step (the fused
+# sharded step is the staged one's operations in another order, and its
+# screen materializes at the shard's size)
+SHARD_ROUTES = {
+    "staged": ("pdist", "support_sqdist", SGS),
+    "streamed": ("screen_topm", "support_sqdist", SGS),
+    "fused": ("pdist", "support_sqdist", SGS),
+    "indexed": ("centroid_scan", "support_sqdist", SGS),
+    "full_scan": (SGA,),
+    "plan": ("pdist", "support_sqdist", SGS)}
+ROUTE_KW = {"staged": dict(fused=False, screen="materialized"),
+            "streamed": dict(fused=False, screen="streamed"),
+            "fused": dict(fused=True, screen="auto"),
+            "full_scan": dict(fused="auto", screen="auto"),
+            "plan": dict(fused="auto", screen="auto"),
+            "indexed": {}}
+
+
+@contextlib.contextmanager
+def routed(eng, fused, screen):
+    """The engine's route policies set for one trajectory (both are read
+    at every step), put back after."""
+    old = eng.fused, eng.screen
+    eng.fused, eng.screen = fused, screen
+    try:
+        yield eng
+    finally:
+        eng.fused, eng.screen = old
+
+
+def near_tie_swaps(got: torch.Tensor, want: torch.Tensor, q: torch.Tensor,
+                   x: torch.Tensor, eng=None, t: int = 0) -> tuple[int, bool]:
+    """Rows in one golden set of a query and not in the other: their
+    count, and whether each is explained by a tie at a cut, which fp32
+    sums in another order, or the threshold's rule, may resolve either
+    way: a row lost or gained within 1e-6 of ||q||^2 of the one-card
+    set's k-th exact distance (float64 on the host), or (``eng``, the
+    one-card engine, exact screen) a gained row whose proxy distance
+    lies within 1e-6 of ||q_p||^2 of the one-card screen's m-th: the
+    cross-shard m-th threshold (``neg >= mth``) admits every candidate
+    tied there, as the reference's sharded engine does."""
+    swaps, ok = 0, True
+    for b in range(got.shape[0]):
+        g, w = set(got[b].tolist()), set(want[b].tolist())
+        if g == w:
+            continue
+        swaps += len(g - w)
+        qb = q[b].double().cpu()
+        rows = sorted(w | g)
+        d = dict(zip(rows, ((x[rows].double().cpu() - qb) ** 2)
+                     .sum(-1).tolist()))
+        kth = max(d[r] for r in w)
+        tol = 1e-6 * float((qb * qb).sum())
+        bad = [r for r in g ^ w if abs(d[r] - kth) > tol]
+        if bad and eng is not None:
+            qp = eng._proxy_query(q[b: b + 1])[0].double().cpu()
+            cand = eng.coarse(q[b: b + 1], eng.sizes(t)[0])[0].tolist()
+            pr = eng.proxy.double()
+            mth = float(((pr[cand].cpu() - qp) ** 2).sum(-1).max())
+            pd = ((pr[bad].cpu() - qp) ** 2).sum(-1).tolist()
+            ptol = 1e-6 * float((qp * qp).sum())
+            bad = [r for r, v in zip(bad, pd)
+                   if r not in g or abs(v - mth) > ptol]
+        ok &= not bad
+    return swaps, ok
+
+
+def swap_allowance(got: torch.Tensor, want: torch.Tensor, q: torch.Tensor,
+                   x64: torch.Tensor, sig2: float) -> torch.Tensor:
+    """Per query, how far the sharded mean may stray from the one-card
+    one (golden sets ``got`` and ``want``, k rows each): MEAN_ATOL, plus
+    2 max|x| times the softmax weight (float64 distances to the rows
+    ``x64``, normalized over ``want``) of every row that one engine may
+    hold and the other not: the rows in one set only (ties at a cut,
+    ``near_tie_swaps``) and the rows outside ``want`` within 1e-6 of
+    ||q||^2 of its k-th distance, which the cross-shard threshold
+    (``neg >= kth``) keeps beside the k-th, as the reference's sharded
+    engine does.  No such row: MEAN_ATOL alone."""
+    q64 = q.double()
+    d = ((q64 * q64).sum(-1, keepdim=True) + (x64 * x64).sum(-1)
+         - 2.0 * q64 @ x64.T)                                 # [B, N]
+    out = torch.full((got.shape[0],), MEAN_ATOL, dtype=torch.float64)
+    xmax = float(x64.abs().max())
+    for b in range(got.shape[0]):
+        db, w = d[b], want[b]
+        tol = 1e-6 * float((q64[b] * q64[b]).sum())
+        inw = torch.zeros_like(db, dtype=torch.bool)
+        inw[w] = True
+        ing = torch.zeros_like(inw)
+        ing[got[b]] = True
+        moved = (inw ^ ing) | (~inw & ((db - db[w].max()).abs() <= tol))
+        lg = -(db - db[w].min()) / (2.0 * sig2)
+        wt = torch.exp(lg) / torch.exp(lg[w]).sum()
+        out[b] += 2.0 * xmax * float(wt[moved].sum())
+    return out
+
+
+def sharded_phase(ctx: dict) -> tuple[dict, dict]:
+    """[sharded]: the store sharded over a ``LocalMesh`` on the one card.
+
+    The state entries of kernels 3 and 4 (fp32 and bf16 rows) against
+    their plain versions at a shard's shapes (S=8: n_loc=6250, B=16,
+    k=5000; integer data bit-equal, an all-padding shard exactly the
+    plain version's finite state, floats within DIST_RTOL of the largest
+    value and MEAN_ATOL on the means), timed against their bytes bound;
+    then at S=2 and S=8, from the x_T of the other phases, each sharded
+    route against the single-card engine's (staged, streamed, fused,
+    indexed at INDEXED_CFG, full scan, the plan on CUDA graphs) within
+    TRAJ_TOL after 10 steps, each counted alone (every shard-local kernel
+    S times a step; the unsharded entries of kernels 3 and 4 never),
+    timed in turns with the single-card route and profiled; ``select``
+    at t in {100, 500, 900} (overlap 1.0) and the single steps within
+    MEAN_ATOL; the sharded plan's replay bit-equal to eager and a
+    plan-mode ``ServeEngine(mesh=...)`` capturing nothing after
+    ``warmup()``; ``ServeRuntime`` over a sharded engine on the gmm store
+    through a ``shard_drop`` storm.  Returns the state entries' numbers
+    and the sharded path's counts."""
+    from repro_torch.core import (FullScan, GoldDiff, OptimalDenoiser,
+                                  build_plan, sample, sample_plan,
+                                  sampling_timesteps)
+    from repro_torch.distributed import LocalMesh, lse_merge_mean
+    from repro_torch.index.shard import shard_layout
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.golden_aggregate import golden_aggregate_state
+    from repro_torch.kernels.golden_support_aggregate import (
+        golden_support_aggregate_state)
+    from repro_torch.launch.faults import FaultConfig, injected
+    from repro_torch.launch.runtime import RuntimeConfig, ServeRuntime
+    from repro_torch.launch.serve import Request, ServeEngine
+
+    t_phase = time.perf_counter()
+    st, sched, x_T = ctx["store"], ctx["sched"], ctx["x_T"]
+    dev = st.device          # the card (a CPU store rehearses the phase)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    full = OptimalDenoiser(st, sched, device=dev)
+    names = {k.__name__: k for k in ops.COUNTED}
+    res = {}
+
+    def zero():
+        for k in ops.COUNTED:
+            k.launches = 0
+        for k in ops.COUNTED_BF16:
+            k.launches_bf16 = 0
+
+    def counted(fn):
+        zero()
+        sync()
+        out = fn()
+        sync()
+        return out, ({n: k.launches for n, k in names.items()},
+                     {n: getattr(k, "launches_bf16", 0)
+                      for n, k in names.items()})
+
+    ikw = dict(cfg=ctx["indexed_cfg"], index=ctx["cix"],
+               probe_schedule=ctx["probes"])
+    one = {"exact": GoldDiff(full), "indexed": GoldDiff(full, **ikw)}
+    one_staged = {"exact": GoldDiff(full, fused=False),
+                  "indexed": GoldDiff(full, fused=False, **ikw)}
+
+    # -- the state entries at a shard's shapes (S=8) ---------------------------
+    lay = shard_layout(st, LocalMesh((SHARDS[-1],), ("data",)))
+    n_loc = lay.n_loc
+    _, sig2 = one["exact"].engine.constants(500)
+    q = ctx["q"]
+    g = torch.Generator().manual_seed(24)
+    k = min(K, n_loc)
+    idx = torch.randint(0, n_loc, (B, k), generator=g).to(dev)
+    lg01 = torch.where(torch.rand(B, k, generator=g) < 0.5, 0.0,
+                       ref.NEG_INF).to(dev)
+    lg01[1] = ref.NEG_INF                      # an all-NEG_INF query
+    d = st.dim
+    xi = ints((n_loc, d), 90).to(dev)
+    pad_n = torch.full((n_loc,), float("inf"), device=dev)
+
+    def close(got, want, label):
+        """(max abs error of the mean acc / l, of the state) within
+        DIST_RTOL of the largest value; m and l as well."""
+        errs = [float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+                for x, y in zip(got, want)]
+        mean = float((got[0] / got[2][:, None] - want[0] / want[2][:, None])
+                     .abs().max())
+        check(max(errs) <= DIST_RTOL and mean <= MEAN_ATOL,
+              f"[sharded] {label}: state errors {errs}, mean {mean:.3g}")
+        return mean, errs
+
+    for dt in (torch.float32, BF16):
+        tag = "bf16" if dt == BF16 else "fp32"
+        xs = lay.X[0].to(dt)                    # shard 0's slab
+        xn = lay.x_norms[0]
+        # kernel 3's state entry: integer rows and 0/NEG_INF logits are
+        # exact; the path's rows with their own distances' logits
+        xb = xi.to(dt)
+        got = golden_support_aggregate_state(xb, idx, lg01)
+        want = ref.partial_aggregate_ref(xb, idx, lg01)
+        check(all(torch.equal(u, v) for u, v in zip(got, want)),
+              f"[sharded] {SGS} {tag}: integer data not bit-equal")
+        lg = torch.clamp_min(-ops.support_distances(q, xs, idx, xn)
+                             / (2.0 * sig2), ref.NEG_INF)
+        got = golden_support_aggregate_state(xs, idx, lg)
+        mean3, errs3 = close(got, ref.partial_aggregate_ref(xs, idx, lg),
+                             f"{SGS} {tag}")
+        u3 = int(torch.unique(idx).numel())
+        item = xs.element_size()
+        b_ms, b_by = bound(item * u3 * d + 4 * B * d + 12 * B * k + 8 * B,
+                           2 * B * k * d)
+        res[f"{SGS}[{tag}]"] = dict(
+            max_abs_err=mean3, ms=time_ms(
+                lambda: golden_support_aggregate_state(xs, idx, lg)),
+            plain_ms=time_ms(lambda: ref.partial_aggregate_ref(xs, idx, lg),
+                             iters=3),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        # kernel 4's state entry: the integer store at sigma2 = 0 with its
+        # own rows as queries (weights 1 or 0: exact), an all-padding
+        # shard (m = NEG_INF, l = n_loc, acc = 0), the path's slab
+        qi = xi[:B].clone()
+        xin = (xi * xi).sum(-1)
+        got = golden_aggregate_state(qi, xb, 0.0, xin)
+        check(all(torch.equal(u, v) for u, v in zip(
+            got, ref.full_partial_ref(qi, xb, 0.0, xin))),
+              f"[sharded] {SGA} {tag}: integer data not bit-equal")
+        got = golden_aggregate_state(q, torch.zeros_like(xb), sig2, pad_n)
+        want = ref.full_partial_ref(q, torch.zeros_like(xb), sig2, pad_n)
+        check(all(torch.equal(u, v) for u, v in zip(got, want))
+              and bool((got[1] == ref.NEG_INF).all())
+              and bool((got[2] == n_loc).all()),
+              f"[sharded] {SGA} {tag}: the all-padding shard {got[1][:2]}, "
+              f"{got[2][:2]}")
+        # the float data: a shard's (acc, l) carry the common factor
+        # exp(-m), and for a query whose near rows lie in other shards
+        # its mean is a softmax over far rows of close logits, where
+        # fp32 distances in another order move it by ~1e-4; what the
+        # entry must give is a max logit within DIST_RTOL and states
+        # that merge into the full scan: the S shards' states, merged by
+        # log-sum-exp, against the plain full-store mean within MEAN_ATOL
+        xall = st.X.to(dt)
+        states = [golden_aggregate_state(q, lay.X[i].to(dt), sig2,
+                                         lay.x_norms[i])
+                  for i in range(SHARDS[-1])]
+        merged = lse_merge_mean(*zip(*states),
+                                LocalMesh((SHARDS[-1],), ("data",)))
+        mean4 = float((merged - ref.golden_aggregate_ref(
+            q, xall, sig2, st.x_norms)).abs().max())
+        m_err = max(float(((u[1] - v[1]).abs()
+                           / v[1].abs().clamp_min(1e-30)).max())
+                    for u, v in zip(states, (
+                        ref.full_partial_ref(q, lay.X[i].to(dt), sig2,
+                                             lay.x_norms[i])
+                        for i in range(SHARDS[-1]))))
+        shard0 = float((states[0][0] / states[0][2][:, None]
+                        - (lambda w: w[0] / w[2][:, None])(
+                            ref.full_partial_ref(q, xs, sig2, xn)))
+                       .abs().max())
+        check(m_err <= DIST_RTOL and mean4 <= MEAN_ATOL,
+              f"[sharded] {SGA} {tag}: max logit {m_err:.3g} (rel), "
+              f"merged mean {mean4:.3g}")
+        errs4 = [m_err]
+        del xall, states
+        print(f"[sharded] {SGA} {tag}: the {SHARDS[-1]} shards' states "
+              f"merged by log-sum-exp vs the plain full-store mean max abs "
+              f"{mean4:.3g}; max logits within {m_err:.3g} (rel); shard 0's "
+              f"own mean vs its plain state's {shard0:.3g} (not gated: far "
+              f"queries)")
+        b_ms, b_by = bound(item * n_loc * d + 4 * (n_loc + 2 * B * d + B)
+                           + 8 * B, 8 * B * n_loc * d, TF32_FLOPS_PER_S)
+        res[f"{SGA}[{tag}]"] = dict(
+            max_abs_err=mean4,
+            ms=time_ms(lambda: golden_aggregate_state(q, xs, sig2, xn)),
+            plain_ms=time_ms(lambda: ref.full_partial_ref(q, xs, sig2, xn)),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        for n in (SGS, SGA):
+            r = res[f"{n}[{tag}]"]
+            print(f"[sharded] {n} {tag} rows (n_loc={n_loc}, B={B}"
+                  + (f", k={k}" if n == SGS else "") + f"): integer data "
+                  f"bit-equal, all-padding state exact; path rows max abs "
+                  f"{r['max_abs_err']:.3g} on the "
+                  + ("mean, state " if n == SGS else "merged mean, max logit ")
+                  + f"{max(errs3 if n == SGS else errs4):.3g} "
+                  + ("of its largest value" if n == SGS else "(rel)")
+                  + f"; kernel {r['ms']:.4f} ms, bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                  f"{r['bound_ms'] / r['ms']:.3f} of the bound; plain "
+                  f"{r['plain_ms']:.4f} ms")
+    del lay, xi, xb, xs
+    print(f"[sharded] state entries done at "
+          f"{time.perf_counter() - t_phase:.1f} s into the phase")
+
+    # -- the routes at S=2 and S=8 against the single card ---------------------
+    steps = sampling_timesteps(sched, STEPS)[:-1]
+
+    def trajectory(gd, route):
+        eng = gd.engine
+        if route == "full_scan":
+            return lambda: sample(FullScan(eng), sched, (B, d),
+                                  num_steps=STEPS, x_init=x_T)
+        if route == "plan":
+            pln = build_plan(eng, STEPS)
+            return lambda: sample_plan(gd.call_masked, sched, (B, d), pln,
+                                       x_init=x_T, program_cache=eng.program,
+                                       jitter=eng.jitter)
+        return lambda: sample(gd, sched, (B, d), num_steps=STEPS,
+                              x_init=x_T)
+
+    def run(gd, route):
+        eng = gd.engine
+        kw = ROUTE_KW[route]
+        with (routed(eng, kw["fused"], kw["screen"]) if kw
+              else contextlib.nullcontext()):
+            fn = trajectory(gd, route)
+            fn()                                  # warm-up (the capture)
+            return fn, counted(fn)
+
+    want_traj, one_fn = {}, {}
+    for route in SHARD_ROUTES:
+        gd = one["indexed" if route == "indexed" else "exact"]
+        one_fn[route], (want_traj[route], _) = run(gd, route)
+    sharded_counts, sel_err, step_err = {}, 0.0, 0.0
+    for s in SHARDS:
+        mesh = LocalMesh((s,), ("data",))
+        gds = {"exact": GoldDiff(full, mesh=mesh),
+               "indexed": GoldDiff(full, mesh=mesh, **ikw)}
+        for route, kern in SHARD_ROUTES.items():
+            gd = gds["indexed" if route == "indexed" else "exact"]
+            eng = gd.engine
+            fn, (out, (c32, _)) = run(gd, route)
+            err = float((out - want_traj[route]).abs().max())
+            check(bool(torch.isfinite(out).all()) and err <= TRAJ_TOL,
+                  f"[sharded] S={s} {route}: vs one card {err:.3g}")
+            n_ix = (sum(eng.use_index(int(t)) for t in steps)
+                    if route == "indexed" else 0)
+            want = {n: 0 for n in names}
+            for n in kern:
+                want[n] = s * (n_ix if n == "centroid_scan" else STEPS)
+            if route == "indexed":
+                want["pdist"] = s * (STEPS - n_ix)
+            check(c32 == want, f"[sharded] S={s} {route} launches {c32}, "
+                  f"expected {want}")
+            if s == SHARDS[-1]:
+                sharded_counts[route] = c32
+            walls = {"one": [], "sharded": []}
+            with (routed(eng, **ROUTE_KW[route]) if ROUTE_KW[route]
+                  else contextlib.nullcontext()):
+                oeng = one["indexed" if route == "indexed" else
+                           "exact"].engine
+                with (routed(oeng, **ROUTE_KW[route]) if ROUTE_KW[route]
+                      else contextlib.nullcontext()):
+                    for who in ("one", "sharded", "sharded", "one"):
+                        walls[who].append(wall_ms(
+                            one_fn[route] if who == "one" else fn, iters=3))
+                    idle = {}
+                    busy = {}
+                    for who, f in (("one", one_fn[route]),
+                                   ("sharded", fn)):
+                        idle[who], busy[who] = profile_line(
+                            f"[sharded] S={s} {route} ({who})",
+                            min(walls[who]), f)
+            print(f"[sharded] S={s} {route} trajectory (B={B}, {STEPS} "
+                  f"steps, one x_T): vs one card max abs {err:.3g}; wall "
+                  f"{min(walls['sharded']):.3f} ms (runs "
+                  f"{[round(v, 3) for v in walls['sharded']]}) against "
+                  f"{min(walls['one']):.3f} ms "
+                  f"({min(walls['sharded']) / min(walls['one']):.3f}x), busy "
+                  f"{busy['sharded']:.3f} against {busy['one']:.3f} ms, idle "
+                  f"{idle['sharded']:.3f} against {idle['one']:.3f}; launches "
+                  + ", ".join(f"{n} {v}" for n, v in c32.items() if v))
+        # golden sets and single steps
+        swaps, min_ov, tie_err = 0, 1.0, 0.0
+        x64 = st.X.double()
+        for t in (100, 500, 900):
+            xt = (float(sched.a[t]) * st.X[:B] + float(sched.b[t])
+                  * torch.randn(B, d, generator=torch.Generator()
+                                .manual_seed(t)).to(dev))
+            for kind in ("exact", "indexed"):
+                e1, e0 = gds[kind].engine, one[kind].engine
+                got, want = e1.select(xt, t), e0.select(xt, t)
+                ov = overlap(got, want)
+                nsw, ties = near_tie_swaps(
+                    got, want, xt / float(sched.a[t]), st.X,
+                    e0 if kind == "exact" else None, t)
+                check(ov == 1.0 or ties, f"[sharded] S={s} {kind} select "
+                      f"t={t}: overlap {ov}, {nsw} swaps not near ties")
+                swaps += nsw
+                min_ov = min(min_ov, ov)
+                # the one-card staged step: the same kernel 2 distances
+                e0 = one_staged[kind].engine
+                q_t = xt / float(sched.a[t])
+                allow = swap_allowance(got, want, q_t, x64,
+                                       e0.constants(t)[1])
+                for label, u, v in (
+                        ("denoise", e1.denoise(xt, t), e0.denoise(xt, t)),
+                        ("denoise_masked", e1.denoise_masked(xt, t),
+                         e0.denoise_masked(xt, t))):
+                    err = (u - v).abs().amax(-1).double().cpu()
+                    check(bool((err <= allow).all()), f"[sharded] S={s} "
+                          f"{kind} {label} t={t}: errors {err.tolist()}, "
+                          f"allowed {allow.tolist()}")
+                    same = allow == MEAN_ATOL
+                    step_err = max(step_err, float(err[same].max())
+                                   if same.any() else 0.0)
+                    tie_err = max(tie_err, float(err.max()))
+                if kind == "exact":
+                    err = float((e1.full_scan(xt, t) - e0.full_scan(xt, t))
+                                .abs().max())
+                    check(err <= MEAN_ATOL, f"[sharded] S={s} full scan "
+                          f"t={t}: {err:.3g}")
+                    step_err = max(step_err, err)
+        print(f"[sharded] S={s}: select at t in (100, 500, 900), exact and "
+              f"indexed: overlap min {min_ov} ({swaps} rows swapped, each a "
+              f"tie at a cut: at the k-th distance (kernel 2 splits D by "
+              f"the rows it is given, so a shard sums a distance in another "
+              f"order) or at the m-th proxy distance, where the cross-shard "
+              f"threshold keeps every tied candidate); against the one-card"
+              f" staged step, denoise and denoise_masked within {MEAN_ATOL} "
+              f"on every query with no row tied at a cut, and full_scan "
+              f"(max {step_err:.3g}); a query with tied rows within "
+              f"MEAN_ATOL plus what those rows weigh (max {tie_err:.3g})")
+        del x64
+        # the plan: graph replay bit-equal to eager
+        gd = gds["exact"]
+        pln = build_plan(gd.engine, STEPS)
+        eager = sample_plan(gd.call_masked, sched, (B, d), pln, x_init=x_T)
+        graph = sample_plan(gd.call_masked, sched, (B, d), pln, x_init=x_T,
+                            program_cache=gd.engine.program,
+                            jitter=gd.engine.jitter)
+        check(torch.equal(eager, graph), f"[sharded] S={s} plan: replay "
+              f"differs from eager by "
+              f"{float((eager - graph).abs().max()):.3g}")
+        print(f"[sharded] S={s} plan: {pln.num_buckets} buckets, each "
+              f"segment one CUDA graph of {s} slices; replay bit-equal to "
+              f"eager; graphs captured {gd.engine._captures}")
+        del gds
+
+    # -- bf16 rows: the state entries' bf16 instances on the sharded path --------
+    gd16 = GoldDiff(full, storage_dtype=BF16,
+                    mesh=LocalMesh((SHARDS[-1],), ("data",)))
+    bf16_counts = {}
+    for route in ("staged", "full_scan"):
+        _, (out, (c32, c16)) = run(gd16, route)
+        check(c16[SGS if route == "staged" else SGA] == SHARDS[-1] * STEPS
+              and not c32[SGS] and not c32[SGA]
+              and bool(torch.isfinite(out).all()),
+              f"[sharded] bf16 S={SHARDS[-1]} {route}: fp32 {c32}, bf16 "
+              f"{c16}")
+        bf16_counts[route] = c16
+        print(f"[sharded] bf16 rows, S={SHARDS[-1]} {route}: bf16 launches "
+              + ", ".join(f"{n} {v}" for n, v in c16.items() if v))
+    del gd16
+
+    # -- serving: plan mode on a sharded engine captures nothing after warmup
+    srv = ServeEngine(st, num_steps=STEPS, max_batch=B, device=dev,
+                      mesh=LocalMesh((SHARDS[-1],), ("data",)))
+    wst = srv.warmup()
+    c0, b0 = srv.engine._captures, srv.engine._builds
+    t0 = time.perf_counter()
+    served = srv.serve([Request(i, B, seed=300 + i) for i in range(2)])
+    serve_s = time.perf_counter() - t0
+    check(srv.engine._captures == c0 and srv.engine._builds == b0
+          and all(np.isfinite(r.images).all() for r in served),
+          f"[sharded] serve: {srv.engine._captures - c0} captures after "
+          f"warmup")
+    print(f"[sharded] ServeEngine(mesh=S={SHARDS[-1]}) plan mode: warmup "
+          f"{wst['programs_compiled']} graphs in {wst['warmup_s']:.2f} s; 2 "
+          f"waves of {B} in {serve_s * 1e3:.1f} ms, 0 captures and 0 builds "
+          f"after warmup")
+    del srv
+
+    # -- the runtime over a sharded plan engine: a shard_drop storm ------------
+    rsrv = ServeEngine(ctx["gmm"], num_steps=STEPS, max_batch=4, device=dev,
+                       mesh=LocalMesh((SHARDS[-1],), ("data",)))
+    rt = ServeRuntime(rsrv, RuntimeConfig(backoff_base_s=0.0,
+                                          backoff_max_s=0.0, max_retries=50))
+    rstats = rt.warmup()
+    c0, b0 = rsrv.engine._captures, rsrv.engine._builds
+    with injected(FaultConfig(seed=2, shard_drop_rate=0.3)) as inj:
+        tickets = [rt.submit(Request(i, 1 + i % 4, seed=400 + i))
+                   for i in range(6)]
+        rt.run_until_idle()
+    drops = sum(e[0] == "shard_drop" for e in inj.events)
+    check(all(t_.status == "done" and np.isfinite(t_.images).all()
+              for t_ in tickets) and drops > 0
+          and rsrv.engine._captures == c0 and rsrv.engine._builds == b0,
+          f"[sharded] runtime storm: {Counter(t_.status for t_ in tickets)},"
+          f" {drops} drops, {rsrv.engine._captures - c0} captures")
+    print(f"[sharded] ServeRuntime over a sharded plan engine (gmm N="
+          f"{rsrv.store.n}, S={SHARDS[-1]}, n_loc "
+          f"{rsrv.engine._layout.n_loc}; warmup {rstats['graphs_captured']}"
+          f" graphs on slots {rstats['slots']}): shard_drop storm (rate 0.3)"
+          f" {drops} drops, {rt.counters['retries']} retries, "
+          f"{len(tickets)} tickets done and finite; 0 builds and 0 captures "
+          f"after warmup")
+    del rsrv, rt
+    print(f"[sharded] phase {time.perf_counter() - t_phase:.1f} s")
+    return res, {"fp32": sharded_counts, "bf16": bf16_counts}
 
 
 def main() -> None:
@@ -3157,6 +3686,11 @@ def main() -> None:
         store=st, cix=cix, sched=sched, indexed_cfg=indexed_cfg,
         probes=scale_probes, x_T=x_T, kernels=kernels))
 
+    # -- 7e. sharded: the store over a LocalMesh on the one card --------------
+    sharded_results, sharded_counts = sharded_phase(dict(
+        store=st, sched=sched, x_T=x_T, q=q, cix=cix,
+        indexed_cfg=indexed_cfg, probes=scale_probes, gmm=gst))
+
     # -- 8. reference: small store, card against CPU plain versions ------------
     small = make_dataset("cifar_like", n=2048, seed=1, device="cpu")
     small_ix = build_index(small)                # on the CPU, moved over
@@ -3235,6 +3769,18 @@ def main() -> None:
              replaces=sources[n][1], path=f"bf16 {p}",
              launches=bf16_counts[p][n], **bf16_results[n])
         for n, p in BF16_PATH.items()]
+    for n, route in ((SGS, "staged"), (SGA, "full_scan")):
+        for tag, counts in sharded_counts.items():
+            launches = counts[route][n]
+            check(launches > 0, f"{n} [{tag}] never launched on the sharded "
+                  f"{route} path")
+            src = sources[n.removesuffix("_state")]
+            line["kernels"].append(dict(
+                name=n if tag == "fp32" else f"{n}[bf16]", route="cuda",
+                source=f"src/repro_torch/kernels/{src[0]}",
+                replaces=src[1], path=f"sharded S={SHARDS[-1]} {route}"
+                + (" bf16" if tag == "bf16" else ""), launches=launches,
+                **sharded_results[f"{n}[{tag}]"]))
     for n in ("flash_attention", "golden_attention_decode"):
         check(path_counts["llm_decode"][n] > 0,
               f"{n} never launched on the llm_decode path")

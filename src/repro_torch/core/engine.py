@@ -53,6 +53,25 @@ captures every program for both, and ``install_epoch`` copies the new
 epoch into a free slot in place, so its graphs (and kernel 1's tensor
 maps) stay valid.  A third live epoch takes a new slot whose graphs are
 captured on demand and counted in ``_builds``.
+
+Sharded execution (``mesh=``, ``shard_axis=``, ``batch_axis=``): the
+store, and when indexed the global index's cluster-sorted rows cut at
+CSR window boundaries (``repro_torch.index.shard``), are split over the
+shards of one axis of a :class:`repro_torch.distributed.LocalMesh`, and
+every entry point (``denoise``, ``denoise_masked``, ``select``,
+``full_scan``) runs as three shard-local stages separated by three
+merges (``repro_torch.distributed.retrieval``): the shard-local screen
+and the cross-shard m-th threshold, the shard-local re-rank and the
+k-th threshold (the two-stage top-k), and the shard-local softmax
+states (kernel 3's state entry; kernel 4's for the full scan) merged by
+log-sum-exp.  The candidate partition equals the single-device one row
+for row, so the sharded engine matches the unsharded one to fp32
+reduction order.  ``batch_axis`` splits the query batch over a second
+axis.  With every shard on one card, the masked step reads nothing back
+to the host, and ``jitter`` captures a plan segment of S slices as one
+CUDA graph whose kernels read the layout's fixed slabs; with shards on
+several cards it runs eagerly.  Program keys carry the mesh signature,
+and a sharded engine does not hot-swap.
 """
 from __future__ import annotations
 
@@ -253,7 +272,25 @@ class GoldDiffEngine:
                  index: GoldenIndex | None = None,
                  probe_schedule: ProbeSchedule | None = None,
                  index_mode: str = "auto", storage_dtype=None,
-                 strategy: str = "auto"):
+                 strategy: str = "auto", mesh=None, shard_axis: str = "data",
+                 batch_axis: str | None = None):
+        if mesh is not None and shard_axis not in mesh.axis_names:
+            raise ValueError(f"shard_axis {shard_axis!r} not in mesh axes "
+                             f"{mesh.axis_names}")
+        if batch_axis is not None:
+            if mesh is None:
+                raise ValueError("batch_axis requires a mesh")
+            if batch_axis not in mesh.axis_names:
+                raise ValueError(f"batch_axis {batch_axis!r} not in mesh "
+                                 f"axes {mesh.axis_names}")
+            if batch_axis == shard_axis:
+                raise ValueError("batch_axis must differ from shard_axis "
+                                 f"({shard_axis!r})")
+        if mesh is not None and not _local_mesh(mesh):
+            raise NotImplementedError(
+                "the engine shards over a LocalMesh; over a ProcessMesh "
+                "(one shard a rank, across cards) it waits (ROADMAP Queue 1 "
+                "item 5): distributed_golden_denoise runs there")
         if strategy not in STRATEGIES:
             raise ValueError(f"unknown strategy {strategy!r}; expected one "
                              f"of {STRATEGIES}")
@@ -323,6 +360,21 @@ class GoldDiffEngine:
         self._graph_pool = None   # the memory pool every graph shares
         self._graph_stream = None  # ... and the stream that captures them
         self._masked_tables: dict = {}
+        # sharded execution: the per-shard layout over one mesh axis
+        self.mesh = mesh
+        self.shard_axis = shard_axis
+        self.batch_axis = batch_axis
+        if mesh is not None:
+            from repro_torch.index.shard import shard_layout
+            self.n_shards = int(mesh.shape[shard_axis])
+            self.batch_shards = (1 if batch_axis is None
+                                 else int(mesh.shape[batch_axis]))
+            self._layout = shard_layout(self.store, mesh, shard_axis,
+                                        index=self.index,
+                                        storage_dtype=storage_dtype)
+        else:
+            self.n_shards = self.batch_shards = 1
+            self._layout = None
 
     # -- store epochs on operand slots ------------------------------------------
     def _make_operands(self, store: DatasetStore,
@@ -414,6 +466,9 @@ class GoldDiffEngine:
         CSR offsets, which feed the nprobe occupancy floor).  The
         appendable store lifecycle keeps all of them across appends; a
         capacity rebuild needs a fresh engine."""
+        if self.mesh is not None:
+            return ("sharded engines do not hot-swap (the mesh layout "
+                    "holds per-shard slabs; rebuild the engine)")
         if (store.n, store.dim) != (self.store.n, self.store.dim):
             return (f"store shape ({store.n}, {store.dim}) != engine's "
                     f"({self.store.n}, {self.store.dim})")
@@ -461,6 +516,8 @@ class GoldDiffEngine:
         ``at_epoch`` can pin it; retiring that epoch frees the slot for
         the first install.  Idempotent; returns an epoch for each kept
         slot, which the runtime's warmup captures every program on."""
+        if self.mesh is not None:        # no hot swap: one slot
+            return [self._serving_epoch]
         with self._lock:
             serving = self._epochs[self._serving_epoch]
             self._own_slot(serving)
@@ -546,9 +603,18 @@ class GoldDiffEngine:
         the card a graph bakes its slot's addresses, so the key carries
         the slot (except ``SLOTLESS_KINDS``); on the CPU a program reads
         its operands when called."""
+        key = tuple(key) + self.mesh_sig()
         if self.store.device.type != "cuda" or key[0] in SLOTLESS_KINDS:
             return key
-        return tuple(key) + (("slot", self._slot()),)
+        return key + (("slot", self._slot()),)
+
+    def mesh_sig(self) -> tuple:
+        """``(("mesh", shard_axis, shards, batch_axis, batch_shards),)``
+        on a sharded engine, else ``()``: part of every program key."""
+        if self.mesh is None:
+            return ()
+        return (("mesh", self.shard_axis, self.n_shards, self.batch_axis,
+                 self.batch_shards),)
 
     def program(self, key, build):
         """The program cache: ``build()`` once per key (the reference
@@ -592,7 +658,10 @@ class GoldDiffEngine:
         The kernels' ``launches`` counts move at capture, when nothing
         runs: the capture's counts are taken back and added at every
         replay.  A capture that fails raises, naming ``label``."""
-        if self.store.device.type != "cuda":
+        if self.store.device.type != "cuda" or (
+                self.mesh is not None
+                and not self.mesh.one_device(self.shard_axis,
+                                             self.store.device)):
             return fn
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
@@ -661,7 +730,8 @@ class GoldDiffEngine:
         """Route this step through the fused single-pass body?  Indexed
         steps never fuse (the fused pass reads every store row).  True
         fuses every other step; "auto" fuses where the reference's rule
-        does on one host, when the build-time strategy is "dense"."""
+        does: on one host when the build-time strategy is "dense", and on
+        every exact sharded step (``retrieval.fused_local_step``)."""
         return self._fused_masked(self.use_index(t))
 
     def _fused_masked(self, use_ix: bool) -> bool:
@@ -669,7 +739,7 @@ class GoldDiffEngine:
         masked path takes it once a bucket, ``use_fused`` once a step."""
         if self.fused is False or use_ix:
             return False
-        if self.fused is True:
+        if self.fused is True or self.mesh is not None:
             return True
         return self.strategy == "dense"
 
@@ -767,6 +837,156 @@ class GoldDiffEngine:
                              tile=self.screen_tile)
         return out.to(x_t.dtype)
 
+    # -- sharded (mesh) pipeline ------------------------------------------------
+    def _by_batch(self, body, x_t: torch.Tensor) -> torch.Tensor:
+        """``body(x)`` on each group of the query batch split over
+        ``batch_axis`` (the store stays sharded over ``shard_axis`` in
+        every group), the groups' outputs concatenated."""
+        g = self.batch_shards
+        if g == 1:
+            return body(x_t)
+        if x_t.shape[0] % g:
+            raise ValueError(f"batch {x_t.shape[0]} does not divide over "
+                             f"batch_axis {self.batch_axis!r} (size {g})")
+        return torch.cat([body(x) for x in x_t.chunk(g)])
+
+    def _shard_rows(self):
+        """The held shards' slabs as lists: (X, x_norms, proxy,
+        proxy_norms)."""
+        sl = self._layout.slabs
+        return ([s.X for s in sl], [s.x_norms for s in sl],
+                [s.proxy for s in sl], [s.proxy_norms for s in sl])
+
+    def _ivf_local(self, qp: torch.Tensor, p: int, w_cap: int, nprobe=None):
+        """Each shard's lanes of the globally probed index
+        (``ops.ivf_screen_local``): ``(cand, valid)`` a shard."""
+        L = self._layout
+        cands, valids = [], []
+        for s in L.slabs:
+            pos, pd2 = ops.ivf_screen_local(
+                qp.to(s.X.device), s.offsets, s.centroids, s.centroid_norms,
+                s.w_lo, s.w_hi, p, L.max_cluster, w_cap, L.n_loc,
+                nprobe=nprobe)
+            cands.append(pos)
+            valids.append(torch.isfinite(pd2))
+        return cands, valids
+
+    def _sharded_static(self, kind: str, x_t: torch.Tensor, t: int):
+        """A static step over the mesh: the shard-local screen (exact or
+        indexed) and the m-th cut, the shard-local re-rank and the k-th
+        cut, then (``select``) the gathered global top-k ids or the
+        log-sum-exp-merged golden mean.  ``kind`` "fused" runs the same
+        operations in the fused order (bitwise the staged result)."""
+        from repro_torch.distributed.retrieval import (
+            fused_local_step, golden_local_topk, local_coarse_exact,
+            merged_golden_mean)
+        from repro_torch.distributed.sharding import gather_global_topk
+        L, mesh = self._layout, self.mesh
+        a, sig2 = self.constants(t)
+        m_t, k_t = self.sizes(t)
+        m_cap = min(m_t, L.n_loc)
+        use_ix = self.use_index(t)
+        if use_ix:
+            p_t = self.nprobe(t)
+            w_cap = min(p_t, L.w_max)
+            k_cap = max(1, min(k_t, w_cap * L.max_cluster))
+            strategy = "gather"
+        else:
+            k_cap = max(1, min(k_t, m_cap))
+            strategy = self.strategy
+        Xs, xns, prs, pns = self._shard_rows()
+
+        def body(x):
+            q = x / a
+            qp = self._proxy_query(q)
+            stream = self.use_stream(x.shape[0], L.n_loc)
+            if kind == "fused":
+                return fused_local_step(
+                    Xs, xns, q, qp, prs, pns, m_cap, m_t, m_t, k_cap, k_t,
+                    k_t, sig2, mesh, strategy, stream,
+                    self.screen_tile).to(x.dtype)
+            if use_ix:
+                cands, valids = self._ivf_local(qp, p_t, w_cap)
+            else:
+                cands, valids = local_coarse_exact(
+                    qp, prs, pns, m_cap, m_t, m_t, mesh, stream=stream,
+                    tile=self.screen_tile)
+            idx, neg, kth = golden_local_topk(Xs, xns, q, cands, valids,
+                                              k_cap, k_t, k_t, mesh)
+            if kind == "select":
+                ids = [s.ids[i] for s, i in zip(L.slabs, idx)]
+                return gather_global_topk(ids, neg, k_t, mesh)
+            return merged_golden_mean(Xs, idx, neg, kth, sig2, mesh,
+                                      strategy).to(x.dtype)
+        return self._by_batch(body, x_t)
+
+    def _sharded_masked_body(self, x_t: torch.Tensor, t, caps=None):
+        """The masked step over the mesh: ``denoise_masked``'s caps,
+        masks, probe schedule and occupancy floor, with the k_t cut
+        applied by the cross-shard threshold instead of a positional
+        mask (the same set up to distance ties at the k-th value, where
+        the threshold keeps every tied row, as the reference's sharded
+        body does).  Reads nothing back to the host: with the shards on
+        one card a CUDA graph captures it."""
+        from repro_torch.distributed.retrieval import (
+            fused_local_step, golden_local_topk, local_coarse_exact,
+            merged_golden_mean)
+        L, mesh = self._layout, self.mesh
+        m_cap, k_cap, p_cap, use_ix = self._masked_caps(caps)
+        fused = self._fused_masked(use_ix)
+        m_loc = min(m_cap, L.n_loc)
+        if use_ix:
+            w_cap = min(p_cap, L.w_max)
+            k_loc = max(1, min(k_cap, w_cap * L.max_cluster))
+            strategy = "gather"
+        else:
+            k_loc = max(1, min(k_cap, m_loc))
+            strategy = self.strategy
+        m_t, k_t, nprobe_t, a, sig2 = (
+            None if v is None else take(v, t)
+            for v in self._masked_table(m_cap, k_cap, p_cap, use_ix))
+        Xs, xns, prs, pns = self._shard_rows()
+
+        def body(x):
+            q = x / a
+            qp = self._proxy_query(q)
+            stream = self.use_stream(x.shape[0], L.n_loc)
+            if fused:
+                return fused_local_step(
+                    Xs, xns, q, qp, prs, pns, m_loc, m_cap, m_t, k_loc,
+                    k_cap, k_t, sig2, mesh, strategy, stream,
+                    self.screen_tile).to(x.dtype)
+            if use_ix:
+                cands, valids = self._ivf_local(qp, p_cap, w_cap, nprobe_t)
+            else:
+                cands, valids = local_coarse_exact(
+                    qp, prs, pns, m_loc, m_cap, m_t, mesh, stream=stream,
+                    tile=self.screen_tile)
+            idx, neg, kth = golden_local_topk(Xs, xns, q, cands, valids,
+                                              k_loc, k_cap, k_t, mesh)
+            return merged_golden_mean(Xs, idx, neg, kth, sig2, mesh,
+                                      strategy).to(x.dtype)
+        return self._by_batch(body, x_t)
+
+    def _sharded_full_scan(self, x_t: torch.Tensor, t: int):
+        """The exact posterior mean over the sharded store: each shard's
+        softmax state of all its rows (kernel 4's state entry on the
+        card), one log-sum-exp merge."""
+        from repro_torch.distributed.sharding import lse_merge_mean
+        L = self._layout
+        a, sig2 = self.constants(t)
+        Xs, xns, _, _ = self._shard_rows()
+
+        def body(x):
+            q = x / a
+            stream = self.use_stream(x.shape[0], L.n_loc)
+            states = [ops.golden_full_partial(q.to(X.device), X, sig2,
+                                              x_norms=xn, stream=stream,
+                                              tile=self.screen_tile)
+                      for X, xn in zip(Xs, xns)]
+            return lse_merge_mean(*zip(*states), self.mesh).to(x.dtype)
+        return self._by_batch(body, x_t)
+
     # -- observability: spans around the static entry points -----------------
     def stage_costs(self, kind: str, t: int, batch: int) -> dict:
         """Cached analytic per-stage FLOPs/bytes (``core.plan``) of one
@@ -808,7 +1028,10 @@ class GoldDiffEngine:
         """Golden support S_t for each query; [B, k_t]."""
         t = int(t)
         a, _ = self.constants(t)
-        fn = lambda x: self._select_ids_body(x / a, t)
+        if self.mesh is not None:
+            fn = lambda x: self._sharded_static("select", x, t)
+        else:
+            fn = lambda x: self._select_ids_body(x / a, t)
         if not obs_trace.tracer().enabled:
             return fn(x_t)
         return self._traced("select", t, x_t, fn)
@@ -817,7 +1040,11 @@ class GoldDiffEngine:
         """Full GoldDiff step for the Optimal base (unbiased SS on S_t)."""
         t = int(t)
         fused = self.use_fused(t)
-        body = self._fused_body if fused else self._denoise_body
+        if self.mesh is not None:
+            kind = "fused" if fused else "denoise"
+            body = lambda x, t: self._sharded_static(kind, x, t)
+        else:
+            body = self._fused_body if fused else self._denoise_body
         if not obs_trace.tracer().enabled:
             return body(x_t, t)
         return self._traced("fused_step" if fused else "denoise", t, x_t,
@@ -904,7 +1131,9 @@ class GoldDiffEngine:
         are fp32 device values, as the reference computes them under
         ``jit`` (``_masked_table``), so the step touches no host value and
         a CUDA graph can capture it.  Exact distances are computed once a
-        step."""
+        step.  Over a mesh: ``_sharded_masked_body``."""
+        if self.mesh is not None:
+            return self._sharded_masked_body(x_t, t, caps)
         m_cap, k_cap, p_cap, use_ix = self._masked_caps(caps)
         m_t, k_t, nprobe_t, a, sig2 = (
             None if v is None else take(v, t)
@@ -944,11 +1173,18 @@ class GoldDiffEngine:
         a, sig2 = self.constants(t)
 
         def fn(x):
+            if self.mesh is not None:
+                return self._sharded_full_scan(x, t)
             return ops.golden_aggregate(x / a, self.X, sig2,
                                         x_norms=self.x_norms).to(x.dtype)
         if not obs_trace.tracer().enabled:
             return fn(x_t)
         return self._traced("full_scan", t, x_t, fn)
+
+
+def _local_mesh(mesh) -> bool:
+    from repro_torch.distributed.sharding import LocalMesh
+    return isinstance(mesh, LocalMesh)
 
 
 def capture(fn, specs, side: torch.cuda.Stream, pool, label: str):
@@ -990,6 +1226,8 @@ def capture(fn, specs, side: torch.cuda.Stream, pool, label: str):
             buf.copy_(arg)
         graph.replay()
         ops.add_launch_counts(delta)
+        if isinstance(out, tuple):
+            return tuple(o.clone() for o in out)
         return out.clone()
 
     return replay

@@ -57,14 +57,18 @@ class GoldDiff:
     ``probe_schedule=``, steps by ``index_mode=``);
     ``storage_dtype=torch.bfloat16`` keeps the engine's store rows in
     bf16 (a patch base still reads its own fp32 store on the support),
-    and ``strategy=`` picks the gather-vs-dense strategy; all as in
-    :class:`GoldDiffEngine`."""
+    and ``strategy=`` picks the gather-vs-dense strategy; ``mesh=`` (a
+    ``repro_torch.distributed.LocalMesh``) shards the store over
+    ``shard_axis`` and the query batch over ``batch_axis``; all as in
+    :class:`GoldDiffEngine`.  Over a patch base the sharded selection
+    runs over the mesh and the base then runs on the support."""
 
     def __init__(self, base, cfg: GoldDiffConfig | None = None,
                  screen: str = "auto", screen_tile: int | None = None,
                  fused: str | bool = "auto", index=None,
                  probe_schedule=None, index_mode: str = "auto",
-                 storage_dtype=None, strategy: str = "auto"):
+                 storage_dtype=None, strategy: str = "auto", mesh=None,
+                 shard_axis: str = "data", batch_axis: str | None = None):
         self.base = base
         self.cfg = cfg or GoldDiffConfig()
         self.store: DatasetStore = base.store
@@ -79,7 +83,9 @@ class GoldDiff:
                                      probe_schedule=probe_schedule,
                                      index_mode=index_mode,
                                      storage_dtype=storage_dtype,
-                                     strategy=strategy)
+                                     strategy=strategy, mesh=mesh,
+                                     shard_axis=shard_axis,
+                                     batch_axis=batch_axis)
 
     def select(self, x_t: torch.Tensor, t: int) -> torch.Tensor:
         """Golden support S_t for each query; [B, k_t]."""

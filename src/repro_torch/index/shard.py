@@ -1,0 +1,192 @@
+"""Per-shard layout of the golden store (and its index) over a mesh axis.
+
+Counterpart of ``repro.index.shard``.  The sharded engine partitions one
+dataset (and, when indexed, one global ``GoldenIndex``) across the
+shards of a mesh axis, so sharded screening is an equality-preserving
+re-layout of the single-device pipeline:
+
+* exact mode (no index): rows are chunked contiguously in dataset
+  order; the padded tail rows carry +inf norms and id 0, so they are
+  never screened in;
+* indexed mode: the index's cluster-sorted rows are cut at CSR window
+  boundaries (:func:`partition_windows`), balanced by row count.  Shard
+  s holds the window ids ``wrange = [w_lo, w_hi)``, those windows' rows
+  (proxy and store rows, cluster-sorted) and the window offsets rebased
+  to its own rows; the centroid table is replicated, so every shard runs
+  the same global probe selection and a probed window belongs to one
+  shard.
+
+The layout is built on the host with numpy, as the reference builds it
+(every array equal to the reference's for the same store, index and
+S), stacked on a leading shard axis, then moved: to the shards' one
+device as one stacked tensor each, whose slices ``slabs[s]`` are views
+at fixed addresses (a captured CUDA graph can bake them); or, with
+shards on several devices, a copy of each slab on its own device.
+``ids`` maps shard-local rows back to dataset ids, which is how
+``select()`` keeps returning dataset rows.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+
+class ShardSlab(NamedTuple):
+    """One shard's arrays on its device (index fields None when exact):
+    ``w_lo`` / ``w_hi`` are 0-d tensors, so a captured step reads them
+    on the device."""
+    X: torch.Tensor
+    x_norms: torch.Tensor
+    proxy: torch.Tensor
+    proxy_norms: torch.Tensor
+    ids: torch.Tensor
+    offsets: torch.Tensor | None
+    w_lo: torch.Tensor | None
+    w_hi: torch.Tensor | None
+    centroids: torch.Tensor | None
+    centroid_norms: torch.Tensor | None
+
+
+class ShardedLayout(NamedTuple):
+    """The stacked per-shard golden store (+ optional index routing)."""
+
+    X: torch.Tensor               # [S, n_loc, D] rows (sorted if indexed)
+    x_norms: torch.Tensor         # [S, n_loc] fp32 (+inf on padding)
+    proxy: torch.Tensor           # [S, n_loc, dp]
+    proxy_norms: torch.Tensor     # [S, n_loc] fp32 (+inf on padding)
+    ids: torch.Tensor             # [S, n_loc] int64 dataset ids (0 on pad)
+    offsets: torch.Tensor | None  # [S, W + 1] int64 local window offsets
+    wrange: torch.Tensor | None   # [S, 2] int64 owned windows [w_lo, w_hi)
+    centroids: torch.Tensor | None        # [C, dp] replicated
+    centroid_norms: torch.Tensor | None   # [C] replicated
+    n_loc: int                    # rows a shard (padded)
+    w_max: int                    # most windows any shard owns
+    max_cluster: int              # L: padded rows a window
+    n_shards: int
+    slabs: tuple                  # ShardSlab per shard this process holds
+
+    @property
+    def indexed(self) -> bool:
+        return self.offsets is not None
+
+
+def partition_windows(offsets: np.ndarray, n_shards: int) -> np.ndarray:
+    """Cut points (window ids, length S + 1) balancing rows per shard:
+    shard s takes the windows up to the first boundary at or past
+    ``(s + 1) / S`` of the rows.  Monotone; shards past the last window
+    come out empty when there are fewer windows than shards."""
+    offsets = np.asarray(offsets)
+    n = int(offsets[-1])
+    cuts = [0]
+    for s in range(1, n_shards):
+        target = round(n * s / n_shards)
+        w = int(np.searchsorted(offsets, target, side="left"))
+        cuts.append(int(np.clip(w, cuts[-1], len(offsets) - 1)))
+    cuts.append(len(offsets) - 1)
+    return np.asarray(cuts, np.int64)
+
+
+def _host(t) -> np.ndarray:
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
+        else np.asarray(t)
+
+
+def _layout_arrays(store, n_shards: int, index=None) -> dict:
+    """The layout's stacked arrays as numpy, built as the reference's
+    ``shard_layout`` builds them, and its sizes."""
+    n = store.n
+    X, proxy = _host(store.X), _host(store.proxy)
+    xn = _host(store.x_norms).astype(np.float32)
+    pn = _host(store.proxy_norms).astype(np.float32)
+    if index is None:
+        order = np.arange(n)
+        n_loc = -(-n // n_shards)
+        row_cuts = np.minimum(np.arange(n_shards + 1) * n_loc, n)
+        w_max = 0
+        offs = wrange = None
+    else:
+        if index.n != n:
+            raise ValueError(f"index built for N={index.n}, store N={n}")
+        order = _host(index.perm)
+        offsets = _host(index.offsets).astype(np.int64)
+        cuts = partition_windows(offsets, n_shards)
+        row_cuts = offsets[cuts]
+        w_max = int(np.max(np.diff(cuts)))
+        n_loc = int(np.max(np.diff(row_cuts)))
+        parts = []
+        for s in range(n_shards):
+            o = offsets[cuts[s]: cuts[s + 1] + 1] - offsets[cuts[s]]
+            parts.append(np.pad(o, (0, w_max + 1 - len(o)),
+                                mode="edge" if len(o) else "constant"))
+        offs = np.stack(parts).astype(np.int64)
+        wrange = np.stack([cuts[:-1], cuts[1:]], axis=1).astype(np.int64)
+
+    def stack_rows(a, fill=0.0):
+        out = np.full((n_shards, n_loc) + a.shape[1:], fill, a.dtype)
+        for s in range(n_shards):
+            rows = order[row_cuts[s]: row_cuts[s + 1]]
+            out[s, : len(rows)] = a[rows]
+        return out
+
+    ids = np.zeros((n_shards, n_loc), np.int64)
+    for s in range(n_shards):
+        rows = order[row_cuts[s]: row_cuts[s + 1]]
+        ids[s, : len(rows)] = rows
+    return dict(X=stack_rows(X), x_norms=stack_rows(xn, fill=np.inf),
+                proxy=stack_rows(proxy),
+                proxy_norms=stack_rows(pn, fill=np.inf), ids=ids,
+                offsets=offs, wrange=wrange, n_loc=int(n_loc), w_max=w_max)
+
+
+def shard_layout(store, mesh, axis: str = "data", index=None,
+                 storage_dtype=None, device=None) -> ShardedLayout:
+    """Build the per-shard layout of ``store`` (and ``index``) over
+    ``axis`` of ``mesh`` (a ``LocalMesh`` or ``ProcessMesh``), on the
+    host.  ``device`` is the shards' default device (the store's unless
+    given); ``storage_dtype`` (None or ``torch.bfloat16``) is the rows'
+    dtype, the norms staying fp32."""
+    n_sh = int(mesh.shape[axis])
+    arr = _layout_arrays(store, n_sh, index)
+    devs = mesh.shard_devices(axis, store.device if device is None
+                              else device)
+    one = mesh.one_device(axis, devs[0])
+    home = devs[0] if one else torch.device("cpu")
+    rows_dt = storage_dtype or torch.float32
+
+    def put(a, dtype=None):
+        return None if a is None else torch.as_tensor(a).to(home, dtype)
+
+    L = dict(X=put(arr["X"], rows_dt), x_norms=put(arr["x_norms"]),
+             proxy=put(arr["proxy"], rows_dt),
+             proxy_norms=put(arr["proxy_norms"]), ids=put(arr["ids"]),
+             offsets=put(arr["offsets"]), wrange=put(arr["wrange"]),
+             centroids=None if index is None
+             else index.centroids.to(home, torch.float32),
+             centroid_norms=None if index is None
+             else index.centroid_norms.to(home, torch.float32))
+    slabs = []
+    for s in mesh.local_shards(axis):
+        dev = devs[s]
+        take = (lambda t: None if t is None else
+                (t[s] if one else t[s].to(dev).contiguous()))
+        rep = (lambda t: None if t is None else
+               (t if one else t.to(dev)))
+        wr = take(L["wrange"])
+        slabs.append(ShardSlab(
+            X=take(L["X"]), x_norms=take(L["x_norms"]),
+            proxy=take(L["proxy"]), proxy_norms=take(L["proxy_norms"]),
+            ids=take(L["ids"]), offsets=take(L["offsets"]),
+            w_lo=None if wr is None else wr[0],
+            w_hi=None if wr is None else wr[1],
+            centroids=rep(L["centroids"]),
+            centroid_norms=rep(L["centroid_norms"])))
+    return ShardedLayout(**L, n_loc=arr["n_loc"], w_max=arr["w_max"],
+                         max_cluster=0 if index is None
+                         else int(index.max_cluster),
+                         n_shards=n_sh, slabs=tuple(slabs))
+
+
+__all__ = ["ShardedLayout", "ShardSlab", "partition_windows",
+           "shard_layout"]

@@ -351,10 +351,14 @@ agg_cluster(const float* __restrict__ q, const T* __restrict__ x,
 
 // Log-sum-exp merge of the per-split states, in split order
 // (deterministic): out = sum_s acc_s e^(m_s - M) / max(sum_s l_s e^(m_s - M), 1e-30).
+// The state entry (STATE) writes the numerator, M and the denominator
+// (m_out, l_out [B]) undivided: a store shard's softmax state.
+template <bool STATE>
 __global__ void merge_kernel(const float* __restrict__ part_acc,
                              const float* __restrict__ part_m,
                              const float* __restrict__ part_l,
-                             float* __restrict__ out, int S, int B, int D) {
+                             float* __restrict__ out, float* __restrict__ m_out,
+                             float* __restrict__ l_out, int S, int B, int D) {
   const int b = blockIdx.y;
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   float M = RT_NEG_INF;
@@ -366,7 +370,15 @@ __global__ void merge_kernel(const float* __restrict__ part_acc,
     L += part_l[(int64_t)s * B + b] * e;
     acc += part_acc[((int64_t)s * B + b) * D + c] * e;
   }
-  out[(int64_t)b * D + c] = acc / fmaxf(L, 1e-30f);
+  if (!STATE) {
+    out[(int64_t)b * D + c] = acc / fmaxf(L, 1e-30f);
+    return;
+  }
+  out[(int64_t)b * D + c] = acc;
+  if (c == 0) {
+    m_out[b] = M;
+    l_out[b] = L;
+  }
 }
 
 template <typename T>
@@ -473,21 +485,15 @@ RT_EXPORT int golden_aggregate_active_clusters(int C, int ds, int stages,
                 : active_clusters<float>(C, ds, stages);
 }
 
-// q [B, D], x [N, D], qn [B], xn [N]; part_acc [splits, B, D], part_m /
-// part_l [splits, B]: caller-allocated scratch; out [B, D].  Rows
-// [s * rps, (s + 1) * rps) go to split s; every split must hold at
-// least one row.  C CTAs a cluster, each a slice of ds columns (C ds >=
-// D).  x: fp32, or bf16 when x_bf16; its rows a multiple of 16 bytes (D %
-// 4 == 0, or D % 8 == 0 for bf16) and x 16-byte aligned (the bulk copies'
-// rows); dbg may be null.
-RT_EXPORT int golden_aggregate_launch(const float* q, const void* x,
-                                      int x_bf16, const float* qn,
-                                      const float* xn,
-                                      float inv, float* part_acc,
-                                      float* part_m, float* part_l,
-                                      float* out, float* dbg, int B, int N,
-                                      int D, int C, int ds, int stages,
-                                      int splits, int rps, void* stream) {
+namespace {
+
+// the cluster pass and the merge; m_out == nullptr: the mean, else the
+// state entry
+int run(const float* q, const void* x, int x_bf16, const float* qn,
+        const float* xn, float inv, float* part_acc, float* part_m,
+        float* part_l, float* out, float* m_out, float* l_out, float* dbg,
+        int B, int N, int D, int C, int ds, int stages, int splits, int rps,
+        void* stream) {
   if (B <= 0 || D <= 0) return static_cast<int>(cudaGetLastError());
   if (!valid(C, ds, stages) || C * ds < D || D % (x_bf16 ? 8 : 4) != 0 ||
       reinterpret_cast<uintptr_t>(x) % 16 != 0 || splits < 1 ||
@@ -505,7 +511,48 @@ RT_EXPORT int golden_aggregate_launch(const float* q, const void* x,
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 mgrid((D + 255) / 256, B);
-  merge_kernel<<<mgrid, 256, 0, st>>>(part_acc, part_m, part_l, out, splits,
-                                      B, D);
+  if (m_out == nullptr)
+    merge_kernel<false><<<mgrid, 256, 0, st>>>(part_acc, part_m, part_l, out,
+                                               nullptr, nullptr, splits, B, D);
+  else
+    merge_kernel<true><<<mgrid, 256, 0, st>>>(part_acc, part_m, part_l, out,
+                                              m_out, l_out, splits, B, D);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// q [B, D], x [N, D], qn [B], xn [N]; part_acc [splits, B, D], part_m /
+// part_l [splits, B]: caller-allocated scratch; out [B, D].  Rows
+// [s * rps, (s + 1) * rps) go to split s; every split must hold at
+// least one row.  C CTAs a cluster, each a slice of ds columns (C ds >=
+// D).  x: fp32, or bf16 when x_bf16; its rows a multiple of 16 bytes (D %
+// 4 == 0, or D % 8 == 0 for bf16) and x 16-byte aligned (the bulk copies'
+// rows); dbg may be null.
+RT_EXPORT int golden_aggregate_launch(const float* q, const void* x,
+                                      int x_bf16, const float* qn,
+                                      const float* xn,
+                                      float inv, float* part_acc,
+                                      float* part_m, float* part_l,
+                                      float* out, float* dbg, int B, int N,
+                                      int D, int C, int ds, int stages,
+                                      int splits, int rps, void* stream) {
+  return run(q, x, x_bf16, qn, xn, inv, part_acc, part_m, part_l, out,
+             nullptr, nullptr, dbg, B, N, D, C, ds, stages, splits, rps,
+             stream);
+}
+
+// The state entry: the same cluster pass, then the merge writes acc
+// [B, D] (the unnormalized weighted sum), m [B] (the max logit, NEG_INF
+// on a store of +inf-norm padding alone) and l [B] (the denominator):
+// a store shard's softmax state, merged across shards by log-sum-exp.
+RT_EXPORT int golden_aggregate_state_launch(
+    const float* q, const void* x, int x_bf16, const float* qn,
+    const float* xn, float inv, float* part_acc, float* part_m,
+    float* part_l, float* acc, float* m, float* l, int B, int N, int D,
+    int C, int ds, int stages, int splits, int rps, void* stream) {
+  if (m == nullptr || l == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return run(q, x, x_bf16, qn, xn, inv, part_acc, part_m, part_l, acc, m, l,
+             nullptr, B, N, D, C, ds, stages, splits, rps, stream);
 }

@@ -35,6 +35,9 @@
 //      weights and row ids go through shared memory 64 rows at a time.
 //      The partial sums go to part [T, B, D];
 //   5. sagg_merge: out[b, c] = (sum over tiles in order) / max(l, 1e-30).
+// The state entry (golden_support_aggregate_state_launch) runs the same
+// passes and writes (acc, m, l) undivided instead: a store shard's
+// softmax state, which shards merge by log-sum-exp (the sharded engine).
 // NEG_INF logits get weight exp(NEG_INF - max) = 0; an all-NEG_INF query
 // has max = NEG_INF and weight 1 everywhere, which is the uniform mean.
 // Deterministic: two calls give bit-equal outputs.  The bf16 instance
@@ -206,16 +209,28 @@ sagg_rows(const XT* __restrict__ x, const int* __restrict__ rows,
   }
 }
 
-// out[b, c] = (sum over tiles t in order of part[t, b, c]) / max(l_b, 1e-30).
+// out[b, c] = (sum over tiles t in order of part[t, b, c]) / max(l_b, 1e-30);
+// the state entry (STATE) writes the sum itself and each query's (max, l)
+// to m_out / l_out instead of dividing.
+template <bool STATE>
 __global__ void sagg_merge(const float* __restrict__ part,
                            const float2* __restrict__ stat,
-                           float* __restrict__ out, int B, int D, int T) {
+                           float* __restrict__ out, float* __restrict__ m_out,
+                           float* __restrict__ l_out, int B, int D, int T) {
   const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t bd = (int64_t)B * D;
   if (e >= bd) return;
   float s = 0.f;
   for (int t = 0; t < T; ++t) s += part[t * bd + e];
-  out[e] = s / fmaxf(stat[e / D].y, 1e-30f);
+  if (!STATE) {
+    out[e] = s / fmaxf(stat[e / D].y, 1e-30f);
+    return;
+  }
+  out[e] = s;
+  if (e % D == 0) {
+    m_out[e / D] = stat[e / D].x;
+    l_out[e / D] = stat[e / D].y;
+  }
 }
 
 // the row pass for the rows' type T
@@ -231,22 +246,14 @@ void launch_rows(dim3 grid, cudaStream_t st, int vec, const T* x,
                                                       part, B, D, ucap);
 }
 
-}  // namespace
-
-// zero (the host's golden_support_aggregate.scratch_sizes, zeroed here):
-// tally [G, ucap, QG] u64, W [G, ucap, QG] fp32, the map [G, N] of
-// 16-byte words.
-// work (int32): stat [B] (max, l) as fp32 pairs, chunk counts
-// [G, chunks], ucount [G], rows [G, ucap].  part: [T, B, D] fp32, T = tiles.
-// x: fp32, or bf16 when x_bf16; vec: D % 4 == 0 and x aligned to 4 values.
-RT_EXPORT int golden_support_aggregate_launch(
-    const void* x, int x_bf16, const int64_t* idx, const float* logits,
-    float* out, int B, int K, int N, int D, int vec, int G, int ucap,
-    int chunks, int tiles, void* zero, int* work, float* part,
-    void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+// The whole pipeline; m_out == nullptr: the mean, else the state entry.
+int run(const void* x, int x_bf16, const int64_t* idx, const float* logits,
+        float* out, float* m_out, float* l_out, int B, int K, int N, int D,
+        int vec, int G, int ucap, int chunks, int tiles, void* zero,
+        int* work, float* part, cudaStream_t st) {
   if (B <= 0 || D <= 0) return static_cast<int>(cudaGetLastError());
   if (K <= 0) {                        // an empty softmax: zeros
+    if (m_out != nullptr) return static_cast<int>(cudaErrorInvalidValue);
     cudaMemsetAsync(out, 0, sizeof(float) * (size_t)B * D, st);
     return static_cast<int>(cudaGetLastError());
   }
@@ -274,7 +281,45 @@ RT_EXPORT int golden_support_aggregate_launch(
     launch_rows(grid, st, vec, static_cast<const float*>(x), rows, ucount, W,
                 part, B, D, ucap);
   const int64_t total = (int64_t)B * D;
-  sagg_merge<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(part, stat, out,
-                                                              B, D, tiles);
+  const unsigned mblocks = (unsigned)((total + 255) / 256);
+  if (m_out == nullptr)
+    sagg_merge<false><<<mblocks, 256, 0, st>>>(part, stat, out, nullptr,
+                                               nullptr, B, D, tiles);
+  else
+    sagg_merge<true><<<mblocks, 256, 0, st>>>(part, stat, out, m_out, l_out,
+                                              B, D, tiles);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// zero (the host's golden_support_aggregate.scratch_sizes, zeroed here):
+// tally [G, ucap, QG] u64, W [G, ucap, QG] fp32, the map [G, N] of
+// 16-byte words.
+// work (int32): stat [B] (max, l) as fp32 pairs, chunk counts
+// [G, chunks], ucount [G], rows [G, ucap].  part: [T, B, D] fp32, T = tiles.
+// x: fp32, or bf16 when x_bf16; vec: D % 4 == 0 and x aligned to 4 values.
+RT_EXPORT int golden_support_aggregate_launch(
+    const void* x, int x_bf16, const int64_t* idx, const float* logits,
+    float* out, int B, int K, int N, int D, int vec, int G, int ucap,
+    int chunks, int tiles, void* zero, int* work, float* part,
+    void* stream) {
+  return run(x, x_bf16, idx, logits, out, nullptr, nullptr, B, K, N, D, vec,
+             G, ucap, chunks, tiles, zero, work, part,
+             static_cast<cudaStream_t>(stream));
+}
+
+// The state entry: the same passes, then acc [B, D] (the unnormalized
+// weighted sum), m [B] (the max logit, from NEG_INF) and l [B] (the
+// softmax denominator) for a log-sum-exp merge across store shards.  K >= 1.
+RT_EXPORT int golden_support_aggregate_state_launch(
+    const void* x, int x_bf16, const int64_t* idx, const float* logits,
+    float* acc, float* m, float* l, int B, int K, int N, int D, int vec,
+    int G, int ucap, int chunks, int tiles, void* zero, int* work,
+    float* part, void* stream) {
+  if (m == nullptr || l == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return run(x, x_bf16, idx, logits, acc, m, l, B, K, N, D, vec, G, ucap,
+             chunks, tiles, zero, work, part,
+             static_cast<cudaStream_t>(stream));
 }

@@ -11,7 +11,9 @@ second small kernel merges the clusters' (max, l, acc) states by
 log-sum-exp in split order.  Its bf16-row instance (the engine's
 ``storage_dtype``) stages the rows in bf16 and widens them, two MMAs a
 product (``csrc/dist_tile.cuh``).  Its plain version is
-``ref.golden_aggregate_ref``.
+``ref.golden_aggregate_ref``.  The state entry
+(:func:`golden_aggregate_state`) runs the same cluster pass and writes
+the merged softmax state undivided, for the sharded full scan.
 """
 from __future__ import annotations
 
@@ -25,6 +27,8 @@ from repro_torch.kernels.golden_rerank import H100_SMS
 _ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 2
          + [ctypes.c_float] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
          + [ctypes.c_void_p])
+# the state entry's: acc, m and l in place of out and dbg
+_STATE_ARGS = _ARGS[:10] + [ctypes.c_void_p] * 2 + _ARGS[11:]
 # shared memory a block may opt in to on Hopper (232,448 bytes)
 MAX_SMEM = 227 * 1024
 THREADS = 256          # a CTA's threads
@@ -145,8 +149,8 @@ def active_clusters(shape: dict, device: torch.device,
 
 
 def _launch(q: torch.Tensor, x: torch.Tensor, sigma2: float,
-            x_norms: torch.Tensor, debug: bool):
-    name = "golden_aggregate"
+            x_norms: torch.Tensor, debug: bool, state: bool = False):
+    name = "golden_aggregate_state" if state else "golden_aggregate"
     _build.require(name, q.device, q=q, x=x, x_norms=x_norms)
     bf16 = _build.require_rows(name, x=x)
     _build.require_dtype(name, torch.float32, x_norms=x_norms)
@@ -173,15 +177,25 @@ def _launch(q: torch.Tensor, x: torch.Tensor, sigma2: float,
     dbg = (torch.full((p["splits"], p["cluster"], p["groups"] * QUERY_GROUP,
                        2 + TILE_ROWS), float("nan"), device=dev)
            if debug else None)
-    fn = _build.load(name, "golden_aggregate_launch", _ARGS)
-    err = fn(_build.ptr(q32), _build.ptr(x), int(bf16), _build.ptr(qn),
-             _build.ptr(x_norms), ref.finite_inv_two_sigma2(sigma2),
-             _build.ptr(part_acc), _build.ptr(part_ml),
-             ctypes.c_void_p(part_ml.data_ptr() + 4 * p["splits"] * b),
-             _build.ptr(out), None if dbg is None else _build.ptr(dbg),
-             b, n, dp, p["cluster"], p["slice"], p["stages"], p["splits"],
-             p["rows"], _build.stream(dev))
-    _build.check(name, err)
+    head = (_build.ptr(q32), _build.ptr(x), int(bf16), _build.ptr(qn),
+            _build.ptr(x_norms), ref.finite_inv_two_sigma2(sigma2),
+            _build.ptr(part_acc), _build.ptr(part_ml),
+            ctypes.c_void_p(part_ml.data_ptr() + 4 * p["splits"] * b),
+            _build.ptr(out))
+    tail = (b, n, dp, p["cluster"], p["slice"], p["stages"], p["splits"],
+            p["rows"], _build.stream(dev))
+    if state:
+        ml = torch.empty((2, b), dtype=torch.float32, device=dev)
+        fn = _build.load("golden_aggregate", "golden_aggregate_state_launch",
+                         _STATE_ARGS)
+        err = fn(*head, _build.ptr(ml[0]), _build.ptr(ml[1]), *tail)
+    else:
+        fn = _build.load(name, "golden_aggregate_launch", _ARGS)
+        err = fn(*head, None if dbg is None else _build.ptr(dbg), *tail)
+    _build.check("golden_aggregate", err)
+    if state:
+        _build.count(golden_aggregate_state, bf16)
+        return out[:, :d], ml[0], ml[1]
     _build.count(golden_aggregate, bf16)
     return out[:, :d].to(q.dtype), dbg
 
@@ -196,6 +210,23 @@ def golden_aggregate(q: torch.Tensor, x: torch.Tensor, sigma2: float,
 
 golden_aggregate.launches = 0
 golden_aggregate.launches_bf16 = 0
+
+
+def golden_aggregate_state(q: torch.Tensor, x: torch.Tensor, sigma2: float,
+                           x_norms: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """The state entry: the same kernel's softmax state of the whole
+    store x, ``(acc [B, D], m [B], l [B])`` fp32 undivided (logits
+    clamped at NEG_INF, so a store shard of +inf-norm padding alone gives
+    m = NEG_INF and l = its row count), which shards merge by log-sum-exp
+    (``distributed.sharding.lse_merge_mean``).  Its plain version is
+    ``ref.full_partial_ref``."""
+    return _launch(q, x, sigma2, x_norms, debug=False, state=True)
+
+
+golden_aggregate_state.launches = 0
+golden_aggregate_state.launches_bf16 = 0
 
 
 def cluster_states(q: torch.Tensor, x: torch.Tensor, sigma2: float,

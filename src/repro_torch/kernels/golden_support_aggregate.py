@@ -13,7 +13,9 @@ registers.  The CTAs' partial sums merge in a fixed order:
 deterministic, bound by the bytes of the distinct rows.  Its bf16-row
 instance (the engine's ``storage_dtype``) loads the rows in bf16, half
 the bytes, and widens them for the same fp32 sums.  Its plain version
-is ``ref.golden_support_aggregate_ref``.
+is ``ref.golden_support_aggregate_ref``.  The state entry
+(:func:`golden_support_aggregate_state`) is the same kernel writing the
+softmax state undivided, for the sharded engine's log-sum-exp merge.
 """
 from __future__ import annotations
 
@@ -31,6 +33,8 @@ MIN_TILE_ROWS = 64   # fewest list rows a row-pass CTA is planned for
 
 _ARGS = ([ctypes.c_void_p] + [ctypes.c_int] + [ctypes.c_void_p] * 3
          + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 4)
+# ... and the state entry's: acc, m and l in place of out
+_STATE_ARGS = _ARGS[:5] + [ctypes.c_void_p] * 2 + _ARGS[5:]
 
 
 def aggregate_plan(b: int, n: int, k: int, d: int,
@@ -63,12 +67,10 @@ def scratch_sizes(b: int, n: int, k: int, d: int,
                 part=p["tiles"] * b * d)
 
 
-def golden_support_aggregate(x: torch.Tensor, idx: torch.Tensor,
-                             logits: torch.Tensor) -> torch.Tensor:
-    """softmax(logits)-weighted mean of x[idx] per query: x [N, D] fp32
-    or bf16, idx [B, K] int64 in [0, N), logits [B, K] fp32 (NEG_INF
-    entries get zero weight) -> [B, D] fp32, ``acc / max(l, 1e-30)``."""
-    name = "golden_support_aggregate"
+def _launch(x: torch.Tensor, idx: torch.Tensor, logits: torch.Tensor,
+            state: bool):
+    name = ("golden_support_aggregate_state" if state
+            else "golden_support_aggregate")
     _build.require(name, x.device, x=x, idx=idx, logits=logits)
     bf16 = _build.require_rows(name, x=x)
     _build.require_dtype(name, torch.float32, logits=logits)
@@ -76,6 +78,8 @@ def golden_support_aggregate(x: torch.Tensor, idx: torch.Tensor,
     n, d = x.shape
     b, k = idx.shape
     _build.require_shape(name, "logits", logits, (b, k))
+    if state and k < 1:
+        raise ValueError(f"{name}: a softmax state needs k >= 1")
     dev = x.device
     sms = sm_count(dev)
     p = aggregate_plan(b, n, k, d, sms)
@@ -83,15 +87,50 @@ def golden_support_aggregate(x: torch.Tensor, idx: torch.Tensor,
     scratch, (zero, work, part) = carve(dev, z["zero"], 4 * z["work"],
                                         4 * z["part"])
     out = torch.empty((b, d), dtype=torch.float32, device=dev)
-    fn = _build.load(name, "golden_support_aggregate_launch", _ARGS)
-    err = fn(_build.ptr(x), int(bf16), _build.ptr(idx), _build.ptr(logits),
-             _build.ptr(out), b, k, n, d, _build.vec4(x), p["groups"],
-             p["ucap"], p["chunks"], p["tiles"], zero, work, part,
-             _build.stream(dev))
-    _build.check(name, err)
+    plan = (b, k, n, d, _build.vec4(x), p["groups"], p["ucap"], p["chunks"],
+            p["tiles"], zero, work, part, _build.stream(dev))
+    if state:
+        ml = torch.empty((2, b), dtype=torch.float32, device=dev)
+        fn = _build.load("golden_support_aggregate",
+                         "golden_support_aggregate_state_launch", _STATE_ARGS)
+        err = fn(_build.ptr(x), int(bf16), _build.ptr(idx),
+                 _build.ptr(logits), _build.ptr(out), _build.ptr(ml[0]),
+                 _build.ptr(ml[1]), *plan)
+    else:
+        fn = _build.load(name, "golden_support_aggregate_launch", _ARGS)
+        err = fn(_build.ptr(x), int(bf16), _build.ptr(idx),
+                 _build.ptr(logits), _build.ptr(out), *plan)
+    _build.check("golden_support_aggregate", err)
+    if state:
+        _build.count(golden_support_aggregate_state, bf16)
+        return out, ml[0], ml[1]
     _build.count(golden_support_aggregate, bf16)
     return out
 
 
+def golden_support_aggregate(x: torch.Tensor, idx: torch.Tensor,
+                             logits: torch.Tensor) -> torch.Tensor:
+    """softmax(logits)-weighted mean of x[idx] per query: x [N, D] fp32
+    or bf16, idx [B, K] int64 in [0, N), logits [B, K] fp32 (NEG_INF
+    entries get zero weight) -> [B, D] fp32, ``acc / max(l, 1e-30)``."""
+    return _launch(x, idx, logits, state=False)
+
+
 golden_support_aggregate.launches = 0
 golden_support_aggregate.launches_bf16 = 0
+
+
+def golden_support_aggregate_state(x: torch.Tensor, idx: torch.Tensor,
+                                   logits: torch.Tensor
+                                   ) -> tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor]:
+    """The state entry: the same kernel's softmax state of x[idx] per
+    query, ``(acc [B, D], m [B], l [B])`` fp32 undivided (m the max
+    logit from NEG_INF, l the denominator), which store shards merge by
+    log-sum-exp (``distributed.sharding.lse_merge_mean``).  K >= 1.  Its
+    plain version is ``ref.partial_aggregate_ref``."""
+    return _launch(x, idx, logits, state=True)
+
+
+golden_support_aggregate_state.launches = 0
+golden_support_aggregate_state.launches_bf16 = 0

@@ -43,20 +43,28 @@ from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.golden_attention import (
     golden_attention_decode as _gattn, select_golden_blocks)
 from repro_torch.kernels.golden_aggregate import golden_aggregate as _agg
+from repro_torch.kernels.golden_aggregate import (
+    golden_aggregate_state as _agg_state)
 from repro_torch.kernels.golden_rerank import support_sqdist as _sqd
 from repro_torch.kernels.golden_support_aggregate import (
     golden_support_aggregate as _sagg)
+from repro_torch.kernels.golden_support_aggregate import (
+    golden_support_aggregate_state as _sagg_state)
 from repro_torch.kernels.pdist import pdist as _pdist
 
 
 # Every kernel wrapper, each counting the launches it makes in its
 # ``launches`` attribute; ``GoldDiffEngine.jitter`` replays a captured
 # graph's counts with the graph, so each count stays what the card ran.
+# The state entries of kernels 3 and 4 (the sharded engine's shard-local
+# softmax states) count apart from their mean entries.
+STATE_ENTRIES = (_sagg_state, _agg_state)
 COUNTED = (_pdist, _sqd, _sagg, _agg, _screen.screen_topm,
-           _fused.fused_candidates, _probe.centroid_scan, _flash, _gattn)
+           _fused.fused_candidates, _probe.centroid_scan, _flash,
+           _gattn) + STATE_ENTRIES
 # ... and those with a bf16-row instance, counted in ``launches_bf16``
 # (kernel 7's: the probe with the pooled query rounded to bf16)
-COUNTED_BF16 = COUNTED[:7]
+COUNTED_BF16 = COUNTED[:7] + STATE_ENTRIES
 
 
 def launch_counts() -> list[int]:
@@ -183,6 +191,87 @@ def golden_aggregate(q, x, sigma2: float, x_norms=None):
         return ref.golden_aggregate_ref(q, x, sigma2, x_norms)
     return _agg(q.contiguous(), x, float(sigma2),
                 x_norms.float().contiguous())
+
+
+def golden_partial_aggregate(x, idx, logits, strategy: str = "gather"):
+    """Unnormalized softmax state of x[idx] per query, ``(acc [B, D], m
+    [B], l [B])``: the shard-local half of the golden aggregate, which
+    store shards merge exactly by log-sum-exp
+    (``distributed.sharding.lse_merge_mean``).  ``idx`` indexes the
+    local shard ``x``; ``idx=None`` with dense [B, n_loc] logits takes
+    every local row (the full-scan case).  On the CPU ``strategy``
+    picks the reference's form ("gather": the gathered rows; "dense":
+    the weights scattered into [B, N] times the store); on the card
+    kernel 3's state entry (``idx=None``: the plain dense form, which
+    only the CPU's callers take)."""
+    if idx is None:
+        lg = logits.float()
+        m = lg.amax(-1)
+        p = torch.exp(lg - m[:, None])
+        return p @ x.float(), m, p.sum(-1)
+    if _on_cpu(logits):
+        if strategy == "dense":
+            return ref.scatter_partial_aggregate_ref(x, idx, logits)
+        return ref.partial_aggregate_ref(x, idx, logits)
+    return _sagg_state(x, idx.contiguous(), logits.float().contiguous())
+
+
+def golden_full_partial(q, x, sigma2: float, x_norms=None,
+                        stream: bool = False, tile: int | None = None):
+    """Unnormalized softmax state ``(acc, m, l)`` of the WHOLE local
+    store: the shard-local half of a full scan (logits clamped at the
+    finite NEG_INF, so all-padding rows merge to zero weight).  On the
+    card kernel 4's state entry; on the CPU ``stream=True`` the tiled
+    pass (``screen.full_scan_partial_stream``), else the dense form."""
+    if x_norms is None:
+        x_norms = (x.float() ** 2).sum(-1)
+    if not _on_cpu(q):
+        return _agg_state(q.float().contiguous(), x, float(sigma2),
+                          x_norms.float().contiguous())
+    if stream:
+        return _screen.full_scan_partial_stream(
+            q, x, float(sigma2), x_norms=x_norms,
+            tile=_screen.DEFAULT_TILE if tile is None else tile)
+    return ref.full_partial_ref(q, x, sigma2, x_norms)
+
+
+def ivf_screen_local(qp, offsets_loc, centroids, centroid_norms, w_lo, w_hi,
+                     nprobe_max: int, max_cluster: int, w_cap: int,
+                     n_loc: int, nprobe=None):
+    """Shard-local lanes of a *globally probed* Golden Index (capacity
+    mode): every shard runs the same centroid scan and top-``nprobe_max``
+    probe selection (``lax.top_k``'s order: a stable sort, ties to the
+    lowest window), keeps only its own probed windows ``[w_lo, w_hi)``
+    (ints or 0-d tensors), compacted best-first into ``w_cap`` slots
+    (a stable sort again), and expands each into ``max_cluster`` lanes
+    of its local CSR window ``offsets_loc``.  So the union of the
+    shards' lanes is the single-device probe set, each lane owned by one
+    shard.  ``nprobe`` (int or 0-d tensor, default ``nprobe_max``) masks
+    the probes beyond it.  Returns ``(pos, d2)`` [B, w_cap * L]:
+    positions into the shard's sorted rows (clamped to ``n_loc - 1``) and
+    markers, 0 real and +inf padding or foreign.  On the card the
+    distances are kernel 7's distance stage (``centroid_scan``); the
+    selections are torch."""
+    cd2 = centroid_scan(qp, centroids, centroid_norms)
+    order = torch.sort(cd2, dim=-1, stable=True)
+    cneg, probe = -order[0][:, :nprobe_max], order[1][:, :nprobe_max]
+    mine = (probe >= w_lo) & (probe < w_hi)
+    if nprobe is not None:
+        mine = mine & (torch.arange(nprobe_max, device=qp.device) < nprobe)
+    score = torch.where(mine, cneg, float("-inf"))
+    svals, spos = torch.sort(score, dim=-1, descending=True, stable=True)
+    svals, spos = svals[:, :w_cap], spos[:, :w_cap]
+    win = torch.gather(probe, -1, spos)
+    wvalid = svals > float("-inf")
+    lw = torch.clamp(win - w_lo, 0, offsets_loc.shape[0] - 2)
+    starts, ends = offsets_loc[lw], offsets_loc[lw + 1]       # [B, Wc]
+    lane = torch.arange(max_cluster, dtype=starts.dtype, device=qp.device)
+    pos = starts[..., None] + lane                            # [B, Wc, L]
+    valid = (pos < ends[..., None]) & wvalid[..., None]
+    b = qp.shape[0]
+    pos = torch.clamp_max(pos, n_loc - 1).reshape(b, -1)
+    valid = valid.reshape(b, -1)
+    return pos, torch.where(valid, 0.0, float("inf"))
 
 
 def centroid_scan(q, centroids, c_norms=None):
@@ -334,5 +423,7 @@ def golden_attention_decode(q, k, v, block_idx, valid, block_size: int = 128):
 
 __all__ = ["pdist", "screen_topm", "support_distances", "golden_rerank",
            "golden_support_aggregate", "golden_aggregate", "fused_step",
+           "golden_partial_aggregate", "golden_full_partial",
+           "ivf_screen_local",
            "centroid_scan", "ivf_probe", "ivf_screen", "flash_attention",
            "golden_attention_decode", "select_golden_blocks"]

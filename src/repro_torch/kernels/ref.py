@@ -156,6 +156,53 @@ def golden_support_aggregate_ref(x: torch.Tensor, idx: torch.Tensor,
     return torch.bmm(w[:, None, :], x[idx].float())[:, 0]
 
 
+def partial_aggregate_ref(x: torch.Tensor, idx: torch.Tensor,
+                          logits: torch.Tensor
+                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Unnormalized softmax partial state of x[idx] per query: ``(acc
+    [B, D], m [B], l [B])``, the exp-weighted sum, the max logit and the
+    partition sum (``streaming.merge`` semantics), so that shards' states
+    merge exactly by log-sum-exp (``distributed.sharding``).  Logits all
+    at the finite NEG_INF give m = NEG_INF, whose merge scale underflows
+    to 0, not NaN.  Takes ``(x, idx)`` as the kernel does; the
+    reference's ``partial_aggregate_ref`` takes the gathered rows."""
+    lg = logits.float()
+    m = lg.amax(-1)
+    p = torch.exp(lg - m[:, None])
+    acc = torch.bmm(p[:, None, :], x[idx].float())[:, 0]
+    return acc, m, p.sum(-1)
+
+
+def scatter_partial_aggregate_ref(x: torch.Tensor, idx: torch.Tensor,
+                                  logits: torch.Tensor
+                                  ) -> tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """The dense form of :func:`partial_aggregate_ref`: the weights
+    scattered into a [B, N] matrix (duplicate indices add) times the
+    store, as the reference's XLA:CPU-fast form."""
+    lg = logits.float()
+    m = lg.amax(-1)
+    p = torch.exp(lg - m[:, None])
+    ws = torch.zeros((lg.shape[0], x.shape[0]), dtype=torch.float32,
+                     device=lg.device).scatter_add_(1, idx, p)
+    return ws @ x.float(), m, p.sum(-1)
+
+
+def full_partial_ref(q: torch.Tensor, x: torch.Tensor, sigma2: float,
+                     x_norms: torch.Tensor | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Unnormalized softmax state of the whole store x (the dense form of
+    the reference's ``golden_full_partial``): logits clamped at NEG_INF,
+    so +inf-norm padding rows weigh 0 beside any real row and a shard of
+    padding alone gives m = NEG_INF.  The plain version of kernel 4's
+    state entry."""
+    inv = finite_inv_two_sigma2(sigma2)
+    lg = torch.clamp_min(-pdist_ref(q, x, x_norms=x_norms) * inv, NEG_INF)
+    m = lg.amax(-1)
+    p = torch.exp(lg - m[:, None])
+    return p @ x.float(), m, p.sum(-1)
+
+
 def golden_aggregate_ref(q: torch.Tensor, x: torch.Tensor, sigma2: float,
                          x_norms: torch.Tensor | None = None) -> torch.Tensor:
     """Full-scan posterior mean (Eq. 2); logits clamp at the finite

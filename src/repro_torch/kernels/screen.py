@@ -32,6 +32,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.ref import NEG_INF, finite_inv_two_sigma2
 
 DEFAULT_TILE = 4096     # the reference kernel's N-tile (VMEM block)
 SCAN_TILE = 16384       # the plain carry loop's N-tile
@@ -99,6 +100,44 @@ def screen_topm_scan(q: torch.Tensor, x: torch.Tensor, m: int,
         neg = torch.where(cols >= start, -d2, float("-inf"))
         vals, idx = merge_topm(vals, idx, neg, cols.expand(b, -1), m)
     return torch.clamp_max(idx, max(n - 1, 0)), -vals
+
+
+def full_scan_partial_stream(q: torch.Tensor, x: torch.Tensor,
+                             sigma2: float,
+                             x_norms: torch.Tensor | None = None,
+                             tile: int = DEFAULT_TILE
+                             ) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """Unnormalized softmax state ``(acc [B, D], m [B], l [B])`` of the
+    whole store in one tiled pass (the reference's
+    ``full_scan_partial_stream``): logits clamped at the finite NEG_INF
+    as in the dense form, so the states merge exactly across shards; a
+    ragged last tile slides back and its re-seen columns get a hard
+    -inf (zero weight even when every logit is NEG_INF).  Peak live
+    memory O(B (tile + D))."""
+    n, d = x.shape
+    b = q.shape[0]
+    q32 = q.float()
+    qn = (q32 * q32).sum(-1)
+    xn = ((x.float() ** 2).sum(-1) if x_norms is None else x_norms.float())
+    tile = min(tile, max(n, 1))
+    inv = finite_inv_two_sigma2(sigma2)
+    m_run = q32.new_full((b,), NEG_INF)
+    l_run = q32.new_zeros((b,))
+    acc = q32.new_zeros((b, d))
+    for start, eff in scan_tiles(n, tile):
+        xt = x[eff: eff + tile].float()
+        lg = torch.clamp_min(-tile_d2(q32, xt, qn, xn[eff: eff + tile])
+                             * inv, NEG_INF)
+        cols = torch.arange(eff, eff + tile, device=q.device)
+        lg = torch.where(cols >= start, lg, float("-inf"))
+        m_new = torch.maximum(m_run, lg.amax(-1))
+        scale = torch.exp(m_run - m_new)
+        p = torch.exp(lg - m_new[:, None])
+        l_run = l_run * scale + p.sum(-1)
+        acc = acc * scale[:, None] + p @ xt
+        m_run = m_new
+    return acc, m_run, l_run
 
 
 _ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 2

@@ -23,7 +23,9 @@ Fault kinds (independent per-dispatch probabilities):
 * ``oom``        -- raises :class:`InjectedOOMError`
   ("RESOURCE_EXHAUSTED: ...", the halve-batch / fewer-steps rung);
 * ``shard_drop`` -- raises an ``InjectedInternalError`` for a lost
-  device; fires only with more than one CUDA device visible;
+  shard; fires only on a dispatch whose program key carries a mesh
+  signature of more than one shard (``GoldDiffEngine.mesh_sig``), the
+  reference's "more than one device in the mesh";
 * ``evict``      -- deletes the cache entry before the hit/miss check,
   so the lookup really builds again (on the card: captures again), a
   build storm for the plan->scan rung.
@@ -77,6 +79,13 @@ RETRYABLE_ERRORS = (InjectedRuntimeError, TransientExecutorError,
 # fallback that can itself be faulted is not a fallback.
 DEFAULT_TARGETS = ("plan_seg", "plan_seg_mix", "serve_scan", "denoise",
                    "fused_step", "full_scan")
+
+def sharded(key) -> bool:
+    """Whether a program key carries a mesh signature of more than one
+    shard: ``("mesh", shard_axis, shards, batch_axis, batch_shards)``."""
+    return any(isinstance(e, tuple) and len(e) == 5 and e[0] == "mesh"
+               and e[2] > 1 for e in key)
+
 
 FAULT_KINDS = ("nan", "latency", "error", "oom", "shard_drop", "evict")
 
@@ -177,7 +186,7 @@ class FaultInjector:
             if self._hit(n, "latency", cfg.latency_rate):
                 self._record("latency", key, n)
                 time.sleep(cfg.latency_s)
-            if cfg.shard_drop_rate > 0.0 and torch.cuda.device_count() > 1 \
+            if cfg.shard_drop_rate > 0.0 and sharded(key) \
                     and self._hit(n, "shard_drop", cfg.shard_drop_rate):
                 self._record("shard_drop", key, n)
                 raise InjectedInternalError(

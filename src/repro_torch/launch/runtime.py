@@ -41,9 +41,15 @@ the same counters, breaker states and trace events.
   captured (``GoldDiffEngine`` module docstring).
 * **observability** -- ``health()``, ``metrics_snapshot()`` and
   ``prometheus()`` through a ``MetricsRegistry``, and with a tracer
-  enabled every request edge on the unified event schema.  The
-  reference's ``QualityMonitor`` is not ported yet (ROADMAP Queue 1
-  item 4): ``monitor=`` raises ``NotImplementedError``.
+  enabled every request edge on the unified event schema;
+  ``monitor=`` (a ``repro_torch.obs.quality.QualityMonitor``) records
+  the concentration curve of every executed step, samples the
+  screening-recall probe at the seams (its programs built by
+  ``warmup()`` on every kept slot), counts finite-guard trips and
+  degraded waves, and joins ``health()``.
+* **sharded engines** -- a plan-mode engine over a mesh is served the
+  same way (one slot: a sharded engine does not hot-swap); an injected
+  ``shard_drop`` on its dispatches retries like any executor error.
 
 Single-threaded by design: ``pump()`` runs one scheduler step;
 ``run_until_idle()`` drains inline; ``start()``/``stop()`` run the loop
@@ -265,6 +271,7 @@ class _Wave:
     epoch: int = 0                       # store epoch pinned for dispatches
     retries: int = 0
     degraded: bool = False
+    degrade_reported: bool = False       # monitor.on_degrade fired once
     running: bool = False
 
     @property
@@ -285,10 +292,6 @@ class ServeRuntime:
     def __init__(self, eng: ServeEngine, config: RuntimeConfig | None = None,
                  monitor=None,
                  registry: obs_metrics.MetricsRegistry | None = None):
-        if monitor is not None:
-            raise NotImplementedError(
-                "the quality monitor (repro.obs.quality) is not ported yet: "
-                "ROADMAP Queue 1 item 4")
         if eng.mode not in ("plan", "scan"):
             raise ValueError(f"ServeRuntime needs a plan- or scan-mode "
                              f"engine (got mode={eng.mode!r}); static "
@@ -344,8 +347,15 @@ class ServeRuntime:
             "hot_swaps", "epoch_quarantined")}
         self.last_swap: dict = {}
         # -- observability: a bounded latency reservoir in the registry
-        self.registry = registry if registry is not None \
-            else obs_metrics.REGISTRY
+        # (the monitor's, unless one is given) and the optional
+        # QualityMonitor
+        self.monitor = monitor
+        if registry is not None:
+            self.registry = registry
+        elif monitor is not None:
+            self.registry = monitor.registry
+        else:
+            self.registry = obs_metrics.REGISTRY
         self._lat_hist = obs_metrics.Histogram(
             "serve_latency_seconds", "end-to-end request latency (s)",
             reservoir=self.cfg.latency_reservoir)
@@ -479,6 +489,9 @@ class ServeRuntime:
                 st = self.eng.warmup()
                 stats = stats or st
                 self._warm_rungs()
+                if self.monitor is not None:
+                    stats["probe_ts_warmed"] = self.monitor.warmup(
+                        self._probe_ts())
         with self._lock:
             self._gc_epochs()        # the standby slot goes back to free
         for b in self.eng.batch_buckets():
@@ -493,6 +506,16 @@ class ServeRuntime:
         stats["graphs_captured"] = self.engine._captures - c0
         stats["slots"] = slots
         return stats
+
+    def _probe_ts(self) -> list[int]:
+        """Every timestep a recall probe can fire at: the executed steps
+        of each plan variant and of the scan grid."""
+        ts: set[int] = set()
+        for p in self.plans.values():
+            ts.update(int(t) for t in p.ts[:-1])
+        ts.update(int(t) for t in sampling_timesteps(
+            self.eng.schedule, self.eng.num_steps)[:-1])
+        return sorted(ts)
 
     def _warm_rungs(self) -> None:
         """The scan rung, the plan variants and the mixed segments of
@@ -939,6 +962,8 @@ class ServeRuntime:
         if not row_ok.all():
             nbad = int((~row_ok).sum())
             self.counters["finite_trips"] += nbad
+            if self.monitor is not None:
+                self.monitor.on_finite_trips(nbad)
             if tr.enabled:
                 tr.event("wave.finite_trip", wave=wave.seq, rows=nbad)
             self.br_screen.record_failure(self.cfg.clock())
@@ -1055,6 +1080,12 @@ class ServeRuntime:
         if status == "split":
             self._split(wave)
             return
+        if self.monitor is not None:
+            ts, start, stop = self._segment_grid(wave, seg)
+            for i in range(start, stop):
+                self.monitor.record_step(int(ts[i]))
+            self.monitor.maybe_probe_recall(out[:wave.used],
+                                            int(ts[stop - 1]))
         wave.x = out
         nseg = wave.num_segments()
         for p in wave.parts:
@@ -1069,6 +1100,10 @@ class ServeRuntime:
                 done_ids.add(id(p))
             ofs += p.n
         if done_ids:
+            if wave.degraded and not wave.degrade_reported \
+                    and self.monitor is not None:
+                wave.degrade_reported = True
+                self.monitor.on_degrade()
             if self._drop_parts(wave, done_ids, now):
                 return
         self._compact_expired(wave, now)
@@ -1199,6 +1234,8 @@ class ServeRuntime:
                                        if finished else 0.0),
                 **{f"n_{k}": v for k, v in self.counters.items()},
             }
+            if self.monitor is not None:
+                h.update(self.monitor.health())
             return h
 
     def _sync_registry(self, now: float) -> None:

@@ -32,6 +32,12 @@ engine's crossover says it pays.  ``index``/``index_mode``/
 the store routes the coarse screen of the steps ``index_mode`` picks
 through the index.
 
+``mesh`` (a ``repro_torch.distributed.LocalMesh``) shards the store
+over its "data" axis in every mode (``GoldDiff(mesh=..., batch_axis=...)``,
+``batch_axis`` splitting the query batch over a second axis); with the
+shards on one card ``warmup()`` captures the plan segments as without a
+mesh, each graph launching every shard's kernels.
+
 ``ServeRuntime`` (``repro_torch.launch.runtime``) wraps a warmed plan-
 or scan-mode engine in admission, deadlines, retries, the degradation
 ladder and store hot swaps.
@@ -111,7 +117,8 @@ class ServeEngine:
                  max_buckets: int | None = None,
                  clip_value: float | None = 3.0, device=None,
                  fused: str | bool = "auto", index=None,
-                 index_mode: str = "auto", probe_schedule=None):
+                 index_mode: str = "auto", probe_schedule=None, mesh=None,
+                 batch_axis: str | None = None):
         if mode not in ("auto", "plan", "scan", "static"):
             raise ValueError(f"unknown serve mode {mode!r}")
         self.device = resolve_device(device)
@@ -128,7 +135,8 @@ class ServeEngine:
         self.denoiser = GoldDiff(base_den, gd_cfg or GoldDiffConfig(),
                                  fused=fused, index=index,
                                  index_mode=index_mode,
-                                 probe_schedule=probe_schedule)
+                                 probe_schedule=probe_schedule, mesh=mesh,
+                                 batch_axis=batch_axis)
         if mode == "auto":
             mode = "plan" if self._scan_compatible() else "static"
         if mode in ("plan", "scan") and not self._scan_compatible():

@@ -15,6 +15,7 @@ import torch
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.module import tree_leaves
 from repro_torch.models.transformer import cache_specs, model_specs
+from repro_torch.utils import resolve_device
 
 
 def _convert(want: dict, tree, what: str, device) -> dict:
@@ -39,17 +40,21 @@ def _convert(want: dict, tree, what: str, device) -> dict:
     return out
 
 
-def params_from_numpy(cfg: ModelConfig, tree, device="cpu") -> dict:
+def params_from_numpy(cfg: ModelConfig, tree, device=None) -> dict:
     """The reference's parameter pytree (``embed``, ``blocks/l{i}/...``,
-    ``final_norm``, ``lm_head`` when untied) as the port's tensors."""
+    ``final_norm``, ``lm_head`` when untied) as the port's tensors, on
+    ``device`` (the CUDA card unless the caller names another)."""
+    device = resolve_device(device)
     want = {path: (s.shape, s.dtype)
             for path, s in tree_leaves(model_specs(cfg))}
     return _convert(want, tree, "params_from_numpy", device)
 
 
-def cache_from_numpy(cfg: ModelConfig, tree, device="cpu") -> dict:
+def cache_from_numpy(cfg: ModelConfig, tree, device=None) -> dict:
     """The reference's decode cache (``l{i}/{k, v[, summ]}``, each
-    ``[repeats, B, Hkv, S | nb, dh]``) as the port's tensors."""
+    ``[repeats, B, Hkv, S | nb, dh]``) as the port's tensors, on
+    ``device`` (the CUDA card unless the caller names another)."""
+    device = resolve_device(device)
     try:
         _, batch, _, seq_len, _ = np.shape(tree["l0"]["k"])
     except (KeyError, TypeError, ValueError) as err:

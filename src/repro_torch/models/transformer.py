@@ -34,6 +34,7 @@ import torch
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.module import ParamSpec, stack_specs, tree_map
+from repro_torch.utils import resolve_device
 
 OTHER_FAMILIES = "ROADMAP Queue 1: the other model families"
 LLM_TRAINING = "ROADMAP Queue 1: LLM training (steps.py / train.py)"
@@ -109,8 +110,11 @@ def _alloc_cache(cfg: ModelConfig, batch: int, seq_len: int, device,
 
 
 def zero_cache(cfg: ModelConfig, batch: int, seq_len: int,
-               device="cpu") -> dict:
-    return _alloc_cache(cfg, batch, seq_len, device, torch.zeros)
+               device=None) -> dict:
+    """A zeroed decode cache on ``device`` (the CUDA card unless the
+    caller names another)."""
+    return _alloc_cache(cfg, batch, seq_len, resolve_device(device),
+                        torch.zeros)
 
 
 def _layer(tree: dict, r: int) -> dict:

@@ -8,10 +8,11 @@ Counterpart of ``repro.obs`` without JAX:
   ``TraceHook`` for the program-dispatch seam;
 * :mod:`repro_torch.obs.metrics` -- ``Counter`` / ``Gauge`` /
   ``Histogram`` in a ``MetricsRegistry`` (default ``REGISTRY``), JSON
-  snapshots and Prometheus text.
-
-The reference's ``QualityMonitor`` (``repro.obs.quality``) is not
-ported yet (ROADMAP Queue 1 item 4).
+  snapshots and Prometheus text;
+* :mod:`repro_torch.obs.quality` -- ``QualityMonitor``: the sampled
+  screening-recall probe, the concentration curve (k_t/N and the
+  coarse stage's occupancy against t), the guard and degradation rates
+  (imported lazily: it sits above the index layer).
 """
 from __future__ import annotations
 
@@ -26,4 +27,13 @@ from repro_torch.obs.trace import (NULL_TRACER, NullTracer, Tracer,
 __all__ = ["metrics", "trace", "REGISTRY", "Counter", "Gauge", "Histogram",
            "MetricsRegistry", "NULL_TRACER", "NullTracer", "Tracer",
            "TraceHook", "install_dispatch_tracing", "set_tracer", "tracer",
-           "uninstall_dispatch_tracing"]
+           "uninstall_dispatch_tracing", "QualityMonitor"]
+
+
+def __getattr__(name):
+    # lazy: quality reaches the index layer, which imports core, which
+    # imports this package
+    if name == "QualityMonitor":
+        from repro_torch.obs.quality import QualityMonitor
+        return QualityMonitor
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1570,3 +1570,189 @@ def test_capture_is_not_invalidated_by_dying_graphs(card):
         gc.set_threshold(*thresholds)
     x = torch.ones(4, 8, device=card)
     assert torch.equal(graph(x), x + 1.0)
+
+
+# -- the sharded store: the state entries of kernels 3 and 4, the mesh path ---
+
+def _state_close(got, want):
+    for g, w in zip(got, want):
+        scale = max(float(w.abs().max()), 1e-30)
+        assert float((g - w).abs().max()) / scale <= 1e-5
+    assert float((got[0] / got[2][:, None] - want[0] / want[2][:, None])
+                 .abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,d,k", [(16, 6250, 3072, 5000), (4, 126, 16, 17),
+                                     (17, 1003, 64, 300), (5, 777, 304, 64)])
+def test_support_aggregate_state_entry(card, dt, b, n, d, k):
+    """Kernel 3's state entry: (acc, m, l) undivided, bit-equal to
+    ``ref.partial_aggregate_ref`` on integer rows with 0 / NEG_INF
+    logits (an all-NEG_INF query: m = NEG_INF, l = k), 1e-5 of the
+    largest value on float data; counted in its own launches."""
+    from repro_torch.kernels.golden_support_aggregate import (
+        golden_support_aggregate_state)
+    g = torch.Generator().manual_seed(b * n + k)
+    x = ints((n, d), card, 1).to(dt)
+    idx = torch.randint(0, n, (b, k), generator=g).to(card)
+    lg = torch.where(torch.rand(b, k, generator=g) < 0.5, 0.0,
+                     ref.NEG_INF).to(card)
+    lg[0] = ref.NEG_INF
+    n0 = (golden_support_aggregate_state.launches,
+          golden_support_aggregate_state.launches_bf16)
+    got = golden_support_aggregate_state(x, idx, lg)
+    want = ref.partial_aggregate_ref(x, idx, lg)
+    assert all(torch.equal(u, v) for u, v in zip(got, want))
+    assert got[1][0] == ref.NEG_INF and float(got[2][0]) == k
+    xf = torch.randn(n, d, generator=g).to(card, dt)
+    lgf = (-50.0 * torch.rand(b, k, generator=g)).to(card)
+    _state_close(golden_support_aggregate_state(xf, idx, lgf),
+                 ref.partial_aggregate_ref(xf, idx, lgf))
+    bf = dt == torch.bfloat16
+    assert (golden_support_aggregate_state.launches,
+            golden_support_aggregate_state.launches_bf16) == (
+        n0[0] + 2 * (not bf), n0[1] + 2 * bf)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,d", [(16, 6250, 3072), (4, 126, 16),
+                                   (17, 25001, 192), (1, 4099, 64)])
+def test_full_scan_state_entry(card, dt, b, n, d):
+    """Kernel 4's state entry: bit-equal on an integer store at sigma2=0
+    with its own rows as queries; a shard of +inf-norm padding alone
+    gives the plain version's finite state (m = NEG_INF, l = n, acc 0);
+    1e-5 of the largest value on float data."""
+    from repro_torch.kernels.golden_aggregate import golden_aggregate_state
+    g = torch.Generator().manual_seed(n + d)
+    x = ints((n, d), card, 2).to(dt)
+    xn = (x.float() ** 2).sum(-1)
+    q = x[:b].float().clone()
+    got = golden_aggregate_state(q, x, 0.0, xn)
+    assert all(torch.equal(u, v) for u, v in zip(
+        got, ref.full_partial_ref(q, x, 0.0, xn)))
+    pad = torch.full((n,), float("inf"), device=card)
+    got = golden_aggregate_state(q, torch.zeros_like(x), 0.7, pad)
+    assert (got[1] == ref.NEG_INF).all() and (got[2] == n).all()
+    assert (got[0] == 0).all()
+    xf = torch.randn(n, d, generator=g).to(card, dt)
+    xfn = (xf.float() ** 2).sum(-1)
+    qf = torch.randn(b, d, generator=g).to(card)
+    _state_close(golden_aggregate_state(qf, xf, 0.25 * d, xfn),
+                 ref.full_partial_ref(qf, xf, 0.25 * d, xfn))
+
+
+@pytest.mark.parametrize("m_over_n", [1, 3])
+def test_screen_topm_at_m_equal_and_above_n(card, m_over_n):
+    """The sharded screen asks kernel 5 for m = n_loc: no radix pass,
+    every row sorted; m > n leaves +inf surplus slots at index 0."""
+    n = 6250 if m_over_n == 1 else 257
+    m = n if m_over_n == 1 else n + 100
+    q, x = ints((16, 48), card, 3), ints((n, 48), card, 4)
+    idx, d2 = screen_topm(q, x, m, (q * q).sum(-1), (x * x).sum(-1))
+    ri, rd = ref.materialized_topm(ref.pdist_ref(q, x), m)
+    assert torch.equal(d2, rd) and torch.equal(idx, ri)
+
+
+@pytest.mark.parametrize("route", ["staged", "streamed", "fused", "indexed",
+                                   "full_scan"])
+@pytest.mark.parametrize("shards", [2, 8])
+def test_sharded_routes_match_one_card(card, route, shards):
+    """The engine over a LocalMesh of ``shards`` slices on the card: a
+    10-step trajectory within 1e-3 of the one-card engine's, every
+    shard-local kernel launched ``shards`` times a step, the unsharded
+    entries of kernels 3 and 4 never."""
+    from repro_torch.core import FullScan
+    from repro_torch.distributed import LocalMesh
+    from repro_torch.kernels.golden_aggregate import golden_aggregate_state
+    from repro_torch.kernels.golden_support_aggregate import (
+        golden_support_aggregate_state)
+    store = make_dataset("cifar_like", n=3001, seed=1, device=card)
+    sched = make_schedule("ddpm_linear", 1000)
+    kw = {"staged": dict(fused=False, screen="materialized"),
+          "streamed": dict(fused=False, screen="streamed"),
+          "fused": dict(fused=True), "full_scan": {},
+          "indexed": dict(index=build_index(store),
+                          index_mode="always")}[route]
+    x = float(sched.b[1000]) * torch.randn(
+        8, store.dim, generator=torch.Generator().manual_seed(7)).to(card)
+    outs = []
+    for mesh in (None, LocalMesh((shards,), ("data",))):
+        gd = GoldDiff(OptimalDenoiser(store, sched, device=card), mesh=mesh,
+                      **kw)
+        den = FullScan(gd.engine) if route == "full_scan" else gd
+        for k in ops.COUNTED:
+            k.launches = 0
+        outs.append(sample(den, sched, x.shape, num_steps=10, x_init=x))
+    torch.cuda.synchronize()
+    assert float((outs[0] - outs[1]).abs().max()) <= 1e-3
+    state = golden_aggregate_state if route == "full_scan" else \
+        golden_support_aggregate_state
+    assert state.launches == 10 * shards
+    assert golden_support_aggregate.launches == 0
+    assert golden_aggregate.launches == 0
+
+
+def test_sharded_plan_graph_replay_bit_equal(card):
+    """A sharded plan segment captured as one CUDA graph (S slices read
+    from the layout's fixed slabs) replays bit-equal to the eager
+    segments, and a warmed sharded ServeEngine captures nothing more."""
+    from repro_torch.core import build_plan, sample_plan
+    from repro_torch.distributed import LocalMesh
+    from repro_torch.launch.serve import Request, ServeEngine
+    store = make_dataset("cifar_like", n=3001, seed=1, device=card)
+    sched = make_schedule("ddpm_linear", 1000)
+    gd = GoldDiff(OptimalDenoiser(store, sched, device=card),
+                  mesh=LocalMesh((4,), ("data",)))
+    plan = build_plan(gd.engine, 10)
+    x = float(sched.b[1000]) * torch.randn(
+        8, store.dim, generator=torch.Generator().manual_seed(8)).to(card)
+    eager = sample_plan(gd.call_masked, sched, x.shape, plan, x_init=x)
+    for _ in range(2):
+        graph = sample_plan(gd.call_masked, sched, x.shape, plan, x_init=x,
+                            program_cache=gd.engine.program,
+                            jitter=gd.engine.jitter)
+        assert torch.equal(graph, eager)
+    assert gd.engine._captures == plan.num_buckets
+    srv = ServeEngine(store, num_steps=10, max_batch=4,
+                      mesh=LocalMesh((4,), ("data",)))
+    srv.warmup()
+    c0 = srv.engine._captures
+    srv.serve([Request(0, 3, seed=1), Request(1, 4, seed=2)])
+    assert srv.engine._captures == c0
+
+
+def test_runtime_monitor_captures_its_probes(card):
+    """``ServeRuntime(monitor=QualityMonitor(...))`` on an indexed plan
+    engine: warmup captures the probe screens (the indexed one returns a
+    (positions, markers) pair) on both kept slots, serving probes at
+    every seam with 0 builds and 0 captures after warmup, and each
+    probe's recall equals the one computed from eager screens."""
+    from repro_torch.launch.runtime import RuntimeConfig, ServeRuntime
+    from repro_torch.launch.serve import Request, ServeEngine
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.obs.quality import QualityMonitor
+    from repro_torch.index import screening_recall
+    store = make_dataset("gmm", n=2048, dim=16, seed=0, device=card)
+    srv = ServeEngine(store, num_steps=4, max_batch=4, index_mode="always",
+                      index=build_index(store, num_clusters=16))
+    mon = QualityMonitor(srv.engine, registry=MetricsRegistry(),
+                         sample_rate=1.0)
+    rt = ServeRuntime(srv, RuntimeConfig(backoff_base_s=0.0), monitor=mon)
+    stats = rt.warmup()
+    assert stats["probe_ts_warmed"] > 0
+    eng = srv.engine
+    c0, b0 = eng._captures, eng._builds
+    tickets = [rt.submit(Request(i, 1 + i % 4, seed=i)) for i in range(4)]
+    rt.run_until_idle()
+    assert all(t.status == "done" for t in tickets)
+    h = rt.health()
+    assert eng._captures == c0 and eng._builds == b0
+    assert h["n_recall_probes"] > 0 and 0.0 <= h["screen_recall_last"] <= 1.0
+    t = 500
+    x = torch.randn(2, 16, generator=torch.Generator().manual_seed(1))
+    rec = mon.probe_recall(x.numpy(), t)
+    q = (x / float(eng.constants(t)[0])).to(card)
+    pos, pd2 = eng.coarse_indexed(q, eng.padded_m(t), eng.nprobe(t))
+    want = screening_recall(pos, pd2, eng.index_perm,
+                            eng.coarse(q, eng.sizes(t)[0]))
+    assert rec == pytest.approx(want)

@@ -96,11 +96,17 @@ def test_retryable_classes():
 
 
 def test_shard_drop_inert_on_one_device():
+    """shard_drop keys on the program key's mesh signature: inert on an
+    unsharded key (and on a mesh of one shard), fires on a sharded one."""
     inj = FaultInjector(FaultConfig(shard_drop_rate=1.0))
-    if torch.cuda.device_count() > 1:
-        pytest.skip("shard_drop fires with several devices")
     assert inj.wrap(("plan_seg",), lambda v: v)(3) == 3
+    one = ("plan_seg", ("mesh", "data", 1, None, 1))
+    assert inj.wrap(one, lambda v: v)(3) == 3
     assert inj.events == []
+    two = ("plan_seg", ("mesh", "data", 2, None, 1))
+    with pytest.raises(InjectedInternalError, match="shard dropout"):
+        inj.wrap(two, lambda v: v)(3)
+    assert [e[0] for e in inj.events] == ["shard_drop"]
 
 
 def test_dispatch_seam_identity_and_scoped_install():

@@ -55,7 +55,7 @@ def np_tree(tree):
 
 def ref_params(jcfg, seed=0):
     jp = JM.init_params(JT.model_specs(jcfg), jax.random.PRNGKey(seed))
-    return jp, params_from_numpy(port_cfg(jcfg), np_tree(jp))
+    return jp, params_from_numpy(port_cfg(jcfg), np_tree(jp), device="cpu")
 
 
 def tokens(shape, vocab, seed):
@@ -122,13 +122,13 @@ def test_convert_refuses_bad_trees():
     cfg = port_cfg(TINY)
     bad = dict(jp, lm_head=np.zeros((64, 512), np.float32))
     with pytest.raises(ValueError, match="extra leaves"):
-        params_from_numpy(cfg, bad)
+        params_from_numpy(cfg, bad, device="cpu")
     bad = {k: v for k, v in jp.items() if k != "final_norm"}
     with pytest.raises(ValueError, match="missing leaves"):
-        params_from_numpy(cfg, bad)
+        params_from_numpy(cfg, bad, device="cpu")
     bad = dict(jp, final_norm=np.ones(63, np.float32))
     with pytest.raises(ValueError, match="shape"):
-        params_from_numpy(cfg, bad)
+        params_from_numpy(cfg, bad, device="cpu")
 
 
 def test_unported_paths_raise():
@@ -277,7 +277,7 @@ def test_decode_steps_match_reference(kind, cached):
     jp, tp = ref_params(jcfg)
     s, b = 64, 2
     jcache = JT.zero_cache(jcfg, b, s)
-    cache = T.zero_cache(cfg, b, s)
+    cache = T.zero_cache(cfg, b, s, device="cpu")
     rng = np.random.default_rng(4)
     jdecode = jax.jit(lambda c, t, p: JT.decode_step(jcfg, jp, c, t, p))
     for pos in range(10):
@@ -300,7 +300,7 @@ def test_decode_steps_match_reference(kind, cached):
     want = np_tree(jcache)
     for name, leaf in cache["l0"].items():
         close(leaf, want["l0"][name], CACHE_TOL)
-    again = cache_from_numpy(cfg, want)
+    again = cache_from_numpy(cfg, want, device="cpu")
     assert all(torch.equal(again["l0"][n], torch.from_numpy(
         np.array(want["l0"][n]))) for n in again["l0"])
 

@@ -56,8 +56,16 @@ def test_queue_full(engines):
 
 
 def test_static_engine_and_monitor_rejected(engines):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        ServeRuntime(engines[PORT], monitor=object())
+    # a QualityMonitor is accepted and joins health(); a static engine
+    # is still rejected
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.obs.quality import QualityMonitor
+    mon = QualityMonitor(engines[PORT].engine, registry=MetricsRegistry())
+    rt = ServeRuntime(engines[PORT], monitor=mon)
+    assert rt.monitor is mon and rt.registry is mon.registry
+    h = rt.health()
+    assert h["n_recall_probes"] == 0 and h["n_steps_observed"] == 0
+    assert set(mon.health()) <= set(h)
     static = ServeEngine("cifar_like", {"n": 64}, base="pca", num_steps=3,
                          device="cpu")
     with pytest.raises(ValueError, match="static"):

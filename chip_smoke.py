@@ -3,10 +3,11 @@
 
 Phases:
   1. environment: the card, CUDA, nvcc and triton; TF32 off;
-  2. build: the nine hand-written kernels from ``src/repro_torch/kernels/csrc``
-     (ten sources: kernel 9 has a bf16 tensor-core source and an fp32
-     CUDA-core one), with the registers, shared memory and spills of
-     each instance of the redesigned kernels (1-6, 8-9);
+  2. build: the nine hand-written kernels and the attention backward
+     from ``src/repro_torch/kernels/csrc`` (eleven sources: kernel 9 has
+     a bf16 tensor-core source and an fp32 CUDA-core one), with the
+     registers, shared memory and spills of each instance of the
+     redesigned kernels (1-6, 8-9) and of the backward;
   3. scale: the cifar_like store, N=50000 rows of D=3072 (proxy dp=192),
      built once and shared by every phase, and the Golden Index's scale
      store, gmm N=65536 x 64 with 256 modes;
@@ -121,7 +122,22 @@ Phases:
      table, prefill and decode walls and idle shares ([llm-decode]);
      both kernels timed against bound, plain version and one library
      call, with the achieved rate and share of the bound, kernel 9 also
-     at S=32768 ([time]).
+     at S=32768 ([time]);
+  10. LLM training (``training_phases``): the attention backward kernel
+     against its plain version at llama3.2-3b's shape in bf16 and at the
+     reduced config's and smaller ragged shapes in fp32 and bf16 (1e-2
+     / 1e-5 of the plain gradient's max abs; two calls bit-equal), with
+     kernel 9's row lse (1e-5), timed against its bound, plain version
+     and SDPA's backward ([train-check]); the reduced config trained 5
+     steps on the card and on the CPU from the same weights and batches
+     (losses and step 1's gradients 1e-4; [train-reference]);
+     llama3.2-3b's train step at full width and depth, bf16, remat on,
+     B=2, S=4096: one warm step, 3 counted (2 x 28 launches of kernel 9
+     and 28 of the backward a step), timed and profiled (tokens/s, the
+     share of the bf16 peak, peak memory, the optimizer's share), then
+     a step of two microbatches ([train]); ``make_decode_step``'s CUDA
+     graph bit-equal to the eager decode step at three positions, full
+     and golden, with both walls and idle shares ([decode-graph]).
 
 Any failure exits non-zero before the last line.  The last lines are the
 card's name and power limit, a JSON line of per-kernel numbers, and
@@ -134,6 +150,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -560,6 +577,353 @@ def llm_phases(kernels: dict) -> tuple[dict, dict]:
         if label == "ops":                        # the path's own call
             r8 = dict(out, max_abs_err=err8)
     return {"flash_attention": r9, "golden_attention_decode": r8}, counts
+
+
+# LLM training on the card: the backward kernel, the reduced config card
+# vs CPU, llama3.2-3b's full-width train step and the decode graph.  The
+# full-width step is B=2 sequences of train_4k's S=4096
+# (src/repro/launch/inputs.py:27) at full depth, remat on; bf16's dense
+# peak is the data sheet's 989.4 TFLOP/s.
+BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}   # x the grad's max abs
+LSE_TOL = 1e-5
+TRAIN_REF_STEPS, TRAIN_REF_B, TRAIN_REF_S = 5, 4, 256
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-4, 1e-4
+TRAIN_B, TRAIN_S, TRAIN_TIMED = 2, 4096, 3
+BF16_PEAK = 989.4e12
+DECODE_POS = (LLM_S - 3, LLM_S - 2, LLM_S - 1)
+
+
+def top_ops(events, n: int = 8) -> tuple[float, str]:
+    """Device busy ms of profiler events and the top ``n`` kernels by
+    device time, as one string."""
+    by = Counter()
+    for e in events:
+        by[launch_name(e.name)] += e.time_range.elapsed_us() / 1e3
+    busy = sum(by.values())
+    return busy, "; ".join(f"{k} {v:.2f} ms ({v / busy:.3f})"
+                           for k, v in by.most_common(n))
+
+
+def training_phases(kernels: dict) -> tuple[dict, dict]:
+    """LLM training on the card: [train-check] holds the attention
+    backward kernel (and kernel 9's row log-sum-exp) against the plain
+    versions; [train-reference] trains the reduced config on the card and
+    on the CPU from the same weights and batches; [train] runs
+    llama3.2-3b's train step at full width and depth (remat on) with
+    every count set to 0 just before its timed steps, then one step with
+    two microbatches; [decode-graph] replays ``make_decode_step``'s CUDA
+    graph against the eager decode step.  Returns the backward's result
+    entry and the counts of the [train] steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+    from repro_torch.distributed.hlo_analysis import model_flops
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.launch import steps as step_lib
+    from repro_torch.launch import train as train_lib
+    from repro_torch.launch.inputs import InputShape
+    from repro_torch.models import transformer as T
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.models.module import init_params, tree_leaves, tree_map
+    from repro_torch.training import optimizer as opt
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    f32, bf16 = torch.float32, torch.bfloat16
+    t_phase = time.perf_counter()
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    # -- [train-check] the backward against its plain version -----------------
+    def bwd_check(shape, dtype, causal=True):
+        b, hkv, g, s, dh = shape
+        q = randn((b, hkv, g, s, dh), dtype)
+        k, v = (randn((b, hkv, s, dh), dtype) for _ in range(2))
+        o, lse = flash_attention(q, k, v, causal, return_lse=True)
+        o_plain, lse_plain = ref.flash_attention_ref(q, k, v, causal, True)
+        lse_err = float((lse - lse_plain).abs().max())
+        check(torch.equal(o, flash_attention(q, k, v, causal)),
+              f"flash_attention {shape} {dtype}: output with lse differs")
+        del o_plain, lse_plain
+        do = randn(o.shape, dtype)
+        got = flash_attention_bwd(q, k, v, o, do, lse, causal)
+        again = flash_attention_bwd(q, k, v, o, do, lse, causal)
+        same = all(torch.equal(a, c) for a, c in zip(got, again))
+        want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal)
+        errs = [float((a.float() - w.float()).abs().max())
+                / float(w.float().abs().max()) for a, w in zip(got, want)]
+        del want, again
+        check(max(errs) <= BWD_TOL[dtype] and same and lse_err <= LSE_TOL,
+              f"flash_attention_bwd {shape} {dtype} causal={causal}: errors "
+              f"(dq, dk, dv) / max abs {errs} > {BWD_TOL[dtype]}, bit-equal "
+              f"rerun {same}, lse max abs {lse_err:.3g}")
+        print(f"[train-check] flash_attention_bwd {list(shape)} "
+              f"{str(dtype)[6:]} causal={causal}: max abs error / max abs of "
+              f"the plain grad: dq {errs[0]:.3g}, dk {errs[1]:.3g}, dv "
+              f"{errs[2]:.3g} (tolerance {BWD_TOL[dtype]}); two calls "
+              f"bit-equal; kernel 9's lse max abs {lse_err:.3g} against the "
+              f"plain version's (tolerance {LSE_TOL})")
+        return max(errs), (q, k, v, o, do, lse)
+
+    full = (LLM_B, HKV, G_Q, LLM_S, DH)
+    reduced = get_config("llama3.2-3b").reduced()
+    err_bwd, timed = bwd_check(full, bf16)
+    for shape, dtype, causal in (
+            ((LLM_B, reduced.num_kv_heads, reduced.num_heads
+              // reduced.num_kv_heads, LLM_S, reduced.hdim), f32, True),
+            ((1, 2, 3, 1000, 128), f32, True), ((1, 2, 3, 1000, 128), f32,
+                                                False),
+            ((1, 2, 3, 1000, 128), bf16, False), ((2, 1, 2, 200, 32), bf16,
+                                                  True),
+            ((2, 1, 2, 200, 32), f32, True), ((1, 2, 1, 300, 64), bf16,
+                                              True)):
+        bwd_check(shape, dtype, causal)
+
+    q, k, v, o, do, lse = timed
+    b, hkv, g, s, dh = q.shape
+    qh, doh = (t.reshape(b, hkv * g, s, dh) for t in (q, do))
+    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (qh, k, v))
+    out_l = sdpa(ql, kl, vl, is_causal=True, enable_gqa=True)
+    res = dict(ms=time_ms(lambda: flash_attention_bwd(q, k, v, o, do, lse,
+                                                      True)),
+               plain_ms=time_ms(lambda: ref.flash_attention_bwd_ref(
+                   q, k, v, o, do, lse, True), 3),
+               library_ms=time_ms(lambda: torch.autograd.grad(
+                   out_l, (ql, kl, vl), doh, retain_graph=True)))
+    flops = 10 * dh * b * hkv * g * s * (s + 1) / 2
+    nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
+    res["bound_ms"], res["bound_by"] = bound(nbytes, flops, BF16_FLOPS_PER_S)
+    res["max_abs_err"] = err_bwd
+    fwd_ms = time_ms(lambda: flash_attention(q, k, v, True))
+    fwd_lse_ms = time_ms(lambda: flash_attention(q, k, v, True,
+                                                 return_lse=True))
+    print(f"[time] flash_attention_bwd bf16 causal {list(q.shape)}: kernel "
+          f"{res['ms']:.4f} ms ({flops / res['ms'] / 1e9:.1f} TFLOP/s, "
+          f"{res['bound_ms'] / res['ms']:.3f} of the bound; "
+          f"{res['library_ms'] / res['ms']:.3f}x the library's speed), bound "
+          f"{res['bound_ms']:.4f} ms ({res['bound_by']}: {flops / 1e9:.1f} "
+          f"GFLOP at the bf16 tensor-core rate, {nbytes / 1e6:.1f} MB), plain "
+          f"{res['plain_ms']:.4f} ms, library (the backward of "
+          f"scaled_dot_product_attention, is_causal, enable_gqa) "
+          f"{res['library_ms']:.4f} ms")
+    print(f"[time] flash_attention bf16 causal {list(q.shape)} in one call's "
+          f"turn: {fwd_ms:.4f} ms without the lse, {fwd_lse_ms:.4f} ms "
+          f"writing it")
+    del timed, q, k, v, o, do, lse, qh, doh, ql, kl, vl, out_l
+    torch.cuda.empty_cache()
+
+    # -- [train-reference] the reduced config, card against CPU ---------------
+    rcfg = reduced
+    cpu_params = init_params(T.model_specs(rcfg),
+                             torch.Generator().manual_seed(0))
+    np_params = tree_map(lambda t: t.numpy(), cpu_params)
+    pipe = TokenPipeline(TokenPipelineConfig(rcfg.vocab_size, TRAIN_REF_S,
+                                             TRAIN_REF_B))
+    batches = [pipe.batch(i) for i in range(TRAIN_REF_STEPS)]
+    ocfg = opt.AdamWConfig(lr=1e-3, warmup_steps=2,
+                           total_steps=TRAIN_REF_STEPS)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        p = params_from_numpy(rcfg, np_params, device=dev)
+        dev_batches = [{k: t.to(dev) for k, t in bt.items()}
+                       for bt in batches]
+        _, g1 = step_lib.make_loss_step(rcfg)(p, dev_batches[0])
+        st = opt.init_state(p)
+        step = step_lib.make_train_step(rcfg, ocfg)
+        for fn in kernels.values():
+            fn.launches = 0
+        losses = []
+        for bt in dev_batches:
+            p, st, m = step(p, st, bt)
+            losses.append(float(m["loss"]))
+        runs[dev] = (losses, {k: t.cpu() for k, t in tree_leaves(g1)},
+                     {n: f.launches for n, f in kernels.items()})
+    (lg, gg, cg), (lc, gc_, _) = runs["cuda"], runs["cpu"]
+    loss_err = max(abs(a - b) for a, b in zip(lg, lc))
+    grad_err = max(float((gg[k] - gc_[k]).abs().max())
+                   / float(gc_[k].abs().max()) for k in gc_)
+    want = {n: 0 for n in kernels}
+    want.update(flash_attention=TRAIN_REF_STEPS * rcfg.num_layers,
+                flash_attention_bwd=TRAIN_REF_STEPS * rcfg.num_layers)
+    check(loss_err <= TRAIN_LOSS_TOL and grad_err <= TRAIN_GRAD_TOL
+          and cg == want and lg[-1] < lg[0],
+          f"train-reference: losses {lg} vs {lc}, step 1 grads {grad_err:.3g}"
+          f" of max abs, launches {cg}")
+    print(f"[train-reference] {rcfg.name} ({rcfg.num_layers} layers, d_model "
+          f"{rcfg.d_model}, {rcfg.num_heads}/{rcfg.num_kv_heads} heads, fp32, "
+          f"remat {rcfg.remat}), B={TRAIN_REF_B}, S={TRAIN_REF_S}, "
+          f"{TRAIN_REF_STEPS} steps on the card and on the CPU from the same "
+          f"weights and token batches: losses card {[f'{x:.6f}' for x in lg]}"
+          f", max abs difference {loss_err:.3g} (tolerance {TRAIN_LOSS_TOL});"
+          f" step 1's gradients max abs difference / leaf max abs "
+          f"{grad_err:.3g} (tolerance {TRAIN_GRAD_TOL}); card launches: "
+          f"flash_attention {cg['flash_attention']}, flash_attention_bwd "
+          f"{cg['flash_attention_bwd']}")
+    del runs, cpu_params, np_params
+
+    # -- [train] llama3.2-3b at full width and depth ---------------------------
+    cfg = get_config("llama3.2-3b")
+    shape = InputShape("train_4k", "train", TRAIN_S, TRAIN_B)
+    mflops = model_flops(cfg, shape)
+
+    def train_run(cfg_run, nmb: int, steps: int):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params, state, batches, step = train_lib.setup(
+            cfg_run, steps, TRAIN_B, TRAIN_S, torch.device("cuda"), nmb)
+        out = {"losses": []}
+
+        def one(i):
+            nonlocal params, state
+            params, state, m = step(params, state, batches[i % len(batches)])
+            return m
+        m = one(0)                                    # warm, not counted
+        torch.cuda.synchronize()
+        out["losses"].append(float(m["loss"]))
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        for i in range(1, steps):
+            m = one(i)
+        torch.cuda.synchronize()
+        out["wall_ms"] = (time.perf_counter() - t0) * 1e3 / max(steps - 1, 1)
+        out["counts"] = {n: f.launches for n, f in kernels.items()}
+        out["losses"].append(float(m["loss"]))
+        out["peak"] = torch.cuda.max_memory_allocated()
+        out["finite"] = all(bool(torch.isfinite(t).all())
+                            for _, t in tree_leaves(params))
+        return out, params, state, batches, step, one
+
+    t0 = time.perf_counter()
+    run, params, state, batches, step, one = train_run(cfg, 1, 1
+                                                       + TRAIN_TIMED)
+    counts = run["counts"]
+    want = {n: 0 for n in kernels}
+    want.update(flash_attention=2 * cfg.num_layers * TRAIN_TIMED,
+                flash_attention_bwd=cfg.num_layers * TRAIN_TIMED)
+    check(counts == want, f"train launches {counts}, expected {want}")
+    check(run["finite"] and all(np.isfinite(run["losses"])),
+          f"train: non-finite losses {run['losses']} or parameters")
+    wall = run["wall_ms"]
+    ev = device_events(lambda: one(0))
+    busy, tops = top_ops(ev)
+    # the step's attention is kernel 9 and the backward kernel only: no
+    # library attention and no softmax of a plain (materialized) version
+    ours = ("flash_sm90_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel",
+            "bwd_dot_kernel")
+    foreign = sorted({launch_name(e.name) for e in ev if any(
+        f in e.name.lower() for f in ("fmha", "flash", "softmax", "sdpa",
+                                      "attention"))
+        and not any(o in e.name for o in ours)})
+    check(not foreign, f"train: library or plain attention kernels in the "
+          f"step: {foreign}")
+    grads = step_lib.make_loss_step(cfg)(params, batches[0])[1]
+    opt_cfg = opt.AdamWConfig()
+    opt_busy, _ = device_kernels(lambda: opt.apply_updates(
+        opt_cfg, params, grads, state))
+    del grads
+    tok_s = TRAIN_B * TRAIN_S / (wall / 1e3)
+    share = mflops / (wall / 1e3) / BF16_PEAK
+    print(f"[train] {cfg.name} at full width and depth ({cfg.num_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.num_heads}/"
+          f"{cfg.num_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, bf16, remat {cfg.remat}), B={TRAIN_B}, "
+          f"S={TRAIN_S} (train_4k sequences), AdamW (fp32 m, v, master): "
+          f"wall {wall:.1f} ms a step (mean of {TRAIN_TIMED} after one warm "
+          f"step; setup and warm step {time.perf_counter() - t0:.1f} s), "
+          f"device busy {busy:.1f} ms a step (profiler), idle share "
+          f"{1 - busy / wall:.3f}; {tok_s:.0f} tokens/s; model FLOPs "
+          f"{mflops / 1e12:.2f} TFLOP a step (6 N D), "
+          f"{share:.4f} of the bf16 dense peak ({BF16_PEAK / 1e12:.1f} "
+          f"TFLOP/s); peak memory {run['peak'] / 2**30:.2f} GiB "
+          f"(max_memory_allocated); launches flash_attention "
+          f"{counts['flash_attention']} ({2 * cfg.num_layers} a step), "
+          f"flash_attention_bwd {counts['flash_attention_bwd']} "
+          f"({cfg.num_layers} a step); no library or plain attention "
+          f"kernel among the step's {len(ev)} device kernels; losses "
+          f"{run['losses']}")
+    print(f"[train] top device operations of one step: {tops}; the "
+          f"optimizer (apply_updates alone, profiled) {opt_busy:.1f} ms, "
+          f"{opt_busy / busy:.3f} of the step's device time")
+    del params, state, batches, step, one, run
+    gc.collect()
+
+    layers, run2 = cfg.num_layers, None
+    while run2 is None:
+        try:
+            run2 = train_run(dataclasses.replace(cfg, num_layers=layers), 2,
+                             2)[0]
+        except torch.cuda.OutOfMemoryError:
+            check(layers > 4, "train: num_microbatches=2 does not fit at 4 "
+                  "layers")
+            layers //= 2
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(run2["finite"] and all(np.isfinite(run2["losses"]))
+          and run2["counts"]["flash_attention_bwd"] == 2 * layers,
+          f"train num_microbatches=2: {run2}")
+    print(f"[train] num_microbatches=2 (fp32 gradient sums) at "
+          + ("full depth" if layers == cfg.num_layers else
+             f"full width cut to {layers} of {cfg.num_layers} layers (full "
+             f"depth did not fit)")
+          + f": wall {run2['wall_ms']:.1f} ms a step, peak memory "
+          f"{run2['peak'] / 2**30:.2f} GiB, launches flash_attention_bwd "
+          f"{run2['counts']['flash_attention_bwd']} a step, losses "
+          f"{run2['losses']}")
+    del run2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- [decode-graph] make_decode_step's CUDA graph against eager -----------
+    nb = LLM_S // cfg.golden_block_size
+    params = init_params(T.model_specs(cfg),
+                         torch.Generator(device="cuda").manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (LLM_B, LLM_S), device="cuda",
+                         generator=gen)
+    with torch.no_grad():
+        _, cache0 = T.prefill(cfg, params, toks)
+    for kind, c in (("full", dataclasses.replace(cfg, attn_kind_decode="full")),
+                    (f"golden kb={nb // 8}", dataclasses.replace(
+                        cfg, attn_kind_decode="golden",
+                        golden_blocks=nb // 8))):
+        eager_c, graph_c = (tree_map(torch.clone, cache0) for _ in range(2))
+        step = step_lib.make_decode_step(c)
+        tok = toks[:, -1]
+        with torch.no_grad():
+            first, _ = step(params, graph_c, tok, DECODE_POS[0] - 1)
+            T.decode_step(c, params, eager_c, tok, DECODE_POS[0] - 1)
+            tok = first.argmax(-1)
+            equal = True
+            for pos in DECODE_POS:
+                want_l, _ = T.decode_step(c, params, eager_c, tok, pos)
+                got_l, _ = step(params, graph_c, tok, pos)
+                equal &= torch.equal(want_l, got_l)
+                tok = want_l.argmax(-1)
+            equal &= all(torch.equal(a, b) for (_, a), (_, b) in zip(
+                tree_leaves(eager_c), tree_leaves(graph_c)))
+        check(equal and len(step.graphs) == 1,
+              f"decode-graph {kind}: replay differs from eager, or "
+              f"{len(step.graphs)} graphs")
+        pos = DECODE_POS[-1]
+        with torch.no_grad():
+            eager = lambda: T.decode_step(c, params, eager_c, tok, pos)  # noqa: E731
+            graph = lambda: step(params, graph_c, tok, pos)  # noqa: E731
+            w_e, w_g = wall_ms(eager, 10), wall_ms(graph, 10)
+            b_e, _ = device_kernels(eager)
+            b_g, _ = device_kernels(graph)
+        print(f"[decode-graph] {kind}, {cfg.name} full width, B={LLM_B}, "
+              f"S={LLM_S}: replay bit-equal to the eager decode_step at "
+              f"positions {list(DECODE_POS)} (logits and cache), 1 graph; "
+              f"eager {w_e:.3f} ms a token (idle share {1 - b_e / w_e:.3f}),"
+              f" graph {w_g:.3f} ms a token (idle share {1 - b_g / w_g:.3f})"
+              f", device busy {b_e:.3f} / {b_g:.3f} ms")
+        del eager_c, graph_c, step
+    del params, cache0
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[train] phases {time.perf_counter() - t_phase:.1f} s")
+    return {"flash_attention_bwd": res}, counts
 
 
 # The [presets] phase: the batch of the card-vs-CPU checks of the PCA
@@ -2436,7 +2800,8 @@ def main() -> None:
     from repro_torch.index.store import ARRAY_FIELDS
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels.centroid_scan import centroid_scan
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
     from repro_torch.kernels.fused_step import (
         fused_candidates, fused_candidates_scan, fused_posterior)
     from repro_torch.kernels.golden_aggregate import (cluster_states,
@@ -2468,7 +2833,7 @@ def main() -> None:
     names = ["pdist", "support_sqdist", "golden_support_aggregate",
              "golden_aggregate", "screen_topm", "fused_candidates",
              "centroid_scan", "flash_attention", "flash_attention_sm90",
-             "golden_attention"]
+             "golden_attention", "flash_attention_bwd"]
     t0 = time.perf_counter()
     log = _build.build(names)
     print(f"[build] {len(names)} sources in {time.perf_counter() - t0:.1f}s "
@@ -2476,6 +2841,7 @@ def main() -> None:
     by_instance = {"pdist": ("pdist_kernel",),
                    "golden_aggregate": ("agg_cluster", "merge_kernel"),
                    "flash_attention_sm90": ("flash_sm90_kernel",),
+                   "flash_attention_bwd": ("bwd_",),
                    "golden_attention": ("gattn_",),
                    "screen_topm": TOPM_ENTRIES + ("compact_pass",),
                    "support_sqdist": ("sqdist_", "union_"),
@@ -3245,7 +3611,8 @@ def main() -> None:
                "fused_candidates": fused_candidates,
                "centroid_scan": centroid_scan,
                "flash_attention": flash_attention,
-               "golden_attention_decode": golden_attention_decode}
+               "golden_attention_decode": golden_attention_decode,
+               "flash_attention_bwd": flash_attention_bwd}
     route_kernels = {
         "staged": ("pdist", "support_sqdist", "golden_support_aggregate"),
         "streamed": ("screen_topm", "support_sqdist",
@@ -3738,6 +4105,11 @@ def main() -> None:
     path_of.update(flash_attention="llm_decode",
                    golden_attention_decode="llm_decode")
 
+    # -- 10. LLM training: the backward kernel, the train step, decode graph --
+    train_results, path_counts["train"] = training_phases(kernels)
+    results.update(train_results)
+    path_of["flash_attention_bwd"] = "train"
+
     sources = {"pdist": ("csrc/pdist.cu", "src/repro/kernels/pdist.py:61"),
                "support_sqdist": ("csrc/support_sqdist.cu",
                                   "src/repro/kernels/golden_rerank.py:66"),
@@ -3756,7 +4128,11 @@ def main() -> None:
                                    "src/repro/kernels/flash_attention.py:85"),
                "golden_attention_decode": (
                    "csrc/golden_attention.cu",
-                   "src/repro/kernels/golden_attention.py:85")}
+                   "src/repro/kernels/golden_attention.py:85"),
+               # no TPU kernel: the reference differentiates its attention
+               # by autodiff of this pure-JAX scan
+               "flash_attention_bwd": ("csrc/flash_attention_bwd.cu",
+                                       "src/repro/models/layers.py:122")}
     line = {"kernels": [
         dict(name=n, route="cuda",
              source=f"src/repro_torch/kernels/{sources[n][0]}",
@@ -3784,6 +4160,9 @@ def main() -> None:
     for n in ("flash_attention", "golden_attention_decode"):
         check(path_counts["llm_decode"][n] > 0,
               f"{n} never launched on the llm_decode path")
+    for n in ("flash_attention", "flash_attention_bwd"):
+        check(path_counts["train"][n] > 0,
+              f"{n} never launched on the train path")
     print(smi)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,9 @@
 //   out[b, h, g, i] = sum_j softmax_j(q[b, h, g, i] . k[b, h, j] * dh^-0.5) v[b, h, j]
 // over keys j <= i when causal, every key otherwise.
 // q [B, Hkv, G, S, dh], k/v [B, Hkv, S, dh], fp32 -> out [B, Hkv, G, S,
-// dh] in fp32.
+// dh] in fp32, and, given a non-null pointer, the row log-sum-exp of the
+// scaled scores lse [B, Hkv, G, S] = m + log l (fp32) that the backward
+// (flash_attention_bwd.cu) reads.
 //
 // Replaces: src/repro/kernels/flash_attention.py:85 (flash_attention /
 // _flash_kernel :25).  Kept from the TPU kernel: the fp32 online softmax
@@ -81,8 +83,9 @@ __device__ __forceinline__ float group16_sum(float v) {
 template <int RT, int DH>
 __global__ void __launch_bounds__(THREADS)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ out, int G,
-             int S, int BQ, int causal, float scale) {
+             const float* __restrict__ v, float* __restrict__ out,
+             float* __restrict__ lse, int G, int S, int BQ, int causal,
+             float scale) {
   constexpr int R = 16 * RT;
   constexpr int LDQ = DH + PAD, LDP = BK + PAD;
   constexpr int VEC = Cols<DH>::VEC, NV = Cols<DH>::NV;
@@ -220,6 +223,8 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int g = (ty + 16 * i) / BQ;
     const float den = fmaxf(l[i], 1e-30f);
     const int64_t row = q_base + ((int64_t)g * S + qpos[i]) * DH;
+    if (lse != nullptr && tx == 0)
+      lse[((int64_t)blockIdx.y * G + g) * S + qpos[i]] = m[i] + logf(den);
 #pragma unroll
     for (int n = 0; n < NV; ++n)
 #pragma unroll
@@ -230,25 +235,25 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int RT, int DH>
 cudaError_t launch(dim3 grid, cudaStream_t st, const float* q, const float* k,
-                   const float* v, float* out, int G, int S, int BQ, int causal,
-                   float scale) {
+                   const float* v, float* out, float* lse, int G, int S, int BQ,
+                   int causal, float scale) {
   const size_t smem = sizeof(float) * smem_floats(RT, DH);
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<RT, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  flash_kernel<RT, DH><<<grid, THREADS, smem, st>>>(q, k, v, out, G, S, BQ,
-                                                    causal, scale);
+  flash_kernel<RT, DH><<<grid, THREADS, smem, st>>>(q, k, v, out, lse, G, S,
+                                                    BQ, causal, scale);
   return cudaGetLastError();
 }
 
 template <int DH>
 cudaError_t launch_dh(int rt, dim3 grid, cudaStream_t st, const float* q,
-                      const float* k, const float* v, float* out, int G, int S,
-                      int BQ, int causal, float scale) {
+                      const float* k, const float* v, float* out, float* lse,
+                      int G, int S, int BQ, int causal, float scale) {
   switch (rt) {
 #define RT_CASE(n) \
-  case n: return launch<n, DH>(grid, st, q, k, v, out, G, S, BQ, causal, scale);
+  case n: return launch<n, DH>(grid, st, q, k, v, out, lse, G, S, BQ, causal, scale);
     RT_CASE(1) RT_CASE(2) RT_CASE(3) RT_CASE(4)
     RT_CASE(5) RT_CASE(6) RT_CASE(7) RT_CASE(8)
 #undef RT_CASE
@@ -263,9 +268,11 @@ RT_EXPORT size_t flash_attention_smem_bytes(int rt, int dh) {
 }
 
 // BH = B * Hkv; rows of a block: G * bq (head, position) pairs, which
-// must fit in 16 * rt; dh in {32, 64, 128}.  Pointers 16-byte aligned.
+// must fit in 16 * rt; dh in {32, 64, 128}.  Pointers 16-byte aligned;
+// lse [BH, G, S] fp32 or null (nothing written).
 RT_EXPORT int flash_attention_launch(const float* q, const float* k,
-                                     const float* v, float* out, int BH, int G,
+                                     const float* v, float* out, float* lse,
+                                     int BH, int G,
                                      int S, int dh, int bq, int rt,
                                      int causal, float scale,
                                      void* stream) {
@@ -276,9 +283,9 @@ RT_EXPORT int flash_attention_launch(const float* q, const float* k,
   dim3 grid((S + bq - 1) / bq, BH);
   cudaError_t err;
   switch (dh) {
-    case 32: err = launch_dh<32>(rt, grid, st, q, k, v, out, G, S, bq, causal, scale); break;
-    case 64: err = launch_dh<64>(rt, grid, st, q, k, v, out, G, S, bq, causal, scale); break;
-    case 128: err = launch_dh<128>(rt, grid, st, q, k, v, out, G, S, bq, causal, scale); break;
+    case 32: err = launch_dh<32>(rt, grid, st, q, k, v, out, lse, G, S, bq, causal, scale); break;
+    case 64: err = launch_dh<64>(rt, grid, st, q, k, v, out, lse, G, S, bq, causal, scale); break;
+    case 128: err = launch_dh<128>(rt, grid, st, q, k, v, out, lse, G, S, bq, causal, scale); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

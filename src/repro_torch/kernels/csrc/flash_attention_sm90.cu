@@ -2,7 +2,11 @@
 //   out[b, h, g, i] = sum_j softmax_j(q[b, h, g, i] . k[b, h, j] * dh^-0.5) v[b, h, j]
 // over keys j <= i when causal, every key otherwise.
 // q [B, Hkv, G, S, dh], k/v [B, Hkv, S, dh], all bf16, dh in {32, 64, 128}
-// -> out [B, Hkv, G, S, dh] in bf16; fp32 accumulation.  The fp32 route
+// -> out [B, Hkv, G, S, dh] in bf16; fp32 accumulation; and, given a
+// non-null pointer, the row log-sum-exp of the scaled scores lse [B, Hkv,
+// G, S] = m + log l in fp32 for the backward (flash_attention_bwd.cu):
+// m and log2 l are kept in log2 units here, so lse = (m + log2 l) ln 2.
+// The prefill passes null and writes nothing more.  The fp32 route
 // stays on the CUDA cores (flash_attention.cu): a tensor-core product in
 // TF32 would not hold fp32's tolerance.
 //
@@ -75,6 +79,7 @@ constexpr int BK = 64;              // keys a tile
 constexpr int NST = 3;              // K/V ring stages
 constexpr int REGION = 64 * 128;    // one 64-row x 128-byte swizzled region
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // Dynamic shared memory of a CTA: 1024 bytes of alignment slack, W Q
 // tiles, NST K and NST V tiles, then the 1 + 3 NST mbarriers.
@@ -254,8 +259,8 @@ __global__ void __launch_bounds__(128 * (W + 1), 1)
 flash_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                   const __grid_constant__ CUtensorMap kmap,
                   const __grid_constant__ CUtensorMap vmap,
-                  __nv_bfloat16* __restrict__ out, int G, int S, int causal,
-                  float scale_log2) {
+                  __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                  int G, int S, int causal, float scale_log2) {
   using C = Cfg<W, DH>;
   constexpr int DHP = C::DHP, NC = C::NC, TILE = C::TILE;
   extern __shared__ uint8_t smem_raw[];
@@ -455,6 +460,11 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     l1 += __shfl_xor_sync(0xffffffffu, l1, o2);
   }
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  if (lse != nullptr && (lane & 3) == 0) {
+    const int64_t row = (int64_t)(bh * G + head) * S + q0 + r0;
+    if (q0 + r0 < S) lse[row] = (m0 + log2f(d0)) * LN2;
+    if (q0 + r0 + 8 < S) lse[row + 8] = (m1 + log2f(d1)) * LN2;
+  }
   uint8_t* tile = smem_raw + (qa - raw);
 #pragma unroll
   for (int i = 0; i < DHP / 2; i += 2) {
@@ -519,7 +529,7 @@ bool make_map(CUtensorMap* map, const void* ptr, int dh, int S, int planes) {
 template <int W, int DH>
 cudaError_t launch(dim3 grid, cudaStream_t st, const CUtensorMap& qm,
                    const CUtensorMap& km, const CUtensorMap& vm, void* out,
-                   int G, int S, int causal, float scale_log2) {
+                   float* lse, int G, int S, int causal, float scale_log2) {
   using C = Cfg<W, DH>;
   static bool ready = false;
   if (!ready) {
@@ -530,18 +540,19 @@ cudaError_t launch(dim3 grid, cudaStream_t st, const CUtensorMap& qm,
     ready = true;
   }
   flash_sm90_kernel<W, DH><<<grid, C::THREADS, C::SMEM, st>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(out), G, S, causal, scale_log2);
+      qm, km, vm, static_cast<__nv_bfloat16*>(out), lse, G, S, causal,
+      scale_log2);
   return cudaGetLastError();
 }
 
 template <int DH>
 cudaError_t launch_w(int w, dim3 grid, cudaStream_t st, const CUtensorMap& qm,
                      const CUtensorMap& km, const CUtensorMap& vm, void* out,
-                     int G, int S, int causal, float scale_log2) {
+                     float* lse, int G, int S, int causal, float scale_log2) {
   switch (w) {
-    case 1: return launch<1, DH>(grid, st, qm, km, vm, out, G, S, causal, scale_log2);
-    case 2: return launch<2, DH>(grid, st, qm, km, vm, out, G, S, causal, scale_log2);
-    case 3: return launch<3, DH>(grid, st, qm, km, vm, out, G, S, causal, scale_log2);
+    case 1: return launch<1, DH>(grid, st, qm, km, vm, out, lse, G, S, causal, scale_log2);
+    case 2: return launch<2, DH>(grid, st, qm, km, vm, out, lse, G, S, causal, scale_log2);
+    case 3: return launch<3, DH>(grid, st, qm, km, vm, out, lse, G, S, causal, scale_log2);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -553,9 +564,11 @@ RT_EXPORT size_t flash_attention_sm90_smem_bytes(int w, int dh) {
 }
 
 // BH = B * Hkv; w consumer warpgroups a CTA (1-3, the wrapper's plan:
-// heads of a CTA); dh in {32, 64, 128}; bf16 pointers 16-byte aligned.
+// heads of a CTA); dh in {32, 64, 128}; bf16 pointers 16-byte aligned;
+// lse [BH, G, S] fp32 or null (nothing written).
 RT_EXPORT int flash_attention_sm90_launch(const void* q, const void* k,
-                                          const void* v, void* out, int BH,
+                                          const void* v, void* out, float* lse,
+                                          int BH,
                                           int G, int S, int dh, int w,
                                           int causal, float scale,
                                           void* stream) {
@@ -572,9 +585,9 @@ RT_EXPORT int flash_attention_sm90_launch(const void* q, const void* k,
   const float sl2 = scale * LOG2E;
   cudaError_t err;
   switch (dh) {
-    case 32: err = launch_w<32>(w, grid, st, qm, km, vm, out, G, S, causal, sl2); break;
-    case 64: err = launch_w<64>(w, grid, st, qm, km, vm, out, G, S, causal, sl2); break;
-    default: err = launch_w<128>(w, grid, st, qm, km, vm, out, G, S, causal, sl2); break;
+    case 32: err = launch_w<32>(w, grid, st, qm, km, vm, out, lse, G, S, causal, sl2); break;
+    case 64: err = launch_w<64>(w, grid, st, qm, km, vm, out, lse, G, S, causal, sl2); break;
+    default: err = launch_w<128>(w, grid, st, qm, km, vm, out, lse, G, S, causal, sl2); break;
   }
   return static_cast<int>(err);
 }

@@ -8,7 +8,9 @@ supports, ``golden_aggregate`` for full scans) and the fused
 single-pass step (``fused_step``), the Golden Index's coarse
 screen (``ivf_probe``, one launch from the query to the probed
 candidates; ``centroid_scan``; ``ivf_screen``), and the reduced-LLM
-attention: causal GQA ``flash_attention`` (the prefill) and golden
+attention: causal GQA ``flash_attention`` (the prefill and the training
+forward) with its gradient (``flash_attention_bwd``, and
+``FlashAttention``, the autograd Function that joins the two), and golden
 block-sparse decode attention (``select_golden_blocks`` +
 ``golden_attention_decode``).
 
@@ -40,6 +42,8 @@ from repro_torch.kernels import fused_step as _fused
 from repro_torch.kernels import screen as _screen
 from repro_torch.kernels import centroid_scan as _probe
 from repro_torch.kernels.flash_attention import flash_attention as _flash
+from repro_torch.kernels.flash_attention import (
+    flash_attention_bwd as _flash_bwd)
 from repro_torch.kernels.golden_attention import (
     golden_attention_decode as _gattn, select_golden_blocks)
 from repro_torch.kernels.golden_aggregate import golden_aggregate as _agg
@@ -57,11 +61,12 @@ from repro_torch.kernels.pdist import pdist as _pdist
 # ``launches`` attribute; ``GoldDiffEngine.jitter`` replays a captured
 # graph's counts with the graph, so each count stays what the card ran.
 # The state entries of kernels 3 and 4 (the sharded engine's shard-local
-# softmax states) count apart from their mean entries.
+# softmax states) count apart from their mean entries; the attention
+# backward (one count a call of its three launches) comes last.
 STATE_ENTRIES = (_sagg_state, _agg_state)
 COUNTED = (_pdist, _sqd, _sagg, _agg, _screen.screen_topm,
            _fused.fused_candidates, _probe.centroid_scan, _flash,
-           _gattn) + STATE_ENTRIES
+           _gattn) + STATE_ENTRIES + (_flash_bwd,)
 # ... and those with a bf16-row instance, counted in ``launches_bf16``
 # (kernel 7's: the probe with the pooled query rounded to bf16)
 COUNTED_BF16 = COUNTED[:7] + STATE_ENTRIES
@@ -387,9 +392,11 @@ def fused_step(q, qp, x, proxy, m: int, k: int, sigma2,
 
 
 def flash_attention(q, k, v, causal: bool = True, qc: int = 256,
-                    kc: int = 512):
+                    kc: int = 512, return_lse: bool = False):
     """Causal (or full) GQA attention: q [B, Hkv, G, S, dh], k/v [B,
-    Hkv, S, dh] -> [B, Hkv, G, S, dh] in q's dtype, fp32 accumulation.
+    Hkv, S, dh] -> [B, Hkv, G, S, dh] in q's dtype, fp32 accumulation;
+    with ``return_lse``, ``(out, lse)``, lse [B, Hkv, G, S] the fp32 row
+    log-sum-exp of the scaled scores (what the backward reads).
 
     ``qc`` / ``kc`` are the reference kernel's tile sizes: they are
     checked as it checks them (the sequence must tile evenly after
@@ -400,8 +407,43 @@ def flash_attention(q, k, v, causal: bool = True, qc: int = 256,
         raise ValueError(f"flash_attention: seq {s} must tile evenly by "
                          f"qc={qc} and kc={kc}")
     if _on_cpu(q):
-        return ref.flash_attention_ref(q, k, v, causal)
-    return _flash(q.contiguous(), k.contiguous(), v.contiguous(), causal)
+        return ref.flash_attention_ref(q, k, v, causal, return_lse)
+    return _flash(q.contiguous(), k.contiguous(), v.contiguous(), causal,
+                  return_lse)
+
+
+def flash_attention_bwd(q, k, v, o, do, lse, causal: bool = True):
+    """The gradient of ``flash_attention`` from its output ``o`` and row
+    log-sum-exp ``lse``: q, o, do [B, Hkv, G, S, dh], k/v [B, Hkv, S,
+    dh] -> (dq, dk, dv) in q's dtype, fp32 sums.  CPU tensors take the
+    materialized plain version; CUDA tensors the hand-written kernel, or
+    the call raises."""
+    if _on_cpu(q):
+        return ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal)
+    return _flash_bwd(q.contiguous(), k.contiguous(), v.contiguous(),
+                      o.contiguous(), do.contiguous(), lse.contiguous(),
+                      causal)
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with a gradient: the forward keeps q, k, v,
+    the output and its row log-sum-exp, the backward is
+    ``flash_attention_bwd`` (kernels on the card, plain versions on the
+    CPU).  ``apply(q, k, v, causal, qc, kc)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, qc, kc):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out, lse = flash_attention(q, k, v, causal, qc, kc, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, do, lse, ctx.causal)
+        return dq, dk, dv, None, None, None
 
 
 def golden_attention_decode(q, k, v, block_idx, valid, block_size: int = 128):
@@ -426,4 +468,5 @@ __all__ = ["pdist", "screen_topm", "support_distances", "golden_rerank",
            "golden_partial_aggregate", "golden_full_partial",
            "ivf_screen_local",
            "centroid_scan", "ivf_probe", "ivf_screen", "flash_attention",
+           "flash_attention_bwd", "FlashAttention",
            "golden_attention_decode", "select_golden_blocks"]

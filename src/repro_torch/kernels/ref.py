@@ -213,19 +213,52 @@ def golden_aggregate_ref(q: torch.Tensor, x: torch.Tensor, sigma2: float,
     return (w @ x.float()).to(q.dtype)
 
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True) -> torch.Tensor:
-    """Dense softmax attention: q [B, Hkv, G, S, dh], k/v [B, Hkv, S, dh]
-    -> [B, Hkv, G, S, dh] in q's dtype (fp32 scores; masked scores at
-    NEG_INF).  Materializes the [B, Hkv, G, S, S] scores."""
+def _attention_scores(q: torch.Tensor, k: torch.Tensor,
+                      causal: bool) -> torch.Tensor:
+    """fp32 scaled scores [B, Hkv, G, S, S], masked ones at NEG_INF."""
     dh, s = q.shape[-1], q.shape[3]
     scores = torch.einsum("bhgqd,bhkd->bhgqk", q.float(),
                           k.float()) * dh ** -0.5
     if causal:
         mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
         scores = torch.where(mask, scores, NEG_INF)
+    return scores
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, return_lse: bool = False):
+    """Dense softmax attention: q [B, Hkv, G, S, dh], k/v [B, Hkv, S, dh]
+    -> [B, Hkv, G, S, dh] in q's dtype (fp32 scores; masked scores at
+    NEG_INF), and with ``return_lse`` the scores' row log-sum-exp [B,
+    Hkv, G, S] in fp32.  Materializes the [B, Hkv, G, S, S] scores."""
+    scores = _attention_scores(q, k, causal)
     w = torch.softmax(scores, dim=-1)
-    return torch.einsum("bhgqk,bhkd->bhgqd", w, v.float()).to(q.dtype)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", w, v.float()).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(scores, dim=-1)
+    return out
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            do: torch.Tensor, lse: torch.Tensor,
+                            causal: bool = True):
+    """The gradient of attention, materialized: with scale = dh^-0.5,
+    P = exp(Q K^T scale - lse), D = rowsum(dO o o), dS = P o (dO V^T -
+    D), dQ = dS K scale, dK = dS^T Q scale (summed over the G query heads
+    of a KV head), dV = P^T dO; all in fp32 on [B, Hkv, G, S, S], then
+    (dq, dk, dv) in q's dtype."""
+    scale = q.shape[-1] ** -0.5
+    p = torch.exp(_attention_scores(q, k, causal) - lse[..., None])
+    dof = do.float()
+    dd = (dof * o.float()).sum(-1)
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, dof)
+    ds = p * (torch.einsum("bhgqd,bhkd->bhgqk", dof, v.float())
+              - dd[..., None])
+    del p
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, k.float()) * scale
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, q.float()) * scale
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
 def golden_attention_decode_ref(q: torch.Tensor, k: torch.Tensor,

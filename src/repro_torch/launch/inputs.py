@@ -1,0 +1,62 @@
+"""The model inputs of the four assigned shapes (counterpart of
+``repro.launch.inputs``): ``SHAPES`` and ``concrete_inputs``.  Decode
+shapes feed ``decode_step`` (one new token against a seq_len KV cache);
+train and prefill feed full-sequence steps.  ``input_specs`` (the
+abstract inputs of a dry run) waits for ``launch/dryrun.py`` (ROADMAP
+Queue 1).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import zero_cache
+from repro_torch.utils import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    kind: str          # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES = {
+    "train_4k": InputShape("train_4k", "train", 4096, 256),
+    "prefill_32k": InputShape("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": InputShape("decode_32k", "decode", 32768, 128),
+    "long_500k": InputShape("long_500k", "decode", 524288, 1),
+}
+
+
+def concrete_inputs(cfg: ModelConfig, shape: InputShape,
+                    generator: torch.Generator | None = None,
+                    device=None) -> dict:
+    """Inputs of ``shape`` on ``device`` (the card unless the caller names
+    another): uniform tokens from ``generator`` (seed 0 by default; its
+    draws are not ``jax.random``'s) with next-token labels for train,
+    tokens for prefill, and a zero cache, zero tokens and the last
+    position for decode.  Frontend archs' embeddings are not ported."""
+    device = resolve_device(device)
+    if cfg.frontend:
+        raise NotImplementedError("the modality frontends are not ported "
+                                  "yet (ROADMAP Queue 1: the other model "
+                                  "families)")
+    b, s = shape.global_batch, shape.seq_len
+    if shape.kind in ("train", "prefill"):
+        gen = generator or torch.Generator().manual_seed(0)
+        toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                             device=gen.device).to(device)
+        out = {"tokens": toks}
+        if shape.kind == "train":
+            out["labels"] = torch.roll(toks, -1, dims=1)
+        return out
+    if shape.kind == "decode":
+        return {"cache": zero_cache(cfg, b, s, device),
+                "token": torch.zeros((b,), dtype=torch.int64, device=device),
+                "pos": torch.full((), s - 1, dtype=torch.int64,
+                                  device=device)}
+    raise ValueError(shape.kind)

@@ -1,0 +1,112 @@
+"""Training launcher (counterpart of ``repro.launch.train``) on one
+device: token pipeline -> train step (``launch.steps``: the loss through
+kernel 9 and its backward kernel on the card, remat per layer when the
+config asks) -> AdamW -> checkpoint.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
+      --steps 30 --batch 4 --seq 128
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --steps 50
+
+It runs on the CUDA card unless given ``--device cpu``.  The weights are
+drawn from a seeded ``torch.Generator`` (not ``jax.random``'s draws).
+``--mesh`` (the production mesh over several cards) is not ported.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+from repro_torch.launch import steps as step_lib
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.module import init_params, param_count
+from repro_torch.models.transformer import model_specs
+from repro_torch.training import checkpoint
+from repro_torch.training import optimizer as opt
+from repro_torch.utils import resolve_device
+
+MULTI_CARD = "ROADMAP Queue 1: the LLM's logical sharding (multi-card)"
+
+
+def setup(cfg: ModelConfig, steps: int, batch: int, seq: int, device,
+          num_microbatches: int = 1, seed: int = 0):
+    """``(params, opt_state, batches, step_fn)`` of a run: weights from
+    ``torch.Generator(device).manual_seed(seed)``, AdamW at lr 1e-3 with
+    a tenth of ``steps`` of warmup, the first ``min(steps, 8)`` batches
+    of the Markov token pipeline on ``device`` (the pipeline is pure in
+    (config, step), so cycling them stays honest) and the train step."""
+    if cfg.frontend:
+        raise NotImplementedError("the modality frontends are not ported "
+                                  "yet (ROADMAP Queue 1: the other model "
+                                  "families)")
+    params = init_params(model_specs(cfg),
+                         torch.Generator(device=device).manual_seed(seed))
+    opt_cfg = opt.AdamWConfig(lr=1e-3, total_steps=steps,
+                              warmup_steps=max(steps // 10, 1))
+    state = opt.init_state(params)
+    tp = TokenPipeline(TokenPipelineConfig(cfg.vocab_size, seq, batch))
+    batches = [{k: v.to(device) for k, v in tp.batch(i).items()}
+               for i in range(min(steps, 8))]
+    step_fn = step_lib.make_train_step(cfg, opt_cfg, num_microbatches)
+    return params, state, batches, step_fn
+
+
+def train(arch: str, smoke: bool, steps: int, batch: int, seq: int,
+          ckpt_dir: str | None = None, use_mesh: bool = False,
+          log_every: int = 10, device=None) -> np.ndarray:
+    """Train ``arch`` (``.reduced()`` with ``smoke``) for ``steps`` steps
+    on ``device`` (the card unless the caller names another); returns the
+    per-step NLL losses."""
+    if use_mesh:
+        raise NotImplementedError(f"train(use_mesh=True): the production "
+                                  f"mesh is not ported yet ({MULTI_CARD})")
+    device = resolve_device(device)
+    cfg = get_config(arch)
+    if smoke:
+        cfg = cfg.reduced()
+    print(f"arch={cfg.name} params={param_count(model_specs(cfg)) / 1e6:.1f}M"
+          f" layers={cfg.num_layers} d={cfg.d_model} device={device}")
+    params, state, batches, step_fn = setup(cfg, steps, batch, seq, device)
+    losses = []
+    t0 = time.time()
+    for i in range(steps):
+        params, state, metrics = step_fn(params, state,
+                                         batches[i % len(batches)])
+        losses.append(float(metrics["nll"]))
+        if i % log_every == 0 or i == steps - 1:
+            print(f"step {i:5d} loss={losses[-1]:.4f} "
+                  f"gnorm={float(metrics['grad_norm']):.3f} "
+                  f"lr={float(metrics['lr']):.2e} "
+                  f"({(time.time() - t0) / (i + 1):.2f}s/step)", flush=True)
+    if ckpt_dir:
+        d = checkpoint.save(ckpt_dir, steps, {"params": params})
+        print("checkpoint ->", d)
+    return np.asarray(losses)
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3.2-3b", choices=ARCH_IDS)
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config (CPU-friendly)")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--mesh", action="store_true",
+                    help="the production mesh (not ported: raises)")
+    ap.add_argument("--device", default=None,
+                    help="cpu for the plain path (default: the CUDA card)")
+    args = ap.parse_args()
+    losses = train(args.arch, args.smoke, args.steps, args.batch, args.seq,
+                   args.ckpt_dir, args.mesh, device=args.device)
+    print(f"loss: first={losses[0]:.4f} last={losses[-1]:.4f} "
+          f"delta={losses[0] - losses[-1]:+.4f}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,7 +1,9 @@
 """Shared transformer layers (counterpart of ``repro.models.layers``):
 RMSNorm, RoPE, the SwiGLU MLP, GQA projections, causal flash attention
-for prefill (through ``kernels.ops.flash_attention``: the hand-written
-kernel on the card, its plain version on the CPU), and decode attention
+for prefill and training (through ``kernels.ops.flash_attention``: the
+hand-written kernel on the card, its plain version on the CPU; with a
+gradient through ``ops.FlashAttention``, whose backward is the
+hand-written backward kernel), and decode attention
 as mergeable online-softmax partials, full or golden (top-kb blocks by
 mean-pooled key summaries).
 
@@ -106,12 +108,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kv_chunk: int = 1024) -> torch.Tensor:
     """q: [B, S, H, dh]; k/v: [B, S, Hkv, dh] -> [B, S, H, dh].  The
     chunks are checked as the reference checks them and otherwise only
-    order the sums."""
+    order the sums.  When an input needs a gradient the call goes
+    through ``ops.FlashAttention`` (the forward also keeps its row
+    log-sum-exp for the backward kernel); otherwise it is the plain
+    forward call, as in prefill."""
     b, s, h, dh = q.shape
     qg = q.reshape(b, s, dims.num_kv_heads, dims.q_per_kv, dh).permute(
         0, 2, 3, 1, 4)
-    out = ops.flash_attention(qg, k.transpose(1, 2), v.transpose(1, 2),
-                              causal=causal, qc=q_chunk, kc=kv_chunk)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        out = ops.FlashAttention.apply(qg, kt, vt, causal, q_chunk, kv_chunk)
+    else:
+        out = ops.flash_attention(qg, kt, vt, causal=causal, qc=q_chunk,
+                                  kc=kv_chunk)
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, dh)
 
 

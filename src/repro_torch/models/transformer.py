@@ -1,35 +1,48 @@
-"""Decoder prefill and decode (counterpart of ``repro.models.transformer``)
-for dense attention models (the llama family).
+"""Decoder training, prefill and decode (counterpart of
+``repro.models.transformer``) for dense attention models (the llama
+family).
 
-  * prefill — the full-sequence forward over the prompt; every attention
-              layer runs causal flash attention (``layers.flash_attention``:
-              the hand-written kernel on the card) and fills the KV cache
-              [repeats, B, Hkv, S, dh] (plus block summaries when
-              ``golden_cached_summaries``).
+  * train   — the full-sequence forward of ``loss_fn``; every attention
+              layer runs causal flash attention through
+              ``ops.FlashAttention`` (kernel 9 forward, the hand-written
+              backward kernel on the card), each layer under
+              ``torch.utils.checkpoint`` when ``cfg.remat`` (the
+              reference's ``nothing_saveable`` policy: only the layer's
+              input is kept, the layer runs again in the backward).
+  * prefill — the same forward over the prompt, no gradient; fills the
+              KV cache [repeats, B, Hkv, S, dh] (plus block summaries
+              when ``golden_cached_summaries``).
   * decode  — one new token at position ``pos`` against the cache, with
               full attention or golden attention (the paper's
               coarse-to-fine subset on the KV cache), on one device.
 
 Differences from the reference:
 
-  * the layer loop is a Python loop (no scan);
+  * the layer loop is a Python loop (no scan); the stacked layer leaves
+    are split with ``unbind``, so the gradient of a stacked leaf is one
+    ``stack`` and not one full-size zero tensor a layer;
   * ``decode_step`` writes the new key, value and summary into the given
     cache in place and returns the same dict (the reference's functional
     update copies the whole stacked cache).  A second call at the same
     position from the same cache is the reference's result only without
     cached summaries, whose running mean is not idempotent;
-  * ``pos`` is a Python int, so no step reads a device value back;
+  * ``pos`` is an int or a device int tensor; the cache writes, the
+    length mask and the running summary mean read it on the device, so
+    no step reads a device value back and one CUDA graph serves every
+    position (``launch.steps.make_decode_step``);
   * ``prefill`` applies the LM head to the last position only, whose
-    logits it returns (as the reference does, over ``padded_vocab``).
+    logits it returns (as the reference does, over ``padded_vocab``);
+  * ``forward_full`` returns ``(logits, cache)``: the MoE auxiliary loss
+    is 0 for every model the port runs, and ``loss_fn`` adds that 0.
 
-Mamba mixers, MoE MLPs, the loss and training (with remat) and the
-modality frontends raise ``NotImplementedError`` naming their ROADMAP
-item; decode runs on one device (the sharded decode waits for the
-sharding slice).
+Mamba mixers, MoE MLPs and the modality frontends (``embeds``) raise
+``NotImplementedError`` naming their ROADMAP item; decode runs on one
+device (the sharded decode waits for the sharding slice).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
@@ -37,7 +50,6 @@ from repro_torch.models.module import ParamSpec, stack_specs, tree_map
 from repro_torch.utils import resolve_device
 
 OTHER_FAMILIES = "ROADMAP Queue 1: the other model families"
-LLM_TRAINING = "ROADMAP Queue 1: LLM training (steps.py / train.py)"
 
 
 def _unported(what: str, item: str):
@@ -122,6 +134,13 @@ def _layer(tree: dict, r: int) -> dict:
     return tree_map(lambda t: t[r], tree)
 
 
+def _unstack(tree: dict, repeats: int) -> list[dict]:
+    """Every repeat's slice of the stacked leaves (views): one ``unbind``
+    a leaf, whose gradient is a single ``stack``."""
+    parts = tree_map(lambda t: t.unbind(0), tree)
+    return [tree_map(lambda tup: tup[r], parts) for r in range(repeats)]
+
+
 def _apply_mixer_full(cfg: ModelConfig, p: dict, x: torch.Tensor,
                       positions: torch.Tensor, cache: dict | None
                       ) -> torch.Tensor:
@@ -160,19 +179,19 @@ def _decode_attention(cfg: ModelConfig, q: torch.Tensor, kc: torch.Tensor,
 
 
 def _apply_mixer_decode(cfg: ModelConfig, p: dict, x1: torch.Tensor,
-                        cache: dict, pos: int) -> torch.Tensor:
-    """Decode attention for x1 [B, d] at ``pos``: writes the new K/V row
-    (and the running-mean summary of its block) into ``cache`` (repeat
-    r's views) in place, then attends over positions <= pos."""
+                        cache: dict, pos: torch.Tensor) -> torch.Tensor:
+    """Decode attention for x1 [B, d] at ``pos`` (a 0-d int64 tensor on
+    x1's device): writes the new K/V row (and the running-mean summary
+    of its block) into ``cache`` (repeat r's views) in place, then
+    attends over positions <= pos."""
     dims = _attn_dims(cfg)
     b = x1.shape[0]
-    positions = torch.full((1, 1), pos, dtype=torch.int64, device=x1.device)
-    q, k, v = L.qkv_proj(p["attn"], x1[:, None, :], dims, positions,
+    q, k, v = L.qkv_proj(p["attn"], x1[:, None, :], dims, pos.view(1, 1),
                          cfg.rope_theta)
     kc, vc = cache["k"], cache["v"]
     k_new = k.transpose(1, 2)                               # [B, Hkv, 1, dh]
-    kc[:, :, pos:pos + 1] = k_new
-    vc[:, :, pos:pos + 1] = v.transpose(1, 2)
+    kc.index_copy_(2, pos.view(1), k_new)
+    vc.index_copy_(2, pos.view(1), v.transpose(1, 2))
     s = kc.shape[2]
     mask = (torch.arange(s, device=x1.device) <= pos).expand(b, s)
     qg = q[:, 0].reshape(b, dims.num_kv_heads, dims.q_per_kv, dims.head_dim)
@@ -181,11 +200,12 @@ def _apply_mixer_decode(cfg: ModelConfig, p: dict, x1: torch.Tensor,
         # running mean of the block from the new key only:
         # m <- m + (k_new - m) / c, c = pos % bs + 1
         bs = cfg.golden_block_size
-        blk, c = pos // bs, float(pos % bs + 1)
+        blk = torch.div(pos, bs, rounding_mode="floor").view(1)
+        c = (pos % bs + 1).float()
         kf = k_new.float()
-        old = summ[:, :, blk:blk + 1].float()
-        mean = kf if c == 1.0 else old + (kf - old) / c
-        summ[:, :, blk:blk + 1] = mean.to(summ.dtype)
+        old = summ.index_select(2, blk).float()
+        mean = torch.where(c == 1.0, kf, old + (kf - old) / c)
+        summ.index_copy_(2, blk, mean.to(summ.dtype))
     o = _decode_attention(cfg, qg, kc, vc, mask, summ)
     return o.reshape(b, -1) @ p["attn"]["wo"]
 
@@ -201,43 +221,86 @@ def _lm_head(cfg: ModelConfig, params: dict, x: torch.Tensor
     return x @ w
 
 
+def _block(cfg: ModelConfig, bp: dict, x: torch.Tensor,
+           positions: torch.Tensor, cache_r: dict | None) -> torch.Tensor:
+    """One repeat of the layer pattern over x [B, S, d]; writes its K/V
+    into ``cache_r`` (repeat r's views) when given."""
+    for i in range(cfg.period):
+        _check_layer(cfg, i)
+        p = bp[f"l{i}"]
+        lc = cache_r[f"l{i}"] if cache_r is not None else None
+        x = x + _apply_mixer_full(cfg, p, L.rmsnorm(p["ln1"], x),
+                                  positions, lc)
+        if cfg.mlp_kind(i) != "none":
+            x = x + L.mlp_apply(p["mlp"], L.rmsnorm(p["ln2"], x))
+    return x
+
+
 def _blocks(cfg: ModelConfig, params: dict, x: torch.Tensor,
-            want_cache: bool):
-    """Every layer over x [B, S, d]; returns (x, cache | None)."""
+            want_cache: bool, remat: bool = False):
+    """Every layer over x [B, S, d]; returns (x, cache | None).  With
+    ``remat`` each repeat runs under a non-reentrant checkpoint, which
+    keeps only its input and runs it again in the backward."""
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None, :]
     cache = (_alloc_cache(cfg, b, s, x.device, torch.empty) if want_cache
              else None)
-    for r in range(cfg.repeats):
-        bp = _layer(params["blocks"], r)
-        for i in range(cfg.period):
-            _check_layer(cfg, i)
-            p = bp[f"l{i}"]
-            lc = _layer(cache[f"l{i}"], r) if want_cache else None
-            x = x + _apply_mixer_full(cfg, p, L.rmsnorm(p["ln1"], x),
-                                      positions, lc)
-            if cfg.mlp_kind(i) != "none":
-                x = x + L.mlp_apply(p["mlp"], L.rmsnorm(p["ln2"], x))
+    for r, bp in enumerate(_unstack(params["blocks"], cfg.repeats)):
+        lc = _layer(cache, r) if want_cache else None
+        if remat:
+            x = checkpoint(_block, cfg, bp, x, positions, None,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _block(cfg, bp, x, positions, lc)
     return x, cache
 
 
 def forward_full(cfg: ModelConfig, params: dict, x: torch.Tensor,
                  want_cache: bool = False, mode: str = "prefill"):
-    """Full-sequence forward.  x: [B, S, d] embeddings.
+    """Full-sequence forward.  x: [B, S, d] embeddings; ``mode`` is
+    "prefill" or "train" (remat per repeat when ``cfg.remat``, as the
+    reference, which remats only in training).
 
     Returns ``(logits [B, S, V], cache | None)``."""
-    if mode != "prefill":
-        raise _unported(f"forward_full(mode={mode!r}) (the loss and "
-                        f"remat)", LLM_TRAINING)
-    x, cache = _blocks(cfg, params, x, want_cache)
+    if mode not in ("prefill", "train"):
+        raise ValueError(f"forward_full: mode {mode!r} is not 'prefill' or "
+                         f"'train'")
+    remat = mode == "train" and cfg.remat and not want_cache
+    x, cache = _blocks(cfg, params, x, want_cache, remat)
     return _lm_head(cfg, params, L.rmsnorm(params["final_norm"], x)), cache
 
 
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
             aux_weight: float = 0.01):
-    """The training loss (next-token NLL + z-loss) waits for LLM
-    training."""
-    raise _unported("loss_fn", LLM_TRAINING)
+    """The reference's training loss: batch holds tokens and labels [B,
+    S] (int) and optionally loss_mask [B, S] (bool).  fp32 logits with
+    the padded-vocab columns at -1e30, the mean next-token NLL over the
+    mask (over every position without one), plus ``aux_weight`` x the
+    MoE auxiliary loss (0 for a dense model) plus the z-loss 1e-4 x
+    mean(logz^2).  Returns ``(loss, {"nll", "aux"})``."""
+    if "embeds" in batch:
+        raise _unported("the modality frontends (loss_fn with embeds)",
+                        OTHER_FAMILIES)
+    x = embed_tokens(cfg, params, batch["tokens"])
+    labels, mask = batch["labels"], batch.get("loss_mask")
+    logits, _ = forward_full(cfg, params, x, mode="train")
+    logits = logits.float()
+    if cfg.padded_vocab != cfg.vocab_size:
+        pad = torch.arange(cfg.padded_vocab, device=x.device) >= \
+            cfg.vocab_size
+        logits = logits.masked_fill_(pad, -1e30)   # in place: [B, S, V]
+    logz = torch.logsumexp(logits, -1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        nll = torch.where(mask, nll, 0.0)
+        denom = torch.clamp_min(mask.sum(), 1)
+    else:
+        denom = nll.numel()
+    loss = nll.sum() / denom
+    zloss = 1e-4 * (logz ** 2).mean()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return loss + aux_weight * aux + zloss, {"nll": loss, "aux": aux}
 
 
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
@@ -252,11 +315,20 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,
-                token: torch.Tensor, pos: int):
-    """One decode step.  token: [B] int; pos: int (the position written).
+                token: torch.Tensor, pos):
+    """One decode step.  token: [B] int; pos: the position written, an
+    int or a 0-d int tensor on token's device (read there, never on the
+    host).
 
     Returns ``(logits [B, V], cache)``; the cache is updated in place."""
-    pos = int(pos)
+    if isinstance(pos, torch.Tensor):
+        pos = pos.to(device=token.device, dtype=torch.int64).reshape(())
+    else:
+        seq = cache["l0"]["k"].shape[3]
+        if not 0 <= int(pos) < seq:
+            raise ValueError(f"decode_step: pos {pos} outside the cache's "
+                             f"{seq} positions")
+        pos = torch.full((), int(pos), dtype=torch.int64, device=token.device)
     x = params["embed"][token]                                  # [B, d]
     for r in range(cfg.repeats):
         bp = _layer(params["blocks"], r)

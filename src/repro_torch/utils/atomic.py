@@ -3,7 +3,17 @@
 The port's own copy of ``repro.utils.atomic`` (numpy only).  The npz
 and manifest format is the reference's byte for byte, so an artifact
 written by either package loads in the other; ``repro_torch.index.store``
-persists the Golden Index through it.
+persists the Golden Index through it, and ``repro_torch.training.
+checkpoint`` the training state.
+
+bf16 arrays (no numpy dtype without ml_dtypes, which the port does not
+use) travel as 2-byte voids holding the bf16 bits: ``save_arrays(...,
+bfloat16=names)`` writes them as the reference's ml_dtypes arrays land in
+an npz (header descr ``'<V2'``, manifest dtype ``"bfloat16"``), and
+``load_arrays`` accepts the ``|V2`` array numpy reads back under a
+``"bfloat16"`` manifest entry.  The reference's own check refuses that
+pair (``src/repro/utils/atomic.py:179``), so it cannot restore a bf16
+leaf; every other dtype mismatch raises here as there.
 
 Write protocol (per file): write to ``<name>.tmp.<pid>`` in the SAME
 directory, flush + ``os.fsync``, then ``os.replace`` over the final
@@ -86,26 +96,53 @@ def _manifest_path(npz_path: str) -> str:
     return os.fspath(npz_path) + ".manifest.json"
 
 
+BF16_BITS = np.dtype("V2")     # a bf16 array's numpy form: its 2-byte bits
+
+
+def _savez(buf, arrays: dict[str, np.ndarray], bfloat16) -> None:
+    """``np.savez(buf, **arrays)``, except that the arrays named in
+    ``bfloat16`` (2-byte voids) get the header ml_dtypes' bfloat16 gets
+    (descr ``'<V2'``), so the bytes equal the reference's."""
+    with zipfile.ZipFile(buf, mode="w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, val in arrays.items():
+            with zf.open(key + ".npy", "w", force_zip64=True) as fid:
+                if key in bfloat16:
+                    np.lib.format.write_array_header_1_0(fid, {
+                        "descr": "<V2", "fortran_order": False,
+                        "shape": val.shape})
+                    fid.write(np.ascontiguousarray(val).tobytes())
+                else:
+                    np.lib.format.write_array(fid, val)
+
+
 def save_arrays(npz_path: str, arrays: dict[str, np.ndarray],
                 fmt: str, version: int, meta: dict | None = None,
-                manifest_path: str | None = None) -> str:
+                manifest_path: str | None = None,
+                bfloat16=()) -> str:
     """Atomically write ``arrays`` as npz + a checksummed manifest.
 
     The npz lands first, the manifest second — the manifest is the
     per-artifact commit marker, so a crash between the two writes is
     *detected* at load (checksum mismatch), never silently served.
+    ``bfloat16`` names the arrays that are bf16 bits (``BF16_BITS``).
     Returns the manifest path.
     """
     npz_path = os.fspath(npz_path)
     manifest_path = manifest_path or _manifest_path(npz_path)
     arrays = {k: np.asarray(v) for k, v in arrays.items()}
+    for k in bfloat16:
+        if arrays[k].dtype != BF16_BITS:
+            raise ValueError(f"save_arrays: bf16 array {k!r} must hold its "
+                             f"bits as {BF16_BITS}, got {arrays[k].dtype}")
     buf = io.BytesIO()
-    np.savez(buf, **arrays)
+    _savez(buf, arrays, set(bfloat16))
     atomic_write_bytes(npz_path, buf.getvalue())
     manifest = {
         "format": fmt,
         "format_version": int(version),
-        "arrays": {k: {"shape": list(v.shape), "dtype": str(v.dtype),
+        "arrays": {k: {"shape": list(v.shape),
+                       "dtype": "bfloat16" if k in bfloat16 else str(v.dtype),
                        "sha256": sha256_hex(v)}
                    for k, v in sorted(arrays.items())},
         "meta": dict(meta or {}),
@@ -175,7 +212,8 @@ def load_arrays(npz_path: str, fmt: str, version: int,
             raise corruption_exc(
                 f"{npz_path}: array {name!r} shape {list(have.shape)} != "
                 f"manifest {want.get('shape')}")
-        if str(have.dtype) != want.get("dtype"):
+        bf16 = want.get("dtype") == "bfloat16" and have.dtype == BF16_BITS
+        if str(have.dtype) != want.get("dtype") and not bf16:
             raise corruption_exc(
                 f"{npz_path}: array {name!r} dtype {have.dtype} != "
                 f"manifest {want.get('dtype')}")

@@ -28,6 +28,7 @@ pytest.importorskip("torch")
 
 import torch  # noqa: E402
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import (GoldDiff, OptimalDenoiser,  # noqa: E402
                               make_schedule, sample)
 from repro_torch.core.engine import STANDBY_EPOCH  # noqa: E402
@@ -52,7 +53,7 @@ from repro_torch.kernels.golden_attention import (  # noqa: E402
     golden_attention_decode, select_golden_blocks, split_chunks)
 from repro_torch.launch import golden_decode as gd  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
-from repro_torch.models.module import tree_map  # noqa: E402
+from repro_torch.models.module import tree_leaves, tree_map  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -938,7 +939,8 @@ def test_attention_kernel_faults_raise(card, tmp_path, monkeypatch):
                      flash_mod._ARGS)
     out = torch.empty_like(q)
     err = fn(_build.ptr(q), _build.ptr(k), _build.ptr(k), _build.ptr(out),
-             1, 1, 64, 48, 64, 4, 1, 1.0, _build.stream(card))
+             ctypes.c_void_p(None), 1, 1, 64, 48, 64, 4, 1, 1.0,
+             _build.stream(card))
     with pytest.raises(RuntimeError, match="CUDA error"):
         _build.check("flash_attention", err)
     # a build that fails raises, and no library is loaded
@@ -947,6 +949,115 @@ def test_attention_kernel_faults_raise(card, tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "nvcc", lambda: "false")
     with pytest.raises(RuntimeError, match="build failed"):
         _build.load("golden_attention", "golden_attention_launch", [])
+
+
+# --- LLM training: the attention backward, the train step, decode graph ----
+
+BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}   # x the grad's max abs
+
+
+@pytest.mark.parametrize("b,hkv,g,s,dh", [
+    (2, 8, 3, 512, 128),       # the llama train step's heads
+    (1, 4, 1, 256, 64),        # the reduced config's
+    (2, 1, 2, 100, 32),        # S not a multiple of any tile
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bwd_matches_plain(card, b, hkv, g, s, dh, dtype,
+                                           causal):
+    """The backward kernel against the materialized plain backward from
+    the same q, k, v, dO and the forward's own output and lse (within
+    1e-5 of the plain lse); two calls bit-equal; one count a call."""
+    q = randn((b, hkv, g, s, dh), card, dtype, 31)
+    k, v = (randn((b, hkv, s, dh), card, dtype, sd) for sd in (32, 33))
+    o, lse = flash_attention(q, k, v, causal, return_lse=True)
+    assert torch.equal(o, flash_attention(q, k, v, causal))
+    _, lse_plain = ref.flash_attention_ref(q, k, v, causal, True)
+    assert float((lse - lse_plain).abs().max()) <= 1e-5
+    do = randn(o.shape, card, dtype, 34)
+    before = flash_mod.flash_attention_bwd.launches
+    got = ops.flash_attention_bwd(q, k, v, o, do, lse, causal)
+    again = ops.flash_attention_bwd(q, k, v, o, do, lse, causal)
+    assert flash_mod.flash_attention_bwd.launches == before + 2
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal)
+    for a, c, w in zip(got, again, want):
+        assert a.dtype == dtype and torch.equal(a, c)
+        err = float((a.float() - w.float()).abs().max())
+        assert err <= BWD_TOL[dtype] * float(w.float().abs().max())
+
+
+def test_flash_attention_bwd_refuses(card):
+    q = randn((1, 1, 1, 64, 64), card, torch.float32, 9)
+    k = randn((1, 1, 64, 64), card, torch.float32, 10)
+    lse = torch.zeros((1, 1, 1, 64), device=card)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_mod.flash_attention_bwd(q.cpu(), k.cpu(), k.cpu(), q.cpu(),
+                                      q.cpu(), lse.cpu())
+    with pytest.raises(ValueError, match="must be"):
+        ops.flash_attention_bwd(q, k, k, q, q, lse.double())
+    with pytest.raises(ValueError, match="shape"):
+        ops.flash_attention_bwd(q, k, k, q[..., :32], q, lse)
+
+
+def test_reduced_train_step_card_matches_cpu(card):
+    """Three train steps of the reduced config on the card against the
+    CPU from the same weights and batches (losses 1e-4); each step runs
+    kernel 9 and the backward once per layer."""
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+    from repro_torch.launch import steps as step_lib
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.models.module import init_params
+    from repro_torch.training import optimizer as opt
+    cfg = get_config("llama3.2-3b").reduced()
+    np_params = tree_map(lambda t: t.numpy(), init_params(
+        T.model_specs(cfg), torch.Generator().manual_seed(0)))
+    pipe = TokenPipeline(TokenPipelineConfig(cfg.vocab_size, 128, 4))
+    batches = [pipe.batch(i) for i in range(3)]
+    losses = {}
+    for dev in (card, torch.device("cpu")):
+        p = params_from_numpy(cfg, np_params, device=dev)
+        st = opt.init_state(p)
+        step = step_lib.make_train_step(cfg, opt.AdamWConfig(
+            lr=1e-3, warmup_steps=1, total_steps=3))
+        f0, b0 = flash_attention.launches, flash_mod.flash_attention_bwd.launches
+        losses[dev.type] = []
+        for bt in batches:
+            p, st, m = step(p, st, {k: t.to(dev) for k, t in bt.items()})
+            losses[dev.type].append(float(m["loss"]))
+        if dev.type == "cuda":
+            assert flash_attention.launches - f0 == 3 * cfg.num_layers
+            assert flash_mod.flash_attention_bwd.launches - b0 == \
+                3 * cfg.num_layers
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], atol=1e-4,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("kind", ["full", "golden"])
+def test_decode_graph_replay_matches_eager(card, kind):
+    """``make_decode_step`` on the card: one CUDA graph, its replays at
+    three positions bit-equal to the eager ``decode_step`` (logits and
+    cache), tokens and positions as ints and as device tensors."""
+    from repro_torch.launch import steps as step_lib
+    cfg = dataclasses.replace(gd.example_config(reduced=True),
+                              attn_kind_decode=kind)
+    params = tree_map(lambda t: t.to(card), gd.draw_params(cfg, 0, "cpu"))
+    toks = gd.draw_tokens(cfg, 2, 256, 0).to(card)
+    _, cache = T.prefill(cfg, params, toks)
+    eager_c = tree_map(torch.clone, cache)
+    step = step_lib.make_decode_step(cfg)
+    tok = toks[:, -1]
+    step(params, cache, tok, 200)
+    T.decode_step(cfg, params, eager_c, tok, 200)
+    for i, pos in enumerate((201, 202, 203)):
+        at = torch.tensor(pos, device=card) if i % 2 else pos
+        want, _ = T.decode_step(cfg, params, eager_c, tok, pos)
+        got, _ = step(params, cache, tok, at)
+        assert torch.equal(got, want)
+        tok = want.argmax(-1)
+    assert len(step.graphs) == 1
+    for (p, a), (_, b) in zip(tree_leaves(eager_c), tree_leaves(cache)):
+        assert torch.equal(a, b), p
 
 
 def test_reduced_model_card_matches_cpu(card):

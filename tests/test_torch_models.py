@@ -29,6 +29,7 @@ from repro.models import transformer as JT  # noqa: E402
 from repro.models.config import ModelConfig as JModelConfig  # noqa: E402
 from repro_torch.configs import get_config, list_archs  # noqa: E402
 from repro_torch.launch import golden_decode as gd  # noqa: E402
+from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.config import ModelConfig  # noqa: E402
@@ -141,10 +142,13 @@ def test_unported_paths_raise():
     cfg = port_cfg(TINY)
     _, p = ref_params(TINY)
     x = torch.zeros((1, 8, 64))
-    with pytest.raises(NotImplementedError, match="training"):
-        T.forward_full(cfg, p, x, mode="train")
-    with pytest.raises(NotImplementedError, match="training"):
-        T.loss_fn(cfg, p, {"tokens": torch.zeros((1, 8), dtype=torch.long)})
+    tokens = torch.zeros((1, 8), dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="frontends"):
+        T.loss_fn(cfg, p, {"tokens": tokens, "labels": tokens,
+                           "embeds": x[:, :2]})
+    with pytest.raises(NotImplementedError, match="multi-card"):
+        train("llama3.2-3b", smoke=True, steps=1, batch=1, seq=8,
+              ckpt_dir=None, use_mesh=True, device="cpu")
     with pytest.raises(NotImplementedError, match="frontends"):
         T.prefill(cfg, p, torch.zeros((1, 8), dtype=torch.long),
                   embeds=torch.zeros((1, 2, 64)))

@@ -4,10 +4,11 @@
 Phases:
   1. environment: the card, CUDA, nvcc and triton; TF32 off;
   2. build: the nine hand-written kernels and the attention backward
-     from ``src/repro_torch/kernels/csrc`` (eleven sources: kernel 9 has
-     a bf16 tensor-core source and an fp32 CUDA-core one), with the
-     registers, shared memory and spills of each instance of the
-     redesigned kernels (1-6, 8-9) and of the backward;
+     from ``src/repro_torch/kernels/csrc`` (twelve sources: kernel 9 and
+     the backward each have a bf16 tensor-core source and an fp32
+     CUDA-core one), with the registers, shared memory and spills of
+     each instance of the redesigned kernels (1-6, 8-9) and of the
+     backward;
   3. scale: the cifar_like store, N=50000 rows of D=3072 (proxy dp=192),
      built once and shared by every phase, and the Golden Index's scale
      store, gmm N=65536 x 64 with 256 modes;
@@ -123,12 +124,16 @@ Phases:
      both kernels timed against bound, plain version and one library
      call, with the achieved rate and share of the bound, kernel 9 also
      at S=32768 ([time]);
-  10. LLM training (``training_phases``): the attention backward kernel
-     against its plain version at llama3.2-3b's shape in bf16 and at the
-     reduced config's and smaller ragged shapes in fp32 and bf16 (1e-2
+  10. LLM training (``training_phases``): the attention backward kernels
+     (bf16: csrc/flash_attention_bwd_sm90.cu, fp32: the CUDA-core
+     csrc/flash_attention_bwd.cu) against their plain version at
+     llama3.2-3b's shape in bf16, at the reduced config's and smaller
+     ragged shapes in fp32 and bf16, and at the bf16 kernels' tile edges
+     (S = 1000 and 4095, G = 1-4, dh = 32, 64, 128, causal and not; 1e-2
      / 1e-5 of the plain gradient's max abs; two calls bit-equal), with
-     kernel 9's row lse (1e-5), timed against its bound, plain version
-     and SDPA's backward ([train-check]); the reduced config trained 5
+     kernel 9's row lse (1e-5), timed against its bound, its earlier
+     time, plain version and SDPA's backward, with each launch's device
+     ms ([train-check], [time]); the reduced config trained 5
      steps on the card and on the CPU from the same weights and batches
      (losses and step 1's gradients 1e-4; [train-reference]);
      llama3.2-3b's train step at full width and depth, bf16, remat on,
@@ -589,6 +594,8 @@ LSE_TOL = 1e-5
 TRAIN_REF_STEPS, TRAIN_REF_B, TRAIN_REF_S = 5, 4, 256
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-4, 1e-4
 TRAIN_B, TRAIN_S, TRAIN_TIMED = 2, 4096, 3
+BWD_WAS_MS = 6.6123     # the replaced mma.sync backward, same shape (PERF.md)
+BWD_PROFILED = 20
 BF16_PEAK = 989.4e12
 DECODE_POS = (LLM_S - 3, LLM_S - 2, LLM_S - 1)
 
@@ -679,6 +686,14 @@ def training_phases(kernels: dict) -> tuple[dict, dict]:
             ((2, 1, 2, 200, 32), f32, True), ((1, 2, 1, 300, 64), bf16,
                                               True)):
         bwd_check(shape, dtype, causal)
+    # the bf16 kernels' tile edges: S not a multiple of the 128-key tile
+    # (1000, 4095), G = 1-4 (4 pads a head group of the dQ launch), every
+    # head dim
+    for shape, causal in [((1, 2, g, 1000, dh), c) for dh in (32, 64, 128)
+                          for g in (1, 2, 3, 4) for c in (True, False)
+                          if (g, dh, c) != (3, 128, False)] + [
+            ((1, 1, g, 4095, 128), c) for g in (1, 4) for c in (True, False)]:
+        bwd_check(shape, bf16, causal)
 
     q, k, v, o, do, lse = timed
     b, hkv, g, s, dh = q.shape
@@ -691,22 +706,40 @@ def training_phases(kernels: dict) -> tuple[dict, dict]:
                    q, k, v, o, do, lse, True), 3),
                library_ms=time_ms(lambda: torch.autograd.grad(
                    out_l, (ql, kl, vl), doh, retain_graph=True)))
+    # five [S, S] x dh products a head are the gradient's work (the
+    # bound); the kernels issue seven (S and dP again in the dQ launch)
     flops = 10 * dh * b * hkv * g * s * (s + 1) / 2
+    issued = flops * 7 / 5
     nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
     res["bound_ms"], res["bound_by"] = bound(nbytes, flops, BF16_FLOPS_PER_S)
     res["max_abs_err"] = err_bwd
+    # each launch's device ms: BWD_PROFILED calls in one session (a short
+    # session can lose its events to the card's clock skew), averaged
+    # over the events kept
+    launch_ms, kept = Counter(), Counter()
+    for e in device_events(lambda: [flash_attention_bwd(
+            q, k, v, o, do, lse, True) for _ in range(BWD_PROFILED)]):
+        launch_ms[launch_name(e.name)] += e.time_range.elapsed_us() / 1e3
+        kept[launch_name(e.name)] += 1
     fwd_ms = time_ms(lambda: flash_attention(q, k, v, True))
     fwd_lse_ms = time_ms(lambda: flash_attention(q, k, v, True,
                                                  return_lse=True))
     print(f"[time] flash_attention_bwd bf16 causal {list(q.shape)}: kernel "
-          f"{res['ms']:.4f} ms ({flops / res['ms'] / 1e9:.1f} TFLOP/s, "
+          f"{res['ms']:.4f} ms (was {BWD_WAS_MS} ms: the mma.sync kernels "
+          f"it replaced; {flops / res['ms'] / 1e9:.1f} TFLOP/s on the five "
+          f"products, {issued / res['ms'] / 1e9:.1f} on the seven issued; "
           f"{res['bound_ms'] / res['ms']:.3f} of the bound; "
           f"{res['library_ms'] / res['ms']:.3f}x the library's speed), bound "
           f"{res['bound_ms']:.4f} ms ({res['bound_by']}: {flops / 1e9:.1f} "
-          f"GFLOP at the bf16 tensor-core rate, {nbytes / 1e6:.1f} MB), plain "
-          f"{res['plain_ms']:.4f} ms, library (the backward of "
+          f"GFLOP at the bf16 tensor-core rate, {nbytes / 1e6:.1f} MB; "
+          f"{issued / BF16_FLOPS_PER_S * 1e3:.4f} ms for the seven issued), "
+          f"plain {res['plain_ms']:.4f} ms, library (the backward of "
           f"scaled_dot_product_attention, is_causal, enable_gqa) "
           f"{res['library_ms']:.4f} ms")
+    print(f"[time] flash_attention_bwd launches, device ms a launch "
+          f"(profiler, {BWD_PROFILED} calls in one session): " + (", ".join(
+              f"{n} {v / kept[n]:.4f} ({kept[n]} kept)"
+              for n, v in launch_ms.items()) or "no event kept"))
     print(f"[time] flash_attention bf16 causal {list(q.shape)} in one call's "
           f"turn: {fwd_ms:.4f} ms without the lse, {fwd_lse_ms:.4f} ms "
           f"writing it")
@@ -810,14 +843,19 @@ def training_phases(kernels: dict) -> tuple[dict, dict]:
     busy, tops = top_ops(ev)
     # the step's attention is kernel 9 and the backward kernel only: no
     # library attention and no softmax of a plain (materialized) version
-    ours = ("flash_sm90_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel",
-            "bwd_dot_kernel")
+    ours = ("flash_sm90_kernel", "bwd_dkdv_sm90_kernel", "bwd_dq_sm90_kernel",
+            "bwd_dot_sm90_kernel")
     foreign = sorted({launch_name(e.name) for e in ev if any(
         f in e.name.lower() for f in ("fmha", "flash", "softmax", "sdpa",
                                       "attention"))
         and not any(o in e.name for o in ours)})
     check(not foreign, f"train: library or plain attention kernels in the "
           f"step: {foreign}")
+    bwd_ms, bwd_n = Counter(), Counter()
+    for e in ev:
+        if launch_name(e.name) in ours[1:]:
+            bwd_ms[launch_name(e.name)] += e.time_range.elapsed_us() / 1e3
+            bwd_n[launch_name(e.name)] += 1
     grads = step_lib.make_loss_step(cfg)(params, batches[0])[1]
     opt_cfg = opt.AdamWConfig()
     opt_busy, _ = device_kernels(lambda: opt.apply_updates(
@@ -846,6 +884,10 @@ def training_phases(kernels: dict) -> tuple[dict, dict]:
     print(f"[train] top device operations of one step: {tops}; the "
           f"optimizer (apply_updates alone, profiled) {opt_busy:.1f} ms, "
           f"{opt_busy / busy:.3f} of the step's device time")
+    print("[train] the attention backward's launches in the step (profiler): "
+          + ", ".join(f"{n} {bwd_ms[n]:.2f} ms over {bwd_n[n]} "
+                      f"({bwd_ms[n] / bwd_n[n]:.4f} a launch)" for n in bwd_n)
+          + f"; {sum(bwd_ms.values()) / busy:.3f} of the step's device time")
     del params, state, batches, step, one, run
     gc.collect()
 
@@ -2833,7 +2875,8 @@ def main() -> None:
     names = ["pdist", "support_sqdist", "golden_support_aggregate",
              "golden_aggregate", "screen_topm", "fused_candidates",
              "centroid_scan", "flash_attention", "flash_attention_sm90",
-             "golden_attention", "flash_attention_bwd"]
+             "golden_attention", "flash_attention_bwd",
+             "flash_attention_bwd_sm90"]
     t0 = time.perf_counter()
     log = _build.build(names)
     print(f"[build] {len(names)} sources in {time.perf_counter() - t0:.1f}s "
@@ -2841,7 +2884,9 @@ def main() -> None:
     by_instance = {"pdist": ("pdist_kernel",),
                    "golden_aggregate": ("agg_cluster", "merge_kernel"),
                    "flash_attention_sm90": ("flash_sm90_kernel",),
-                   "flash_attention_bwd": ("bwd_",),
+                   "flash_attention_bwd": ("bwd_dot", "bwd_dkdv", "bwd_dq"),
+                   "flash_attention_bwd_sm90": ("bwd_dot", "bwd_dkdv",
+                                                "bwd_dq"),
                    "golden_attention": ("gattn_",),
                    "screen_topm": TOPM_ENTRIES + ("compact_pass",),
                    "support_sqdist": ("sqdist_", "union_"),
@@ -2865,6 +2910,16 @@ def main() -> None:
           "consumer warpgroups, dh): " + ", ".join(
               f"W={w} dh={dh} {smem9(w, dh)} B" for w in (1, 2, 3)
               for dh in (32, 64, 128)))
+    smem_bwd = _build.load("flash_attention_bwd_sm90", "flash_attention_bwd_"
+                           "sm90_smem_bytes", [ctypes.c_int] * 2,
+                           ctypes.c_size_t)
+    nw_bwd = _build.load("flash_attention_bwd_sm90", "flash_attention_bwd_"
+                         "sm90_dkdv_warpgroups", [])()
+    print("[build] flash_attention_bwd_sm90 dynamic shared memory a CTA: "
+          + ", ".join(f"dK/dV ({nw_bwd} warpgroups of 64 keys) "
+                      f"dh={dh} {smem_bwd(0, dh)} B" for dh in (32, 64, 128))
+          + "; " + ", ".join(f"dQ W={w} dh={dh} {smem_bwd(w, dh)} B"
+                             for w in (1, 2, 3) for dh in (32, 64, 128)))
 
     # -- 3. scale: the store ---------------------------------------------------
     t0 = time.perf_counter()
@@ -4131,7 +4186,7 @@ def main() -> None:
                    "src/repro/kernels/golden_attention.py:85"),
                # no TPU kernel: the reference differentiates its attention
                # by autodiff of this pure-JAX scan
-               "flash_attention_bwd": ("csrc/flash_attention_bwd.cu",
+               "flash_attention_bwd": ("csrc/flash_attention_bwd_sm90.cu",
                                        "src/repro/models/layers.py:122")}
     line = {"kernels": [
         dict(name=n, route="cuda",

@@ -289,8 +289,9 @@ class GoldDiffEngine:
         if mesh is not None and not _local_mesh(mesh):
             raise NotImplementedError(
                 "the engine shards over a LocalMesh; over a ProcessMesh "
-                "(one shard a rank, across cards) it waits (ROADMAP Queue 1 "
-                "item 5): distributed_golden_denoise runs there")
+                "(one shard a rank, across cards) it waits (ROADMAP Queue 1: "
+                "the sharded engine across cards): distributed_golden_denoise "
+                "runs there")
         if strategy not in STRATEGIES:
             raise ValueError(f"unknown strategy {strategy!r}; expected one "
                              f"of {STRATEGIES}")

@@ -14,7 +14,8 @@ Counterpart of ``repro.distributed`` for the store's data sharding:
   a GoldDiff step and ``distributed_golden_denoise``.
 
 The reference's logical-axis rules for the LLM (``Rules``,
-``make_rules``, ``shard``) are not ported (ROADMAP Queue 1 item 6).
+``make_rules``, ``shard``) are not ported (ROADMAP Queue 1: the LLM's
+logical sharding).
 """
 from repro_torch.distributed.sharding import (LocalMesh, ProcessMesh,
                                               crossshard_kth,

@@ -1,15 +1,17 @@
-// The backward of causal (or full) GQA flash attention: given q [B, Hkv,
-// G, S, dh], k/v [B, Hkv, S, dh], the forward's output o [B, Hkv, G, S,
-// dh], the gradient dO of the loss with respect to o, and the forward's
-// row log-sum-exp lse [B, Hkv, G, S] (fp32, from flash_attention.cu or
-// flash_attention_sm90.cu), it computes, with scale = dh^-0.5,
+// The fp32 backward of causal (or full) GQA flash attention on the CUDA
+// cores: given q [B, Hkv, G, S, dh], k/v [B, Hkv, S, dh], the forward's
+// output o [B, Hkv, G, S, dh], the gradient dO of the loss with respect
+// to o, and the forward's row log-sum-exp lse [B, Hkv, G, S] (fp32, from
+// flash_attention.cu), it computes, with scale = dh^-0.5,
 //   P  = exp(Q K^T scale - lse)         (the forward's weights, recomputed)
 //   D  = rowsum(dO o o)                 (one fp32 number a query row)
 //   dS = P o (dO V^T - D)
 //   dQ = dS K scale,  dK = dS^T Q scale,  dV = P^T dO
 // over keys j <= i when causal, every key otherwise.  dK and dV of a KV
-// head sum over its G query heads.  All sums are fp32; dQ, dK, dV come
-// out in the inputs' type (fp32 or bf16).
+// head sum over its G query heads.  All in IEEE fp32 (the --reduced
+// configuration's dtype: a TF32 tensor-core product would miss fp32's
+// 1e-5).  The bf16 backward, the training path's, is
+// flash_attention_bwd_sm90.cu (wgmma on TMA-fed tiles).
 //
 // Replaces no TPU kernel: the reference has no Pallas backward (no
 // custom_vjp in src/repro/) and takes this gradient by autodiff of the
@@ -17,10 +19,8 @@
 // forward is kernel 9 (src/repro/kernels/flash_attention.py:85), which
 // autograd cannot differentiate, so the training path needs this.
 //
-// Bound on the H100: operations.  At B=2, Hkv=8, G=3, S=4096, dh=128,
-// causal, the gradient needs five [S, S] x dh products a head (S, dP, dQ,
-// dK, dV), 515 GFLOP: 0.52 ms at 989 TFLOP/s on the bf16 tensor cores,
-// against ~270 MB of bf16 and fp32 in and out (0.08 ms at 3.35 TB/s).
+// Bound on the H100: operations, on the fp32 CUDA cores (67 TFLOP/s):
+// five [S, S] x dh products a head (S, dP, dQ, dK, dV).
 //
 // Design: three launches, no float atomics, so two calls are bit-equal.
 //   1. bwd_dot_kernel: D, one warp a query row.
@@ -40,13 +40,9 @@
 // Together they compute seven [S, S] x dh products where five would do
 // (S and dP twice): the price of keeping dQ free of atomics.
 // Products are warp tiles of 16 rows in the fragment layout of
-// mma.sync m16n8k16: the bf16 instance runs them on the tensor cores
-// (bf16 operands, fp32 accumulators; P and dS are rounded to bf16 as
-// operands, as the forward's weights are), the fp32 instance on the CUDA
-// cores in IEEE fp32 with the same layout (a TF32 tensor-core product
-// would miss fp32's tolerance).  Shared rows are padded by 16 bytes so
-// the fragment loads hit distinct banks.
-// Not here yet: wgmma and TMA, a pipelined load of the next tile.
+// mma.sync m16n8k16's accumulator (rows lane / 4 and + 8, column pairs
+// 2 (lane % 4)), computed in fp32 FMAs in order of k.  Shared rows are
+// padded by 16 bytes.
 #include "common.cuh"
 
 namespace {
@@ -56,33 +52,30 @@ constexpr int ROWS = 64;       // keys (dK/dV) or query positions (dQ) a block
 constexpr int BQ = 32;         // query positions a step of the dK/dV kernel
 constexpr int BK = 64;         // keys a step of the dQ kernel
 
-// the stride of a shared row of N elements of T: 16 bytes of padding
-template <typename T, int N>
-constexpr int LDS = N + 16 / (int)sizeof(T);
+// the stride of a shared row of N floats: 16 bytes of padding
+template <int N>
+constexpr int LDS = N + 4;
 
-template <typename T, int DH>
+template <int DH>
 constexpr size_t dkdv_smem() {
-  return sizeof(T) * (2 * ROWS * LDS<T, DH> +
-                      2 * BQ * LDS<T, DH> +
-                      2 * ROWS * LDS<T, BQ>) +
-         sizeof(float) * 2 * BQ;
+  return sizeof(float) * (2 * ROWS * LDS<DH> + 2 * BQ * LDS<DH> +
+                          2 * ROWS * LDS<BQ> + 2 * BQ);
 }
 
-template <typename T, int DH>
+template <int DH>
 constexpr size_t dq_smem() {
-  return sizeof(T) * (2 * ROWS * LDS<T, DH> +
-                      2 * BK * LDS<T, DH> +
-                      ROWS * LDS<T, BK>);
+  return sizeof(float) * (2 * ROWS * LDS<DH> + 2 * BK * LDS<DH> +
+                          ROWS * LDS<BK>);
 }
 
 // Rows [r0, r0 + n) of a [S, DH] matrix into shared [n][DH + PAD], 16
 // bytes a load; rows past S are zero.
-template <typename T, int DH>
-__device__ __forceinline__ void stage(T* dst, const T* src, int r0, int n,
-                                      int S) {
-  constexpr int PER = 16 / sizeof(T);
+template <int DH>
+__device__ __forceinline__ void stage(float* dst, const float* src, int r0,
+                                      int n, int S) {
+  constexpr int PER = 4;
   constexpr int CH = DH / PER;
-  constexpr int LD = LDS<T, DH>;
+  constexpr int LD = LDS<DH>;
   for (int e = threadIdx.x; e < n * CH; e += THREADS) {
     const int r = e / CH, c = (e - r * CH) * PER;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
@@ -92,57 +85,10 @@ __device__ __forceinline__ void stage(T* dst, const T* src, int r0, int n,
   }
 }
 
-__device__ __forceinline__ uint32_t ld2(const bf16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pair(bf16_t lo, bf16_t hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // c += A B for a warp's 16 rows: A [16][K] row-major (stride lda); B as
 // [n][k] (BKN false) or [k][n] (BKN true), stride ldb; NT tiles of 8
 // columns.  Thread lane holds c[nt][0..1] at row lane / 4, columns
-// nt * 8 + 2 (lane % 4) + {0, 1}, and c[nt][2..3] eight rows further
-// (mma.sync's accumulator layout).  bf16: tensor cores, K a multiple of 16.
-template <bool BKN, int NT>
-__device__ __forceinline__ void warp_mm(float (&c)[NT][4], const bf16_t* A,
-                                        int lda, const bf16_t* B, int ldb,
-                                        int K) {
-  const int lane = threadIdx.x & 31, r = lane >> 2, q2 = 2 * (lane & 3);
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    uint32_t a[4];
-    a[0] = ld2(A + r * lda + k0 + q2);
-    a[1] = ld2(A + (r + 8) * lda + k0 + q2);
-    a[2] = ld2(A + r * lda + k0 + q2 + 8);
-    a[3] = ld2(A + (r + 8) * lda + k0 + q2 + 8);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int n = nt * 8 + r;
-      uint32_t b0, b1;
-      if constexpr (BKN) {
-        b0 = pair(B[(k0 + q2) * ldb + n], B[(k0 + q2 + 1) * ldb + n]);
-        b1 = pair(B[(k0 + q2 + 8) * ldb + n], B[(k0 + q2 + 9) * ldb + n]);
-      } else {
-        b0 = ld2(B + n * ldb + k0 + q2);
-        b1 = ld2(B + n * ldb + k0 + q2 + 8);
-      }
-      mma_bf16(c[nt], a, b0, b1);
-    }
-  }
-}
-
-// The same product in fp32 on the CUDA cores, same layout, k in order.
+// nt * 8 + 2 (lane % 4) + {0, 1}, and c[nt][2..3] eight rows further.
 template <bool BKN, int NT>
 __device__ __forceinline__ void warp_mm(float (&c)[NT][4], const float* A,
                                         int lda, const float* B, int ldb,
@@ -164,12 +110,9 @@ __device__ __forceinline__ void warp_mm(float (&c)[NT][4], const float* A,
   }
 }
 
-// two neighbouring values of a row, in T
+// two neighbouring values of a row
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(bf16_t* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 template <int NT>
@@ -181,39 +124,38 @@ __device__ __forceinline__ void zero(float (&c)[NT][4]) {
 }
 
 // D[row] = sum_d dO[row, d] o[row, d] in fp32, one warp a row.
-template <typename T>
 __global__ void __launch_bounds__(256)
-bwd_dot_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+bwd_dot_kernel(const float* __restrict__ o, const float* __restrict__ dout,
                float* __restrict__ dd, int64_t rows, int dh) {
   const int64_t row = (int64_t)blockIdx.x * 8 + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
   float acc = 0.f;
   for (int c = lane; c < dh; c += 32)
-    acc = fmaf(widen(dout[row * dh + c]), widen(o[row * dh + c]), acc);
+    acc = fmaf(dout[row * dh + c], o[row * dh + c], acc);
   acc = warp_sum(acc);
   if (lane == 0) dd[row] = acc;
 }
 
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(THREADS)
-bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ dout,
+bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ dd,
-                T* __restrict__ dk, T* __restrict__ dv, int G, int S,
+                float* __restrict__ dk, float* __restrict__ dv, int G, int S,
                 int causal, float scale) {
-  constexpr int LD = LDS<T, DH>;
-  constexpr int LDP = LDS<T, BQ>;
+  constexpr int LD = LDS<DH>;
+  constexpr int LDP = LDS<BQ>;
   constexpr int NT = DH / 8, NTQ = BQ / 8;
   extern __shared__ __align__(16) uint8_t smem_raw[];
-  T* k_s = reinterpret_cast<T*>(smem_raw);       // [ROWS][LD]
-  T* v_s = k_s + ROWS * LD;                      // [ROWS][LD]
-  T* q_s = v_s + ROWS * LD;                      // [BQ][LD]
-  T* do_s = q_s + BQ * LD;                       // [BQ][LD]
-  T* p_s = do_s + BQ * LD;                       // [ROWS][LDP]: P^T
-  T* ds_s = p_s + ROWS * LDP;                    // [ROWS][LDP]: dS^T
-  float* lse_s = reinterpret_cast<float*>(ds_s + ROWS * LDP);   // [BQ]
-  float* d_s = lse_s + BQ;                                       // [BQ]
+  float* k_s = reinterpret_cast<float*>(smem_raw);   // [ROWS][LD]
+  float* v_s = k_s + ROWS * LD;                      // [ROWS][LD]
+  float* q_s = v_s + ROWS * LD;                      // [BQ][LD]
+  float* do_s = q_s + BQ * LD;                       // [BQ][LD]
+  float* p_s = do_s + BQ * LD;                       // [ROWS][LDP]: P^T
+  float* ds_s = p_s + ROWS * LDP;                    // [ROWS][LDP]: dS^T
+  float* lse_s = ds_s + ROWS * LDP;                  // [BQ]
+  float* d_s = lse_s + BQ;                           // [BQ]
 
   const int k0 = (int)blockIdx.x * ROWS;         // most query tiles first
   const int bh = blockIdx.y;
@@ -221,8 +163,8 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r = lane >> 2, q2 = 2 * (lane & 3), wr = warp * 16;
 
-  stage<T, DH>(k_s, k + kv_base, k0, ROWS, S);
-  stage<T, DH>(v_s, v + kv_base, k0, ROWS, S);
+  stage<DH>(k_s, k + kv_base, k0, ROWS, S);
+  stage<DH>(v_s, v + kv_base, k0, ROWS, S);
   float dk_acc[NT][4], dv_acc[NT][4];
   zero(dk_acc);
   zero(dv_acc);
@@ -232,8 +174,8 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int64_t qrow = ((int64_t)bh * G + g) * S;    // row of (bh, g, 0)
     for (int q0 = qstart; q0 < S; q0 += BQ) {
       __syncthreads();           // the last step's reads of q_s, do_s done
-      stage<T, DH>(q_s, q + qrow * DH, q0, BQ, S);
-      stage<T, DH>(do_s, dout + qrow * DH, q0, BQ, S);
+      stage<DH>(q_s, q + qrow * DH, q0, BQ, S);
+      stage<DH>(do_s, dout + qrow * DH, q0, BQ, S);
       for (int i = threadIdx.x; i < BQ; i += THREADS) {
         const bool in = q0 + i < S;
         lse_s[i] = in ? lse[qrow + q0 + i] : 0.f;
@@ -281,21 +223,21 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(THREADS)
-bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const T* __restrict__ dout,
+bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ dd,
-              T* __restrict__ dq, int G, int S, int causal, float scale) {
-  constexpr int LD = LDS<T, DH>;
-  constexpr int LDP = LDS<T, BK>;
+              float* __restrict__ dq, int G, int S, int causal, float scale) {
+  constexpr int LD = LDS<DH>;
+  constexpr int LDP = LDS<BK>;
   constexpr int NT = DH / 8, NTK = BK / 8;
   extern __shared__ __align__(16) uint8_t smem_raw[];
-  T* q_s = reinterpret_cast<T*>(smem_raw);       // [ROWS][LD]
-  T* do_s = q_s + ROWS * LD;                     // [ROWS][LD]
-  T* k_s = do_s + ROWS * LD;                     // [BK][LD]
-  T* v_s = k_s + BK * LD;                        // [BK][LD]
-  T* ds_s = v_s + BK * LD;                       // [ROWS][LDP]
+  float* q_s = reinterpret_cast<float*>(smem_raw);   // [ROWS][LD]
+  float* do_s = q_s + ROWS * LD;                     // [ROWS][LD]
+  float* k_s = do_s + ROWS * LD;                     // [BK][LD]
+  float* v_s = k_s + BK * LD;                        // [BK][LD]
+  float* ds_s = v_s + BK * LD;                       // [ROWS][LDP]
 
   const int nq = (S + ROWS - 1) / ROWS;
   const int q0 = (nq - 1 - (int)blockIdx.x) * ROWS;   // longest rows first
@@ -305,8 +247,8 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r = lane >> 2, q2 = 2 * (lane & 3), wr = warp * 16;
 
-  stage<T, DH>(q_s, q + qrow * DH, q0, ROWS, S);
-  stage<T, DH>(do_s, dout + qrow * DH, q0, ROWS, S);
+  stage<DH>(q_s, q + qrow * DH, q0, ROWS, S);
+  stage<DH>(do_s, dout + qrow * DH, q0, ROWS, S);
   int pos[2];
   float lse_r[2], d_r[2];
 #pragma unroll
@@ -321,8 +263,8 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kend = causal ? min(S, q0 + ROWS) : S;
   for (int k0 = 0; k0 < kend; k0 += BK) {
     __syncthreads();             // Q staged; the last step's K, V reads done
-    stage<T, DH>(k_s, k + kv_base, k0, BK, S);
-    stage<T, DH>(v_s, v + kv_base, k0, BK, S);
+    stage<DH>(k_s, k + kv_base, k0, BK, S);
+    stage<DH>(v_s, v + kv_base, k0, BK, S);
     __syncthreads();
 
     float s[NTK][4], dp[NTK][4];
@@ -361,94 +303,61 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
-template <typename T, int DH>
-cudaError_t launch(cudaStream_t st, const T* q, const T* k, const T* v,
-                   const T* o, const T* dout, const float* lse, float* dd,
-                   T* dq, T* dk, T* dv, int BH, int G, int S, int causal,
-                   float scale) {
+template <int DH>
+cudaError_t launch(cudaStream_t st, const float* q, const float* k,
+                   const float* v, const float* o, const float* dout,
+                   const float* lse, float* dd, float* dq, float* dk,
+                   float* dv, int BH, int G, int S, int causal, float scale) {
   static bool ready = false;
   if (!ready) {
     cudaError_t err = cudaFuncSetAttribute(
-        bwd_dkdv_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)dkdv_smem<T, DH>());
+        bwd_dkdv_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)dkdv_smem<DH>());
     if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(bwd_dq_kernel<T, DH>,
+    err = cudaFuncSetAttribute(bwd_dq_kernel<DH>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)dq_smem<T, DH>());
+                               (int)dq_smem<DH>());
     if (err != cudaSuccess) return err;
     ready = true;
   }
   const int64_t rows = (int64_t)BH * G * S;
-  bwd_dot_kernel<T><<<(unsigned)((rows + 7) / 8), 256, 0, st>>>(o, dout, dd,
-                                                                rows, DH);
+  bwd_dot_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, st>>>(o, dout, dd,
+                                                             rows, DH);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  bwd_dkdv_kernel<T, DH>
-      <<<dim3((S + ROWS - 1) / ROWS, BH), THREADS, dkdv_smem<T, DH>(), st>>>(
+  bwd_dkdv_kernel<DH>
+      <<<dim3((S + ROWS - 1) / ROWS, BH), THREADS, dkdv_smem<DH>(), st>>>(
           q, k, v, dout, lse, dd, dk, dv, G, S, causal, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  bwd_dq_kernel<T, DH>
-      <<<dim3((S + ROWS - 1) / ROWS, G, BH), THREADS, dq_smem<T, DH>(), st>>>(
+  bwd_dq_kernel<DH>
+      <<<dim3((S + ROWS - 1) / ROWS, G, BH), THREADS, dq_smem<DH>(), st>>>(
           q, k, v, dout, lse, dd, dq, G, S, causal, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_dh(int dh, cudaStream_t st, const void* q, const void* k,
-                      const void* v, const void* o, const void* dout,
-                      const float* lse, float* dd, void* dq, void* dk,
-                      void* dv, int BH, int G, int S, int causal, float scale) {
-#define BWD_CASE(n)                                                         \
-  case n:                                                                   \
-    return launch<T, n>(st, static_cast<const T*>(q),                       \
-                        static_cast<const T*>(k), static_cast<const T*>(v), \
-                        static_cast<const T*>(o),                           \
-                        static_cast<const T*>(dout), lse, dd,               \
-                        static_cast<T*>(dq), static_cast<T*>(dk),           \
-                        static_cast<T*>(dv), BH, G, S, causal, scale);
-  switch (dh) {
-    BWD_CASE(32) BWD_CASE(64) BWD_CASE(128)
-    default: return cudaErrorInvalidValue;
-  }
-#undef BWD_CASE
-}
-
 }  // namespace
 
-RT_EXPORT size_t flash_attention_bwd_smem_bytes(int bf16, int dh, int dq) {
-  if (bf16) {
-    switch (dh) {
-      case 32: return dq ? dq_smem<bf16_t, 32>() : dkdv_smem<bf16_t, 32>();
-      case 64: return dq ? dq_smem<bf16_t, 64>() : dkdv_smem<bf16_t, 64>();
-      default: return dq ? dq_smem<bf16_t, 128>() : dkdv_smem<bf16_t, 128>();
-    }
-  }
-  switch (dh) {
-    case 32: return dq ? dq_smem<float, 32>() : dkdv_smem<float, 32>();
-    case 64: return dq ? dq_smem<float, 64>() : dkdv_smem<float, 64>();
-    default: return dq ? dq_smem<float, 128>() : dkdv_smem<float, 128>();
-  }
-}
-
-// BH = B * Hkv; every tensor contiguous: q, o, dout, dq [BH, G, S, dh],
-// k, v, dk, dv [BH, S, dh], all fp32 (bf16 = 0) or all bf16 (bf16 = 1);
-// lse and the scratch dd [BH, G, S] fp32; dh in {32, 64, 128}; pointers
-// 16-byte aligned.  Three launches on ``stream``.
-RT_EXPORT int flash_attention_bwd_launch(const void* q, const void* k,
-                                         const void* v, const void* o,
-                                         const void* dout, const float* lse,
-                                         float* dd, void* dq, void* dk,
-                                         void* dv, int BH, int G, int S,
-                                         int dh, int bf16, int causal,
-                                         float scale, void* stream) {
+// BH = B * Hkv; every tensor contiguous fp32: q, o, dout, dq [BH, G, S,
+// dh], k, v, dk, dv [BH, S, dh]; lse and the scratch dd [BH, G, S]; dh
+// in {32, 64, 128}; pointers 16-byte aligned.  Three launches on
+// ``stream``.
+RT_EXPORT int flash_attention_bwd_launch(const float* q, const float* k,
+                                         const float* v, const float* o,
+                                         const float* dout, const float* lse,
+                                         float* dd, float* dq, float* dk,
+                                         float* dv, int BH, int G, int S,
+                                         int dh, int causal, float scale,
+                                         void* stream) {
   if (BH <= 0 || S <= 0) return static_cast<int>(cudaGetLastError());
   if (G <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      bf16 ? launch_dh<bf16_t>(dh, st, q, k, v, o, dout, lse, dd, dq, dk, dv,
-                               BH, G, S, causal, scale)
-           : launch_dh<float>(dh, st, q, k, v, o, dout, lse, dd, dq, dk, dv,
-                              BH, G, S, causal, scale);
+  cudaError_t err;
+  switch (dh) {
+    case 32: err = launch<32>(st, q, k, v, o, dout, lse, dd, dq, dk, dv, BH, G, S, causal, scale); break;
+    case 64: err = launch<64>(st, q, k, v, o, dout, lse, dd, dq, dk, dv, BH, G, S, causal, scale); break;
+    case 128: err = launch<128>(st, q, k, v, o, dout, lse, dd, dq, dk, dv, BH, G, S, causal, scale); break;
+    default: err = cudaErrorInvalidValue;
+  }
   return static_cast<int>(err);
 }

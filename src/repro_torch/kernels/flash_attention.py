@@ -23,11 +23,17 @@ The TPU's VMEM tile sizes (``qc``, ``kc``) only order the sums and are
 not taken here.  The plain version is ``ref.flash_attention_ref``;
 ``ops.flash_attention`` picks between it and this by device.
 
-``flash_attention_bwd`` is the gradient (``csrc/flash_attention_bwd.cu``,
-no TPU counterpart: the reference differentiates its attention by
-autodiff): three launches (D = rowsum(dO o), dK/dV over key tiles, dQ
-over query tiles), bf16 on the tensor cores through ``mma.sync``, fp32 on
-the CUDA cores.  Its plain version is ``ref.flash_attention_bwd_ref``.
+``flash_attention_bwd`` is the gradient (no TPU counterpart: the
+reference differentiates its attention by autodiff): three launches (D =
+rowsum(dO o), dK/dV over key tiles, dQ over query tiles), routed by
+dtype like the forward:
+
+* bf16 -> ``csrc/flash_attention_bwd_sm90.cu``: wgmma on TMA-fed tiles,
+  P^T, dS^T and dS kept in registers as wgmma's A operands (the dQ
+  launch takes the forward's grid: ``sm90_plan``'s W heads a CTA).
+* fp32 -> ``csrc/flash_attention_bwd.cu`` on the CUDA cores.
+
+Its plain version is ``ref.flash_attention_bwd_ref``.
 """
 from __future__ import annotations
 
@@ -41,8 +47,10 @@ _ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float]
          + [ctypes.c_void_p])
 _ARGS_SM90 = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float]
               + [ctypes.c_void_p])
-_ARGS_BWD = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float]
+_ARGS_BWD = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_float]
              + [ctypes.c_void_p])
+_ARGS_BWD_SM90 = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+                  + [ctypes.c_float] + [ctypes.c_void_p])
 HEAD_DIMS = (32, 64, 128)          # head dims the kernels are compiled for
 MAX_ROWS = 128                     # 16 x RT rows a block, RT <= 8
 SM90_BQ = 64                       # positions a warpgroup tile (wgmma's M)
@@ -142,7 +150,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The gradient of ``flash_attention``: q, o, do [B, Hkv, G, S, dh],
     k/v [B, Hkv, S, dh] (CUDA, contiguous, all fp32 or all bf16), lse
     [B, Hkv, G, S] fp32 (the forward's) -> (dq, dk, dv) in q's dtype.
-    One call is three launches (see the module note) and counts one."""
+    bf16 runs the wgmma kernels, fp32 the CUDA-core ones (see the module
+    note); one call is three launches and counts one."""
     name = "flash_attention_bwd"
     b, hkv, g, s, dh = _require_qkv(name, q, k, v, o=o, do=do)
     _build.require(name, q.device, lse=lse)
@@ -150,11 +159,20 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.require_shape(name, "lse", lse, (b, hkv, g, s))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dd = torch.empty_like(lse)                     # D = rowsum(dO o)
-    fn = _build.load(name, "flash_attention_bwd_launch", _ARGS_BWD)
-    err = fn(*(_build.ptr(t) for t in (q, k, v, o, do, lse, dd, dq, dk, dv)),
-             b * hkv, g, s, dh, int(q.dtype == torch.bfloat16), int(causal),
-             float(dh ** -0.5), _build.stream(q.device))
-    _build.check(name, err)
+    ptrs = [_build.ptr(t) for t in (q, k, v, o, do, lse, dd, dq, dk, dv)]
+    if q.dtype == torch.bfloat16:
+        lib = "flash_attention_bwd_sm90"
+        w = sm90_plan(g)[0]
+        fn = _build.load(lib, "flash_attention_bwd_sm90_launch",
+                         _ARGS_BWD_SM90)
+        err = fn(*ptrs, b * hkv, g, s, dh, w, int(causal),
+                 float(dh ** -0.5), _build.stream(q.device))
+    else:
+        lib = name
+        fn = _build.load(lib, "flash_attention_bwd_launch", _ARGS_BWD)
+        err = fn(*ptrs, b * hkv, g, s, dh, int(causal), float(dh ** -0.5),
+                 _build.stream(q.device))
+    _build.check(lib, err)
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 

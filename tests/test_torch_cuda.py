@@ -19,6 +19,7 @@ agree with the CPU's to 1e-4.
 """
 import ctypes
 import dataclasses
+import re
 import time
 
 import numpy as np
@@ -960,6 +961,9 @@ BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}   # x the grad's max abs
     (2, 8, 3, 512, 128),       # the llama train step's heads
     (1, 4, 1, 256, 64),        # the reduced config's
     (2, 1, 2, 100, 32),        # S not a multiple of any tile
+    (1, 2, 4, 1000, 128),      # S past the 128-key tile; G = 4 pads a
+                               # head group of the bf16 dQ launch
+    (1, 2, 1, 1000, 64),       # dh = 64 with G = 1
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
@@ -985,6 +989,45 @@ def test_flash_attention_bwd_matches_plain(card, b, hkv, g, s, dh, dtype,
         assert a.dtype == dtype and torch.equal(a, c)
         err = float((a.float() - w.float()).abs().max())
         assert err <= BWD_TOL[dtype] * float(w.float().abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_flash_attention_bwd_runs_its_route_only(card, dtype):
+    """A bf16 call runs only csrc/flash_attention_bwd_sm90.cu's three
+    kernels (D, dK/dV, dQ), an fp32 call only the CUDA-core instance's
+    (csrc/flash_attention_bwd.cu), by the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    q = randn((1, 2, 3, 200, 64), card, dtype, 41)
+    k, v = (randn((1, 2, 200, 64), card, dtype, sd) for sd in (42, 43))
+    o, lse = flash_attention(q, k, v, True, return_lse=True)
+    do = randn(o.shape, card, dtype, 44)
+    flash_mod.flash_attention_bwd(q, k, v, o, do, lse, True)
+    sm90 = "_sm90" if dtype == torch.bfloat16 else ""
+    want = {f"{kind}{sm90}_kernel" for kind in ("bwd_dot", "bwd_dkdv",
+                                               "bwd_dq")}
+    seen = set()
+    # late in a long process a session loses its first device events (a
+    # session around one call kept only its last two kernels), so each
+    # session profiles five calls: every event kept must be the route's,
+    # and the sessions must show all three kernels
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.05)
+            for _ in range(5):
+                flash_mod.flash_attention_bwd(q, k, v, o, do, lse, True)
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                m = re.search(r"bwd_\w+?_kernel", e.name)
+                assert m and m.group(0) in want, e.name
+                seen.add(m.group(0))
+        if seen == want:
+            break
+    assert seen == want, seen
 
 
 def test_flash_attention_bwd_refuses(card):

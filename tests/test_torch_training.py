@@ -176,6 +176,37 @@ def test_attention_lse_and_gradient_match_jax(g, causal):
                                  16, 32).grad_fn is None
 
 
+@pytest.mark.parametrize("g,s,dh", [
+    (4, 130, 64),       # S past a 128-key tile; G = 4 pads a head group
+    (1, 100, 128),      # one query head a KV head, dh = 128
+    (2, 65, 32),        # one position past a 64-row tile, dh = 32
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_gradient_matches_jax_at_tile_edges(g, s, dh, causal):
+    """The plain backward, which the card holds the bf16 kernel to, against
+    JAX's autodiff at the shapes where that kernel's tiles are ragged."""
+    rng = np.random.default_rng(100 * g + s + causal)
+    b, hkv = 1, 2
+    h = hkv * g
+    q = rng.standard_normal((b, s, h, dh)).astype(np.float32)
+    k = rng.standard_normal((b, s, hkv, dh)).astype(np.float32)
+    v = rng.standard_normal((b, s, hkv, dh)).astype(np.float32)
+    do = rng.standard_normal((b, s, h, dh)).astype(np.float32)
+    jdq, jdk, jdv = jax.jit(lambda *t: jax.vjp(  # one compile a shape
+        lambda q_, k_, v_: JL.flash_attention(
+            q_, k_, v_, JL.AttnDims(h, hkv, dh), causal=causal, q_chunk=s,
+            kv_chunk=s), *t[:3])[1](t[3]))(q, k, v, do)
+    qg = torch.from_numpy(q).reshape(b, s, hkv, g, dh).permute(0, 2, 3, 1, 4)
+    kt, vt = (torch.from_numpy(t).transpose(1, 2) for t in (k, v))
+    dog = torch.from_numpy(do).reshape(b, s, hkv, g, dh).permute(0, 2, 3, 1, 4)
+    o, lse = ops.flash_attention(qg, kt, vt, causal, s, s, return_lse=True)
+    dq, dk, dv = ref.flash_attention_bwd_ref(qg, kt, vt, o, dog, lse, causal)
+    assert rel_max(dq.permute(0, 3, 1, 2, 4).reshape(b, s, h, dh),
+                   jdq) <= ATT_TOL
+    assert rel_max(dk.transpose(1, 2), jdk) <= ATT_TOL
+    assert rel_max(dv.transpose(1, 2), jdv) <= ATT_TOL
+
+
 # --- the loss and its gradients ---------------------------------------------
 
 @pytest.mark.parametrize("case", ["mask", "padded_vocab"])

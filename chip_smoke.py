@@ -142,7 +142,32 @@ Phases:
      share of the bf16 peak, peak memory, the optimizer's share), then
      a step of two microbatches ([train]); ``make_decode_step``'s CUDA
      graph bit-equal to the eager decode step at three positions, full
-     and golden, with both walls and idle shares ([decode-graph]).
+     and golden, with both walls and idle shares ([decode-graph]);
+  11. the frontend and MoE archs (``arch_phases``): kernels 9 and 8 and
+     the backward against their plain versions at each new (G, dh) of
+     qwen2.5-32b, qwen2-7b, starcoder2-3b, internvl2-1b, musicgen-medium,
+     phi3.5-moe-42b-a6.6b and dbrx-132b, bf16 and fp32, causal, then
+     checked again and timed at the shape each path gives them: the
+     train steps' [2, Hkv, G, 4096, dh], the MoE prefills' B=1 and
+     qwen2.5-32b's [1, 8, 5, 16384, 128] ([arch-check], [time]); each
+     arch's reduced config on the card against the CPU from one set of
+     weights and batches (loss, aux, step 1's gradients 1e-4; prefill
+     and decode logits 1e-4; an MoE's expert choices and kept slots
+     equal; [arch-reference]); qwen2.5-32b at full width and depth, B=1,
+     S=16384: the prefill counted (64 launches of kernel 9), kernel 8 on
+     its layer-0 cache as a path of its own (the ops section: the decode
+     step runs the reference's plain partials), checked and timed at
+     that shape, the decode step's CUDA graph bit-equal to eager
+     at three positions, full and golden (64 of 128 blocks), KL and
+     top-1, walls, idle shares, peak memory ([arch-prefill]);
+     internvl2-1b (1024 vision embeddings) and musicgen-medium (512
+     audio frames) trained at full width and depth, B=2, S=4096, remat:
+     tokens/s, the share of the bf16 peak, peak memory, launches, no
+     library or plain attention kernel ([arch-train]); phi3.5-moe and
+     dbrx at full width cut to 2 layers: phi's train step, both
+     prefills (B=1, S=4096) with their dropped share and aux loss, one
+     MoE layer's route, dispatch, expert and combine products by the
+     profiler, the decode graph ([moe]).
 
 Any failure exits non-zero before the last line.  The last lines are the
 card's name and power limit, a JSON line of per-kernel numbers, and
@@ -597,7 +622,6 @@ TRAIN_B, TRAIN_S, TRAIN_TIMED = 2, 4096, 3
 BWD_WAS_MS = 6.6123     # the replaced mma.sync backward, same shape (PERF.md)
 BWD_PROFILED = 20
 BF16_PEAK = 989.4e12
-DECODE_POS = (LLM_S - 3, LLM_S - 2, LLM_S - 1)
 
 
 def top_ops(events, n: int = 8) -> tuple[float, str]:
@@ -609,6 +633,47 @@ def top_ops(events, n: int = 8) -> tuple[float, str]:
     busy = sum(by.values())
     return busy, "; ".join(f"{k} {v:.2f} ms ({v / busy:.3f})"
                            for k, v in by.most_common(n))
+
+
+def attn_bwd_check(randn, shape, dtype, causal=True,
+                   tag: str = "[train-check]"):
+    """The attention backward kernel against its plain version at
+    ``shape`` = (B, Hkv, G, S, dh) on inputs from ``randn(shape, dtype)``:
+    its three gradients within BWD_TOL of the plain gradient's max abs,
+    two calls bit-equal, kernel 9's row lse within LSE_TOL, kernel 9 with
+    the lse bit-equal to kernel 9 without.  Returns the largest error
+    and the inputs (q, k, v, o, do, lse)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    b, hkv, g, s, dh = shape
+    q = randn((b, hkv, g, s, dh), dtype)
+    k, v = (randn((b, hkv, s, dh), dtype) for _ in range(2))
+    o, lse = flash_attention(q, k, v, causal, return_lse=True)
+    o_plain, lse_plain = ref.flash_attention_ref(q, k, v, causal, True)
+    lse_err = float((lse - lse_plain).abs().max())
+    check(torch.equal(o, flash_attention(q, k, v, causal)),
+          f"flash_attention {shape} {dtype}: output with lse differs")
+    del o_plain, lse_plain
+    do = randn(o.shape, dtype)
+    got = flash_attention_bwd(q, k, v, o, do, lse, causal)
+    again = flash_attention_bwd(q, k, v, o, do, lse, causal)
+    same = all(torch.equal(a, c) for a, c in zip(got, again))
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal)
+    errs = [float((a.float() - w.float()).abs().max())
+            / float(w.float().abs().max()) for a, w in zip(got, want)]
+    del want, again
+    check(max(errs) <= BWD_TOL[dtype] and same and lse_err <= LSE_TOL,
+          f"flash_attention_bwd {shape} {dtype} causal={causal}: errors "
+          f"(dq, dk, dv) / max abs {errs} > {BWD_TOL[dtype]}, bit-equal "
+          f"rerun {same}, lse max abs {lse_err:.3g}")
+    print(f"{tag} flash_attention_bwd {list(shape)} "
+          f"{str(dtype)[6:]} causal={causal}: max abs error / max abs of "
+          f"the plain grad: dq {errs[0]:.3g}, dk {errs[1]:.3g}, dv "
+          f"{errs[2]:.3g} (tolerance {BWD_TOL[dtype]}); two calls "
+          f"bit-equal; kernel 9's lse max abs {lse_err:.3g} against the "
+          f"plain version's (tolerance {LSE_TOL})")
+    return max(errs), (q, k, v, o, do, lse)
 
 
 def training_phases(kernels: dict) -> tuple[dict, dict]:
@@ -644,34 +709,7 @@ def training_phases(kernels: dict) -> tuple[dict, dict]:
 
     # -- [train-check] the backward against its plain version -----------------
     def bwd_check(shape, dtype, causal=True):
-        b, hkv, g, s, dh = shape
-        q = randn((b, hkv, g, s, dh), dtype)
-        k, v = (randn((b, hkv, s, dh), dtype) for _ in range(2))
-        o, lse = flash_attention(q, k, v, causal, return_lse=True)
-        o_plain, lse_plain = ref.flash_attention_ref(q, k, v, causal, True)
-        lse_err = float((lse - lse_plain).abs().max())
-        check(torch.equal(o, flash_attention(q, k, v, causal)),
-              f"flash_attention {shape} {dtype}: output with lse differs")
-        del o_plain, lse_plain
-        do = randn(o.shape, dtype)
-        got = flash_attention_bwd(q, k, v, o, do, lse, causal)
-        again = flash_attention_bwd(q, k, v, o, do, lse, causal)
-        same = all(torch.equal(a, c) for a, c in zip(got, again))
-        want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal)
-        errs = [float((a.float() - w.float()).abs().max())
-                / float(w.float().abs().max()) for a, w in zip(got, want)]
-        del want, again
-        check(max(errs) <= BWD_TOL[dtype] and same and lse_err <= LSE_TOL,
-              f"flash_attention_bwd {shape} {dtype} causal={causal}: errors "
-              f"(dq, dk, dv) / max abs {errs} > {BWD_TOL[dtype]}, bit-equal "
-              f"rerun {same}, lse max abs {lse_err:.3g}")
-        print(f"[train-check] flash_attention_bwd {list(shape)} "
-              f"{str(dtype)[6:]} causal={causal}: max abs error / max abs of "
-              f"the plain grad: dq {errs[0]:.3g}, dk {errs[1]:.3g}, dv "
-              f"{errs[2]:.3g} (tolerance {BWD_TOL[dtype]}); two calls "
-              f"bit-equal; kernel 9's lse max abs {lse_err:.3g} against the "
-              f"plain version's (tolerance {LSE_TOL})")
-        return max(errs), (q, k, v, o, do, lse)
+        return attn_bwd_check(randn, shape, dtype, causal)
 
     full = (LLM_B, HKV, G_Q, LLM_S, DH)
     reduced = get_config("llama3.2-3b").reduced()
@@ -843,17 +881,12 @@ def training_phases(kernels: dict) -> tuple[dict, dict]:
     busy, tops = top_ops(ev)
     # the step's attention is kernel 9 and the backward kernel only: no
     # library attention and no softmax of a plain (materialized) version
-    ours = ("flash_sm90_kernel", "bwd_dkdv_sm90_kernel", "bwd_dq_sm90_kernel",
-            "bwd_dot_sm90_kernel")
-    foreign = sorted({launch_name(e.name) for e in ev if any(
-        f in e.name.lower() for f in ("fmha", "flash", "softmax", "sdpa",
-                                      "attention"))
-        and not any(o in e.name for o in ours)})
+    foreign = foreign_attention(ev)
     check(not foreign, f"train: library or plain attention kernels in the "
           f"step: {foreign}")
     bwd_ms, bwd_n = Counter(), Counter()
     for e in ev:
-        if launch_name(e.name) in ours[1:]:
+        if launch_name(e.name) in OURS[1:]:
             bwd_ms[launch_name(e.name)] += e.time_range.elapsed_us() / 1e3
             bwd_n[launch_name(e.name)] += 1
     grads = step_lib.make_loss_step(cfg)(params, batches[0])[1]
@@ -925,47 +958,894 @@ def training_phases(kernels: dict) -> tuple[dict, dict]:
                          generator=gen)
     with torch.no_grad():
         _, cache0 = T.prefill(cfg, params, toks)
-    for kind, c in (("full", dataclasses.replace(cfg, attn_kind_decode="full")),
-                    (f"golden kb={nb // 8}", dataclasses.replace(
-                        cfg, attn_kind_decode="golden",
-                        golden_blocks=nb // 8))):
-        eager_c, graph_c = (tree_map(torch.clone, cache0) for _ in range(2))
-        step = step_lib.make_decode_step(c)
-        tok = toks[:, -1]
-        with torch.no_grad():
-            first, _ = step(params, graph_c, tok, DECODE_POS[0] - 1)
-            T.decode_step(c, params, eager_c, tok, DECODE_POS[0] - 1)
-            tok = first.argmax(-1)
-            equal = True
-            for pos in DECODE_POS:
-                want_l, _ = T.decode_step(c, params, eager_c, tok, pos)
-                got_l, _ = step(params, graph_c, tok, pos)
-                equal &= torch.equal(want_l, got_l)
-                tok = want_l.argmax(-1)
-            equal &= all(torch.equal(a, b) for (_, a), (_, b) in zip(
-                tree_leaves(eager_c), tree_leaves(graph_c)))
-        check(equal and len(step.graphs) == 1,
-              f"decode-graph {kind}: replay differs from eager, or "
-              f"{len(step.graphs)} graphs")
-        pos = DECODE_POS[-1]
-        with torch.no_grad():
-            eager = lambda: T.decode_step(c, params, eager_c, tok, pos)  # noqa: E731
-            graph = lambda: step(params, graph_c, tok, pos)  # noqa: E731
-            w_e, w_g = wall_ms(eager, 10), wall_ms(graph, 10)
-            b_e, _ = device_kernels(eager)
-            b_g, _ = device_kernels(graph)
-        print(f"[decode-graph] {kind}, {cfg.name} full width, B={LLM_B}, "
-              f"S={LLM_S}: replay bit-equal to the eager decode_step at "
-              f"positions {list(DECODE_POS)} (logits and cache), 1 graph; "
-              f"eager {w_e:.3f} ms a token (idle share {1 - b_e / w_e:.3f}),"
-              f" graph {w_g:.3f} ms a token (idle share {1 - b_g / w_g:.3f})"
-              f", device busy {b_e:.3f} / {b_g:.3f} ms")
-        del eager_c, graph_c, step
+    decode_graph_check(dataclasses.replace(cfg, golden_blocks=nb // 8),
+                       params, cache0, toks[:, -1],
+                       f"[decode-graph] {cfg.name} full width, B={LLM_B}, "
+                       f"S={LLM_S},")
     del params, cache0
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[train] phases {time.perf_counter() - t_phase:.1f} s")
     return {"flash_attention_bwd": res}, counts
+
+
+# The seven archs of the frontend and MoE families.  Each brings a
+# (G, dh) pair of kernels 8, 9 and the backward that the llama phases do
+# not run; [arch-check] holds them at every pair and times them at the
+# pair's train_4k shape ([2, Hkv, G, 4096, dh]).  [arch-prefill] runs
+# qwen2.5-32b at full width and depth (61.0 GiB of bf16 weights) over
+# one 16384-token sequence; [arch-train] trains the two frontend archs
+# at full width and depth; [moe] runs the two MoE archs at full width
+# with their depth cut to MOE_LAYERS (their weights and AdamW state do
+# not fit one card: ROADMAP Queue 1's table).
+ARCH_NEW = ("qwen2.5-32b", "qwen2-7b", "starcoder2-3b", "internvl2-1b",
+            "musicgen-medium", "phi3.5-moe-42b-a6.6b", "dbrx-132b")
+ARCH_CHECK_S = 1000            # not a multiple of any tile
+ARCH_TIME_B, ARCH_TIME_S = 2, 4096
+ARCH_REF_B, ARCH_REF_S = 2, 256
+ARCH_REF_TOL = 1e-4            # loss, aux, step 1's gradients (fp32)
+PREFILL_ARCH, PREFILL_S = "qwen2.5-32b", 16384
+TRAIN_ARCHS, ARCH_TRAIN_TIMED = ("internvl2-1b", "musicgen-medium"), 3
+MOE_ARCHS, MOE_LAYERS, MOE_S, MOE_TIMED = (
+    ("phi3.5-moe-42b-a6.6b", "dbrx-132b"), 2, 4096, 2)
+MOE_PROFILED = 10
+# kernels of the attention path: kernel 9 (bf16 route) and the backward
+OURS = ("flash_sm90_kernel", "bwd_dkdv_sm90_kernel", "bwd_dq_sm90_kernel",
+        "bwd_dot_sm90_kernel")
+
+
+def foreign_attention(events, softmax_ok: int = 0) -> list[str]:
+    """The library or plain attention kernels among ``events``: any
+    kernel named for attention or softmax that is not ours.  An MoE's
+    router takes a softmax over its experts: ``softmax_ok`` softmax
+    launches are its and allowed."""
+    names = [launch_name(e.name) for e in events]
+    soft = [n for n in names if "softmax" in n.lower()]
+    foreign = {n for n in names if any(f in n.lower() for f in (
+        "fmha", "flash", "sdpa", "attention")) and n not in OURS}
+    if len(soft) > softmax_ok:
+        foreign |= set(soft)
+    return sorted(foreign)
+
+
+@contextlib.contextmanager
+def routings():
+    """Wrap ``moe.route`` while the block runs: yields a list that each
+    call appends ``{"experts": [G, T, k], "keep": [G, T, k] bool, "cap"}``
+    to, ``keep`` False where a choice was dropped for capacity (read from
+    the dispatch tensor the call returns)."""
+    from repro_torch.models import moe
+    seen, route = [], moe.route
+
+    def spy(p, xg, e, k, cap):
+        out = route(p, xg, e, k, cap)
+        idx, dispatch = out[1], out[2]
+        seen.append({"experts": idx.detach(), "cap": cap,
+                     "keep": torch.gather(dispatch.detach().sum(-1) != 0,
+                                          -1, idx)})
+        return out
+    moe.route = spy
+    try:
+        yield seen
+    finally:
+        moe.route = route
+
+
+def arch_shape(cfg) -> tuple[int, int, int]:
+    """(Hkv, G, dh) of a config's attention."""
+    return cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, cfg.hdim
+
+
+PLAIN_SCORES_BYTES = 8 << 30   # the plain attention's fp32 scores a chunk
+
+
+def by_kv_heads(fn, *args):
+    """``fn`` (a plain attention function of [B, Hkv, ...] tensors) one
+    chunk of KV heads at a time, so that its fp32 scores [B, h, G, S, S]
+    stay within PLAIN_SCORES_BYTES; the chunks' results concatenated."""
+    b, hkv, g, s, _ = args[0].shape
+    hc = max(1, min(hkv, PLAIN_SCORES_BYTES // (4 * b * g * s * s)))
+    outs = [fn(*(a[:, h:h + hc] for a in args)) for h in range(0, hkv, hc)]
+    if isinstance(outs[0], torch.Tensor):
+        return torch.cat(outs, 1)
+    return tuple(torch.cat(parts, 1) for parts in zip(*outs))
+
+
+def print_timed(name: str, arch: str, hkv: int, g: int, dh: int,
+                where: str, r: dict, smi: str) -> None:
+    print(f"[time] {name} bf16 {arch} (Hkv={hkv}, G={g}, dh={dh}, {where}): "
+          f"kernel {r['ms']:.4f} ms ({r['bound_ms'] / r['ms']:.3f} of the "
+          f"bound; {r['library_ms'] / r['ms']:.3f}x the library's speed), "
+          f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+          f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms; max "
+          f"abs {r['max_abs_err']:.3g} against the plain version at this "
+          f"shape; {smi}")
+
+
+def golden_timed(q, k, v, idx, valid, bs: int, err: float) -> dict:
+    """Kernel 8 on q [B, Hkv, G, dh] over k/v [B, Hkv, S, dh] and these
+    blocks, bf16, timed against its bound (the valid blocks' keys and
+    values read once), its plain version and SDPA with the blocks' mask;
+    ``err`` is its error measured at this shape."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.golden_attention import golden_attention_decode
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b, hkv, g, dh = q.shape
+    nvalid = int((valid == 1).sum())
+    blocks = torch.zeros((b, hkv, k.shape[2] // bs), dtype=torch.bool,
+                         device="cuda")
+    blocks.scatter_(2, idx.long(), valid == 1)
+    mask = blocks.repeat_interleave(bs, -1).repeat_interleave(
+        g, 1)[:, :, None, :]
+    qh = q.reshape(b, hkv * g, 1, dh)
+    r = dict(ms=time_ms(lambda: golden_attention_decode(
+        q, k, v, idx, valid, bs)),
+        plain_ms=time_ms(lambda: ref.golden_attention_decode_ref(
+            q, k, v, idx, valid, bs), 3),
+        library_ms=time_ms(lambda: sdpa(qh, k, v, attn_mask=mask,
+                                        enable_gqa=True), 3),
+        max_abs_err=err)
+    r["bound_ms"], r["bound_by"] = bound(
+        2 * nvalid * bs * dh * 2 + 2 * 2 * q.numel() + 8 * idx.numel(),
+        4 * g * dh * bs * nvalid, BF16_FLOPS_PER_S)
+    return r
+
+
+def attn_at(randn, arch: str, hkv: int, g: int, dh: int, b: int, s: int,
+            bwd: bool, smi: str) -> dict:
+    """Kernel 9, and with ``bwd`` the attention backward, at a path's own
+    shape q [b, Hkv, G, s, dh], bf16, causal: each held against its plain
+    version on the same inputs (the output within ATT_TOL, each gradient
+    within BWD_TOL of the plain gradient's max abs), then timed against
+    its bound, the plain version (run a chunk of KV heads at a time where
+    the scores would not fit: ``by_kv_heads``) and one library call.
+    Returns {kernel: result entry}, ``max_abs_err`` measured here (the
+    backward's: relative to the plain gradient's max abs, as in
+    ``attn_bwd_check``)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bf16 = torch.bfloat16
+    where = f"B={b}, S={s}, causal"
+    q = randn((b, hkv, g, s, dh), bf16)
+    k, v = (randn((b, hkv, s, dh), bf16) for _ in range(2))
+    qh = q.reshape(b, hkv * g, s, dh)
+
+    def plain():
+        return by_kv_heads(lambda *a: ref.flash_attention_ref(*a, True),
+                           q, k, v)
+    o, lse = flash_attention(q, k, v, True, return_lse=True)
+    err = float((o.float() - plain().float()).abs().max())
+    check(err <= ATT_TOL[bf16], f"arch-check {arch} flash_attention "
+          f"[{b}, {hkv}, {g}, {s}, {dh}] bf16: max abs {err:.3g} against its "
+          f"plain version (tolerance {ATT_TOL[bf16]})")
+    flops = 4 * dh * b * hkv * g * s * (s + 1) / 2
+    r = dict(ms=time_ms(lambda: flash_attention(q, k, v, True)),
+             plain_ms=time_ms(plain, 3),
+             library_ms=time_ms(lambda: sdpa(qh, k, v, is_causal=True,
+                                             enable_gqa=True)),
+             max_abs_err=err)
+    r["bound_ms"], r["bound_by"] = bound(
+        2 * (2 * q.numel() + 2 * k.numel()), flops, BF16_FLOPS_PER_S)
+    print_timed("flash_attention", arch, hkv, g, dh, where, r, smi)
+    out = {"flash_attention": r}
+    if bwd:
+        do = randn(o.shape, bf16)
+
+        def plain_bwd():
+            return by_kv_heads(lambda *a: ref.flash_attention_bwd_ref(
+                *a, True), q, k, v, o, do, lse)
+        got = flash_attention_bwd(q, k, v, o, do, lse, True)
+        errs = [float((a.float() - w.float()).abs().max())
+                / float(w.float().abs().max())
+                for a, w in zip(got, plain_bwd())]
+        del got
+        check(max(errs) <= BWD_TOL[bf16], f"arch-check {arch} "
+              f"flash_attention_bwd [{b}, {hkv}, {g}, {s}, {dh}] bf16: "
+              f"errors (dq, dk, dv) / max abs {errs} > {BWD_TOL[bf16]}")
+        ql, kl, vl = (t.detach().clone().requires_grad_() for t in (qh, k, v))
+        out_l = sdpa(ql, kl, vl, is_causal=True, enable_gqa=True)
+        doh = do.reshape(qh.shape)
+        bflops = 10 * dh * b * hkv * g * s * (s + 1) / 2
+        rb = dict(ms=time_ms(lambda: flash_attention_bwd(q, k, v, o, do, lse,
+                                                         True)),
+                  plain_ms=time_ms(plain_bwd, 3),
+                  library_ms=time_ms(lambda: torch.autograd.grad(
+                      out_l, (ql, kl, vl), doh, retain_graph=True)),
+                  max_abs_err=max(errs))
+        rb["bound_ms"], rb["bound_by"] = bound(
+            2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel(), bflops,
+            BF16_FLOPS_PER_S)
+        print_timed("flash_attention_bwd", arch, hkv, g, dh, where
+                    + f"; dq, dk, dv errors / max abs {[f'{e:.3g}' for e in errs]}"
+                    f" (tolerance {BWD_TOL[bf16]})", rb, smi)
+        out["flash_attention_bwd"] = rb
+        del do, ql, kl, vl, out_l, doh
+    del q, k, v, qh, o, lse
+    torch.cuda.empty_cache()
+    return out
+
+
+def arch_check(smi: str) -> dict:
+    """[arch-check]: kernels 9 and 8 and the backward against their plain
+    versions at every new (G, dh), bf16 and fp32, causal; then, in bf16,
+    kernel 9 and the backward checked again and timed at the pair's
+    train_4k shape ([2, Hkv, G, 4096, dh]), kernel 9 at the MoE prefills'
+    [1, Hkv, G, 4096, dh] and qwen2.5-32b's [1, 8, 5, 16384, 128] (before
+    its weights are drawn), and kernel 8 at [2, Hkv, G, dh] over 4096
+    keys, each against its bound, plain version and one library call.
+    Returns {arch: {shape key: {kernel: result entry}}} with the shape
+    keys "train_4k", "prefill_4k" and "prefill_16k"."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.golden_attention import (
+        golden_attention_decode, select_golden_blocks)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    f32, bf16 = torch.float32, torch.bfloat16
+    t_phase = time.perf_counter()
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def golden_inputs(hkv, g, dh, dtype, b=ARCH_TIME_B, s=ARCH_TIME_S,
+                      bs=128, kb=16):
+        q = randn((b, hkv, g, dh), dtype)
+        k, v = (randn((b, hkv, s, dh), dtype) for _ in range(2))
+        idx, _ = select_golden_blocks(q.float(), k, kb, bs)
+        valid = (torch.rand(idx.shape, generator=gen, device="cuda")
+                 < 0.75).int()
+        valid[0, 0, 0] = 1
+        valid[-1, -1] = 0                          # a (b, h) with none
+        return q, k, v, idx, valid, bs
+
+    out = {}
+    for arch in ARCH_NEW:
+        cfg = get_config(arch)
+        hkv, g, dh = arch_shape(cfg)
+        err8 = 0.0
+        for dtype in (bf16, f32):
+            shape = (1, hkv, g, ARCH_CHECK_S, dh)
+            q = randn(shape, dtype)
+            k, v = (randn((1, hkv, ARCH_CHECK_S, dh), dtype) for _ in range(2))
+            got = flash_attention(q, k, v, True)
+            again = flash_attention(q, k, v, True)
+            want = ref.flash_attention_ref(q, k, v, True)
+            err = float((got.float() - want.float()).abs().max())
+            check(err <= ATT_TOL[dtype] and torch.equal(got, again),
+                  f"arch-check {arch} flash_attention {shape} {dtype}: max "
+                  f"abs {err:.3g}, rerun bit-equal {torch.equal(got, again)}")
+            print(f"[arch-check] {arch} (G={g}, dh={dh}) flash_attention "
+                  f"{list(shape)} {str(dtype)[6:]} causal: max abs {err:.3g}"
+                  f" against its plain version (tolerance {ATT_TOL[dtype]}); "
+                  f"two calls bit-equal")
+            del q, k, v, got, again, want
+            attn_bwd_check(randn, shape, dtype, True, "[arch-check] "
+                           f"{arch} (G={g}, dh={dh})")
+            q, k, v, idx, valid, bs = golden_inputs(hkv, g, dh, dtype)
+            got = golden_attention_decode(q, k, v, idx, valid, bs)
+            want = ref.golden_attention_decode_ref(q, k, v, idx, valid, bs)
+            err = float((got.float() - want.float()).abs().max())
+            zero = not bool(got[-1, -1].any())
+            check(err <= ATT_TOL[dtype] and zero,
+                  f"arch-check {arch} golden_attention_decode {dtype}: max "
+                  f"abs {err:.3g}, no-valid (b, h) zero {zero}")
+            err8 = max(err8, err)
+            print(f"[arch-check] {arch} (G={g}, dh={dh}) "
+                  f"golden_attention_decode [{ARCH_TIME_B}, {hkv}, {g}, {dh}] "
+                  f"over S={ARCH_TIME_S}, bs={bs}, kb={idx.shape[-1]} "
+                  f"({int((valid == 1).sum())} of {valid.numel()} valid) "
+                  f"{str(dtype)[6:]}: max abs {err:.3g} (tolerance "
+                  f"{ATT_TOL[dtype]}); the (b, h) with no valid block gives 0")
+            del q, k, v, got, want
+
+        # -- at each path's own shape, bf16: checked, then timed ------------
+        res = {"train_4k": attn_at(randn, arch, hkv, g, dh, ARCH_TIME_B,
+                                   ARCH_TIME_S, True, smi)}
+        if arch in MOE_ARCHS:
+            res["prefill_4k"] = attn_at(randn, arch, hkv, g, dh, 1, MOE_S,
+                                        False, smi)
+        if arch == PREFILL_ARCH:
+            res["prefill_16k"] = attn_at(randn, arch, hkv, g, dh, 1,
+                                         PREFILL_S, False, smi)
+        q, k, v, idx, valid, bs = golden_inputs(hkv, g, dh, bf16)
+        rg = golden_timed(q, k, v, idx, valid, bs, err8)
+        del q, k, v, idx, valid
+        torch.cuda.empty_cache()
+        print_timed("golden_attention_decode", arch, hkv, g, dh,
+                    f"B={ARCH_TIME_B}, S={ARCH_TIME_S}, bs=128, kb=16", rg,
+                    smi)
+        res["train_4k"]["golden_attention_decode"] = rg
+        out[arch] = res
+    print(f"[arch-check] phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def arch_reference(kernels: dict, smi: str) -> None:
+    """[arch-reference]: each of the seven archs' reduced config (fp32)
+    on the card against the CPU from one set of weights and batches: the
+    loss, its aux term and step 1's gradients within ARCH_REF_TOL, the
+    prefill and decode logits within LLM_LOGIT_TOL, and an MoE's expert
+    choices and kept slots equal in every layer of every pass."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as step_lib
+    from repro_torch.models import transformer as T
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.models.module import init_params, tree_leaves, tree_map
+    t_phase = time.perf_counter()
+    for arch in ARCH_NEW:
+        rcfg = get_config(arch).reduced()
+        np_params = tree_map(lambda t: t.numpy(), init_params(
+            T.model_specs(rcfg), torch.Generator().manual_seed(0)))
+        rng = np.random.default_rng(7)
+        f = rcfg.frontend_tokens if rcfg.frontend else 0
+        toks = torch.from_numpy(rng.integers(
+            0, rcfg.vocab_size, (ARCH_REF_B, ARCH_REF_S - f + 1)))
+        batch = {"tokens": toks[:, :-1].contiguous(),
+                 "labels": toks[:, 1:].contiguous()}
+        if f:
+            batch["embeds"] = torch.from_numpy((0.02 * rng.standard_normal(
+                (ARCH_REF_B, f, rcfg.d_model))).astype(np.float32))
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            p = params_from_numpy(rcfg, np_params, device=dev)
+            bt = {k: t.to(dev) for k, t in batch.items()}
+            for fn in kernels.values():
+                fn.launches = 0
+            with routings() as rec:
+                loss, grads = step_lib.make_loss_step(rcfg)(p, bt)
+                with torch.no_grad():
+                    _, metrics = T.loss_fn(rcfg, p, bt)
+                    pre, cache = T.prefill(rcfg, p, bt["tokens"],
+                                           bt.get("embeds"))
+                    dec, _ = T.decode_step(rcfg, p, cache, bt["tokens"][:, -1],
+                                           ARCH_REF_S - 1)
+            runs[dev] = dict(
+                loss=float(loss), aux=float(metrics["aux"]),
+                grads={k: t.cpu() for k, t in tree_leaves(grads)},
+                prefill=pre.cpu(), decode=dec.cpu(),
+                routes=[(r["experts"].cpu(), r["keep"].cpu()) for r in rec],
+                counts={n: fn.launches for n, fn in kernels.items()})
+        c, h = runs["cuda"], runs["cpu"]
+        grad_err = max(float((c["grads"][k] - h["grads"][k]).abs().max())
+                       / max(float(h["grads"][k].abs().max()), 1e-30)
+                       for k in h["grads"])
+        logit_err = max(float((c[k] - h[k]).abs().max())
+                        for k in ("prefill", "decode"))
+        same_routes = len(c["routes"]) == len(h["routes"]) and all(
+            torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            for a, b in zip(c["routes"], h["routes"]))
+        n_moe = rcfg.num_layers * 4 if rcfg.num_experts else 0
+        layers = rcfg.num_layers
+        want = {n: 0 for n in kernels}
+        want.update(flash_attention=3 * layers, flash_attention_bwd=layers)
+        check(abs(c["loss"] - h["loss"]) <= ARCH_REF_TOL
+              and abs(c["aux"] - h["aux"]) <= ARCH_REF_TOL
+              and grad_err <= ARCH_REF_TOL and logit_err <= LLM_LOGIT_TOL
+              and same_routes and len(c["routes"]) == n_moe
+              and c["counts"] == want,
+              f"arch-reference {arch}: loss {c['loss']} vs {h['loss']}, aux "
+              f"{c['aux']} vs {h['aux']}, grads {grad_err:.3g}, logits "
+              f"{logit_err:.3g}, routes equal {same_routes} "
+              f"({len(c['routes'])} vs {len(h['routes'])}), launches "
+              f"{c['counts']}")
+        drop = (sum(int((~kp).sum()) for _, kp in c["routes"])
+                / max(sum(kp.numel() for _, kp in c["routes"]), 1))
+        print(f"[arch-reference] {rcfg.name} ({layers} layers, d_model "
+              f"{rcfg.d_model}, {rcfg.num_heads}/{rcfg.num_kv_heads} heads, "
+              f"fp32" + (f", {rcfg.num_experts} experts top-"
+                         f"{rcfg.experts_per_token}" if rcfg.num_experts
+                         else "") + (f", {f} frontend embeddings" if f else "")
+              + f"), B={ARCH_REF_B}, S={ARCH_REF_S}, card against CPU from the"
+              f" same weights and batch: loss {c['loss']:.6f} (difference "
+              f"{abs(c['loss'] - h['loss']):.3g}), aux {c['aux']:.6f} "
+              f"(difference {abs(c['aux'] - h['aux']):.3g}), step 1's "
+              f"gradients max abs difference / leaf max abs {grad_err:.3g} "
+              f"(tolerance {ARCH_REF_TOL}); prefill and decode logits max abs "
+              f"{logit_err:.3g} (tolerance {LLM_LOGIT_TOL})"
+              + (f"; expert choices and kept slots equal in all "
+                 f"{len(c['routes'])} routings (loss, its no-grad rerun, "
+                 f"prefill, decode), {drop:.3f} of the choices dropped"
+                 if n_moe else "") + f"; card launches flash_attention "
+              f"{c['counts']['flash_attention']}, flash_attention_bwd "
+              f"{c['counts']['flash_attention_bwd']}; {smi}")
+        del runs
+    print(f"[arch-reference] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def decode_graph_check(cfg, params, cache, tok, label: str) -> dict:
+    """``make_decode_step``'s CUDA graph against the eager decode step at
+    the last three positions of ``cache`` (the graph decodes into
+    ``cache``, the eager step into a copy), full attention then golden
+    (the config's kb): logits at every position and both caches at the
+    end bit-equal, one graph a kind; walls and idle shares of both, and
+    golden against full at the last position (KL, top-1)."""
+    from repro_torch.launch import steps as step_lib
+    from repro_torch.models import transformer as T
+    from repro_torch.models.module import tree_leaves, tree_map
+    seq = cache["l0"]["k"].shape[3]
+    nb = seq // cfg.golden_block_size
+    positions = (seq - 3, seq - 2, seq - 1)
+    kb = min(cfg.golden_blocks, nb)
+    eager_c = tree_map(torch.clone, cache)
+    out, last = {}, {}
+    for kind in ("full", "golden"):
+        c = dataclasses.replace(cfg, attn_kind_decode=kind)
+        step = step_lib.make_decode_step(c)
+        t = tok
+        with torch.no_grad():
+            step(params, cache, t, positions[0] - 1)
+            T.decode_step(c, params, eager_c, t, positions[0] - 1)
+            equal = True
+            for pos in positions:
+                want_l, _ = T.decode_step(c, params, eager_c, t, pos)
+                got_l, _ = step(params, cache, t, pos)
+                equal &= torch.equal(want_l, got_l)
+                t = want_l.argmax(-1)
+            equal &= all(torch.equal(a, b) for (_, a), (_, b) in zip(
+                tree_leaves(eager_c), tree_leaves(cache)))
+        check(equal and len(step.graphs) == 1,
+              f"{label} decode graph {kind}: replay differs from eager, or "
+              f"{len(step.graphs)} graphs")
+        pos = positions[-1]
+        with torch.no_grad():
+            eager = lambda: T.decode_step(c, params, eager_c, t, pos)  # noqa: E731
+            graph = lambda: step(params, cache, t, pos)  # noqa: E731
+            w_e, w_g = wall_ms(eager, 5), wall_ms(graph, 10)
+            b_e, _ = device_kernels(eager)
+            b_g, tops = top_ops(device_events(graph), 6)
+        out[kind] = dict(eager_ms=w_e, graph_ms=w_g,
+                         eager_idle=1 - b_e / w_e, graph_idle=1 - b_g / w_g)
+        print(f"{label} decode graph ({kind}"
+              + (f", kb={kb} of {nb} blocks" if kind ==
+                 "golden" else "") + f"): replay bit-equal to the eager "
+              f"decode_step at positions {list(positions)} (logits and "
+              f"cache), 1 graph; eager {w_e:.3f} ms a token (idle share "
+              f"{1 - b_e / w_e:.3f}), graph {w_g:.3f} ms (idle share "
+              f"{1 - b_g / w_g:.3f}), device busy {b_e:.3f} / {b_g:.3f} ms;"
+              f" the replay's top device operations: {tops}")
+        del step
+    # golden against full from one cache state: each call writes its own
+    # key and value at pos before it reads, and reads positions <= pos
+    with torch.no_grad():
+        for kind in ("full", "golden"):
+            last[kind] = T.decode_step(dataclasses.replace(
+                cfg, attn_kind_decode=kind), params, eager_c, tok,
+                positions[-1])[0]
+    pf = torch.softmax(last["full"].float(), -1)
+    lg = torch.log_softmax(last["golden"].float(), -1)
+    kl = float((pf * (torch.log(pf + 1e-20) - lg)).sum(-1).mean())
+    top1 = float((last["full"].argmax(-1) == last["golden"].argmax(-1))
+                 .float().mean())
+    out.update(kl=kl, top1=top1)
+    print(f"{label} golden (kb={kb} of {nb} blocks) against "
+          f"full decode at position {positions[-1]}: KL {kl:.5f}, top-1 "
+          f"agreement {top1:.3f} (B={tok.shape[0]})")
+    del eager_c
+    return out
+
+
+def arch_prefill(kernels: dict, smi: str) -> dict:
+    """[arch-prefill]: qwen2.5-32b at full width and depth, bf16, random
+    weights drawn on the card: a prefill at B=1, S=16384 with every count
+    set to 0 just before and read just after (kernel 9 once a layer);
+    then, as a path of its own with its own counts, kernel 8 on the
+    layer-0 cache (the golden-decode entry point's ops section: the
+    decode step keeps the reference's plain partials), checked and timed
+    at that shape; the decode step's CUDA graph at three positions, full
+    and golden (64 of 128 blocks); walls, idle shares and peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import steps as step_lib
+    from repro_torch.models.module import init_params
+    from repro_torch.models import transformer as T
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    cfg = get_config(PREFILL_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_params(T.model_specs(cfg),
+                         torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    w_bytes = torch.cuda.memory_allocated() - held
+    init_peak = torch.cuda.max_memory_allocated() - held
+    toks = torch.randint(0, cfg.vocab_size, (1, PREFILL_S), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(1))
+    prefill = step_lib.make_prefill_step(cfg)
+    hkv, g, dh = arch_shape(cfg)
+    nb = PREFILL_S // cfg.golden_block_size
+
+    bs = cfg.golden_block_size
+
+    def ops_section(cache) -> tuple[dict, dict]:
+        """Kernel 8 on the layer-0 cache with every count set to 0 just
+        before: (its counts, its result entry at this shape)."""
+        kc, vc = cache["l0"]["k"][0], cache["l0"]["v"][0]
+        qh = torch.randn((1, hkv, g, dh), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(2)).to(kc.dtype)
+        for fn in kernels.values():
+            fn.launches = 0
+        blk, valid = ops.select_golden_blocks(qh, kc, cfg.golden_blocks, bs)
+        o = ops.golden_attention_decode(qh, kc, vc, blk, valid, bs)
+        counts = {n: fn.launches for n, fn in kernels.items()}
+        want = ref.golden_attention_decode_ref(qh, kc, vc, blk, valid, bs)
+        err = float((o.float() - want.float()).abs().max())
+        check(err <= ATT_TOL[torch.bfloat16], f"arch-prefill kernel 8 on "
+              f"the layer-0 cache: max abs {err:.3g} against its plain "
+              f"version")
+        r = golden_timed(qh, kc, vc, blk, valid, bs, err)
+        print_timed("golden_attention_decode", cfg.name, hkv, g, dh,
+                    f"B=1, S={PREFILL_S}, bs={bs}, kb={blk.shape[-1]} of "
+                    f"{nb}, {int((valid == 1).sum())} of {valid.numel()} "
+                    f"valid, the layer-0 cache", r, smi)
+        return counts, r
+
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = {n: fn.launches for n, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    want = {n: 0 for n in kernels}
+    want.update(flash_attention=cfg.num_layers)
+    check(counts == want, f"arch-prefill launches {counts}, expected {want}")
+    check(tuple(logits.shape) == (1, cfg.padded_vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"arch-prefill: logits {tuple(logits.shape)} finite "
+          f"{bool(torch.isfinite(logits).all())}")
+    ops_counts, ops_entry = ops_section(cache)
+    want = {n: 0 for n in kernels}
+    want.update(golden_attention_decode=1)
+    check(ops_counts == want, f"arch-prefill ops section launches "
+          f"{ops_counts}, expected {want}")
+    tok = logits.argmax(-1)
+    del logits
+    cache_gib = sum(t.numel() * t.element_size() for lc in cache.values()
+                    for t in lc.values()) / 2**30
+    print(f"[arch-prefill] {cfg.name} at full width and depth "
+          f"({cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{hkv} heads (G={g}, dh={dh}), d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab_size}, qkv bias, bf16): weights "
+          f"{w_bytes / 2**30:.2f} GiB drawn on the card in {init_s:.2f} s "
+          f"(draw peak {init_peak / 2**30:.2f} GiB above them; "
+          f"{held / 2**30:.2f} GiB held by earlier phases); prefill B=1, "
+          f"S={PREFILL_S}: first call {first_s:.2f} s, peak memory "
+          f"{peak / 2**30:.2f} GiB, cache {cache_gib:.2f} GiB; "
+          f"launches {counts}; the ops section (kernel 8 on the layer-0 "
+          f"cache, kb={cfg.golden_blocks} of {nb}: max abs "
+          f"{ops_entry['max_abs_err']:.3g} against its plain version) "
+          f"launches {ops_counts}; {smi}")
+
+    def again():
+        with torch.no_grad():
+            T.prefill(cfg, params, toks)
+    del cache
+    torch.cuda.empty_cache()
+    wall = wall_ms(again, 2)
+    ev = device_events(again)
+    busy, tops = top_ops(ev)
+    foreign = foreign_attention(ev)
+    check(not foreign, f"arch-prefill: library or plain attention kernels "
+          f"{foreign}")
+    fl = sum(e.time_range.elapsed_us() for e in ev
+             if launch_name(e.name) == OURS[0]) / 1e3
+    print(f"[arch-prefill] prefill wall {wall:.1f} ms (mean of 2 after 2), "
+          f"device busy {busy:.1f} ms (profiler), idle share "
+          f"{1 - busy / wall:.3f}; kernel 9 {fl:.1f} ms ({fl / busy:.3f}); "
+          f"top device operations: {tops}; no library or plain attention "
+          f"kernel; {smi}")
+    with torch.no_grad():
+        _, cache = T.prefill(cfg, params, toks)
+    dec = decode_graph_check(cfg, params, cache, tok, "[arch-prefill]")
+    out = dict(prefill_ms=wall, busy_ms=busy, peak=peak, counts=counts,
+               ops_counts=ops_counts, ops_entry=ops_entry, **dec)
+    del params, cache, toks, tok
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[arch-prefill] phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def arch_train_run(cfg, kernels: dict, steps: int, softmax_ok: int = 0,
+                   label: str = "[arch-train]") -> dict:
+    """``launch.train``'s setup and ``steps`` train steps of ``cfg`` at
+    B=2, S=4096 (train_4k sequences) on the card: one warm step, then
+    ``steps - 1`` counted with every count set to 0 just before; one
+    more step profiled (no library or plain attention kernel may run).
+    Returns the walls, counts, losses, peak memory and the profile."""
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models.module import tree_leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, state, batches, step = train_lib.setup(
+        cfg, steps, TRAIN_B, TRAIN_S, torch.device("cuda"))
+    losses = []
+
+    def one(i):
+        nonlocal params, state
+        params, state, m = step(params, state,
+                                train_lib.step_batch(cfg, batches, i))
+        return m
+    m = one(0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    losses.append(float(m["loss"]))
+    aux = [float(m["aux"])]
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    for i in range(1, steps):
+        m = one(i)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / (steps - 1)
+    counts = {n: fn.launches for n, fn in kernels.items()}
+    losses.append(float(m["loss"]))
+    aux.append(float(m["aux"]))
+    peak = torch.cuda.max_memory_allocated()
+    finite = all(bool(torch.isfinite(t).all()) for _, t in tree_leaves(params))
+    ev = device_events(lambda: one(steps))
+    busy, tops = top_ops(ev)
+    foreign = foreign_attention(ev, softmax_ok)
+    check(finite and all(np.isfinite(losses)) and not foreign,
+          f"{label} {cfg.name}: losses {losses}, parameters finite {finite}, "
+          f"library or plain attention kernels {foreign}")
+    bwd = sum(e.time_range.elapsed_us() for e in ev
+              if launch_name(e.name) in OURS[1:]) / 1e3
+    fwd = sum(e.time_range.elapsed_us() for e in ev
+              if launch_name(e.name) == OURS[0]) / 1e3
+    del params, state, batches, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(wall_ms=wall, counts=counts, losses=losses, aux=aux,
+                peak=peak, busy=busy, tops=tops, setup_s=setup_s,
+                attn_fwd_ms=fwd, attn_bwd_ms=bwd, n_events=len(ev))
+
+
+def arch_train(kernels: dict, smi: str) -> dict:
+    """[arch-train]: internvl2-1b (1024 vision embeddings + 3072 tokens)
+    and musicgen-medium (512 audio frames + 3584 tokens) trained at full
+    width and depth through ``launch.train``: tokens/s, the share of the
+    bf16 peak by model FLOPs, peak memory, launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.hlo_analysis import model_flops
+    from repro_torch.launch.inputs import InputShape
+    t_phase = time.perf_counter()
+    out = {}
+    for arch in TRAIN_ARCHS:
+        cfg = get_config(arch)
+        r = arch_train_run(cfg, kernels, 1 + ARCH_TRAIN_TIMED)
+        n = ARCH_TRAIN_TIMED
+        want = {k: 0 for k in kernels}
+        want.update(flash_attention=2 * cfg.num_layers * n,
+                    flash_attention_bwd=cfg.num_layers * n)
+        check(r["counts"] == want, f"[arch-train] {arch}: launches "
+              f"{r['counts']}, expected {want}")
+        mflops = model_flops(cfg, InputShape("train_4k", "train", TRAIN_S,
+                                             TRAIN_B))
+        wall = r["wall_ms"]
+        f = cfg.frontend_tokens
+        print(f"[arch-train] {arch} at full width and depth "
+              f"({cfg.num_layers} layers, d_model {cfg.d_model}, "
+              f"{cfg.num_heads}/{cfg.num_kv_heads} heads (G="
+              f"{cfg.num_heads // cfg.num_kv_heads}, dh={cfg.hdim}), d_ff "
+              f"{cfg.d_ff}, vocab {cfg.vocab_size} padded to "
+              f"{cfg.padded_vocab}, bf16, remat {cfg.remat}), B={TRAIN_B}, "
+              f"S={TRAIN_S} = {f} {cfg.frontend} embeddings + {TRAIN_S - f} "
+              f"tokens, AdamW: wall {wall:.1f} ms a step (mean of {n} after "
+              f"one warm step; setup and warm step {r['setup_s']:.1f} s), "
+              f"device busy {r['busy']:.1f} ms (profiler), idle share "
+              f"{1 - r['busy'] / wall:.3f}; {TRAIN_B * TRAIN_S / (wall / 1e3):.0f}"
+              f" positions/s ({TRAIN_B * (TRAIN_S - f) / (wall / 1e3):.0f} "
+              f"tokens/s); model FLOPs {mflops / 1e12:.2f} TFLOP a step, "
+              f"{mflops / (wall / 1e3) / BF16_PEAK:.4f} of the bf16 dense "
+              f"peak; peak memory {r['peak'] / 2**30:.2f} GiB; launches "
+              f"flash_attention {r['counts']['flash_attention']} "
+              f"({2 * cfg.num_layers} a step), flash_attention_bwd "
+              f"{r['counts']['flash_attention_bwd']} ({cfg.num_layers} a "
+              f"step); kernel 9 {r['attn_fwd_ms']:.1f} ms and the backward "
+              f"{r['attn_bwd_ms']:.1f} ms of the profiled step; no library or "
+              f"plain attention kernel among its {r['n_events']} device "
+              f"kernels; losses {r['losses']}; {smi}")
+        print(f"[arch-train] {arch} top device operations of one step: "
+              f"{r['tops']}")
+        out[arch] = r
+    print(f"[arch-train] phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def moe_split(cfg, params: dict, b: int, s: int) -> dict:
+    """Device ms of one MoE layer's routing and its dispatch, expert and
+    combine products at B x S tokens (random activations of the layer's
+    shape; the products are dense, so their time does not depend on the
+    values), by the profiler: MOE_PROFILED calls of a part in one
+    session, each kernel's mean over the events kept times its launches
+    a call (late in a long process a session loses its first events)."""
+    from repro_torch.models import moe
+    p = {k: t[0] for k, t in params["blocks"]["l0"]["moe"].items()}
+    g_sz = min(cfg.moe_group_size, b * s)
+    xg = torch.randn((b * s // g_sz, g_sz, cfg.d_model), device="cuda"
+                     ).to(cfg.param_dtype)
+    cap = moe.capacity(g_sz, cfg.num_experts, cfg.experts_per_token,
+                       cfg.capacity_factor)
+    with torch.no_grad():
+        _, _, dispatch, combine = moe.route(p, xg, cfg.num_experts,
+                                            cfg.experts_per_token, cap)
+        xe = moe.dispatch_tokens(dispatch, xg)
+        ye = moe.expert_mlp(p, xe)
+        parts = {"route": lambda: moe.route(p, xg, cfg.num_experts,
+                                            cfg.experts_per_token, cap),
+                 "dispatch": lambda: moe.dispatch_tokens(dispatch, xg),
+                 "experts": lambda: moe.expert_mlp(p, xe),
+                 "combine": lambda: moe.combine_tokens(combine, ye)}
+        out = {}
+        for part, fn in parts.items():
+            ms, kept = Counter(), Counter()
+            for e in device_events(lambda: [fn() for _ in range(
+                    MOE_PROFILED)]):
+                ms[e.name] += e.time_range.elapsed_us() / 1e3
+                kept[e.name] += 1
+            out[part] = sum(ms[n] / kept[n] * -(-kept[n] // MOE_PROFILED)
+                            for n in kept)
+        return out
+
+
+def moe_phase(kernels: dict, smi: str) -> dict:
+    """[moe]: phi3.5-moe-42b-a6.6b and dbrx-132b at full width with their
+    depth cut to MOE_LAYERS: phi's train step at B=2, S=4096, then for
+    both a prefill at B=1, S=4096 (counted with the train steps) and the
+    decode step's CUDA graph; the share of dropped slots and the aux loss
+    from the prefill's routing, the dispatch, expert and combine products'
+    device time by the profiler."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.hlo_analysis import model_flops
+    from repro_torch.launch import steps as step_lib
+    from repro_torch.launch.inputs import InputShape
+    from repro_torch.models import transformer as T
+    from repro_torch.models.module import init_params
+    t_phase = time.perf_counter()
+    out = {}
+    for arch in MOE_ARCHS:
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, num_layers=MOE_LAYERS)
+        res, train = {}, None
+        if arch == MOE_ARCHS[0]:
+            train = arch_train_run(cfg, kernels, 1 + MOE_TIMED,
+                                   softmax_ok=3 * MOE_LAYERS, label="[moe]")
+            mflops = model_flops(cfg, InputShape("train_4k", "train",
+                                                 TRAIN_S, TRAIN_B))
+            want = {k: 0 for k in kernels}
+            want.update(flash_attention=2 * MOE_LAYERS * MOE_TIMED,
+                        flash_attention_bwd=MOE_LAYERS * MOE_TIMED)
+            check(train["counts"] == want, f"[moe] {arch} train launches "
+                  f"{train['counts']}, expected {want}")
+            w = train["wall_ms"]
+            print(f"[moe] {arch} train step at full width, depth cut to "
+                  f"{MOE_LAYERS} of {full.num_layers} layers ({cfg.d_model} "
+                  f"d_model, {cfg.num_experts} experts top-"
+                  f"{cfg.experts_per_token}, d_ff {cfg.d_ff}, bf16, remat), "
+                  f"B={TRAIN_B}, S={TRAIN_S}: wall {w:.1f} ms a step (mean "
+                  f"of {MOE_TIMED}), busy {train['busy']:.1f} ms, idle "
+                  f"share {1 - train['busy'] / w:.3f}; "
+                  f"{TRAIN_B * TRAIN_S / (w / 1e3):.0f} tokens/s; "
+                  f"{mflops / (w / 1e3) / BF16_PEAK:.4f} of the bf16 peak by "
+                  f"model FLOPs ({mflops / 1e12:.2f} TFLOP, active experts "
+                  f"only); peak memory {train['peak'] / 2**30:.2f} GiB; aux "
+                  f"(first and last step) {train['aux']}; losses "
+                  f"{train['losses']}; launches "
+                  f"{ {k: v for k, v in train['counts'].items() if v} }; no "
+                  f"library or plain attention kernel; {smi}")
+            print(f"[moe] {arch} train step top device operations: "
+                  f"{train['tops']}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = init_params(T.model_specs(cfg),
+                             torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        toks = torch.randint(0, cfg.vocab_size, (1, MOE_S), device="cuda",
+                             generator=torch.Generator(device="cuda")
+                             .manual_seed(3))
+        for fn in kernels.values():
+            fn.launches = 0
+        with routings() as rec:
+            logits, cache = step_lib.make_prefill_step(cfg)(
+                params, {"tokens": toks})
+        counts = {n: fn.launches for n, fn in kernels.items()}
+        want = {k: 0 for k in kernels}
+        want["flash_attention"] = MOE_LAYERS
+        check(counts == want and bool(torch.isfinite(logits).all())
+              and len(rec) == MOE_LAYERS,
+              f"[moe] {arch} prefill: launches {counts}, finite "
+              f"{bool(torch.isfinite(logits).all())}, {len(rec)} routings")
+        drop = [float((~r["keep"]).float().mean()) for r in rec]
+        with torch.no_grad():
+            _, metrics = T.loss_fn(cfg, params, {
+                "tokens": toks, "labels": torch.roll(toks, -1, 1)})
+        aux = float(metrics["aux"])
+        peak = torch.cuda.max_memory_allocated()
+
+        def again():
+            with torch.no_grad():
+                T.prefill(cfg, params, toks)
+        wall = wall_ms(again, 3)
+        ev = device_events(again)
+        busy, tops = top_ops(ev)
+        foreign = foreign_attention(ev, softmax_ok=MOE_LAYERS)
+        check(not foreign, f"[moe] {arch} prefill: library or plain "
+              f"attention kernels {foreign}")
+        split = moe_split(cfg, params, 1, MOE_S)
+        print(f"[moe] {arch} prefill at full width, depth cut to {MOE_LAYERS}"
+              f" of {full.num_layers} layers, B=1, S={MOE_S} (groups of "
+              f"{cfg.moe_group_size}, capacity {rec[0]['cap']} slots an "
+              f"expert a group): weights drawn in {init_s:.2f} s; wall "
+              f"{wall:.1f} ms, busy {busy:.1f} ms, idle share "
+              f"{1 - busy / wall:.3f}, peak memory {peak / 2**30:.2f} GiB; "
+              f"dropped share of the (token, choice) slots by layer "
+              f"{[round(d, 4) for d in drop]}; aux loss {aux:.5f} (summed "
+              f"over {MOE_LAYERS} layers; 1 a layer is balanced); launches "
+              f"{ {k: v for k, v in counts.items() if v} }; one MoE layer's "
+              f"products (profiler): route {split['route']:.3f} ms, dispatch "
+              f"{split['dispatch']:.3f}, experts {split['experts']:.3f}, "
+              f"combine {split['combine']:.3f} ms (x{MOE_LAYERS} layers: "
+              f"{MOE_LAYERS * sum(split.values()) / busy:.3f} of the "
+              f"prefill's device time); top device operations: {tops}; {smi}")
+        res.update(prefill_ms=wall, busy=busy, drop=drop, aux=aux,
+                   split=split, counts=counts, peak=peak, train=train)
+        tok = logits.argmax(-1)
+        del logits
+        res.update(decode_graph_check(cfg, params, cache, tok,
+                                      f"[moe] {arch}"))
+        out[arch] = res
+        del params, cache, toks, tok
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[moe] phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def arch_phases(kernels: dict, smi: str) -> tuple[dict, dict]:
+    """The seven archs: [arch-check], [arch-reference], [arch-prefill],
+    [arch-train] and [moe].  Returns the JSON line's entries (kernel
+    results keyed by (kernel, path), each measured at that path's own
+    shape) and each path's counts."""
+    timed = arch_check(smi)
+    arch_reference(kernels, smi)
+    pre = arch_prefill(kernels, smi)
+    trained = arch_train(kernels, smi)
+    moes = moe_phase(kernels, smi)
+    ops_path = f"arch_ops {PREFILL_ARCH}"
+    paths = {f"arch_prefill {PREFILL_ARCH}": (
+        timed[PREFILL_ARCH]["prefill_16k"], pre["counts"]),
+        ops_path: ({"golden_attention_decode": pre["ops_entry"]},
+                   pre["ops_counts"])}
+    for arch, r in trained.items():
+        paths[f"arch_train {arch}"] = (timed[arch]["train_4k"], r["counts"])
+    for arch, r in moes.items():
+        if r["train"] is not None:
+            paths[f"moe train {arch}"] = (timed[arch]["train_4k"],
+                                          r["train"]["counts"])
+        paths[f"moe prefill {arch}"] = (timed[arch]["prefill_4k"],
+                                        r["counts"])
+    entries = {}
+    for path, (at, counts) in paths.items():
+        for n, c in counts.items():
+            if c:
+                entries[(n, path)] = dict(at[n], launches=c)
+    return entries, {p: c for p, (_, c) in paths.items()}
 
 
 # The [presets] phase: the batch of the card-vs-CPU checks of the PCA
@@ -4165,6 +5045,9 @@ def main() -> None:
     results.update(train_results)
     path_of["flash_attention_bwd"] = "train"
 
+    # -- 11. the seven archs of the frontend and MoE families ----------------
+    arch_entries, arch_counts = arch_phases(kernels, smi)
+
     sources = {"pdist": ("csrc/pdist.cu", "src/repro/kernels/pdist.py:61"),
                "support_sqdist": ("csrc/support_sqdist.cu",
                                   "src/repro/kernels/golden_rerank.py:66"),
@@ -4212,6 +5095,17 @@ def main() -> None:
                 replaces=src[1], path=f"sharded S={SHARDS[-1]} {route}"
                 + (" bf16" if tag == "bf16" else ""), launches=launches,
                 **sharded_results[f"{n}[{tag}]"]))
+    for (n, path), r in arch_entries.items():
+        line["kernels"].append(dict(
+            name=f"{n}[{path}]", route="cuda",
+            source=f"src/repro_torch/kernels/{sources[n][0]}",
+            replaces=sources[n][1], path=path, **r))
+    for path, counts in arch_counts.items():
+        n = ("golden_attention_decode" if path.startswith("arch_ops")
+             else "flash_attention")
+        check(counts[n] > 0, f"{n} never launched on the {path} path")
+        check("train" not in path or counts["flash_attention_bwd"] > 0,
+              f"flash_attention_bwd never launched on the {path} path")
     for n in ("flash_attention", "golden_attention_decode"):
         check(path_counts["llm_decode"][n] > 0,
               f"{n} never launched on the llm_decode path")

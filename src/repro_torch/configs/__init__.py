@@ -3,8 +3,10 @@
 Config files are named exactly after the arch ids (``llama3.2-3b.py``:
 dots and dashes in the file name, loaded with importlib), each
 exposing a ``CONFIG: ModelConfig`` with its public-pool citation in
-``CONFIG.source``.  Only the archs the port runs are listed; the
-others wait for their model families (ROADMAP Queue 1).
+``CONFIG.source``, copied field for field from ``repro.configs``.
+Only the archs the port runs are listed, in the reference's order; the
+Mamba-2 ones (mamba2-2.7b, jamba-v0.1-52b) wait for their mixer
+(ROADMAP Queue 1) and raise ``KeyError``.
 """
 from __future__ import annotations
 
@@ -15,7 +17,16 @@ from repro_torch.models.config import ModelConfig
 
 _DIR = pathlib.Path(__file__).parent
 
-ARCH_IDS = ["llama3.2-3b"]
+ARCH_IDS = [
+    "qwen2.5-32b",
+    "qwen2-7b",
+    "phi3.5-moe-42b-a6.6b",
+    "llama3.2-3b",
+    "dbrx-132b",
+    "internvl2-1b",
+    "musicgen-medium",
+    "starcoder2-3b",
+]
 
 _CACHE: dict[str, ModelConfig] = {}
 

@@ -39,20 +39,24 @@ def concrete_inputs(cfg: ModelConfig, shape: InputShape,
     another): uniform tokens from ``generator`` (seed 0 by default; its
     draws are not ``jax.random``'s) with next-token labels for train,
     tokens for prefill, and a zero cache, zero tokens and the last
-    position for decode.  Frontend archs' embeddings are not ported."""
+    position for decode.  A frontend arch's F = ``frontend_tokens``
+    positions of a train or prefill sequence are its embeddings: tokens
+    [B, S - F] and ``embeds`` [B, F, d_model] = 0.02 x normal (fp32),
+    drawn from the same generator after the tokens."""
     device = resolve_device(device)
-    if cfg.frontend:
-        raise NotImplementedError("the modality frontends are not ported "
-                                  "yet (ROADMAP Queue 1: the other model "
-                                  "families)")
     b, s = shape.global_batch, shape.seq_len
+    f = cfg.frontend_tokens if cfg.frontend else 0
     if shape.kind in ("train", "prefill"):
         gen = generator or torch.Generator().manual_seed(0)
-        toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+        toks = torch.randint(0, cfg.vocab_size, (b, s - f), generator=gen,
                              device=gen.device).to(device)
         out = {"tokens": toks}
         if shape.kind == "train":
             out["labels"] = torch.roll(toks, -1, dims=1)
+        if f:
+            out["embeds"] = (0.02 * torch.randn(
+                (b, f, cfg.d_model), generator=gen, device=gen.device,
+                dtype=torch.float32)).to(device)
         return out
     if shape.kind == "decode":
         return {"cache": zero_cache(cfg, b, s, device),

@@ -14,6 +14,10 @@ of ``repro.launch.steps``) for one device.
   later token, with the token and the position as its static inputs and
   the cache updated in place; eager on the CPU.
 
+A batch may carry a frontend's ``embeds`` [B, F, d] beside its tokens;
+every step passes it to ``loss_fn`` / ``prefill``, and the train step's
+metrics report the MoE auxiliary loss (``aux``).
+
 The builders take no ``rules``: there is one card, and the LLM's
 logical-axis rules, ``shard_grad_accum`` and ``zero1_rules`` (multi-card)
 wait for the LLM sharding (ROADMAP Queue 1).

@@ -9,7 +9,11 @@ config asks) -> AdamW -> checkpoint.
 
 It runs on the CUDA card unless given ``--device cpu``.  The weights are
 drawn from a seeded ``torch.Generator`` (not ``jax.random``'s draws).
-``--mesh`` (the production mesh over several cards) is not ported.
+A frontend arch (internvl2-1b, musicgen-medium) trains on ``seq - F``
+tokens after F = ``frontend_tokens`` embeddings, drawn for step i from
+``torch.Generator(device).manual_seed(1000 + i)`` as the reference
+draws them from ``PRNGKey(1000 + i)``.  ``--mesh`` (the production mesh
+over several cards) is not ported.
 """
 from __future__ import annotations
 
@@ -38,21 +42,40 @@ def setup(cfg: ModelConfig, steps: int, batch: int, seq: int, device,
     ``torch.Generator(device).manual_seed(seed)``, AdamW at lr 1e-3 with
     a tenth of ``steps`` of warmup, the first ``min(steps, 8)`` batches
     of the Markov token pipeline on ``device`` (the pipeline is pure in
-    (config, step), so cycling them stays honest) and the train step."""
-    if cfg.frontend:
-        raise NotImplementedError("the modality frontends are not ported "
-                                  "yet (ROADMAP Queue 1: the other model "
-                                  "families)")
+    (config, step), so cycling them stays honest) and the train step.
+    A frontend arch's batches hold ``seq - F`` tokens and labels; step
+    i's embeddings come from ``step_batch``."""
     params = init_params(model_specs(cfg),
                          torch.Generator(device=device).manual_seed(seed))
     opt_cfg = opt.AdamWConfig(lr=1e-3, total_steps=steps,
                               warmup_steps=max(steps // 10, 1))
     state = opt.init_state(params)
     tp = TokenPipeline(TokenPipelineConfig(cfg.vocab_size, seq, batch))
-    batches = [{k: v.to(device) for k, v in tp.batch(i).items()}
+    f = frontend_len(cfg)
+    batches = [{k: v[:, :seq - f].to(device) for k, v in tp.batch(i).items()}
                for i in range(min(steps, 8))]
     step_fn = step_lib.make_train_step(cfg, opt_cfg, num_microbatches)
     return params, state, batches, step_fn
+
+
+def frontend_len(cfg: ModelConfig) -> int:
+    return cfg.frontend_tokens if cfg.frontend else 0
+
+
+def step_batch(cfg: ModelConfig, batches: list[dict], i: int) -> dict:
+    """Step i's batch: the cycled token batch, and for a frontend arch
+    its embeddings [B, F, d_model] = 0.02 x normal (fp32) drawn on the
+    batch's device from ``torch.Generator(device).manual_seed(1000 +
+    i)``."""
+    b = batches[i % len(batches)]
+    f = frontend_len(cfg)
+    if not f:
+        return b
+    toks = b["tokens"]
+    gen = torch.Generator(device=toks.device).manual_seed(1000 + i)
+    return dict(b, embeds=0.02 * torch.randn(
+        (toks.shape[0], f, cfg.d_model), generator=gen, device=toks.device,
+        dtype=torch.float32))
 
 
 def train(arch: str, smoke: bool, steps: int, batch: int, seq: int,
@@ -75,7 +98,7 @@ def train(arch: str, smoke: bool, steps: int, batch: int, seq: int,
     t0 = time.time()
     for i in range(steps):
         params, state, metrics = step_fn(params, state,
-                                         batches[i % len(batches)])
+                                         step_batch(cfg, batches, i))
         losses.append(float(metrics["nll"]))
         if i % log_every == 0 or i == steps - 1:
             print(f"step {i:5d} loss={losses[-1]:.4f} "

@@ -4,10 +4,13 @@ A model definition is a nested dict of ``ParamSpec`` leaves;
 ``init_params`` materializes it on one device from an explicit
 ``torch.Generator`` with the reference's init law: normal with std
 1/sqrt(fan_in) (fan_in the second-to-last axis), ``scale`` overriding
-it, ``embed`` leaves at their scale, norms ones.  The draws cannot equal
-``jax.random``'s, so parity tests carry the reference's parameters
-across (``models.convert``).  No sharding yet: the logical axes wait for
-the sharding slice.
+it, ``embed`` leaves at their scale, norms ones.  A leaf stacked over the
+layer repeats is drawn one repeat at a time in fp32 and written into a
+leaf of the spec's dtype, so no fp32 copy of the whole stack is ever
+held (qwen2.5-32b's ``w_gate`` alone would be 36.2 GB).  The draws
+cannot equal ``jax.random``'s, so parity tests carry the reference's
+parameters across (``models.convert``).  No sharding yet: the logical
+axes wait for the sharding slice.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ class ParamSpec:
     dtype: torch.dtype = torch.bfloat16
     init: str = "normal"          # normal | zeros | ones | embed
     scale: float | None = None    # stddev override for "normal"
+    stacked: bool = False         # leading axis = the layer repeats
 
 
 def tree_leaves(tree, prefix: str = ""):
@@ -56,14 +60,17 @@ def _init_leaf(spec: ParamSpec, generator: torch.Generator,
     std = spec.scale if spec.scale is not None else 1.0 / math.sqrt(fan_in)
     if spec.init == "embed":
         std = spec.scale if spec.scale is not None else 1.0
-    draw = torch.randn(spec.shape, generator=generator, device=device,
-                       dtype=torch.float32)
-    return (draw.mul_(std)).to(spec.dtype)
+    out = torch.empty(spec.shape, dtype=spec.dtype, device=device)
+    for part in (out.unbind(0) if spec.stacked else (out,)):
+        part.copy_(torch.randn(part.shape, generator=generator,
+                               device=device, dtype=torch.float32).mul_(std))
+    return out
 
 
 def init_params(spec_tree, generator: torch.Generator, device=None) -> dict:
     """Materialize every leaf on ``device`` (the generator's device by
-    default), drawing in ``tree_leaves`` order from ``generator``."""
+    default), drawing in ``tree_leaves`` order from ``generator`` (a
+    stacked leaf repeat by repeat)."""
     device = torch.device(generator.device if device is None else device)
     out: dict = {}
     for path, spec in tree_leaves(spec_tree):
@@ -83,4 +90,4 @@ def stack_specs(spec_tree, repeats: int):
     """Add a leading 'layers' axis to every leaf (the stacked
     ``[repeats, ...]`` layout of the reference's scan over layers)."""
     return tree_map(lambda s: dataclasses.replace(
-        s, shape=(repeats,) + s.shape), spec_tree)
+        s, shape=(repeats,) + s.shape, stacked=True), spec_tree)

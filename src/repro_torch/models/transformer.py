@@ -1,6 +1,6 @@
 """Decoder training, prefill and decode (counterpart of
-``repro.models.transformer``) for dense attention models (the llama
-family).
+``repro.models.transformer``) for attention models with dense or MoE
+MLPs (``models.moe``), with or without a modality frontend.
 
   * train   — the full-sequence forward of ``loss_fn``; every attention
               layer runs causal flash attention through
@@ -32,12 +32,17 @@ Differences from the reference:
     position (``launch.steps.make_decode_step``);
   * ``prefill`` applies the LM head to the last position only, whose
     logits it returns (as the reference does, over ``padded_vocab``);
-  * ``forward_full`` returns ``(logits, cache)``: the MoE auxiliary loss
-    is 0 for every model the port runs, and ``loss_fn`` adds that 0.
+  * ``forward_full`` returns ``(logits, cache, aux)``, aux the MoE
+    auxiliary loss summed over the layers (0 for a dense model), also
+    under ``torch.utils.checkpoint``; ``loss_fn`` adds ``aux_weight``
+    times it.
 
-Mamba mixers, MoE MLPs and the modality frontends (``embeds``) raise
-``NotImplementedError`` naming their ROADMAP item; decode runs on one
-device (the sharded decode waits for the sharding slice).
+The modality frontends are the reference's stub: ``loss_fn`` and
+``prefill`` take precomputed embeddings [B, F, d] (``embeds``), cast to
+the model's dtype and put ahead of the tokens; the loss masks their F
+positions.  Mamba mixers raise ``NotImplementedError`` naming their
+ROADMAP item; decode runs on one device (the sharded decode waits for
+the sharding slice).
 """
 from __future__ import annotations
 
@@ -45,6 +50,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
+from repro_torch.models import moe
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.module import ParamSpec, stack_specs, tree_map
 from repro_torch.utils import resolve_device
@@ -63,8 +69,6 @@ def _attn_dims(cfg: ModelConfig) -> L.AttnDims:
 def _check_layer(cfg: ModelConfig, i: int) -> None:
     if cfg.mixer_kind(i) != "A":
         raise _unported("the Mamba-2 mixer", OTHER_FAMILIES)
-    if cfg.mlp_kind(i) == "moe":
-        raise _unported("the MoE MLP", OTHER_FAMILIES)
 
 
 def _layer_specs(cfg: ModelConfig, i: int) -> dict:
@@ -73,8 +77,12 @@ def _layer_specs(cfg: ModelConfig, i: int) -> dict:
     sp = {"ln1": L.rmsnorm_spec(cfg.d_model),
           "attn": L.attn_specs(cfg.d_model, _attn_dims(cfg), dt,
                                cfg.qkv_bias)}
-    if cfg.mlp_kind(i) == "dense":
+    kind = cfg.mlp_kind(i)
+    if kind != "none":
         sp["ln2"] = L.rmsnorm_spec(cfg.d_model)
+    if kind == "moe":
+        sp["moe"] = moe.moe_specs(cfg.d_model, cfg.d_ff, cfg.num_experts, dt)
+    elif kind == "dense":
         sp["mlp"] = L.mlp_specs(cfg.d_model, cfg.d_ff, dt)
     return sp
 
@@ -221,10 +229,22 @@ def _lm_head(cfg: ModelConfig, params: dict, x: torch.Tensor
     return x @ w
 
 
+def _apply_mlp(cfg: ModelConfig, i: int, p: dict, x: torch.Tensor):
+    """x: [B, S, d] -> (y, aux | None): the dense MLP (no aux) or the
+    MoE with its auxiliary loss."""
+    if cfg.mlp_kind(i) == "moe":
+        return moe.moe_apply(p["moe"], x, cfg.num_experts,
+                             cfg.experts_per_token, cfg.capacity_factor,
+                             cfg.moe_group_size)
+    return L.mlp_apply(p["mlp"], x), None
+
+
 def _block(cfg: ModelConfig, bp: dict, x: torch.Tensor,
-           positions: torch.Tensor, cache_r: dict | None) -> torch.Tensor:
+           positions: torch.Tensor, cache_r: dict | None):
     """One repeat of the layer pattern over x [B, S, d]; writes its K/V
-    into ``cache_r`` (repeat r's views) when given."""
+    into ``cache_r`` (repeat r's views) when given.  Returns ``(x,
+    aux)``, aux the repeat's summed MoE auxiliary loss (0-d fp32)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.period):
         _check_layer(cfg, i)
         p = bp[f"l{i}"]
@@ -232,27 +252,32 @@ def _block(cfg: ModelConfig, bp: dict, x: torch.Tensor,
         x = x + _apply_mixer_full(cfg, p, L.rmsnorm(p["ln1"], x),
                                   positions, lc)
         if cfg.mlp_kind(i) != "none":
-            x = x + L.mlp_apply(p["mlp"], L.rmsnorm(p["ln2"], x))
-    return x
+            h, a = _apply_mlp(cfg, i, p, L.rmsnorm(p["ln2"], x))
+            x = x + h
+            if a is not None:
+                aux = aux + a
+    return x, aux
 
 
 def _blocks(cfg: ModelConfig, params: dict, x: torch.Tensor,
             want_cache: bool, remat: bool = False):
-    """Every layer over x [B, S, d]; returns (x, cache | None).  With
-    ``remat`` each repeat runs under a non-reentrant checkpoint, which
-    keeps only its input and runs it again in the backward."""
+    """Every layer over x [B, S, d]; returns (x, cache | None, aux).
+    With ``remat`` each repeat runs under a non-reentrant checkpoint,
+    which keeps only its input and runs it again in the backward."""
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None, :]
     cache = (_alloc_cache(cfg, b, s, x.device, torch.empty) if want_cache
              else None)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for r, bp in enumerate(_unstack(params["blocks"], cfg.repeats)):
         lc = _layer(cache, r) if want_cache else None
         if remat:
-            x = checkpoint(_block, cfg, bp, x, positions, None,
-                           use_reentrant=False, preserve_rng_state=False)
+            x, a = checkpoint(_block, cfg, bp, x, positions, None,
+                              use_reentrant=False, preserve_rng_state=False)
         else:
-            x = _block(cfg, bp, x, positions, lc)
-    return x, cache
+            x, a = _block(cfg, bp, x, positions, lc)
+        aux = aux + a
+    return x, cache, aux
 
 
 def forward_full(cfg: ModelConfig, params: dict, x: torch.Tensor,
@@ -261,29 +286,49 @@ def forward_full(cfg: ModelConfig, params: dict, x: torch.Tensor,
     "prefill" or "train" (remat per repeat when ``cfg.remat``, as the
     reference, which remats only in training).
 
-    Returns ``(logits [B, S, V], cache | None)``."""
+    Returns ``(logits [B, S, V], cache | None, aux)``."""
     if mode not in ("prefill", "train"):
         raise ValueError(f"forward_full: mode {mode!r} is not 'prefill' or "
                          f"'train'")
     remat = mode == "train" and cfg.remat and not want_cache
-    x, cache = _blocks(cfg, params, x, want_cache, remat)
-    return _lm_head(cfg, params, L.rmsnorm(params["final_norm"], x)), cache
+    x, cache, aux = _blocks(cfg, params, x, want_cache, remat)
+    return (_lm_head(cfg, params, L.rmsnorm(params["final_norm"], x)), cache,
+            aux)
+
+
+def _with_embeds(x: torch.Tensor, embeds: torch.Tensor | None
+                 ) -> torch.Tensor:
+    """The frontend's embeddings [B, F, d], in the model's dtype, ahead
+    of the token embeddings [B, S, d]."""
+    if embeds is None:
+        return x
+    return torch.cat([embeds.to(x.dtype), x], 1)
 
 
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
             aux_weight: float = 0.01):
     """The reference's training loss: batch holds tokens and labels [B,
-    S] (int) and optionally loss_mask [B, S] (bool).  fp32 logits with
-    the padded-vocab columns at -1e30, the mean next-token NLL over the
-    mask (over every position without one), plus ``aux_weight`` x the
-    MoE auxiliary loss (0 for a dense model) plus the z-loss 1e-4 x
-    mean(logz^2).  Returns ``(loss, {"nll", "aux"})``."""
-    if "embeds" in batch:
-        raise _unported("the modality frontends (loss_fn with embeds)",
-                        OTHER_FAMILIES)
-    x = embed_tokens(cfg, params, batch["tokens"])
+    S] (int), optionally loss_mask [B, S] (bool) and a frontend's embeds
+    [B, F, d] (put ahead of the tokens; their F positions take label 0
+    under a false mask).  fp32 logits with the padded-vocab columns at
+    -1e30, the mean next-token NLL over the mask (over every position
+    without one), plus ``aux_weight`` x the MoE auxiliary loss (0 for a
+    dense model) plus the z-loss 1e-4 x mean(logz^2) over every position.
+    Returns ``(loss, {"nll", "aux"})``."""
+    tokens = batch["tokens"]
+    x = embed_tokens(cfg, params, tokens)
     labels, mask = batch["labels"], batch.get("loss_mask")
-    logits, _ = forward_full(cfg, params, x, mode="train")
+    embeds = batch.get("embeds")
+    if embeds is not None:
+        x = _with_embeds(x, embeds)
+        b, f = embeds.shape[:2]
+        labels = torch.cat([torch.zeros((b, f), dtype=labels.dtype,
+                                        device=labels.device), labels], 1)
+        off = torch.zeros((b, f), dtype=torch.bool, device=labels.device)
+        mask = torch.cat([off, torch.ones(tokens.shape, dtype=torch.bool,
+                                          device=labels.device)
+                          if mask is None else mask], 1)
+    logits, _, aux = forward_full(cfg, params, x, mode="train")
     logits = logits.float()
     if cfg.padded_vocab != cfg.vocab_size:
         pad = torch.arange(cfg.padded_vocab, device=x.device) >= \
@@ -299,17 +344,16 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
         denom = nll.numel()
     loss = nll.sum() / denom
     zloss = 1e-4 * (logz ** 2).mean()
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return loss + aux_weight * aux + zloss, {"nll": loss, "aux": aux}
 
 
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             embeds: torch.Tensor | None = None):
     """Returns ``(last-position logits [B, V], cache)``; the LM head runs
-    on the last position only."""
-    if embeds is not None:
-        raise _unported("the modality frontends", OTHER_FAMILIES)
-    x, cache = _blocks(cfg, params, embed_tokens(cfg, params, tokens), True)
+    on the last position only.  With a frontend's ``embeds`` [B, F, d]
+    ahead of the tokens [B, S] the cache holds F + S positions."""
+    x = _with_embeds(embed_tokens(cfg, params, tokens), embeds)
+    x, cache, _ = _blocks(cfg, params, x, True)
     x = L.rmsnorm(params["final_norm"], x[:, -1])
     return _lm_head(cfg, params, x), cache
 
@@ -339,6 +383,9 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
             x = x + _apply_mixer_decode(cfg, p, L.rmsnorm(p["ln1"], x), lc,
                                         pos)
             if cfg.mlp_kind(i) != "none":
-                x = x + L.mlp_apply(p["mlp"], L.rmsnorm(p["ln2"], x))
+                # the MoE routes the B new tokens as one group
+                h, _ = _apply_mlp(cfg, i, p,
+                                  L.rmsnorm(p["ln2"], x)[:, None, :])
+                x = x + h[:, 0, :]
     x = L.rmsnorm(params["final_norm"], x)
     return _lm_head(cfg, params, x), cache

@@ -1143,6 +1143,147 @@ def test_model_steps_do_not_synchronize(card):
         torch.cuda.set_sync_debug_mode("default")
 
 
+# -- the frontend and MoE archs: new head groups, train steps, decode graph --
+# (Hkv, G, dh) of qwen2.5-32b, qwen2-7b, starcoder2-3b, internvl2-1b,
+# musicgen-medium, phi3.5-moe-42b-a6.6b and dbrx-132b at full width
+
+ARCH_HEADS = [(8, 5, 128), (4, 7, 128), (2, 12, 128), (2, 7, 64),
+              (24, 1, 64), (8, 4, 128), (8, 6, 128)]
+
+
+@pytest.mark.parametrize("hkv,g,dh", ARCH_HEADS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_attention_at_new_head_groups(card, hkv, g, dh, dtype):
+    """Kernel 9 and the backward at an arch's (Hkv, G, dh), causal, S
+    past the tiles: within ATT_TOL / BWD_TOL of the plain versions, two
+    calls bit-equal."""
+    s = 300
+    q = randn((1, hkv, g, s, dh), card, dtype, 51)
+    k, v = (randn((1, hkv, s, dh), card, dtype, sd) for sd in (52, 53))
+    o, lse = flash_attention(q, k, v, True, return_lse=True)
+    want_o, want_lse = ref.flash_attention_ref(q, k, v, True, True)
+    tol = ATT_TOL[dtype]
+    torch.testing.assert_close(o.float(), want_o.float(), rtol=tol, atol=tol)
+    assert float((lse - want_lse).abs().max()) <= 1e-5
+    do = randn(o.shape, card, dtype, 54)
+    got = ops.flash_attention_bwd(q, k, v, o, do, lse, True)
+    again = ops.flash_attention_bwd(q, k, v, o, do, lse, True)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, True)
+    for a, c, w in zip(got, again, want):
+        assert torch.equal(a, c)
+        err = float((a.float() - w.float()).abs().max())
+        assert err <= BWD_TOL[dtype] * float(w.float().abs().max())
+
+
+@pytest.mark.parametrize("hkv,g,dh", ARCH_HEADS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_golden_attention_at_new_head_groups(card, hkv, g, dh, dtype):
+    """Kernel 8 at an arch's (Hkv, G, dh) (G = 12: two z-blocks of its
+    G = 8 instance) against its plain version."""
+    q, k, v, idx, valid = golden_case(card, 2, hkv, g, dh, 1024, 128, 4,
+                                      dtype)
+    got = golden_attention_decode(q, k, v, idx, valid, 128)
+    want = ref.golden_attention_decode_ref(q, k, v, idx, valid, 128)
+    assert not got[-1, -1].any()
+    tol = ATT_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _spy_routes(monkeypatch) -> list:
+    """Wrap ``moe.route``: each call appends its expert choices [G, T, k]
+    and which of them were kept (read from the dispatch tensor it
+    returns), on the CPU."""
+    from repro_torch.models import moe
+    seen, route = [], moe.route
+
+    def spy(p, xg, e, k, cap):
+        out = route(p, xg, e, k, cap)
+        idx, dispatch = out[1], out[2]
+        seen.append((idx.detach().cpu(), torch.gather(
+            dispatch.detach().sum(-1) != 0, -1, idx).cpu()))
+        return out
+    monkeypatch.setattr(moe, "route", spy)
+    return seen
+
+
+def _train_card_vs_cpu(monkeypatch, card, arch, steps=2):
+    """``steps`` train steps of an arch's reduced config through
+    ``launch.train``'s setup and batches on the card and on the CPU from
+    the same weights; returns both runs' losses, MoE routings and the
+    card's launches."""
+    from repro_torch.launch import steps as step_lib
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.training import optimizer as opt
+    cfg = get_config(arch).reduced()
+    p0, _, batches, _ = train_lib.setup(cfg, steps, 2, 128,
+                                        torch.device("cpu"))
+    np_params = tree_map(lambda t: t.numpy(), p0)
+    runs = {}
+    for dev in (card, torch.device("cpu")):
+        p = params_from_numpy(cfg, np_params, device=dev)
+        st = opt.init_state(p)
+        step = step_lib.make_train_step(cfg, opt.AdamWConfig(
+            lr=1e-3, warmup_steps=1, total_steps=steps))
+        f0, b0 = flash_attention.launches, flash_mod.flash_attention_bwd.launches
+        losses = []
+        rec = _spy_routes(monkeypatch)
+        for i in range(steps):
+            bt = {k: t.to(dev) for k, t in train_lib.step_batch(
+                cfg, batches, i).items()}
+            p, st, m = step(p, st, bt)
+            losses.append((float(m["loss"]), float(m["aux"])))
+        monkeypatch.undo()
+        runs[dev.type] = (losses, rec,
+                          (flash_attention.launches - f0,
+                           flash_mod.flash_attention_bwd.launches - b0))
+    return cfg, runs
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "internvl2-1b"])
+def test_reduced_arch_train_steps_card_match_cpu(monkeypatch, card, arch):
+    """Two train steps of a reduced MoE arch and a reduced frontend arch
+    (its embeddings from ``step_batch``) on the card against the CPU:
+    losses and aux 1e-4, every MoE routing equal, kernel 9 and the
+    backward once a layer a step."""
+    cfg, runs = _train_card_vs_cpu(monkeypatch, card, arch)
+    (lc, rc, counts), (lh, rh, _) = runs["cuda"], runs["cpu"]
+    np.testing.assert_allclose(lc, lh, atol=1e-4, rtol=0)
+    assert counts == (2 * cfg.num_layers, 2 * cfg.num_layers)
+    assert len(rc) == len(rh) == (2 * cfg.num_layers if cfg.num_experts
+                                  else 0)
+    for (ec, kc), (eh, kh) in zip(rc, rh):
+        assert torch.equal(ec, eh) and torch.equal(kc, kh)
+
+
+def test_moe_decode_graph_replay_matches_eager(card):
+    """``make_decode_step`` on a reduced MoE arch: the routing of the B
+    new tokens lives inside the one CUDA graph; replays bit-equal to the
+    eager step."""
+    from repro_torch.launch import steps as step_lib
+    from repro_torch.models.module import init_params
+    cfg = get_config("dbrx-132b").reduced()
+    params = init_params(T.model_specs(cfg),
+                         torch.Generator(device=card).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (3, 128), device=card,
+                         generator=torch.Generator(device=card).manual_seed(1))
+    _, cache = T.prefill(cfg, params, toks)
+    eager_c = tree_map(torch.clone, cache)
+    step = step_lib.make_decode_step(cfg)
+    tok = toks[:, -1]
+    step(params, cache, tok, 120)
+    T.decode_step(cfg, params, eager_c, tok, 120)
+    for pos in (121, 122, 123):
+        want, _ = T.decode_step(cfg, params, eager_c, tok, pos)
+        got, _ = step(params, cache, tok, pos)
+        assert torch.equal(got, want)
+        tok = want.argmax(-1)
+    assert len(step.graphs) == 1
+    for (p, a), (_, b) in zip(tree_leaves(eager_c), tree_leaves(cache)):
+        assert torch.equal(a, b), p
+
+
 # -- plan mode: masked segments as CUDA graphs ---------------------------------
 # Every kernel on the masked path is deterministic, so a replayed graph
 # equals the same segment run eagerly bit for bit.

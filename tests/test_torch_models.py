@@ -35,8 +35,8 @@ from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.config import ModelConfig  # noqa: E402
 from repro_torch.models.convert import (cache_from_numpy,  # noqa: E402
                                         params_from_numpy)
-from repro_torch.models.module import (init_params, param_count,  # noqa: E402
-                                       tree_leaves)
+from repro_torch.models.module import (ParamSpec, init_params,  # noqa: E402
+                                       param_count, tree_leaves)
 
 TINY = JModelConfig(name="tiny", arch_type="dense", num_layers=3, d_model=64,
                     num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=300,
@@ -86,9 +86,11 @@ def test_llama_config_is_the_reference_copy():
     assert (cfg.hdim, cfg.padded_vocab, cfg.repeats) == (128, 128512, 28)
     assert dataclasses.asdict(cfg.reduced(num_layers=4, vocab=1024)) == \
         dataclasses.asdict(jcfg.reduced(num_layers=4, vocab=1024))
-    assert list_archs() == ["llama3.2-3b"]
+    assert list_archs() == ["qwen2.5-32b", "qwen2-7b", "phi3.5-moe-42b-a6.6b",
+                            "llama3.2-3b", "dbrx-132b", "internvl2-1b",
+                            "musicgen-medium", "starcoder2-3b"]
     with pytest.raises(KeyError, match="llama3.2-3b"):
-        get_config("qwen2-7b")
+        get_config("mamba2-2.7b")
 
 
 @pytest.mark.parametrize("jcfg", [
@@ -137,21 +139,15 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="Mamba-2"):
         T.model_specs(dataclasses.replace(jamba, pattern=("A", "M"),
                                           num_layers=2))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        T.model_specs(dataclasses.replace(jamba, moe_every=1, num_experts=4))
-    cfg = port_cfg(TINY)
-    _, p = ref_params(TINY)
-    x = torch.zeros((1, 8, 64))
-    tokens = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="frontends"):
-        T.loss_fn(cfg, p, {"tokens": tokens, "labels": tokens,
-                           "embeds": x[:, :2]})
+    with pytest.raises(NotImplementedError, match="Mamba-2"):
+        init_params({"a_log": ParamSpec((2, 4), init="arange")},
+                    torch.Generator().manual_seed(0))
+    for arch in ("mamba2-2.7b", "jamba-v0.1-52b"):
+        with pytest.raises(KeyError, match="not ported"):
+            get_config(arch)
     with pytest.raises(NotImplementedError, match="multi-card"):
         train("llama3.2-3b", smoke=True, steps=1, batch=1, seq=8,
               ckpt_dir=None, use_mesh=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="frontends"):
-        T.prefill(cfg, p, torch.zeros((1, 8), dtype=torch.long),
-                  embeds=torch.zeros((1, 2, 64)))
 
 
 # --- layers ---------------------------------------------------------------
@@ -256,9 +252,10 @@ def test_forward_full_matches_reference():
     jp, tp = ref_params(TINY)
     toks = tokens((2, 32), TINY.vocab_size, 8)
     x = np.array(JT.embed_tokens(TINY, jp, jnp.asarray(toks)))
-    jlg, _, _ = JT.forward_full(TINY, jp, jnp.asarray(x), mode="prefill")
-    lg, cache = T.forward_full(port_cfg(TINY), tp, torch.from_numpy(x))
+    jlg, _, jaux = JT.forward_full(TINY, jp, jnp.asarray(x), mode="prefill")
+    lg, cache, aux = T.forward_full(port_cfg(TINY), tp, torch.from_numpy(x))
     assert cache is None and lg.shape == (2, 32, TINY.padded_vocab)
+    assert float(aux) == float(jaux) == 0.0
     close(lg, jlg, LOGIT_TOL)
 
 

@@ -167,7 +167,24 @@ Phases:
      dbrx at full width cut to 2 layers: phi's train step, both
      prefills (B=1, S=4096) with their dropped share and aux loss, one
      MoE layer's route, dispatch, expert and combine products by the
-     profiler, the decode graph ([moe]).
+     profiler, the decode graph ([moe]);
+  12. Mamba-2 (``mamba_phases``): the chunked SSD (plain torch: the
+     reference has no kernel there) on the card against the CPU in fp32
+     and its bf16 path against fp32 on the same values, with gradients
+     ([mamba-check]); both archs' reduced configs card against CPU, jamba
+     over its whole 8-layer pattern ([mamba-reference]); mamba2-2.7b at
+     full width and depth trained (B=2, S=4096, remat: every leaf moves;
+     tokens/s, the share of the bf16 peak, peak memory, the device time
+     split into the SSD's products and the rest, the other GEMMs and
+     the elementwise work), prefilled at B=1, S=16384 and decoded
+     through the CUDA graph (8 replays equal to 8 eager steps from a
+     copy of the cache; ms a token against the weight read); no hand
+     kernel runs on its path; jamba-v0.1-52b at full width cut to 8
+     layers (one period): kernel 9 held against its plain version and
+     timed at its prefill's [1, 8, 4, 16384, 128] before the weights are
+     drawn, the prefill at B=1, S=16384 counted (kernel 9 once), its
+     decode graph full and golden (64 of 128 blocks) against eager
+     ([mamba]).
 
 Any failure exits non-zero before the last line.  The last lines are the
 card's name and power limit, a JSON line of per-kernel numbers, and
@@ -989,6 +1006,29 @@ TRAIN_ARCHS, ARCH_TRAIN_TIMED = ("internvl2-1b", "musicgen-medium"), 3
 MOE_ARCHS, MOE_LAYERS, MOE_S, MOE_TIMED = (
     ("phi3.5-moe-42b-a6.6b", "dbrx-132b"), 2, 4096, 2)
 MOE_PROFILED = 10
+# The [mamba] phase (``mamba_phases``): mamba2-2.7b at full width and
+# depth (64 layers, 2.83 B parameters, 36.9 GiB with AdamW) trained at
+# train_4k's B=2, S=4096, prefilled at B=1, S=MAMBA_S and decoded
+# through the CUDA graph; jamba-v0.1-52b at full width over one period
+# of its pattern (HYBRID_LAYERS: 7 Mamba layers and 1 attention layer,
+# MoE on 4; 13.27 B parameters, 24.7 GiB in bf16: its 32 layers, 95.9
+# GiB, do not fit the card) prefilled at B=1, S=MAMBA_S and decoded.  The
+# SSD is plain torch (the reference has no kernel there): the on-card
+# checks at SSD_CHECK (B, S, H, P, N, chunk: 8 chunks) hold it.
+MAMBA_ARCH, HYBRID_ARCH, HYBRID_LAYERS = "mamba2-2.7b", "jamba-v0.1-52b", 8
+MAMBA_ARCHS = (MAMBA_ARCH, HYBRID_ARCH)
+MAMBA_TIMED, MAMBA_S, MAMBA_REPLAYS, MAMBA_PROFILED = 3, 16384, 8, 5
+SSD_CHECK = (2, 1024, 16, 64, 128, 128)
+SSD_CARD_TOL = 2e-5    # card fp32 against CPU fp32, of the max abs (y, state)
+SSD_BF16_TOL = 1e-2    # bf16 against fp32 on the same values, of the max abs
+REPLAY_TOL = 0.0       # decode graph replays against eager steps: bit-equal
+# [mamba-reference]'s gradients, card against CPU, of each leaf's max abs:
+# through jamba's 8 reduced layers at B=2, S=256 the port and the JAX
+# reference differ by 1.64e-4 on the CPU (fp32 sums in another order;
+# 5.4e-5 at S=64, tests/test_torch_archs.py), so ARCH_REF_TOL's 1e-4 is
+# below the two frameworks' own spread there
+MAMBA_REF_GRAD_TOL = 3e-4
+GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")   # cuBLAS's product kernels
 # kernels of the attention path: kernel 9 (bf16 route) and the backward
 OURS = ("flash_sm90_kernel", "bwd_dkdv_sm90_kernel", "bwd_dq_sm90_kernel",
         "bwd_dot_sm90_kernel")
@@ -1262,20 +1302,33 @@ def arch_check(smi: str) -> dict:
     return out
 
 
-def arch_reference(kernels: dict, smi: str) -> None:
-    """[arch-reference]: each of the seven archs' reduced config (fp32)
-    on the card against the CPU from one set of weights and batches: the
-    loss, its aux term and step 1's gradients within ARCH_REF_TOL, the
-    prefill and decode logits within LLM_LOGIT_TOL, and an MoE's expert
-    choices and kept slots equal in every layer of every pass."""
+def reduced_cfg(arch: str):
+    """An arch's reduced config (fp32) for the card-vs-CPU checks:
+    jamba over its whole 8-layer pattern (the default 2-layer cut holds
+    no attention layer)."""
+    from repro_torch.configs import get_config
+    return get_config(arch).reduced(
+        num_layers=HYBRID_LAYERS if arch == HYBRID_ARCH else 2)
+
+
+def arch_reference(kernels: dict, smi: str, archs=ARCH_NEW,
+                   tag: str = "[arch-reference]",
+                   grad_tol: float = ARCH_REF_TOL) -> None:
+    """[arch-reference]: each arch's reduced config (fp32) on the card
+    against the CPU from one set of weights and batches: the loss and its
+    aux term within ARCH_REF_TOL, step 1's gradients within ``grad_tol``
+    of each leaf's max abs, the prefill and
+    decode logits within LLM_LOGIT_TOL, and an MoE's expert choices and
+    kept slots equal in every layer of every pass; kernel 9 three times
+    and the backward once an attention layer."""
     from repro_torch.configs import get_config
     from repro_torch.launch import steps as step_lib
     from repro_torch.models import transformer as T
     from repro_torch.models.convert import params_from_numpy
     from repro_torch.models.module import init_params, tree_leaves, tree_map
     t_phase = time.perf_counter()
-    for arch in ARCH_NEW:
-        rcfg = get_config(arch).reduced()
+    for arch in archs:
+        rcfg = reduced_cfg(arch)
         np_params = tree_map(lambda t: t.numpy(), init_params(
             T.model_specs(rcfg), torch.Generator().manual_seed(0)))
         rng = np.random.default_rng(7)
@@ -1316,13 +1369,15 @@ def arch_reference(kernels: dict, smi: str) -> None:
         same_routes = len(c["routes"]) == len(h["routes"]) and all(
             torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
             for a, b in zip(c["routes"], h["routes"]))
-        n_moe = rcfg.num_layers * 4 if rcfg.num_experts else 0
+        n_moe = (sum(rcfg.mlp_kind(i) == "moe" for i in range(rcfg.period))
+                 * rcfg.repeats * 4)
         layers = rcfg.num_layers
+        n_attn = rcfg.pattern.count("A") * rcfg.repeats
         want = {n: 0 for n in kernels}
-        want.update(flash_attention=3 * layers, flash_attention_bwd=layers)
+        want.update(flash_attention=3 * n_attn, flash_attention_bwd=n_attn)
         check(abs(c["loss"] - h["loss"]) <= ARCH_REF_TOL
               and abs(c["aux"] - h["aux"]) <= ARCH_REF_TOL
-              and grad_err <= ARCH_REF_TOL and logit_err <= LLM_LOGIT_TOL
+              and grad_err <= grad_tol and logit_err <= LLM_LOGIT_TOL
               and same_routes and len(c["routes"]) == n_moe
               and c["counts"] == want,
               f"arch-reference {arch}: loss {c['loss']} vs {h['loss']}, aux "
@@ -1332,9 +1387,11 @@ def arch_reference(kernels: dict, smi: str) -> None:
               f"{c['counts']}")
         drop = (sum(int((~kp).sum()) for _, kp in c["routes"])
                 / max(sum(kp.numel() for _, kp in c["routes"]), 1))
-        print(f"[arch-reference] {rcfg.name} ({layers} layers, d_model "
+        print(f"{tag} {rcfg.name} ({layers} layers, d_model "
               f"{rcfg.d_model}, {rcfg.num_heads}/{rcfg.num_kv_heads} heads, "
-              f"fp32" + (f", {rcfg.num_experts} experts top-"
+              + (f"pattern {''.join(rcfg.pattern)}, SSD state "
+                 f"{rcfg.ssm_state}, " if rcfg.ssm_state else "")
+              + "fp32" + (f", {rcfg.num_experts} experts top-"
                          f"{rcfg.experts_per_token}" if rcfg.num_experts
                          else "") + (f", {f} frontend embeddings" if f else "")
               + f"), B={ARCH_REF_B}, S={ARCH_REF_S}, card against CPU from the"
@@ -1342,7 +1399,7 @@ def arch_reference(kernels: dict, smi: str) -> None:
               f"{abs(c['loss'] - h['loss']):.3g}), aux {c['aux']:.6f} "
               f"(difference {abs(c['aux'] - h['aux']):.3g}), step 1's "
               f"gradients max abs difference / leaf max abs {grad_err:.3g} "
-              f"(tolerance {ARCH_REF_TOL}); prefill and decode logits max abs "
+              f"(tolerance {grad_tol}); prefill and decode logits max abs "
               f"{logit_err:.3g} (tolerance {LLM_LOGIT_TOL})"
               + (f"; expert choices and kept slots equal in all "
                  f"{len(c['routes'])} routings (loss, its no-grad rerun, "
@@ -1351,27 +1408,32 @@ def arch_reference(kernels: dict, smi: str) -> None:
               f"{c['counts']['flash_attention']}, flash_attention_bwd "
               f"{c['counts']['flash_attention_bwd']}; {smi}")
         del runs
-    print(f"[arch-reference] phase {time.perf_counter() - t_phase:.1f} s")
+    print(f"{tag} phase {time.perf_counter() - t_phase:.1f} s")
 
 
 def decode_graph_check(cfg, params, cache, tok, label: str) -> dict:
     """``make_decode_step``'s CUDA graph against the eager decode step at
-    the last three positions of ``cache`` (the graph decodes into
-    ``cache``, the eager step into a copy), full attention then golden
-    (the config's kb): logits at every position and both caches at the
-    end bit-equal, one graph a kind; walls and idle shares of both, and
-    golden against full at the last position (KL, top-1)."""
+    the last three positions of ``cache`` (the first attention layer's;
+    the graph decodes into ``cache``, the eager step into a copy, synced
+    to it before each kind: a Mamba layer's states advance a step), full
+    attention then golden (the config's kb): logits at every position and
+    both caches at the end bit-equal, one graph a kind; walls and idle
+    shares of both, and golden against full at the last position from
+    one cache state (KL, top-1)."""
     from repro_torch.launch import steps as step_lib
     from repro_torch.models import transformer as T
     from repro_torch.models.module import tree_leaves, tree_map
-    seq = cache["l0"]["k"].shape[3]
+    seq = T.attn_cache_len(cfg, cache)
     nb = seq // cfg.golden_block_size
     positions = (seq - 3, seq - 2, seq - 1)
     kb = min(cfg.golden_blocks, nb)
     eager_c = tree_map(torch.clone, cache)
+    stateful = "M" in cfg.pattern
     out, last = {}, {}
     for kind in ("full", "golden"):
         c = dataclasses.replace(cfg, attn_kind_decode=kind)
+        for (_, a), (_, b) in zip(tree_leaves(eager_c), tree_leaves(cache)):
+            a.copy_(b)
         step = step_lib.make_decode_step(c)
         t = tok
         with torch.no_grad():
@@ -1410,9 +1472,11 @@ def decode_graph_check(cfg, params, cache, tok, label: str) -> dict:
     # key and value at pos before it reads, and reads positions <= pos
     with torch.no_grad():
         for kind in ("full", "golden"):
+            src = tree_map(torch.clone, eager_c) if stateful else eager_c
             last[kind] = T.decode_step(dataclasses.replace(
-                cfg, attn_kind_decode=kind), params, eager_c, tok,
+                cfg, attn_kind_decode=kind), params, src, tok,
                 positions[-1])[0]
+            del src
     pf = torch.softmax(last["full"].float(), -1)
     lg = torch.log_softmax(last["golden"].float(), -1)
     kl = float((pf * (torch.log(pf + 1e-20) - lg)).sum(-1).mean())
@@ -1556,13 +1620,23 @@ def arch_prefill(kernels: dict, smi: str) -> dict:
     return out
 
 
+def fingerprints(params: dict) -> dict:
+    """Each leaf's (sum, sum of squares) in float64: exact for bf16
+    values, so a leaf whose bits move changes them."""
+    from repro_torch.models.module import tree_leaves
+    return {p: (float(t.double().sum()), float(t.double().square().sum()))
+            for p, t in tree_leaves(params)}
+
+
 def arch_train_run(cfg, kernels: dict, steps: int, softmax_ok: int = 0,
-                   label: str = "[arch-train]") -> dict:
+                   label: str = "[arch-train]", moved: bool = False) -> dict:
     """``launch.train``'s setup and ``steps`` train steps of ``cfg`` at
     B=2, S=4096 (train_4k sequences) on the card: one warm step, then
     ``steps - 1`` counted with every count set to 0 just before; one
     more step profiled (no library or plain attention kernel may run).
-    Returns the walls, counts, losses, peak memory and the profile."""
+    Returns the walls, counts, losses, peak memory and the profile (its
+    device ms by kernel in ``by_name``); with ``moved``, the leaves whose
+    fingerprints the steps changed and the leaf count."""
     from repro_torch.launch import train as train_lib
     from repro_torch.models.module import tree_leaves
     gc.collect()
@@ -1571,6 +1645,7 @@ def arch_train_run(cfg, kernels: dict, steps: int, softmax_ok: int = 0,
     t0 = time.perf_counter()
     params, state, batches, step = train_lib.setup(
         cfg, steps, TRAIN_B, TRAIN_S, torch.device("cuda"))
+    before = fingerprints(params) if moved else {}
     losses = []
 
     def one(i):
@@ -1605,12 +1680,18 @@ def arch_train_run(cfg, kernels: dict, steps: int, softmax_ok: int = 0,
               if launch_name(e.name) in OURS[1:]) / 1e3
     fwd = sum(e.time_range.elapsed_us() for e in ev
               if launch_name(e.name) == OURS[0]) / 1e3
+    by_name = Counter()
+    for e in ev:
+        by_name[launch_name(e.name)] += e.time_range.elapsed_us() / 1e3
+    after = fingerprints(params) if moved else {}
+    n_moved = sum(after[p] != before[p] for p in before)
     del params, state, batches, step
     gc.collect()
     torch.cuda.empty_cache()
     return dict(wall_ms=wall, counts=counts, losses=losses, aux=aux,
                 peak=peak, busy=busy, tops=tops, setup_s=setup_s,
-                attn_fwd_ms=fwd, attn_bwd_ms=bwd, n_events=len(ev))
+                attn_fwd_ms=fwd, attn_bwd_ms=bwd, n_events=len(ev),
+                by_name=by_name, moved=n_moved, leaves=len(before))
 
 
 def arch_train(kernels: dict, smi: str) -> dict:
@@ -1689,16 +1770,8 @@ def moe_split(cfg, params: dict, b: int, s: int) -> dict:
                  "dispatch": lambda: moe.dispatch_tokens(dispatch, xg),
                  "experts": lambda: moe.expert_mlp(p, xe),
                  "combine": lambda: moe.combine_tokens(combine, ye)}
-        out = {}
-        for part, fn in parts.items():
-            ms, kept = Counter(), Counter()
-            for e in device_events(lambda: [fn() for _ in range(
-                    MOE_PROFILED)]):
-                ms[e.name] += e.time_range.elapsed_us() / 1e3
-                kept[e.name] += 1
-            out[part] = sum(ms[n] / kept[n] * -(-kept[n] // MOE_PROFILED)
-                            for n in kept)
-        return out
+        return {part: sum(per_call_ms(fn, MOE_PROFILED).values())
+                for part, fn in parts.items()}
 
 
 def moe_phase(kernels: dict, smi: str) -> dict:
@@ -1846,6 +1919,373 @@ def arch_phases(kernels: dict, smi: str) -> tuple[dict, dict]:
             if c:
                 entries[(n, path)] = dict(at[n], launches=c)
     return entries, {p: c for p, (_, c) in paths.items()}
+
+
+def is_gemm(name: str) -> bool:
+    return any(f in name.lower() for f in GEMM_NAMES)
+
+
+def per_call_ms(fn, iters: int) -> Counter:
+    """Device ms a call of ``fn`` by kernel name, from the profiler over
+    ``iters`` calls in one session: each kernel's mean over the events
+    kept times its launches a call (late in a long process a session
+    loses its first events)."""
+    ms, kept = Counter(), Counter()
+    for e in device_events(lambda: [fn() for _ in range(iters)]):
+        ms[e.name] += e.time_range.elapsed_us() / 1e3
+        kept[e.name] += 1
+    return Counter({n: ms[n] / kept[n] * -(-kept[n] // iters) for n in kept})
+
+
+def by_class(ms: Counter) -> tuple[float, float]:
+    """(products, the rest): device ms of cuBLAS's product kernels and of
+    every other kernel."""
+    prod = sum(v for n, v in ms.items() if is_gemm(n))
+    return prod, sum(ms.values()) - prod
+
+
+def ssd_check(smi: str) -> None:
+    """[mamba-check]: ``ssd_chunked`` on the card at SSD_CHECK from an
+    initial state: the card's fp32 against the CPU's fp32 (y and the
+    final state within SSD_CARD_TOL of their max abs, the gradients of
+    x, dt, B, C and the initial state within ARCH_REF_TOL), and the bf16
+    path (x, B and C in bf16) against an fp32 run on the card of the same
+    values (y within SSD_BF16_TOL, the state within SSD_CARD_TOL)."""
+    import torch.nn.functional as F
+    from repro_torch.models.mamba2 import ssd_chunked
+    b, s, h, p, n, chunk = SSD_CHECK
+    gen = torch.Generator().manual_seed(23)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen)
+    x, bi, ci = rn(b, s, h, p), rn(b, s, n), rn(b, s, n)
+    dt, d, st = F.softplus(rn(b, s, h) - 3), rn(h), rn(b, h, p, n)
+    a = -torch.arange(1.0, h + 1)
+    gy, gs = rn(b, s, h, p), rn(b, h, p, n)
+
+    def run(dev, dtype=torch.float32):
+        ins = [t.to(dev) for t in (x, dt, a, bi, ci, d, st)]
+        for i in (0, 3, 4):
+            ins[i] = ins[i].to(dtype)
+        live = [ins[i].detach().requires_grad_() for i in (0, 1, 3, 4, 6)]
+        y, fin = ssd_chunked(live[0], live[1], ins[2], live[2], live[3],
+                             ins[5], chunk, live[4])
+        grads = torch.autograd.grad((y, fin), live, (gy.to(dev, y.dtype),
+                                                     gs.to(dev)))
+        return [t.detach().float().cpu() for t in (y, fin, *grads)]
+
+    def rel(got, want):
+        return float((got - want).abs().max() / want.abs().max())
+    card_, cpu = run("cuda"), run("cpu")
+    errs = [rel(c, h_) for c, h_ in zip(card_, cpu)]
+    for t in (x, bi, ci):                       # the bf16 values, in fp32
+        t.copy_(t.bfloat16().float())
+    half, full = run("cuda", torch.bfloat16), run("cuda")
+    berrs = [rel(half[0], full[0]), rel(half[1], full[1])]
+    check(max(errs[:2]) <= SSD_CARD_TOL and max(errs[2:]) <= ARCH_REF_TOL
+          and berrs[0] <= SSD_BF16_TOL and berrs[1] <= SSD_CARD_TOL,
+          f"mamba-check ssd_chunked {SSD_CHECK}: card vs CPU fp32 (y, "
+          f"state, grads) {errs}, bf16 vs fp32 (y, state) {berrs}")
+    print(f"[mamba-check] ssd_chunked B={b}, S={s}, H={h}, P={p}, N={n}, "
+          f"chunk {chunk} ({s // chunk} chunks, from an initial state): "
+          f"card fp32 against CPU fp32, max abs difference / max abs: y "
+          f"{errs[0]:.3g}, final state {errs[1]:.3g} (tolerance "
+          f"{SSD_CARD_TOL}); gradients of x, dt, B, C, the initial state "
+          f"{[f'{e:.3g}' for e in errs[2:]]} (tolerance {ARCH_REF_TOL}); "
+          f"bf16 x, B, C against fp32 on the card on the same values: y "
+          f"{berrs[0]:.3g} (tolerance {SSD_BF16_TOL}), state {berrs[1]:.3g} "
+          f"(tolerance {SSD_CARD_TOL}); {smi}")
+
+
+def ssd_split(cfg, b: int, s: int) -> dict:
+    """Device ms of one Mamba layer's ``ssd_chunked`` at [b, s] (random
+    inputs of the layer's shape and dtypes; the products are dense, so
+    their time does not depend on the values), by the profiler
+    (MAMBA_PROFILED calls a part): the forward without a gradient (a
+    remat step's first pass) and the forward with the backward (its
+    recompute and backward), each as (products, the rest)."""
+    import torch.nn.functional as F
+    from repro_torch.models import transformer as T
+    from repro_torch.models.mamba2 import ssd_chunked
+    dm = T._mamba_dims(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(29)
+
+    def rn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    bf = cfg.param_dtype
+    x = rn(b, s, dm.heads, dm.head_dim, dtype=bf)
+    bi, ci = (rn(b, s, dm.state, dtype=bf) for _ in range(2))
+    dt = F.softplus(rn(b, s, dm.heads) - 3)
+    a = -torch.arange(1.0, dm.heads + 1, device="cuda")
+    dsk = torch.ones(dm.heads, device="cuda")
+    live = [t.detach().requires_grad_() for t in (x, dt, bi, ci)]
+    gy = rn(b, s, dm.heads, dm.head_dim, dtype=bf)
+    gs = rn(b, dm.heads, dm.head_dim, dm.state)
+
+    def fwd():
+        with torch.no_grad():
+            ssd_chunked(x, dt, a, bi, ci, dsk, cfg.ssm_chunk)
+
+    def fwd_bwd():
+        y, st = ssd_chunked(live[0], live[1], a, live[2], live[3], dsk,
+                            cfg.ssm_chunk)
+        torch.autograd.grad((y, st), live, (gy, gs))
+    return {"forward": by_class(per_call_ms(fwd, MAMBA_PROFILED)),
+            "forward and backward": by_class(per_call_ms(fwd_bwd,
+                                                         MAMBA_PROFILED))}
+
+
+def state_decode_check(cfg, params, cache, tok, s0: int, label: str
+                       ) -> dict:
+    """``make_decode_step``'s CUDA graph of a model without attention:
+    one capturing call at position ``s0`` (its eager step advances the
+    states once; the capture runs nothing), then MAMBA_REPLAYS replays
+    against as many eager ``decode_step`` calls from a copy of the same
+    cache (the same tokens): logits and every state within REPLAY_TOL;
+    walls, idle shares, and the graph's ms a token against the weights'
+    read at the HBM rate."""
+    from repro_torch.launch import steps as step_lib
+    from repro_torch.models import transformer as T
+    from repro_torch.models.module import tree_leaves, tree_map
+    eager_c = tree_map(torch.clone, cache)
+    step = step_lib.make_decode_step(cfg)
+    t = tok
+    with torch.no_grad():
+        step(params, cache, t, s0)
+        T.decode_step(cfg, params, eager_c, t, s0)
+        diff = 0.0
+        for pos in range(s0 + 1, s0 + 1 + MAMBA_REPLAYS):
+            want, _ = T.decode_step(cfg, params, eager_c, t, pos)
+            got, _ = step(params, cache, t, pos)
+            diff = max(diff, float((got.float() - want.float()).abs().max()))
+            t = want.argmax(-1)
+        sdiff = max(float((a.float() - b.float()).abs().max()) for (_, a), (
+            _, b) in zip(tree_leaves(eager_c), tree_leaves(cache)))
+    check(diff <= REPLAY_TOL and sdiff <= REPLAY_TOL
+          and len(step.graphs) == 1,
+          f"{label} decode graph: {MAMBA_REPLAYS} replays against eager "
+          f"steps: logits {diff:.3g}, states {sdiff:.3g}, "
+          f"{len(step.graphs)} graphs")
+    pos = s0 + MAMBA_REPLAYS + 1
+    with torch.no_grad():
+        eager = lambda: T.decode_step(cfg, params, eager_c, t, pos)  # noqa: E731
+        graph = lambda: step(params, cache, t, pos)  # noqa: E731
+        w_e, w_g = wall_ms(eager, 5), wall_ms(graph, 20)
+        b_e, _ = device_kernels(eager)
+        b_g, tops = top_ops(device_events(graph), 6)
+    w_bytes = sum(x.numel() * x.element_size() for _, x in tree_leaves(params))
+    read = w_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"{label} decode graph, B={tok.shape[0]}: {MAMBA_REPLAYS} replays "
+          f"equal to {MAMBA_REPLAYS} eager decode_step calls from a copy of "
+          f"the same cache (logits max abs {diff:.3g}, states {sdiff:.3g}; "
+          f"tolerance {REPLAY_TOL}: bit-equal), 1 graph; eager {w_e:.3f} ms "
+          f"a token (idle share {1 - b_e / w_e:.3f}), graph {w_g:.3f} ms "
+          f"(idle share {1 - b_g / w_g:.3f}), {w_g / read:.2f}x the "
+          f"{w_bytes / 2**30:.2f} GiB weight read at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s ({read:.3f} ms); the replay's "
+          f"top device operations: {tops}")
+    del eager_c, step
+    return dict(eager_ms=w_e, graph_ms=w_g, read_ms=read,
+                eager_idle=1 - b_e / w_e, graph_idle=1 - b_g / w_g)
+
+
+def draw_params(cfg) -> tuple[dict, float, int]:
+    """Random weights of ``cfg`` drawn on the card (seed 0): the tree,
+    its seconds and the bytes it holds."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.module import init_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_params(T.model_specs(cfg),
+                         torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    return (params, time.perf_counter() - t0,
+            torch.cuda.memory_allocated() - held)
+
+
+def state_prefill(cfg, params, kernels: dict, label: str, softmax_ok: int
+                  ) -> dict:
+    """A prefill of ``cfg`` at B=1, S=MAMBA_S through
+    ``make_prefill_step`` with every count set to 0 just before and read
+    just after: logits finite, peak memory; then its wall (mean of 2
+    after 2), its device busy time, top kernels and kernel 9's ms by the
+    profiler (no library or plain attention kernel; ``softmax_ok``
+    router softmaxes)."""
+    from repro_torch.launch import steps as step_lib
+    from repro_torch.models import transformer as T
+    toks = torch.randint(0, cfg.vocab_size, (1, MAMBA_S), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(1))
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    logits, cache = step_lib.make_prefill_step(cfg)(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = {n: fn.launches for n, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    finite = bool(torch.isfinite(logits).all())
+    check(tuple(logits.shape) == (1, cfg.padded_vocab) and finite,
+          f"{label} prefill: logits {tuple(logits.shape)}, finite {finite}")
+
+    def again():
+        with torch.no_grad():
+            T.prefill(cfg, params, toks)
+    wall = wall_ms(again, 2)
+    ev = device_events(again)
+    busy, tops = top_ops(ev)
+    foreign = foreign_attention(ev, softmax_ok)
+    check(not foreign, f"{label} prefill: library or plain attention "
+          f"kernels {foreign}")
+    ms = Counter()
+    for e in ev:
+        ms[launch_name(e.name)] += e.time_range.elapsed_us() / 1e3
+    prod, rest = by_class(ms)
+    return dict(logits=logits, cache=cache, counts=counts, peak=peak,
+                first_s=first_s, wall=wall, busy=busy, tops=tops,
+                products=prod, rest=rest, attn_ms=ms[OURS[0]])
+
+
+def mamba_phases(kernels: dict, smi: str) -> tuple[dict, dict]:
+    """[mamba-check], [mamba-reference] and [mamba]: the SSD on the card
+    against the CPU and bf16 against fp32; both archs' reduced configs
+    card against CPU; mamba2-2.7b at full width and depth trained (B=2,
+    S=4096, remat: every leaf moves, the loss finite; tokens/s, the share
+    of the bf16 peak by model FLOPs, peak memory, the device time split
+    into the SSD's products, the other GEMMs and the elementwise work),
+    prefilled at B=1, S=MAMBA_S and decoded through the CUDA graph (no
+    hand kernel on its path: every count stays 0); jamba-v0.1-52b at
+    full width over HYBRID_LAYERS layers: kernel 9 checked and timed at
+    its prefill's shape before the weights are drawn, the prefill
+    counted (kernel 9 once), the decode graph full and golden.  Returns
+    the JSON line's entry of jamba's prefill path and its counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.hlo_analysis import model_flops
+    from repro_torch.launch.inputs import InputShape
+    t_phase = time.perf_counter()
+    ssd_check(smi)
+    arch_reference(kernels, smi, MAMBA_ARCHS, "[mamba-reference]",
+                   MAMBA_REF_GRAD_TOL)
+    zero = {n: 0 for n in kernels}
+
+    # -- mamba2-2.7b: the train step ------------------------------------------
+    cfg = get_config(MAMBA_ARCH)
+    r = arch_train_run(cfg, kernels, 1 + MAMBA_TIMED, label="[mamba]",
+                       moved=True)
+    check(r["counts"] == zero and r["moved"] == r["leaves"],
+          f"[mamba] {MAMBA_ARCH} train: launches {r['counts']}, "
+          f"{r['moved']} of {r['leaves']} leaves moved")
+    mflops = model_flops(cfg, InputShape("train_4k", "train", TRAIN_S,
+                                         TRAIN_B))
+    wall, busy = r["wall_ms"], r["busy"]
+    prod, rest = by_class(r["by_name"])
+    sp = ssd_split(cfg, TRAIN_B, TRAIN_S)
+    n = cfg.num_layers
+    ssd_prod = n * (sp["forward"][0] + sp["forward and backward"][0])
+    ssd_rest = n * (sp["forward"][1] + sp["forward and backward"][1])
+    print(f"[mamba] {MAMBA_ARCH} at full width and depth ({n} layers, "
+          f"d_model {cfg.d_model}, "
+          f"{cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim} SSD heads of "
+          f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk {cfg.ssm_chunk},"
+          f" vocab {cfg.vocab_size}, bf16, remat {cfg.remat}), B={TRAIN_B}, "
+          f"S={TRAIN_S}, AdamW: wall {wall:.1f} ms a step (mean of "
+          f"{MAMBA_TIMED} after one warm step; setup and warm step "
+          f"{r['setup_s']:.1f} s), device busy {busy:.1f} ms (profiler), "
+          f"idle share {1 - busy / wall:.3f}; "
+          f"{TRAIN_B * TRAIN_S / (wall / 1e3):.0f} tokens/s; model FLOPs "
+          f"{mflops / 1e12:.2f} TFLOP a step, "
+          f"{mflops / (wall / 1e3) / BF16_PEAK:.4f} of the bf16 dense peak; "
+          f"peak memory {r['peak'] / 2**30:.2f} GiB; all {r['leaves']} "
+          f"leaves moved; launches of the hand kernels: none (no "
+          f"attention layer); losses {r['losses']}; {smi}")
+    print(f"[mamba] {MAMBA_ARCH} step device split (profiler): cuBLAS "
+          f"products {prod:.1f} ms ({prod / busy:.3f}), the rest "
+          f"(elementwise, reductions, copies, AdamW) {rest:.1f} ms "
+          f"({rest / busy:.3f}); the SSD ({n} layers x one layer's "
+          f"forward without a gradient + forward and backward, "
+          f"{MAMBA_PROFILED} calls each by the profiler): products "
+          f"{ssd_prod:.1f} ms, the rest {ssd_rest:.1f} ms, "
+          f"{(ssd_prod + ssd_rest) / busy:.3f} of the step's busy time (a "
+          f"layer: forward {sum(sp['forward']):.3f} ms, forward and "
+          f"backward {sum(sp['forward and backward']):.3f} ms); the other "
+          f"GEMMs {prod - ssd_prod:.1f} ms, the other elementwise work "
+          f"{rest - ssd_rest:.1f} ms; top device operations: {r['tops']}")
+    out = {"train": dict(r, ssd_ms=ssd_prod + ssd_rest)}
+
+    # -- mamba2-2.7b: prefill and the decode graph ----------------------------
+    params, init_s, w_bytes = draw_params(cfg)
+    pre = state_prefill(cfg, params, kernels, f"[mamba] {MAMBA_ARCH}", 0)
+    check(pre["counts"] == zero, f"[mamba] {MAMBA_ARCH} prefill launches "
+          f"{pre['counts']}")
+    cache = pre.pop("cache")
+    tok = pre.pop("logits").argmax(-1)
+    state_mib = sum(t.numel() * t.element_size() for lc in cache.values()
+                    for t in lc.values()) / 2**20
+    print(f"[mamba] {MAMBA_ARCH} prefill B=1, S={MAMBA_S}: weights "
+          f"{w_bytes / 2**30:.2f} GiB drawn in {init_s:.2f} s; first call "
+          f"{pre['first_s']:.2f} s, wall {pre['wall']:.1f} ms (mean of 2 "
+          f"after 2), device busy {pre['busy']:.1f} ms, idle share "
+          f"{1 - pre['busy'] / pre['wall']:.3f}; cuBLAS products "
+          f"{pre['products']:.1f} ms, the rest {pre['rest']:.1f} ms; peak "
+          f"memory {pre['peak'] / 2**30:.2f} GiB; the cache (conv and SSM "
+          f"states) {state_mib:.1f} MiB; "
+          f"launches of the hand kernels: none; top device operations: "
+          f"{pre['tops']}; {smi}")
+    out["prefill"] = pre
+    out["decode"] = state_decode_check(cfg, params, cache, tok, MAMBA_S,
+                                       f"[mamba] {MAMBA_ARCH}")
+    del params, cache, tok
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- jamba-v0.1-52b over one period: kernel 9 at its prefill's shape ------
+    full = get_config(HYBRID_ARCH)
+    cfg = dataclasses.replace(full, num_layers=HYBRID_LAYERS)
+    hkv, g, dh = arch_shape(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(31)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    timed = attn_at(randn, HYBRID_ARCH, hkv, g, dh, 1, MAMBA_S, False, smi)
+    params, init_s, w_bytes = draw_params(cfg)
+    n_moe = sum(cfg.mlp_kind(i) == "moe" for i in range(cfg.period))
+    pre = state_prefill(cfg, params, kernels, f"[mamba] {HYBRID_ARCH}",
+                        n_moe * cfg.repeats)
+    want = dict(zero, flash_attention=cfg.pattern.count("A") * cfg.repeats)
+    check(pre["counts"] == want, f"[mamba] {HYBRID_ARCH} prefill launches "
+          f"{pre['counts']}, expected {want}")
+    cache = pre.pop("cache")
+    tok = pre.pop("logits").argmax(-1)
+    launched = {k: v for k, v in pre["counts"].items() if v}
+    print(f"[mamba] {HYBRID_ARCH} at full width, depth cut to "
+          f"{HYBRID_LAYERS} of {full.num_layers} layers (pattern "
+          f"{''.join(cfg.pattern)}: {cfg.pattern.count('M')} Mamba, 1 "
+          f"attention of {cfg.num_heads}/{hkv} heads, MoE {cfg.num_experts} "
+          f"experts top-{cfg.experts_per_token} on {n_moe}, bf16): weights "
+          f"{w_bytes / 2**30:.2f} GiB drawn in {init_s:.2f} s; prefill B=1, "
+          f"S={MAMBA_S}: first call {pre['first_s']:.2f} s, wall "
+          f"{pre['wall']:.1f} ms, device busy {pre['busy']:.1f} ms, idle "
+          f"share {1 - pre['busy'] / pre['wall']:.3f}; kernel 9 "
+          f"{pre['attn_ms']:.2f} ms ({pre['attn_ms'] / pre['busy']:.4f}); "
+          f"cuBLAS products {pre['products']:.1f} ms, the rest "
+          f"{pre['rest']:.1f} ms; peak memory {pre['peak'] / 2**30:.2f} GiB;"
+          f" launches {launched}; top device operations: {pre['tops']}; "
+          f"{smi}")
+    dec = decode_graph_check(cfg, params, cache, tok,
+                             f"[mamba] {HYBRID_ARCH}")
+    out["hybrid"] = dict(pre, **dec)
+    del params, cache, tok
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[mamba] phase {time.perf_counter() - t_phase:.1f} s")
+    path = f"mamba prefill {HYBRID_ARCH}"
+    entries = {(n_, path): dict(timed[n_], launches=c)
+               for n_, c in pre["counts"].items() if c}
+    return entries, {path: pre["counts"]}
 
 
 # The [presets] phase: the batch of the card-vs-CPU checks of the PCA
@@ -5047,6 +5487,11 @@ def main() -> None:
 
     # -- 11. the seven archs of the frontend and MoE families ----------------
     arch_entries, arch_counts = arch_phases(kernels, smi)
+
+    # -- 12. Mamba-2: mamba2-2.7b and jamba-v0.1-52b --------------------------
+    mamba_entries, mamba_counts = mamba_phases(kernels, smi)
+    arch_entries.update(mamba_entries)
+    arch_counts.update(mamba_counts)
 
     sources = {"pdist": ("csrc/pdist.cu", "src/repro/kernels/pdist.py:61"),
                "support_sqdist": ("csrc/support_sqdist.cu",

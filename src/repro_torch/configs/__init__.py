@@ -4,9 +4,8 @@ Config files are named exactly after the arch ids (``llama3.2-3b.py``:
 dots and dashes in the file name, loaded with importlib), each
 exposing a ``CONFIG: ModelConfig`` with its public-pool citation in
 ``CONFIG.source``, copied field for field from ``repro.configs``.
-Only the archs the port runs are listed, in the reference's order; the
-Mamba-2 ones (mamba2-2.7b, jamba-v0.1-52b) wait for their mixer
-(ROADMAP Queue 1) and raise ``KeyError``.
+All ten of the reference's archs, in its order; an unknown id raises
+``KeyError``.
 """
 from __future__ import annotations
 
@@ -19,8 +18,10 @@ _DIR = pathlib.Path(__file__).parent
 
 ARCH_IDS = [
     "qwen2.5-32b",
+    "mamba2-2.7b",
     "qwen2-7b",
     "phi3.5-moe-42b-a6.6b",
+    "jamba-v0.1-52b",
     "llama3.2-3b",
     "dbrx-132b",
     "internvl2-1b",
@@ -36,7 +37,7 @@ def get_config(arch: str) -> ModelConfig:
         return _CACHE[arch]
     path = _DIR / f"{arch}.py"
     if arch not in ARCH_IDS or not path.exists():
-        raise KeyError(f"arch {arch!r} is not ported; ported: {ARCH_IDS}")
+        raise KeyError(f"arch {arch!r} is unknown; known: {ARCH_IDS}")
     spec = importlib.util.spec_from_file_location(
         f"repro_torch_config_{arch}", path)
     mod = importlib.util.module_from_spec(spec)

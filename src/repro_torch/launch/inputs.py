@@ -1,6 +1,7 @@
 """The model inputs of the four assigned shapes (counterpart of
 ``repro.launch.inputs``): ``SHAPES`` and ``concrete_inputs``.  Decode
-shapes feed ``decode_step`` (one new token against a seq_len KV cache);
+shapes feed ``decode_step`` (one new token against a seq_len KV cache,
+and a Mamba layer's conv and SSM states);
 train and prefill feed full-sequence steps.  ``input_specs`` (the
 abstract inputs of a dry run) waits for ``launch/dryrun.py`` (ROADMAP
 Queue 1).

@@ -12,7 +12,8 @@ of ``repro.launch.steps``) for one device.
   port's form: on the card, one CUDA graph a (batch, cache length,
   attention kind), captured at the first call and replayed for every
   later token, with the token and the position as its static inputs and
-  the cache updated in place; eager on the CPU.
+  the cache (K/V rows, and a Mamba layer's conv and SSM states) updated
+  in place; eager on the CPU.
 
 A batch may carry a frontend's ``embeds`` [B, F, d] beside its tokens;
 every step passes it to ``loss_fn`` / ``prefill``, and the train step's
@@ -118,10 +119,12 @@ def make_prefill_step(cfg: ModelConfig) -> Callable:
 def make_decode_step(cfg: ModelConfig) -> Callable:
     """``serve_step(params, cache, token, pos) -> (logits, cache)``.
 
-    On the card the first call with a given (batch, cache length) and
-    parameter and cache tensors decodes eagerly (which also builds what
-    the step needs) and then captures ``T.decode_step`` into one CUDA
-    graph (a capture records and runs nothing); every later call copies
+    On the card the first call with a given (batch, first attention
+    layer's cache length, 0 without attention) and parameter and cache
+    tensors decodes eagerly (which also builds what the step needs) and
+    then captures ``T.decode_step`` into one CUDA graph (a capture
+    records and runs nothing, so a Mamba layer's states advance once for
+    that call, in its eager step); every later call copies
     the token and the position into the graph's inputs, replays it and
     returns a copy of the logits.  A call with other parameter or cache
     tensors (other addresses) captures anew.  The capture runs with the garbage
@@ -133,7 +136,7 @@ def make_decode_step(cfg: ModelConfig) -> Callable:
         if token.device.type != "cuda":
             with torch.no_grad():
                 return T.decode_step(cfg, params, cache, token, pos)
-        key = (int(token.shape[0]), int(cache["l0"]["k"].shape[3]),
+        key = (int(token.shape[0]), T.attn_cache_len(cfg, cache) or 0,
                cfg.attn_kind_decode)
         ptrs = tuple(t.data_ptr() for _, t in tree_leaves(params)) + tuple(
             t.data_ptr() for _, t in tree_leaves(cache))

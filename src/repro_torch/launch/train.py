@@ -7,8 +7,10 @@ config asks) -> AdamW -> checkpoint.
       --steps 30 --batch 4 --seq 128
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --steps 50
 
-It runs on the CUDA card unless given ``--device cpu``.  The weights are
-drawn from a seeded ``torch.Generator`` (not ``jax.random``'s draws).
+It runs on the CUDA card unless given ``--device cpu``.  ``--arch``
+takes any of the ten archs of ``repro_torch.configs`` (attention,
+Mamba-2 or hybrid layers).  The weights are drawn from a seeded
+``torch.Generator`` (not ``jax.random``'s draws).
 A frontend arch (internvl2-1b, musicgen-medium) trains on ``seq - F``
 tokens after F = ``frontend_tokens`` embeddings, drawn for step i from
 ``torch.Generator(device).manual_seed(1000 + i)`` as the reference

@@ -1,9 +1,8 @@
 """Architecture configuration for the model zoo.
 
 A copy of ``repro.models.config.ModelConfig`` (the port imports nothing
-of the JAX package), with ``param_dtype`` giving a ``torch.dtype``.  The
-MoE and SSM fields stay so that config files copy across unchanged,
-though only dense attention models run in the port so far.
+of the JAX package), with ``param_dtype`` giving a ``torch.dtype``, so
+that config files copy across unchanged.
 """
 from __future__ import annotations
 

@@ -52,13 +52,23 @@ def params_from_numpy(cfg: ModelConfig, tree, device=None) -> dict:
 
 def cache_from_numpy(cfg: ModelConfig, tree, device=None) -> dict:
     """The reference's decode cache (``l{i}/{k, v[, summ]}``, each
-    ``[repeats, B, Hkv, S | nb, dh]``) as the port's tensors, on
-    ``device`` (the CUDA card unless the caller names another)."""
+    ``[repeats, B, Hkv, S | nb, dh]``, and ``l{i}/{conv, ssm}`` of a
+    Mamba layer) as the port's tensors, on ``device`` (the CUDA card
+    unless the caller names another).  B comes from any leaf, S from the
+    first attention layer's ``k`` (a cache without attention has none)."""
     device = resolve_device(device)
-    try:
-        _, batch, _, seq_len, _ = np.shape(tree["l0"]["k"])
-    except (KeyError, TypeError, ValueError) as err:
-        raise ValueError(f"cache_from_numpy: no [repeats, B, Hkv, S, dh] "
-                         f"leaf l0/k ({err})") from err
+    leaves = dict(tree_leaves(tree))
+    if not leaves or any(np.ndim(v) < 2 for v in leaves.values()):
+        raise ValueError("cache_from_numpy: no [repeats, B, ...] leaves")
+    batch = np.shape(next(iter(leaves.values())))[1]
+    seq_len = 0                          # unused by a Mamba layer's specs
+    for i in range(cfg.period):
+        if cfg.mixer_kind(i) == "A":
+            try:
+                _, _, _, seq_len, _ = np.shape(tree[f"l{i}"]["k"])
+            except (KeyError, TypeError, ValueError) as err:
+                raise ValueError(f"cache_from_numpy: no [repeats, B, Hkv, "
+                                 f"S, dh] leaf l{i}/k ({err})") from err
+            break
     want = dict(tree_leaves(cache_specs(cfg, batch, seq_len)))
     return _convert(want, tree, "cache_from_numpy", device)

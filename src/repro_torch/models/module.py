@@ -4,7 +4,8 @@ A model definition is a nested dict of ``ParamSpec`` leaves;
 ``init_params`` materializes it on one device from an explicit
 ``torch.Generator`` with the reference's init law: normal with std
 1/sqrt(fan_in) (fan_in the second-to-last axis), ``scale`` overriding
-it, ``embed`` leaves at their scale, norms ones.  A leaf stacked over the
+it, ``embed`` leaves at their scale, norms ones, ``arange`` (Mamba's
+``a_log``) log(1..n) over the last axis.  A leaf stacked over the
 layer repeats is drawn one repeat at a time in fp32 and written into a
 leaf of the spec's dtype, so no fp32 copy of the whole stack is ever
 held (qwen2.5-32b's ``w_gate`` alone would be 36.2 GB).  The draws
@@ -24,7 +25,7 @@ import torch
 class ParamSpec:
     shape: tuple[int, ...]
     dtype: torch.dtype = torch.bfloat16
-    init: str = "normal"          # normal | zeros | ones | embed
+    init: str = "normal"          # normal | zeros | ones | embed | arange
     scale: float | None = None    # stddev override for "normal"
     stacked: bool = False         # leading axis = the layer repeats
 
@@ -52,10 +53,14 @@ def _init_leaf(spec: ParamSpec, generator: torch.Generator,
         return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=spec.dtype, device=device)
+    if spec.init == "arange":             # the Mamba A_log init: log(1..n)
+        n = spec.shape[-1]
+        v = torch.log(torch.arange(1, n + 1, dtype=torch.float32,
+                                   device=device))
+        return v.expand(spec.shape).to(spec.dtype).clone()
     if spec.init not in ("normal", "embed"):
-        raise NotImplementedError(f"init {spec.init!r} (Mamba-2 leaves: "
-                                  f"ROADMAP Queue 1: the other model "
-                                  f"families)")
+        raise ValueError(f"init {spec.init!r} is none of normal, embed, "
+                         f"zeros, ones, arange")
     fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
     std = spec.scale if spec.scale is not None else 1.0 / math.sqrt(fan_in)
     if spec.init == "embed":

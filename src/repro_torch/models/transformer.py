@@ -1,37 +1,45 @@
 """Decoder training, prefill and decode (counterpart of
-``repro.models.transformer``) for attention models with dense or MoE
-MLPs (``models.moe``), with or without a modality frontend.
+``repro.models.transformer``) for every mixer pattern of the reference:
+attention ("A") and Mamba-2 ("M", ``models.mamba2``) layers, with dense,
+MoE (``models.moe``) or no MLPs, with or without a modality frontend.
 
   * train   — the full-sequence forward of ``loss_fn``; every attention
               layer runs causal flash attention through
               ``ops.FlashAttention`` (kernel 9 forward, the hand-written
-              backward kernel on the card), each layer under
+              backward kernel on the card), every Mamba layer the chunked
+              SSD (plain torch); each repeat under
               ``torch.utils.checkpoint`` when ``cfg.remat`` (the
-              reference's ``nothing_saveable`` policy: only the layer's
-              input is kept, the layer runs again in the backward).
+              reference's ``nothing_saveable`` policy: only the repeat's
+              input is kept, the repeat runs again in the backward).
   * prefill — the same forward over the prompt, no gradient; fills the
-              KV cache [repeats, B, Hkv, S, dh] (plus block summaries
-              when ``golden_cached_summaries``).
+              KV cache [repeats, B, Hkv, S, dh] of an attention layer
+              (plus block summaries when ``golden_cached_summaries``)
+              and the conv [repeats, B, W-1, conv_dim] and SSM
+              [repeats, B, H, P, N] states of a Mamba layer.
   * decode  — one new token at position ``pos`` against the cache, with
               full attention or golden attention (the paper's
-              coarse-to-fine subset on the KV cache), on one device.
+              coarse-to-fine subset on the KV cache), the Mamba layers
+              one recurrent step, on one device.
 
 Differences from the reference:
 
   * the layer loop is a Python loop (no scan); the stacked layer leaves
     are split with ``unbind``, so the gradient of a stacked leaf is one
     ``stack`` and not one full-size zero tensor a layer;
-  * ``decode_step`` writes the new key, value and summary into the given
-    cache in place and returns the same dict (the reference's functional
-    update copies the whole stacked cache).  A second call at the same
-    position from the same cache is the reference's result only without
-    cached summaries, whose running mean is not idempotent;
+  * ``decode_step`` writes the new key, value and summary and the Mamba
+    states into the given cache in place and returns the same dict (the
+    reference's functional update copies the whole stacked cache).  A
+    second call at the same position from the same cache is the
+    reference's result only without cached summaries and without Mamba
+    layers, whose running mean and states are not idempotent;
   * ``pos`` is an int or a device int tensor; the cache writes, the
     length mask and the running summary mean read it on the device, so
     no step reads a device value back and one CUDA graph serves every
     position (``launch.steps.make_decode_step``);
   * ``prefill`` applies the LM head to the last position only, whose
     logits it returns (as the reference does, over ``padded_vocab``);
+    a Mamba layer's handoff comes from the same SSD pass (the reference
+    runs it again);
   * ``forward_full`` returns ``(logits, cache, aux)``, aux the MoE
     auxiliary loss summed over the layers (0 for a dense model), also
     under ``torch.utils.checkpoint``; ``loss_fn`` adds ``aux_weight``
@@ -40,9 +48,8 @@ Differences from the reference:
 The modality frontends are the reference's stub: ``loss_fn`` and
 ``prefill`` take precomputed embeddings [B, F, d] (``embeds``), cast to
 the model's dtype and put ahead of the tokens; the loss masks their F
-positions.  Mamba mixers raise ``NotImplementedError`` naming their
-ROADMAP item; decode runs on one device (the sharded decode waits for
-the sharding slice).
+positions.  Decode runs on one device (the sharded decode waits for the
+sharding slice).
 """
 from __future__ import annotations
 
@@ -50,33 +57,28 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
-from repro_torch.models import moe
+from repro_torch.models import mamba2, moe
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.module import ParamSpec, stack_specs, tree_map
 from repro_torch.utils import resolve_device
-
-OTHER_FAMILIES = "ROADMAP Queue 1: the other model families"
-
-
-def _unported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet ({item})")
-
 
 def _attn_dims(cfg: ModelConfig) -> L.AttnDims:
     return L.AttnDims(cfg.num_heads, cfg.num_kv_heads, cfg.hdim)
 
 
-def _check_layer(cfg: ModelConfig, i: int) -> None:
-    if cfg.mixer_kind(i) != "A":
-        raise _unported("the Mamba-2 mixer", OTHER_FAMILIES)
+def _mamba_dims(cfg: ModelConfig) -> mamba2.MambaDims:
+    return mamba2.MambaDims(cfg.d_model, cfg.ssm_expand * cfg.d_model,
+                            cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_conv)
 
 
 def _layer_specs(cfg: ModelConfig, i: int) -> dict:
-    _check_layer(cfg, i)
     dt = cfg.param_dtype
-    sp = {"ln1": L.rmsnorm_spec(cfg.d_model),
-          "attn": L.attn_specs(cfg.d_model, _attn_dims(cfg), dt,
-                               cfg.qkv_bias)}
+    sp = {"ln1": L.rmsnorm_spec(cfg.d_model)}
+    if cfg.mixer_kind(i) == "A":
+        sp["attn"] = L.attn_specs(cfg.d_model, _attn_dims(cfg), dt,
+                                  cfg.qkv_bias)
+    else:
+        sp["mamba"] = mamba2.mamba_specs(_mamba_dims(cfg), dt)
     kind = cfg.mlp_kind(i)
     if kind != "none":
         sp["ln2"] = L.rmsnorm_spec(cfg.d_model)
@@ -108,11 +110,18 @@ def _golden_summaries(cfg: ModelConfig) -> bool:
 
 
 def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
-    """``{"l{i}": {"k": (shape, dtype), "v": ..., ["summ": ...]}}``."""
+    """``{"l{i}": {"k": (shape, dtype), "v": ..., ["summ": ...]}}`` for
+    an attention layer, ``{"l{i}": {"conv": ..., "ssm": ...}}`` for a
+    Mamba layer (``seq_len`` unused), each stacked over the repeats."""
     dt = cfg.param_dtype
     out = {}
     for i in range(cfg.period):
-        _check_layer(cfg, i)
+        if cfg.mixer_kind(i) != "A":
+            out[f"l{i}"] = {
+                name: ((cfg.repeats,) + shp, dtype) for name, (shp, dtype)
+                in mamba2.mamba_cache_specs(_mamba_dims(cfg), batch,
+                                            dt).items()}
+            continue
         shp = (cfg.repeats, batch, cfg.num_kv_heads, seq_len, cfg.hdim)
         out[f"l{i}"] = {"k": (shp, dt), "v": (shp, dt)}
         if _golden_summaries(cfg):
@@ -127,6 +136,16 @@ def _alloc_cache(cfg: ModelConfig, batch: int, seq_len: int, device,
     return {li: {name: fill(shp, dtype=dt, device=device)
                  for name, (shp, dt) in leaves.items()}
             for li, leaves in cache_specs(cfg, batch, seq_len).items()}
+
+
+def attn_cache_len(cfg: ModelConfig, cache: dict) -> int | None:
+    """The positions the first attention layer's K/V cache holds, or
+    None in a model without attention (a Mamba-only cache has no
+    length)."""
+    for i in range(cfg.period):
+        if cfg.mixer_kind(i) == "A":
+            return int(cache[f"l{i}"]["k"].shape[3])
+    return None
 
 
 def zero_cache(cfg: ModelConfig, batch: int, seq_len: int,
@@ -149,11 +168,15 @@ def _unstack(tree: dict, repeats: int) -> list[dict]:
     return [tree_map(lambda tup: tup[r], parts) for r in range(repeats)]
 
 
-def _apply_mixer_full(cfg: ModelConfig, p: dict, x: torch.Tensor,
+def _apply_mixer_full(cfg: ModelConfig, i: int, p: dict, x: torch.Tensor,
                       positions: torch.Tensor, cache: dict | None
                       ) -> torch.Tensor:
-    """Prefill attention; writes this layer's K/V (and summaries) into
-    ``cache`` (repeat r's views) when given."""
+    """Layer i's full-sequence mixer; writes its K/V (and summaries), or
+    its conv and SSM states, into ``cache`` (repeat r's views) when
+    given."""
+    if cfg.mixer_kind(i) != "A":
+        return mamba2.mamba_apply(p["mamba"], x, _mamba_dims(cfg),
+                                  cfg.ssm_chunk, cache)
     dims = _attn_dims(cfg)
     q, k, v = L.qkv_proj(p["attn"], x, dims, positions, cfg.rope_theta)
     o = L.flash_attention(q, k, v, dims, q_chunk=cfg.attn_q_chunk,
@@ -186,12 +209,17 @@ def _decode_attention(cfg: ModelConfig, q: torch.Tensor, kc: torch.Tensor,
     return (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
 
 
-def _apply_mixer_decode(cfg: ModelConfig, p: dict, x1: torch.Tensor,
-                        cache: dict, pos: torch.Tensor) -> torch.Tensor:
-    """Decode attention for x1 [B, d] at ``pos`` (a 0-d int64 tensor on
-    x1's device): writes the new K/V row (and the running-mean summary
-    of its block) into ``cache`` (repeat r's views) in place, then
-    attends over positions <= pos."""
+def _apply_mixer_decode(cfg: ModelConfig, i: int, p: dict,
+                        x1: torch.Tensor, cache: dict, pos: torch.Tensor
+                        ) -> torch.Tensor:
+    """Layer i's decode mixer for x1 [B, d] at ``pos`` (a 0-d int64
+    tensor on x1's device).  Attention writes the new K/V row (and the
+    running-mean summary of its block) into ``cache`` (repeat r's views)
+    in place, then attends over positions <= pos; a Mamba layer advances
+    its conv and SSM states there."""
+    if cfg.mixer_kind(i) != "A":
+        return mamba2.mamba_decode_step(p["mamba"], x1, cache,
+                                        _mamba_dims(cfg))
     dims = _attn_dims(cfg)
     b = x1.shape[0]
     q, k, v = L.qkv_proj(p["attn"], x1[:, None, :], dims, pos.view(1, 1),
@@ -241,15 +269,15 @@ def _apply_mlp(cfg: ModelConfig, i: int, p: dict, x: torch.Tensor):
 
 def _block(cfg: ModelConfig, bp: dict, x: torch.Tensor,
            positions: torch.Tensor, cache_r: dict | None):
-    """One repeat of the layer pattern over x [B, S, d]; writes its K/V
-    into ``cache_r`` (repeat r's views) when given.  Returns ``(x,
-    aux)``, aux the repeat's summed MoE auxiliary loss (0-d fp32)."""
+    """One repeat of the layer pattern over x [B, S, d]; writes its
+    caches into ``cache_r`` (repeat r's views) when given.  Returns
+    ``(x, aux)``, aux the repeat's summed MoE auxiliary loss (0-d
+    fp32)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.period):
-        _check_layer(cfg, i)
         p = bp[f"l{i}"]
         lc = cache_r[f"l{i}"] if cache_r is not None else None
-        x = x + _apply_mixer_full(cfg, p, L.rmsnorm(p["ln1"], x),
+        x = x + _apply_mixer_full(cfg, i, p, L.rmsnorm(p["ln1"], x),
                                   positions, lc)
         if cfg.mlp_kind(i) != "none":
             h, a = _apply_mlp(cfg, i, p, L.rmsnorm(p["ln2"], x))
@@ -364,12 +392,15 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     int or a 0-d int tensor on token's device (read there, never on the
     host).
 
-    Returns ``(logits [B, V], cache)``; the cache is updated in place."""
+    Returns ``(logits [B, V], cache)``; the cache is updated in place.
+    An int ``pos`` must lie in the first attention layer's cache; a
+    model without attention bounds it only below (the reference bounds
+    it not at all)."""
     if isinstance(pos, torch.Tensor):
         pos = pos.to(device=token.device, dtype=torch.int64).reshape(())
     else:
-        seq = cache["l0"]["k"].shape[3]
-        if not 0 <= int(pos) < seq:
+        seq = attn_cache_len(cfg, cache)
+        if int(pos) < 0 or (seq is not None and int(pos) >= seq):
             raise ValueError(f"decode_step: pos {pos} outside the cache's "
                              f"{seq} positions")
         pos = torch.full((), int(pos), dtype=torch.int64, device=token.device)
@@ -377,11 +408,10 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     for r in range(cfg.repeats):
         bp = _layer(params["blocks"], r)
         for i in range(cfg.period):
-            _check_layer(cfg, i)
             p = bp[f"l{i}"]
             lc = _layer(cache[f"l{i}"], r)
-            x = x + _apply_mixer_decode(cfg, p, L.rmsnorm(p["ln1"], x), lc,
-                                        pos)
+            x = x + _apply_mixer_decode(cfg, i, p, L.rmsnorm(p["ln1"], x),
+                                        lc, pos)
             if cfg.mlp_kind(i) != "none":
                 # the MoE routes the B new tokens as one group
                 h, _ = _apply_mlp(cfg, i, p,

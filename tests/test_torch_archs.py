@@ -1,16 +1,20 @@
-"""The seven archs of the frontend and MoE families against the JAX
-package (CPU tensors, plain versions).
+"""The nine archs beside llama3.2-3b (the frontend, MoE and Mamba-2
+families) against the JAX package (CPU tensors, plain versions).
 
 The reference's ``tests/test_archs.py`` at reduced size, each held
 against the reference's own result: configs field for field, parameter
 counts at full size (specs only, nothing allocated), the loss, its
 auxiliary term and every gradient leaf against ``jax.value_and_grad``,
 one train step moving every leaf, prefill and decode logits and caches,
-and golden against full decode.  Parameters are the reference's own,
+and golden against full decode.  jamba-v0.1-52b runs at
+``reduced(num_layers=8)``, its whole pattern (the default 2-layer cut
+has no attention layer: ``tests/test_torch_mamba.py``).  Parameters are the reference's own,
 carried across with ``params_from_numpy``; token and embedding inputs
 are drawn with numpy from a seed.  Tolerances, fp32: the loss 1e-5
 absolute, each gradient leaf 1e-4 of its largest magnitude, logits 1e-4
-and caches 1e-5 (fp32 sums in another order through two layers); golden
+and caches 1e-5 (fp32 sums in another order through two layers; a
+Mamba arch's leaves, through up to 8 layers and the SSD's sums over 64
+positions, 3e-5 of each leaf's max abs, ``STATE_TOL``); golden
 against full decode 2e-2 (the reference's own bound).  The reference
 runs jitted: one function an arch computes the loss, its gradients, the
 prefill and a decode step, once for the whole file (``reference``).
@@ -45,8 +49,11 @@ from repro_torch.models.module import (init_params, param_count,  # noqa: E402
 from repro_torch.training import optimizer as O  # noqa: E402
 
 NEW = ["qwen2.5-32b", "qwen2-7b", "phi3.5-moe-42b-a6.6b", "dbrx-132b",
-       "internvl2-1b", "musicgen-medium", "starcoder2-3b"]
+       "internvl2-1b", "musicgen-medium", "starcoder2-3b", "mamba2-2.7b",
+       "jamba-v0.1-52b"]
+MAMBA = ("mamba2-2.7b", "jamba-v0.1-52b")
 LOSS_TOL, GRAD_TOL, LOGIT_TOL, CACHE_TOL = 1e-5, 1e-4, 1e-4, 1e-5
+STATE_TOL = 3e-5
 B, S_LEN = 2, 64
 
 
@@ -121,18 +128,23 @@ def torch_batch(batch) -> dict:
 
 
 def reduced(arch):
-    return jget_config(arch).reduced()
+    """The parity config: jamba over its whole 8-layer pattern, a Mamba
+    arch's SSD in chunks of 16 (four chunks of the 64 positions: the
+    inter-chunk term and the state carry run)."""
+    jcfg = jget_config(arch).reduced(
+        num_layers=8 if arch == "jamba-v0.1-52b" else 2)
+    return (dataclasses.replace(jcfg, ssm_chunk=16) if arch in MAMBA
+            else jcfg)
 
 
 # --- configs ----------------------------------------------------------------
 
 def test_registry_lists_the_ported_archs_in_the_reference_order():
-    assert ARCH_IDS == [a for a in JARCH_IDS if a in NEW + ["llama3.2-3b"]]
-    assert len(ARCH_IDS) == 8
-    for arch in ("mamba2-2.7b", "jamba-v0.1-52b"):
-        assert arch in JARCH_IDS
-        with pytest.raises(KeyError, match="not ported"):
-            get_config(arch)
+    assert ARCH_IDS == JARCH_IDS == [a for a in JARCH_IDS
+                                     if a in NEW + ["llama3.2-3b"]]
+    assert len(ARCH_IDS) == 10
+    with pytest.raises(KeyError, match="unknown"):
+        get_config("mamba2-1.3b")
 
 
 @pytest.mark.parametrize("arch", NEW)
@@ -250,23 +262,33 @@ def test_prefill_and_decode_match_reference(arch):
     lg, cache = S.make_prefill_step(cfg)(tp, torch_batch(
         {k: v for k, v in batch.items() if k != "labels"}))
     assert lg.shape == (B, jcfg.padded_vocab)
-    assert cache["l0"]["k"].shape[3] == S_LEN
+    assert T.attn_cache_len(cfg, cache) == (None if jcfg.pattern == ("M",)
+                                            else S_LEN)
     close(lg, r["prefill"], LOGIT_TOL)
-    for name, leaf in cache["l0"].items():
-        close(leaf, want["l0"][name], CACHE_TOL)
+    assert set(cache) == set(want)
+    for li, leaves in cache.items():
+        for name, leaf in leaves.items():
+            if arch in MAMBA:
+                assert rel_max(leaf, want[li][name]) <= STATE_TOL, (li, name)
+            else:
+                close(leaf, want[li][name], CACHE_TOL)
     d, _ = S.make_decode_step(cfg)(
         tp, cache, torch.from_numpy(batch["tokens"][:, -1]).long(),
         S_LEN - 1)
     close(d, r["decode"], LOGIT_TOL)
     again = cache_from_numpy(cfg, want, device="cpu")
-    assert set(again["l0"]) == set(want["l0"])
+    assert {li: set(v) for li, v in again.items()} == \
+        {li: set(v) for li, v in want.items()}
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-32b", "musicgen-medium"])
+@pytest.mark.parametrize("arch", ["qwen2.5-32b", "musicgen-medium",
+                                  "jamba-v0.1-52b"])
 def test_golden_matches_full_decode(arch):
     """The reference's ``test_smoke_golden_vs_full_decode``: 4 blocks of
-    16 cover a 64-position cache of random keys and values, so golden
-    decode equals full decode; each also against the reference's."""
+    16 cover a 64-position cache of random keys and values (and random
+    Mamba states), so golden decode equals full decode; each also against
+    the reference's (jamba over 8 layers: its smoke config attends to
+    nothing)."""
     r = reference(arch)
     jcfg, jp, tp = r["jcfg"], r["jp"], port_params(r)
     rng = np.random.default_rng(5)

@@ -1207,16 +1207,16 @@ def _spy_routes(monkeypatch) -> list:
     return seen
 
 
-def _train_card_vs_cpu(monkeypatch, card, arch, steps=2):
-    """``steps`` train steps of an arch's reduced config through
-    ``launch.train``'s setup and batches on the card and on the CPU from
-    the same weights; returns both runs' losses, MoE routings and the
-    card's launches."""
+def _train_card_vs_cpu(monkeypatch, card, arch, steps=2, num_layers=2):
+    """``steps`` train steps of an arch's reduced config (``num_layers``
+    deep) through ``launch.train``'s setup and batches on the card and on
+    the CPU from the same weights; returns both runs' losses, MoE
+    routings and the card's launches."""
     from repro_torch.launch import steps as step_lib
     from repro_torch.launch import train as train_lib
     from repro_torch.models.convert import params_from_numpy
     from repro_torch.training import optimizer as opt
-    cfg = get_config(arch).reduced()
+    cfg = get_config(arch).reduced(num_layers=num_layers)
     p0, _, batches, _ = train_lib.setup(cfg, steps, 2, 128,
                                         torch.device("cpu"))
     np_params = tree_map(lambda t: t.numpy(), p0)
@@ -1278,6 +1278,57 @@ def test_moe_decode_graph_replay_matches_eager(card):
         want, _ = T.decode_step(cfg, params, eager_c, tok, pos)
         got, _ = step(params, cache, tok, pos)
         assert torch.equal(got, want)
+        tok = want.argmax(-1)
+    assert len(step.graphs) == 1
+    for (p, a), (_, b) in zip(tree_leaves(eager_c), tree_leaves(cache)):
+        assert torch.equal(a, b), p
+
+
+@pytest.mark.parametrize("arch,layers", [("mamba2-2.7b", 2),
+                                         ("jamba-v0.1-52b", 8)])
+def test_reduced_mamba_train_steps_card_match_cpu(monkeypatch, card, arch,
+                                                  layers):
+    """Two train steps of a reduced Mamba-2 arch (jamba over its whole
+    pattern: attention at layer 3, MoE on 1, 3, 5, 7) on the card
+    against the CPU: losses and aux 1e-4, every MoE routing equal,
+    kernel 9 and the backward once an attention layer a step."""
+    cfg, runs = _train_card_vs_cpu(monkeypatch, card, arch,
+                                   num_layers=layers)
+    (lc, rc, counts), (lh, rh, _) = runs["cuda"], runs["cpu"]
+    np.testing.assert_allclose(lc, lh, atol=1e-4, rtol=0)
+    n_attn = cfg.pattern.count("A") * cfg.repeats
+    assert counts == (2 * n_attn, 2 * n_attn)
+    assert len(rc) == len(rh)
+    for (ec, kc), (eh, kh) in zip(rc, rh):
+        assert torch.equal(ec, eh) and torch.equal(kc, kh)
+
+
+@pytest.mark.parametrize("arch,layers", [("mamba2-2.7b", 2),
+                                         ("jamba-v0.1-52b", 8)])
+def test_mamba_decode_graph_replay_matches_eager(card, arch, layers):
+    """``make_decode_step`` on a reduced Mamba-2 arch: the first call
+    advances the conv and SSM states once (its capture runs nothing),
+    then every replay equals an eager step from a copy of the same cache
+    bit for bit, states included."""
+    from repro_torch.launch import steps as step_lib
+    from repro_torch.models.module import init_params
+    cfg = get_config(arch).reduced(num_layers=layers)
+    params = init_params(T.model_specs(cfg),
+                         torch.Generator(device=card).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (3, 128), device=card,
+                         generator=torch.Generator(device=card).manual_seed(1))
+    _, cache = T.prefill(cfg, params, toks)
+    eager_c = tree_map(torch.clone, cache)
+    step = step_lib.make_decode_step(cfg)
+    tok = toks[:, -1]
+    step(params, cache, tok, 120)
+    T.decode_step(cfg, params, eager_c, tok, 120)
+    for (p, a), (_, b) in zip(tree_leaves(eager_c), tree_leaves(cache)):
+        assert torch.equal(a, b), p
+    for pos in range(121, 127):
+        want, _ = T.decode_step(cfg, params, eager_c, tok, pos)
+        got, _ = step(params, cache, tok, pos)
+        assert torch.equal(got, want), pos
         tok = want.argmax(-1)
     assert len(step.graphs) == 1
     for (p, a), (_, b) in zip(tree_leaves(eager_c), tree_leaves(cache)):

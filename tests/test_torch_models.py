@@ -35,7 +35,7 @@ from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.config import ModelConfig  # noqa: E402
 from repro_torch.models.convert import (cache_from_numpy,  # noqa: E402
                                         params_from_numpy)
-from repro_torch.models.module import (ParamSpec, init_params,  # noqa: E402
+from repro_torch.models.module import (init_params,  # noqa: E402
                                        param_count, tree_leaves)
 
 TINY = JModelConfig(name="tiny", arch_type="dense", num_layers=3, d_model=64,
@@ -86,11 +86,12 @@ def test_llama_config_is_the_reference_copy():
     assert (cfg.hdim, cfg.padded_vocab, cfg.repeats) == (128, 128512, 28)
     assert dataclasses.asdict(cfg.reduced(num_layers=4, vocab=1024)) == \
         dataclasses.asdict(jcfg.reduced(num_layers=4, vocab=1024))
-    assert list_archs() == ["qwen2.5-32b", "qwen2-7b", "phi3.5-moe-42b-a6.6b",
+    assert list_archs() == ["qwen2.5-32b", "mamba2-2.7b", "qwen2-7b",
+                            "phi3.5-moe-42b-a6.6b", "jamba-v0.1-52b",
                             "llama3.2-3b", "dbrx-132b", "internvl2-1b",
                             "musicgen-medium", "starcoder2-3b"]
     with pytest.raises(KeyError, match="llama3.2-3b"):
-        get_config("mamba2-2.7b")
+        get_config("llama3.2-1b")
 
 
 @pytest.mark.parametrize("jcfg", [
@@ -135,19 +136,21 @@ def test_convert_refuses_bad_trees():
 
 
 def test_unported_paths_raise():
-    jamba = port_cfg(jget_config("llama3.2-3b").reduced())
-    with pytest.raises(NotImplementedError, match="Mamba-2"):
-        T.model_specs(dataclasses.replace(jamba, pattern=("A", "M"),
-                                          num_layers=2))
-    with pytest.raises(NotImplementedError, match="Mamba-2"):
-        init_params({"a_log": ParamSpec((2, 4), init="arange")},
-                    torch.Generator().manual_seed(0))
-    for arch in ("mamba2-2.7b", "jamba-v0.1-52b"):
-        with pytest.raises(KeyError, match="not ported"):
-            get_config(arch)
+    """The multi-card paths (ROADMAP Queue 1): ``train(use_mesh=True)``
+    raises, and the reference's production mesh and logical-axis
+    ``Rules`` have no counterpart yet."""
     with pytest.raises(NotImplementedError, match="multi-card"):
         train("llama3.2-3b", smoke=True, steps=1, batch=1, seq=8,
               ckpt_dir=None, use_mesh=True, device="cpu")
+    from repro.distributed import sharding as jsharding
+    from repro.launch import mesh as jmesh
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import mesh
+    assert hasattr(jmesh, "make_production_mesh")
+    assert not hasattr(mesh, "make_production_mesh")
+    for name in ("Rules", "make_rules", "use_rules", "shard"):
+        assert hasattr(jsharding, name)
+        assert not hasattr(sharding, name), name
 
 
 # --- layers ---------------------------------------------------------------

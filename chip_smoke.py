@@ -185,6 +185,17 @@ Phases:
      drawn, the prefill at B=1, S=16384 counted (kernel 9 once), its
      decode graph full and golden (64 of 128 blocks) against eager
      ([mamba]).
+  13. The LLM's logical sharding (``mesh_phases``, ``dryrun_phase``):
+     on a one-rank NCCL group with a (1, 1) ("data", "model") device
+     mesh, llama3.2-3b at full width and depth trained under train rules
+     from [train]'s weights and batches (losses against [train]'s; wall,
+     busy and idle share beside [train]'s; 2 x 28 kernel 9 and 28
+     backward launches a step, no library or plain attention), the
+     reduced config with two microbatches and shard_grad_accum and with
+     zero1_rules against one device, the prefill and the eager decode
+     (full, golden) under their rules with logits bit-equal to one
+     device ([mesh]); the dry run of four archs at the four shapes on the
+     16 x 16 mesh on fake CUDA tensors in a subprocess ([dryrun]).
 
 Any failure exits non-zero before the last line.  The last lines are the
 card's name and power limit, a JSON line of per-kernel numbers, and
@@ -818,7 +829,7 @@ def training_phases(kernels: dict) -> tuple[dict, dict]:
                        for bt in batches]
         _, g1 = step_lib.make_loss_step(rcfg)(p, dev_batches[0])
         st = opt.init_state(p)
-        step = step_lib.make_train_step(rcfg, ocfg)
+        step = step_lib.make_train_step(rcfg, None, ocfg)
         for fn in kernels.values():
             fn.launches = 0
         losses = []
@@ -931,6 +942,8 @@ def training_phases(kernels: dict) -> tuple[dict, dict]:
           f"({cfg.num_layers} a step); no library or plain attention "
           f"kernel among the step's {len(ev)} device kernels; losses "
           f"{run['losses']}")
+    TRAIN_RUN.update(losses=list(run["losses"]), wall_ms=wall, busy_ms=busy,
+                     peak=run["peak"])
     print(f"[train] top device operations of one step: {tops}; the "
           f"optimizer (apply_updates alone, profiled) {opt_busy:.1f} ms, "
           f"{opt_busy / busy:.3f} of the step's device time")
@@ -2297,6 +2310,286 @@ def mamba_phases(kernels: dict, smi: str) -> tuple[dict, dict]:
 PRESET_CHECK_B = 4
 PCA_SS_TOL = 2e-4
 FEAT_RTOL = 1e-5
+
+
+# The [mesh] phase (``mesh_phases``): the LLM's logical sharding on a
+# one-rank NCCL group with a (1, 1) ("data", "model") device mesh (one
+# card; NCCL refuses two ranks on one device).  llama3.2-3b trains at full
+# width and depth under make_rules("train", mesh) from [train]'s weights
+# and batches (one warm step, MESH_TIMED counted), then prefills and
+# decodes (eager, full and golden) under the prefill and decode rules,
+# each bit-equal to the one-device path (one rank splits nothing: the
+# layouts are the identity); the reduced config trains with two
+# microbatches and shard_grad_accum and with zero1_rules against the
+# one-device step.  [dryrun] traces DRYRUN_ARCHS at the four shapes on
+# the 16 x 16 mesh (fake CUDA tensors, a fake group of 256 ranks) in a
+# subprocess: `--all` took 224.0 s on the card's host (jamba's train_4k
+# about 100 s of it), over the 150 s this phase allows it, so four
+# archs.
+MESH_ARCH, MESH_TIMED = "llama3.2-3b", 3
+MESH_LOSS_REL = 1e-4       # the mesh step's losses against [train]'s
+MESH_REF_TOL = 1e-5        # reduced config: mesh vs one-device loss (fp32)
+MESH_GNORM_TOL = 1e-4      # ... and gradient norm, relative
+DRYRUN_ARCHS = ("llama3.2-3b", "qwen2.5-32b", "dbrx-132b", "jamba-v0.1-52b")
+DRYRUN_TIMEOUT = 600
+TRAIN_RUN: dict = {}       # [train]'s losses, wall, busy and peak
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh_phases(kernels: dict, smi: str) -> tuple[dict, dict]:
+    """[mesh] (see the note above).  Returns the result entries of kernel
+    9 and the backward at the mesh train path's shape and that path's
+    counts."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+    from repro_torch.distributed.hlo_analysis import model_flops
+    from repro_torch.distributed.sharding import make_rules
+    from repro_torch.launch import steps as step_lib
+    from repro_torch.launch import train as train_lib
+    from repro_torch.launch.inputs import InputShape
+    from repro_torch.launch.mesh import make_debug_device_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.module import (init_params, param_shardings,
+                                           place_params, place_tree,
+                                           tree_leaves, tree_map)
+    from repro_torch.training import optimizer as opt
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_debug_device_mesh(1, 1, "cuda")
+        cuda = torch.device("cuda")
+        cfg = get_config(MESH_ARCH)
+
+        # -- [mesh] llama3.2-3b's train step at full width and depth --------
+        rules = make_rules("train", mesh)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params, state, batches, step = train_lib.setup(
+            cfg, 1 + MESH_TIMED, TRAIN_B, TRAIN_S, cuda, rules=rules)
+
+        def one(i):
+            nonlocal params, state
+            params, state, m = step(params, state, batches[i % len(batches)])
+            return m
+        losses = [float(one(0)["loss"])]
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        for i in range(1, 1 + MESH_TIMED):
+            m = one(i)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / MESH_TIMED
+        counts = {n: f.launches for n, f in kernels.items()}
+        losses.append(float(m["loss"]))
+        peak = torch.cuda.max_memory_allocated()
+        want = {n: 0 for n in kernels}
+        want.update(flash_attention=2 * cfg.num_layers * MESH_TIMED,
+                    flash_attention_bwd=cfg.num_layers * MESH_TIMED)
+        check(counts == want, f"[mesh] train launches {counts}, expected "
+              f"{want}")
+        ev = device_events(lambda: one(0))
+        busy, tops = top_ops(ev)
+        foreign = foreign_attention(ev)
+        by = Counter(launch_name(e.name) for e in ev)
+        check(not foreign and by[OURS[0]] == 2 * cfg.num_layers
+              and all(by[n] == cfg.num_layers for n in OURS[1:]),
+              f"[mesh] train profile: kernel launches {dict(by)}, library "
+              f"or plain attention {foreign}")
+        ref_l = TRAIN_RUN.get("losses", [])
+        rel = max((abs(a - b) / abs(b) for a, b in zip(losses, ref_l)),
+                  default=float("nan"))
+        check(len(ref_l) == 2 and rel <= MESH_LOSS_REL,
+              f"[mesh] train losses {losses} against [train]'s {ref_l}: "
+              f"relative {rel:.3g} > {MESH_LOSS_REL}")
+        mflops = model_flops(cfg, InputShape("train_4k", "train", TRAIN_S,
+                                             TRAIN_B))
+        tw, tb = TRAIN_RUN.get("wall_ms", float("nan")), \
+            TRAIN_RUN.get("busy_ms", float("nan"))
+        print(f"[mesh] {cfg.name} train step under make_rules('train', "
+              f"mesh) on a (1, 1) ('data', 'model') NCCL device mesh, full "
+              f"width and depth, B={TRAIN_B}, S={TRAIN_S}, [train]'s weights "
+              f"and batches: wall {wall:.1f} ms a step (mean of {MESH_TIMED} "
+              f"after one warm step; setup and warm step {setup_s:.1f} s), "
+              f"device busy {busy:.1f} ms (profiler), idle share "
+              f"{1 - busy / wall:.3f}; [train] wall {tw:.1f} ms, busy "
+              f"{tb:.1f} ms, idle share {1 - tb / tw:.3f}; the mesh step "
+              f"{wall / tw:.3f}x [train]'s wall; "
+              f"{TRAIN_B * TRAIN_S / (wall / 1e3):.0f} tokens/s, "
+              f"{mflops / (wall / 1e3) / BF16_PEAK:.4f} of the bf16 dense "
+              f"peak by model FLOPs; peak memory {peak / 2**30:.2f} GiB "
+              f"([train] {TRAIN_RUN.get('peak', 0) / 2**30:.2f} GiB); losses "
+              f"{losses} against [train]'s {ref_l}: "
+              + ("bit-equal" if losses == ref_l else
+                 f"max relative difference {rel:.3g} (on one rank the mesh "
+                 f"step runs [train]'s operations on the same shapes, its "
+                 f"per-shard log-sum-exp torch.logsumexp over the whole "
+                 f"vocabulary; a difference is an operation run in another "
+                 f"order or by another kernel, which this check does not "
+                 f"name)")
+              + f"; launches flash_attention {counts['flash_attention']}, "
+              f"flash_attention_bwd {counts['flash_attention_bwd']} over "
+              f"{MESH_TIMED} steps; the profiled step: {by[OURS[0]]} kernel 9 "
+              f"launches, " + ", ".join(f"{n} {by[n]}" for n in OURS[1:])
+              + f", no library or plain attention among {len(ev)} device "
+              f"kernels; {smi}")
+        print(f"[mesh] top device operations of one step: {tops}")
+        del params, state, batches, step, one, ev
+        gc.collect()
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device="cuda").manual_seed(29)
+        entries = attn_at(lambda shp, dt: torch.randn(
+            shp, generator=gen, device="cuda").to(dt), "mesh train",
+            cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, cfg.hdim,
+            TRAIN_B, TRAIN_S, True, smi)
+
+        # -- [mesh] the reduced config: microbatches and ZeRO-1 -------------
+        rcfg = cfg.reduced()
+        specs = T.model_specs(rcfg)
+        pipe = TokenPipeline(TokenPipelineConfig(rcfg.vocab_size,
+                                                 TRAIN_REF_S, TRAIN_REF_B))
+        rb = [{k: t.to(cuda) for k, t in pipe.batch(i).items()}
+              for i in range(2)]
+        ocfg = opt.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+        zr = make_rules("train", mesh)
+        for label, nmb, sga, z in (("two microbatches, shard_grad_accum", 2,
+                                    True, False), ("zero1_rules", 1, False,
+                                                   True)):
+            def fresh():
+                return init_params(specs, torch.Generator(
+                    device="cuda").manual_seed(0))
+            p1 = fresh()
+            s1 = opt.init_state(p1)
+            st1 = step_lib.make_train_step(rcfg, None, ocfg, nmb)
+            r = (make_rules("train", mesh, overrides={"embed": None}) if z
+                 else rules)
+            pm = place_params(fresh(), specs, r)
+            sm = opt.init_state(pm, param_shardings(specs, zr) if z
+                                else None)
+            stm = step_lib.make_train_step(rcfg, r, ocfg, nmb,
+                                           shard_grad_accum=sga,
+                                           zero1_rules=zr if z else None)
+            errs = []
+            for bt in rb:
+                p1, s1, m1 = st1(p1, s1, bt)
+                pm, sm, mm = stm(pm, sm, bt)
+                errs.append((abs(float(mm["loss"]) - float(m1["loss"])),
+                             abs(float(mm["grad_norm"])
+                                 - float(m1["grad_norm"]))
+                             / float(m1["grad_norm"])))
+            check(all(a <= MESH_REF_TOL and b <= MESH_GNORM_TOL
+                      for a, b in errs), f"[mesh] reduced {label}: (loss, "
+                  f"grad norm) errors {errs}")
+            print(f"[mesh] {rcfg.name} ({rcfg.num_layers} layers, fp32) "
+                  f"{label}, B={TRAIN_REF_B}, S={TRAIN_REF_S}, two steps on "
+                  f"the mesh and on one device from the same weights: "
+                  f"(loss abs, grad norm rel) differences "
+                  f"{[(f'{a:.3g}', f'{b:.3g}') for a, b in errs]} (tolerance "
+                  f"{MESH_REF_TOL}, {MESH_GNORM_TOL})")
+            del p1, s1, pm, sm
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- [mesh] prefill and eager decode under their rules --------------
+        params = init_params(T.model_specs(cfg),
+                             torch.Generator(device="cuda").manual_seed(0))
+        toks = torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S),
+                             device="cuda", generator=gen)
+        with torch.no_grad():
+            want_l, cache1 = T.prefill(cfg, params, toks)
+        pr = make_rules("prefill", mesh)
+        pp = place_params(params, T.model_specs(cfg), pr)
+        for fn in kernels.values():
+            fn.launches = 0
+        got_l, _ = step_lib.make_prefill_step(cfg, pr)(pp, {"tokens": toks})
+        pcount = kernels["flash_attention"].launches
+        got_l = got_l.full_tensor()
+        perr = float((got_l.float() - want_l.float()).abs().max()
+                     / want_l.float().abs().max())
+        check(torch.equal(got_l, want_l) and pcount == cfg.num_layers,
+              f"[mesh] prefill: logits not bit-equal to the one-device "
+              f"prefill's (max abs / max {perr:.3g}), kernel 9 launches "
+              f"{pcount}")
+        del pp, got_l
+        dr = make_rules("decode", mesh)
+        pd = place_params(params, T.model_specs(cfg), dr)
+        cache_axes = {p: ax for p, (_, ax, _) in tree_leaves(
+            T.cache_specs(cfg, TRAIN_B, TRAIN_S))}
+        tok, pos = toks[:, -1], TRAIN_S - 1
+        dec = {}
+        for kind in ("full", "golden"):
+            c = dataclasses.replace(cfg, attn_kind_decode=kind,
+                                    golden_blocks=TRAIN_S
+                                    // cfg.golden_block_size // 8)
+            one_c = tree_map(torch.clone, cache1)
+            mesh_c = place_tree(tree_map(torch.clone, cache1), cache_axes, dr)
+            with torch.no_grad():
+                w1, _ = T.decode_step(c, params, one_c, tok, pos)
+            mstep = step_lib.make_decode_step(c, dr)
+            g1, _ = mstep(pd, mesh_c, tok, pos)
+            g1 = g1.full_tensor()
+            err = float((g1.float() - w1.float()).abs().max()
+                        / w1.float().abs().max())
+            same = torch.equal(g1, w1)
+            t_one = wall_ms(lambda: T.decode_step(c, params, one_c, tok, pos))
+            t_mesh = wall_ms(lambda: mstep(pd, mesh_c, tok, pos))
+            check(same, f"[mesh] decode {kind}: logits not bit-equal to "
+                  f"the one-device step's (max abs / max {err:.3g})")
+            dec[kind] = (err, t_one, t_mesh)
+            del one_c, mesh_c
+        print(f"[mesh] {cfg.name} prefill under make_rules('prefill', mesh), "
+              f"B={TRAIN_B}, S={TRAIN_S}: last logits against the one-device "
+              f"prefill bit-equal (max abs / max {perr:.3g}), kernel 9 "
+              f"launches {pcount}; eager decode under "
+              f"make_rules('decode', mesh) at pos {pos}: " + "; ".join(
+                  f"{k} logits bit-equal (max abs / max {e:.3g}), wall "
+                  f"{tm:.2f} ms a step against "
+                  f"the one-device eager step's {to:.2f} ms"
+                  for k, (e, to, tm) in dec.items()) + f"; {smi}")
+        del params, pd, cache1, want_l
+    finally:
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[mesh] phase {time.perf_counter() - t_phase:.1f} s")
+    return ({(n, "mesh train"): dict(r, launches=counts[n])
+             for n, r in entries.items()}, {"mesh train": counts})
+
+
+def dryrun_phase(smi: str) -> None:
+    """[dryrun]: ``python -m repro_torch.launch.dryrun`` on DRYRUN_ARCHS
+    at the four shapes (16 x 16, fake CUDA tensors) in a subprocess; one
+    line a combination, each record's fits_hbm and bottleneck."""
+    t0 = time.perf_counter()
+    env = dict(__import__("os").environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                        "--arch", *DRYRUN_ARCHS], capture_output=True,
+                       text=True, timeout=DRYRUN_TIMEOUT, cwd=str(ROOT),
+                       env=env)
+    lines = [x for x in r.stdout.splitlines()
+             if x.startswith(("OK ", "FAIL "))]
+    for x in lines:
+        print(f"[dryrun] {x}")
+    ok = sum(x.startswith("OK ") for x in lines)
+    check(r.returncode == 0 and ok == 4 * len(DRYRUN_ARCHS),
+          f"[dryrun] {ok} of {4 * len(DRYRUN_ARCHS)} combinations traced "
+          f"(exit {r.returncode}): {r.stderr[-3000:]}")
+    print(f"[dryrun] {len(DRYRUN_ARCHS)} archs x 4 shapes on the 16 x 16 "
+          f"mesh (fake CUDA tensors, a fake group of 256 ranks) in "
+          f"{time.perf_counter() - t0:.1f} s; per-card numbers are "
+          f"extrapolated from 1 and 2 layer periods (and 2 and 3 "
+          f"microbatches); the host of {smi}")
 
 
 def cut_sets(pick_k: torch.Tensor, pick_r: torch.Tensor,
@@ -5492,6 +5785,14 @@ def main() -> None:
     mamba_entries, mamba_counts = mamba_phases(kernels, smi)
     arch_entries.update(mamba_entries)
     arch_counts.update(mamba_counts)
+
+    # -- 13. the LLM's logical sharding on a (1, 1) device mesh --------------
+    mesh_entries, mesh_counts = mesh_phases(kernels, smi)
+    arch_entries.update(mesh_entries)
+    arch_counts.update(mesh_counts)
+
+    # -- 14. the dry run: per-card cost on the 16 x 16 mesh -------------------
+    dryrun_phase(smi)
 
     sources = {"pdist": ("csrc/pdist.cu", "src/repro/kernels/pdist.py:61"),
                "support_sqdist": ("csrc/support_sqdist.cu",

@@ -1,9 +1,30 @@
-"""The mesh interface and the cross-shard merge primitives.
+"""Logical-axis sharding of the LLM, the store's mesh interface, and the
+cross-shard merge primitives (counterpart of
+``repro.distributed.sharding``).
 
-Counterpart of the merge half of ``repro.distributed.sharding``.  The
-reference writes its collectives inside ``shard_map`` bodies; the port
-has no ``shard_map``, so a sharded step is written against one small
-interface and runs on either of two meshes:
+**The LLM's logical sharding.**  Every parameter and activation carries
+*logical* axis names; a :class:`Rules` table maps them to the axes of a
+``torch.distributed`` ``DeviceMesh`` per execution mode (train, prefill,
+decode, decode_long, none).  ``Rules.spec`` is the reference's
+resolution, per dimension a mesh-axis name, a tuple of them or None
+(the ``PartitionSpec`` counterpart): with a shape it drops mesh axes
+whose cumulative size does not divide the dimension, and it never uses
+one mesh axis twice.  ``Rules.sharding`` turns a spec into DTensor
+placements (one ``Shard`` / ``Replicate`` per mesh dimension, in mesh
+order); a dimension sharded over a tuple of mesh axes is split in mesh
+order, which is the reference's major-to-minor order when the tuple
+follows the mesh's axis order (every table entry does; another order
+raises).  ``shard(x, *axes)`` is a no-op without a mesh and a
+``redistribute`` with one (the ``with_sharding_constraint``
+counterpart); ``shard_map_compat`` is ``local_map`` on explicit
+placements (the ``shard_map`` counterpart).  A thread-local context
+(``use_rules`` / ``current_rules``) carries the rules into the model
+code, so a program without a mesh runs no sharding machinery at all.
+
+**The store's mesh interface** (the sharded ``GoldDiffEngine``).  The
+reference writes its collectives inside ``shard_map`` bodies; the
+engine's sharded step is written against one small interface and runs
+on either of two meshes:
 
 * :class:`LocalMesh` -- every shard lives in this process: on one
   device (one card holds the S slices of the store), or each on a
@@ -25,9 +46,362 @@ position (the lowest shard, then the lowest local slot) wins.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import threading
+from typing import Any
+
 import torch
 
 NEG_INF = -1e30
+
+
+# -- the LLM's logical-axis rules ---------------------------------------------
+
+_CTX = threading.local()
+
+
+class AbstractMesh:
+    """Mesh axis names and sizes without devices or a process group (the
+    counterpart of ``jax.sharding.AbstractMesh``): enough for
+    ``Rules.spec``, which reads nothing else of a mesh."""
+
+    def __init__(self, shape, axis_names):
+        self.mesh_dim_names = tuple(axis_names)
+        self.shape = tuple(int(s) for s in shape)
+        if len(self.shape) != len(self.mesh_dim_names):
+            raise ValueError(f"mesh shape {self.shape} and axes "
+                             f"{self.mesh_dim_names} must pair up")
+
+    def size(self, dim: int) -> int:
+        return self.shape[dim]
+
+
+def axis_names(mesh) -> tuple[str, ...]:
+    """The mesh's axis names, in mesh order."""
+    return tuple(mesh.mesh_dim_names or ())
+
+
+def axis_size(mesh, name: str) -> int:
+    return int(mesh.size(axis_names(mesh).index(name)))
+
+
+@dataclasses.dataclass(frozen=True)
+class Rules:
+    """A logical-axis table on a mesh: logical axis name -> mesh axis, a
+    tuple of mesh axes, or None.  ``mesh`` is None for a program without
+    sharding (mode "none")."""
+
+    mesh: Any
+    table: dict
+
+    def spec(self, logical_axes: tuple, shape: tuple | None = None) -> tuple:
+        """Resolve logical axes to per-dimension mesh axes (None, a name,
+        or a tuple of names): the reference's ``PartitionSpec``.  With
+        ``shape``, mesh axes whose cumulative size does not divide the
+        dimension are dropped from that axis on; a mesh axis is used at
+        most once."""
+        if self.mesh is None:
+            return ()
+        names = axis_names(self.mesh)
+        out = []
+        used: set[str] = set()
+        for i, ax in enumerate(logical_axes):
+            m = self.table.get(ax) if ax is not None else None
+            if m is None:
+                out.append(None)
+                continue
+            ms = (m,) if isinstance(m, str) else tuple(m)
+            ms = tuple(a for a in ms if a in names and a not in used)
+            if shape is not None:
+                keep, prod = [], 1
+                for a in ms:
+                    prod *= axis_size(self.mesh, a)
+                    if shape[i] % prod:
+                        break
+                    keep.append(a)
+                ms = tuple(keep)
+            used.update(ms)
+            out.append(ms if len(ms) > 1 else (ms[0] if ms else None))
+        return tuple(out)
+
+    def sharding(self, logical_axes: tuple, shape: tuple | None = None):
+        """The DTensor placements of ``spec(logical_axes, shape)`` on the
+        rules' mesh (None without a mesh)."""
+        if self.mesh is None:
+            return None
+        return spec_placements(self.mesh, self.spec(logical_axes, shape))
+
+
+def spec_placements(mesh, spec: tuple) -> tuple:
+    """Per-dimension mesh axes -> one placement per mesh dimension: a
+    mesh axis that shards tensor dimension d is ``Shard(d)``, any other
+    ``Replicate()``.  A dimension split over several mesh axes must name
+    them in mesh order (DTensor splits in mesh order; the reference in
+    the tuple's, major to minor)."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = axis_names(mesh)
+    out = [Replicate()] * len(names)
+    for dim, ms in enumerate(spec):
+        if ms is None:
+            continue
+        ms = (ms,) if isinstance(ms, str) else tuple(ms)
+        order = [names.index(a) for a in ms]
+        if order != sorted(order):
+            raise ValueError(f"dimension {dim} is split over mesh axes {ms} "
+                             f"out of the mesh's order {names}")
+        for i in order:
+            out[i] = Shard(dim)
+    return tuple(out)
+
+
+def _pod(mesh) -> tuple[str, ...]:
+    if mesh is not None and "pod" in axis_names(mesh):
+        return ("pod", "data")
+    return ("data",)
+
+
+def make_rules(mode: str, mesh=None, overrides: dict | None = None) -> Rules:
+    """The reference's tables.  mode: 'train' | 'prefill' | 'decode' |
+    'decode_long' | 'none' (or no mesh: no sharding)."""
+    if mode == "none" or mesh is None:
+        return Rules(None, {})
+    batch = _pod(mesh)
+    base = {
+        # weights
+        "embed": batch,          # FSDP / ZeRO-3 over the data axis
+        "vocab": "model",
+        "mlp": "model",
+        "heads": "model",
+        "kv_heads": "model",
+        "head_dim": None,
+        "experts": "model",
+        "expert_mlp": batch,     # second shard dim of expert weights
+        "mamba_inner": "model",
+        "mamba_conv": "model",
+        "mamba_heads": "model",
+        "layers": None,
+        # activations
+        "batch": batch,
+        "seq": None,
+        "act_embed": None,
+        "act_heads": "model",
+        "act_mlp": "model",
+        "act_experts": "model",
+        "kv_seq": None,
+    }
+    if mode == "train":
+        base["act_embed"] = "model"     # the residual stream's d_model
+    elif mode == "prefill":
+        base["act_embed"] = "model"
+        base["kv_seq"] = "model"        # prefill writes a model-sharded cache
+    elif mode == "decode":
+        base["kv_seq"] = "model"        # flash-decoding: split-S over model
+        base["act_heads"] = None        # q replicated for the seq-split merge
+    elif mode == "decode_long":
+        base["kv_seq"] = (("data", "model") if "pod" not in axis_names(mesh)
+                          else ("pod", "data", "model"))
+        base["batch"] = None            # global_batch = 1
+        base["act_heads"] = None
+        base["expert_mlp"] = ("data",)
+        base["embed"] = ("data",)
+    else:
+        raise ValueError(mode)
+    if overrides:
+        base.update(overrides)
+    return Rules(mesh, base)
+
+
+_IMPLICIT = [0]     # use_rules with a mesh entered and not yet left
+
+
+@contextlib.contextmanager
+def use_rules(rules: Rules):
+    """Make ``rules`` the current rules of this thread (and, with a mesh,
+    treat plain tensors met beside DTensors as replicated: DTensor's
+    ``implicit_replication`` switches a process-wide flag off on exit,
+    so only the outermost ``use_rules`` enters it)."""
+    prev = getattr(_CTX, "rules", None)
+    _CTX.rules = rules
+    ctx = contextlib.nullcontext()
+    if rules.mesh is not None and not _IMPLICIT[0]:
+        from torch.distributed.tensor.experimental import implicit_replication
+        ctx = implicit_replication()
+    _IMPLICIT[0] += rules.mesh is not None
+    try:
+        with ctx:
+            yield rules
+    finally:
+        _IMPLICIT[0] -= rules.mesh is not None
+        _CTX.rules = prev
+
+
+def current_rules() -> Rules:
+    r = getattr(_CTX, "rules", None)
+    return r if r is not None else Rules(None, {})
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+class _Constrain(torch.autograd.Function):
+    """Redistribute onto ``placements`` in the forward and put the
+    gradient on the same placements in the backward (the transpose of a
+    sharding constraint is the same constraint, as in GSPMD; DTensor's
+    own ``redistribute`` sends the gradient back to the input's
+    placements, a partial sum included)."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = placements
+        return x.redistribute(x.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) != ctx.placements:
+            g = g.redistribute(g.device_mesh, ctx.placements)
+        return g, None
+
+
+def shard(x, *logical_axes):
+    """Constrain an activation's sharding: a no-op without a mesh (or on
+    a plain tensor), else a redistribute onto the current rules'
+    placements for its shape, its gradient constrained the same way."""
+    r = current_rules()
+    if r.mesh is None or not is_dtensor(x):
+        return x
+    want = r.sharding(tuple(logical_axes), tuple(x.shape))
+    if tuple(x.placements) == want and not x.requires_grad:
+        return x
+    return _Constrain.apply(x, want)
+
+
+def mesh_axis_size(*names: str) -> int:
+    """The product of the current mesh's sizes of ``names`` (1 without a
+    mesh; an axis the mesh lacks counts 1)."""
+    r = current_rules()
+    if r.mesh is None:
+        return 1
+    n = 1
+    for name in names:
+        if name in axis_names(r.mesh):
+            n *= axis_size(r.mesh, name)
+    return n
+
+
+def grad_placements(in_pl, out_pls) -> tuple:
+    """The placements of a ``local_map`` input's gradient: where the
+    input is whole on a mesh dimension but an output differs along it
+    (sharded or partial), each rank's local gradient is a partial sum
+    over that dimension (``Partial()``); elsewhere the input's own."""
+    from torch.distributed.tensor import Partial, Replicate
+    if in_pl is None:
+        return None
+    out = []
+    for i, p in enumerate(in_pl):
+        if isinstance(p, Replicate) and any(
+                o is not None and not isinstance(o[i], Replicate)
+                for o in out_pls):
+            out.append(Partial())
+        else:
+            out.append(p)
+    return tuple(out)
+
+
+def shard_map_compat(fn, mesh, in_placements, out_placements):
+    """``fn`` on each rank's local shards (the reference's
+    ``shard_map_compat``): ``local_map(fn)`` with its inputs
+    redistributed onto ``in_placements`` and the gradients' placements
+    from ``grad_placements``.  The placements are DTensor's (one per mesh
+    dimension; ``spec_placements`` / ``Rules.sharding`` give them for a
+    reference ``PartitionSpec``); ``out_placements`` is one tuple, or a
+    tuple of them for several outputs; None marks a non-tensor argument.
+    Inside ``fn`` the collectives are the mesh's (``mesh_psum`` /
+    ``mesh_pmax``)."""
+    from torch.distributed.tensor import Placement
+    from torch.distributed.tensor.experimental import local_map
+    single = all(isinstance(p, Placement) for p in out_placements)
+    outs = (out_placements,) if single else tuple(out_placements)
+    return local_map(fn, out_placements=(list(out_placements) if single
+                                         else tuple(out_placements)),
+                     in_placements=tuple(in_placements),
+                     in_grad_placements=tuple(grad_placements(p, outs)
+                                              for p in in_placements),
+                     device_mesh=mesh, redistribute_inputs=True)
+
+
+def _groups(mesh, axes):
+    names = axis_names(mesh)
+    return [mesh.get_group(names.index(a)) for a in axes]
+
+
+def mesh_psum(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """All-reduce sum of a local tensor over the mesh axes ``axes`` (one
+    all-reduce an axis, in the order given)."""
+    import torch.distributed._functional_collectives as fc
+    for g in _groups(mesh, axes):
+        t = fc.all_reduce(t, "sum", g)
+    return t
+
+
+def mesh_pmax(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    import torch.distributed._functional_collectives as fc
+    for g in _groups(mesh, axes):
+        t = fc.all_reduce(t, "max", g)
+    return t
+
+
+def mesh_coordinate(mesh, axes) -> int:
+    """This rank's linear position over ``axes`` (major to minor): the
+    index of its shard of a dimension split over them."""
+    idx = 0
+    for a in axes:
+        idx = idx * axis_size(mesh, a) + int(mesh.get_local_rank(a))
+    return idx
+
+
+def local_shape(mesh, placements, shape) -> tuple[int, ...]:
+    """This rank's shard shape of a tensor of ``shape`` (DTensor's
+    chunking: ceil-sized chunks first, the last ones shorter or
+    empty)."""
+    from torch.distributed.tensor import Shard
+    out = list(shape)
+    names = axis_names(mesh)
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            n, c = mesh.size(i), int(mesh.get_local_rank(names[i]))
+            full = out[p.dim]
+            step = -(-full // n)
+            out[p.dim] = max(0, min(step, full - c * step))
+    return tuple(out)
+
+
+def local_chunk(t: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """This rank's chunk of ``t`` (held whole by every rank) on
+    ``placements``, contiguous; a copy where it is a part of ``t``, so
+    that ``t`` can be freed."""
+    from torch.distributed.tensor import Shard
+    local = t
+    names = axis_names(mesh)
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            n = mesh.size(i)
+            c = int(mesh.get_local_rank(names[i]))
+            local = torch.chunk(local, n, p.dim)[c]
+    if local.numel() < t.numel():
+        return local.clone(memory_format=torch.contiguous_format)
+    return local.contiguous()
+
+
+def place(t: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """A DTensor of the full tensor ``t`` (held whole by every rank) with
+    ``placements``: each rank keeps its own chunk, with no collective."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local_chunk(t, mesh, placements), mesh,
+                              placements, run_check=False, shape=t.shape,
+                              stride=t.stride())
 
 
 class LocalMesh:
@@ -201,6 +575,10 @@ def lse_merge_mean(acc_parts, m_parts, l_parts, mesh) -> torch.Tensor:
     return mesh.psum(accs) / torch.clamp_min(l_g, 1e-30)[:, None]
 
 
-__all__ = ["LocalMesh", "ProcessMesh", "kth_from_gathered",
+__all__ = ["AbstractMesh", "Rules", "make_rules", "use_rules",
+           "current_rules", "shard", "mesh_axis_size", "shard_map_compat",
+           "spec_placements", "mesh_psum", "mesh_pmax", "mesh_coordinate",
+           "place", "local_chunk", "local_shape", "grad_placements",
+           "LocalMesh", "ProcessMesh", "kth_from_gathered",
            "crossshard_kth", "gather_global_topk", "lse_merge_mean",
            "NEG_INF"]

@@ -391,6 +391,88 @@ def fused_step(q, qp, x, proxy, m: int, k: int, sigma2,
     return _fused.fused_posterior(x, idx, d2, k, sigma2, m_t, k_t)
 
 
+# -- kernel 9 and the attention backward as custom operators -----------------
+# ``torch.library`` operators, so that DTensor's ``local_map``, a fake
+# tensor (the dry run) and ``torch.utils.flop_counter`` see one operator
+# a call: the CPU kernel is the plain version, the CUDA kernel the
+# hand-written one; the fake kernel gives the kernel's outputs only (o
+# and the row lse; dq, dk, dv), never the plain version's [S, S] scores,
+# so a traced program's memory is the kernel's.
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cpu")
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool, return_lse: bool
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    if return_lse:
+        return ref.flash_attention_ref(q, k, v, causal, True)
+    return (ref.flash_attention_ref(q, k, v, causal),
+            q.new_empty(0, dtype=torch.float32))
+
+
+@_flash_op.register_kernel("cuda")
+def _flash_op_cuda(q, k, v, causal, return_lse):
+    out = _flash(q.contiguous(), k.contiguous(), v.contiguous(), causal,
+                 return_lse)
+    if return_lse:
+        return out
+    return out, q.new_empty(0, dtype=torch.float32)
+
+
+@_flash_op.register_fake
+def _flash_op_fake(q, k, v, causal, return_lse):
+    lse = (q.new_empty(q.shape[:4], dtype=torch.float32) if return_lse
+           else q.new_empty(0, dtype=torch.float32))
+    return torch.empty_like(q, memory_format=torch.contiguous_format), lse
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=(),
+                         device_types="cpu")
+def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                  causal: bool
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal)
+
+
+@_flash_bwd_op.register_kernel("cuda")
+def _flash_bwd_op_cuda(q, k, v, o, do, lse, causal):
+    return _flash_bwd(q.contiguous(), k.contiguous(), v.contiguous(),
+                      o.contiguous(), do.contiguous(), lse.contiguous(),
+                      causal)
+
+
+@_flash_bwd_op.register_fake
+def _flash_bwd_op_fake(q, k, v, o, do, lse, causal):
+    c = torch.contiguous_format
+    return (torch.empty_like(q, memory_format=c),
+            torch.empty_like(k, memory_format=c),
+            torch.empty_like(v, memory_format=c))
+
+
+def attention_flops(q_shape, k_shape) -> int:
+    """Kernel 9's FLOPs as the reference counts attention
+    (``hlo_analysis.loop_corrections``): Q K^T and P V over every tile,
+    4 B H S_q S_k dh, whatever the mask."""
+    b, hkv, g, s, dh = q_shape
+    return 4 * b * hkv * g * s * k_shape[2] * dh
+
+
+def _register_flops():
+    from torch.utils.flop_counter import register_flop_formula
+
+    @register_flop_formula(torch.ops.repro_torch.flash_attention)
+    def _fwd(q, k, v, causal, return_lse, *args, out_shape=None, **kw):
+        return attention_flops(q, k)
+
+    @register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+    def _bwd(q, k, v, o, do, lse, causal, *args, out_shape=None, **kw):
+        return 2 * attention_flops(q, k)
+
+
+_register_flops()
+
+
 def flash_attention(q, k, v, causal: bool = True, qc: int = 256,
                     kc: int = 512, return_lse: bool = False):
     """Causal (or full) GQA attention: q [B, Hkv, G, S, dh], k/v [B,
@@ -406,10 +488,9 @@ def flash_attention(q, k, v, causal: bool = True, qc: int = 256,
     if s % qc or s % kc:
         raise ValueError(f"flash_attention: seq {s} must tile evenly by "
                          f"qc={qc} and kc={kc}")
-    if _on_cpu(q):
-        return ref.flash_attention_ref(q, k, v, causal, return_lse)
-    return _flash(q.contiguous(), k.contiguous(), v.contiguous(), causal,
-                  return_lse)
+    out, lse = torch.ops.repro_torch.flash_attention(q, k, v, causal,
+                                                     return_lse)
+    return (out, lse) if return_lse else out
 
 
 def flash_attention_bwd(q, k, v, o, do, lse, causal: bool = True):
@@ -418,11 +499,8 @@ def flash_attention_bwd(q, k, v, o, do, lse, causal: bool = True):
     dh] -> (dq, dk, dv) in q's dtype, fp32 sums.  CPU tensors take the
     materialized plain version; CUDA tensors the hand-written kernel, or
     the call raises."""
-    if _on_cpu(q):
-        return ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal)
-    return _flash_bwd(q.contiguous(), k.contiguous(), v.contiguous(),
-                      o.contiguous(), do.contiguous(), lse.contiguous(),
-                      causal)
+    return tuple(torch.ops.repro_torch.flash_attention_bwd(q, k, v, o, do,
+                                                           lse, causal))
 
 
 class FlashAttention(torch.autograd.Function):

@@ -1,10 +1,10 @@
 """The model inputs of the four assigned shapes (counterpart of
-``repro.launch.inputs``): ``SHAPES`` and ``concrete_inputs``.  Decode
-shapes feed ``decode_step`` (one new token against a seq_len KV cache,
-and a Mamba layer's conv and SSM states);
-train and prefill feed full-sequence steps.  ``input_specs`` (the
-abstract inputs of a dry run) waits for ``launch/dryrun.py`` (ROADMAP
-Queue 1).
+``repro.launch.inputs``): ``SHAPES``, ``concrete_inputs`` and
+``input_specs``.  Decode shapes feed ``decode_step`` (one new token
+against a seq_len KV cache, and a Mamba layer's conv and SSM states);
+train and prefill feed full-sequence steps.  ``input_specs`` gives the
+dry run's inputs: DTensors on the rules' placements that allocate
+nothing.
 """
 from __future__ import annotations
 
@@ -13,7 +13,8 @@ import dataclasses
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import zero_cache
+from repro_torch.models.module import abstract_tensor
+from repro_torch.models.transformer import abstract_cache, zero_cache
 from repro_torch.utils import resolve_device
 
 
@@ -64,4 +65,32 @@ def concrete_inputs(cfg: ModelConfig, shape: InputShape,
                 "token": torch.zeros((b,), dtype=torch.int64, device=device),
                 "pos": torch.full((), s - 1, dtype=torch.int64,
                                   device=device)}
+    raise ValueError(shape.kind)
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape, rules,
+                device=None) -> dict:
+    """The abstract inputs of the step of this (arch, shape) under
+    ``rules`` (a mesh): tokens and labels [B, S - F] int64 on ("batch",
+    "seq"), a frontend's embeds [B, F, d] fp32 on ("batch", "seq",
+    "act_embed"); for decode the cache (``abstract_cache``), the token
+    [B] on ("batch",) and the position S - 1 (an int).  Fake tensors
+    under an active ``FakeTensorMode`` (on ``device``), else meta."""
+    b, s = shape.global_batch, shape.seq_len
+    f = cfg.frontend_tokens if cfg.frontend else 0
+
+    def tok(shp, axes=("batch", "seq")):
+        return abstract_tensor(shp, axes, torch.int64, rules, device)
+    if shape.kind in ("train", "prefill"):
+        out = {"tokens": tok((b, s - f))}
+        if shape.kind == "train":
+            out["labels"] = tok((b, s - f))
+        if f:
+            out["embeds"] = abstract_tensor((b, f, cfg.d_model),
+                                            ("batch", "seq", "act_embed"),
+                                            torch.float32, rules, device)
+        return out
+    if shape.kind == "decode":
+        return {"cache": abstract_cache(cfg, b, s, rules, device),
+                "token": tok((b,), ("batch",)), "pos": s - 1}
     raise ValueError(shape.kind)

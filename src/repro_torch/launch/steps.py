@@ -1,5 +1,5 @@
-"""Step builders shared by ``train.py`` and the decode path (counterpart
-of ``repro.launch.steps``) for one device.
+"""Step builders shared by ``train.py``, the decode path and the dry run
+(counterpart of ``repro.launch.steps``), on one device or on a mesh.
 
 * ``make_train_step``: one AdamW step; with ``num_microbatches > 1`` the
   batch is split along its first axis and each microbatch's gradient,
@@ -19,9 +19,30 @@ A batch may carry a frontend's ``embeds`` [B, F, d] beside its tokens;
 every step passes it to ``loss_fn`` / ``prefill``, and the train step's
 metrics report the MoE auxiliary loss (``aux``).
 
-The builders take no ``rules``: there is one card, and the LLM's
-logical-axis rules, ``shard_grad_accum`` and ``zero1_rules`` (multi-card)
-wait for the LLM sharding (ROADMAP Queue 1).
+Every builder takes the reference's ``rules`` (``distributed.sharding.
+make_rules``).  Without a mesh (None or mode "none") it does exactly the
+one-device work above.  With a ``DeviceMesh`` the parameters (and the
+optimizer state and caches) are DTensors on the rules' placements
+(``models.module.param_shardings``); a batch of plain tensors, held whole
+by every rank, is placed on the inputs' placements first
+(``place_batch``); the model runs under ``use_rules`` and the metrics
+and the loss come back as plain (replicated) tensors.  The train step
+then also takes the reference's two knobs:
+
+* ``shard_grad_accum``: each microbatch's fp32 gradient is put on its
+  parameter's placements before it is summed (a reduce-scatter a
+  microbatch instead of one reduction of partial sums at the end);
+* ``zero1_rules``: the AdamW state lives on those rules' placements
+  (``optimizer.init_state(params, placements)``); the gradients are put
+  there, the update runs shard-locally, and the fresh parameters go back
+  onto the rules' placements.
+
+A microbatch of a sharded batch is its rows i x B/n ... (i + 1) x B/n, as
+on one device, on the batch's placements (a DTensor batch's rows are
+gathered once a step, not once a microbatch).  The
+mesh decode step runs eagerly: a CUDA graph over the cache's collectives
+is a question of the multi-card engine (ROADMAP Queue 1), so this is the
+design of this step, not a fallback from a graph.
 """
 from __future__ import annotations
 
@@ -30,11 +51,39 @@ from typing import Callable
 
 import torch
 
+from repro_torch.distributed.hlo_analysis import phase
+from repro_torch.distributed.sharding import (Rules, is_dtensor, make_rules,
+                                              place, use_rules)
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.module import tree_leaves
+from repro_torch.models.module import param_shardings, tree_leaves
 from repro_torch.training import optimizer as opt
+
+_BATCH_AXES = {"tokens": ("batch", "seq"), "labels": ("batch", "seq"),
+               "loss_mask": ("batch", "seq"),
+               "embeds": ("batch", "seq", "act_embed"), "token": ("batch",)}
+
+
+def _rules(rules: Rules | None) -> Rules:
+    return make_rules("none") if rules is None else rules
+
+
+def place_batch(batch: dict, rules: Rules) -> dict:
+    """A batch's plain tensors (each held whole by every rank) as
+    DTensors on the inputs' placements; DTensors and a rules table
+    without a mesh pass through."""
+    if rules.mesh is None:
+        return batch
+    return {k: v if is_dtensor(v) or not isinstance(v, torch.Tensor) else
+            place(v, rules.mesh, rules.sharding(_BATCH_AXES[k],
+                                                tuple(v.shape)))
+            for k, v in batch.items()}
+
+
+def _plain(t):
+    """A DTensor's full value (replicated on every rank), else ``t``."""
+    return t.full_tensor() if is_dtensor(t) else t
 
 
 def _rebuild(paths: list[str], leaves) -> dict:
@@ -48,76 +97,137 @@ def _rebuild(paths: list[str], leaves) -> dict:
     return out
 
 
-def _value_and_grad(cfg: ModelConfig, params: dict, batch: dict):
+def _value_and_grad(cfg: ModelConfig, params: dict, batch: dict,
+                    rules: Rules | None = None):
     """``(loss, metrics, grads)`` of ``T.loss_fn`` at ``params``; the
     gradients in the parameters' dtype, as a tree like ``params``."""
     paths, leaves = zip(*tree_leaves(params))
     live = [t.detach().requires_grad_() for t in leaves]
-    with torch.enable_grad():
+    with torch.enable_grad(), use_rules(_rules(rules)), phase("grad"):
         loss, metrics = T.loss_fn(cfg, _rebuild(paths, live), batch)
         grads = torch.autograd.grad(loss, live)
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             _rebuild(paths, grads))
 
 
-def make_train_step(cfg: ModelConfig,
+def _microbatches(batch: dict, n: int, rules: Rules) -> list[dict]:
+    """The batch's n microbatches, rows i x B/n ... (i + 1) x B/n of every
+    leaf, on the inputs' placements under a mesh.  A plain leaf (held
+    whole by every rank) is sliced and placed with no collective; a
+    DTensor leaf has its rows gathered once (its other dimensions stay
+    split), and each microbatch is a local slice put back on the leaf's
+    placements (not one gather of the whole leaf a microbatch)."""
+    from torch.distributed.tensor import Replicate, Shard
+    out: list[dict] = [{} for _ in range(n)]
+    for k, v in batch.items():
+        m = v.shape[0] // n
+        if is_dtensor(v):
+            pl = tuple(v.placements)
+            v = v.redistribute(v.device_mesh, tuple(
+                Replicate() if isinstance(p, Shard) and p.dim == 0 else p
+                for p in pl))
+        for i in range(n):
+            part = v[i * m:(i + 1) * m]
+            out[i][k] = (part.redistribute(part.device_mesh, pl)
+                         if is_dtensor(part) else part)
+    return [place_batch(mb, rules) for mb in out]
+
+
+def _accumulate(gsum: dict, grads: dict, constrain) -> None:
+    """``gsum[path] += grads[path]`` in fp32 (a function of its own, so no
+    loop variable keeps a microbatch's gradient alive into the next)."""
+    for p, t in tree_leaves(grads):
+        gsum[p] += constrain(p, t.float())
+
+
+def make_train_step(cfg: ModelConfig, rules: Rules | None = None,
                     opt_cfg: opt.AdamWConfig | None = None,
-                    num_microbatches: int = 1) -> Callable:
+                    num_microbatches: int = 1,
+                    shard_grad_accum: bool = False,
+                    zero1_rules: Rules | None = None) -> Callable:
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``: metrics are the last microbatch's ``nll`` and ``aux``
     plus ``loss`` (the microbatches' mean), ``grad_norm`` and ``lr``, all
-    0-d device tensors (nothing is read back)."""
+    0-d device tensors (nothing is read back).  Under a mesh the
+    optimizer state must have been made by ``optimizer.init_state(params,
+    param_shardings(model_specs(cfg), zero1_rules))`` when
+    ``zero1_rules`` is given (by ``init_state(params)`` otherwise)."""
     opt_cfg = opt_cfg or opt.AdamWConfig()
+    rules = _rules(rules)
+    par_sh = (dict(tree_leaves(param_shardings(T.model_specs(cfg), rules)))
+              if rules.mesh is not None else None)
+
+    def constrain(path, g):
+        """The fp32 gradient sum on its parameter's placements."""
+        if not shard_grad_accum or par_sh is None:
+            return g
+        return g.redistribute(g.device_mesh, par_sh[path])
 
     def train_step(params, opt_state, batch):
         if num_microbatches == 1:
-            loss, metrics, grads = _value_and_grad(cfg, params, batch)
+            loss, metrics, grads = _value_and_grad(
+                cfg, params, place_batch(batch, rules), rules)
         else:
             n = num_microbatches
-            mbs = [{k: v.reshape((n, v.shape[0] // n) + v.shape[1:])[i]
-                    for k, v in batch.items()} for i in range(n)]
-            gsum, lsum = None, torch.zeros((), dtype=torch.float32,
-                                           device=batch["tokens"].device)
+            mbs = _microbatches(batch, n, rules)
+            gsum, lsum = None, 0
             for mb in mbs:
-                lval, metrics, g = _value_and_grad(cfg, params, mb)
-                lsum = lsum + lval
+                lval, metrics, g = _value_and_grad(cfg, params, mb, rules)
+                lsum = lsum + _plain(lval)
                 if gsum is None:     # fp32 buffers (fresh grads: no copy)
-                    gsum = {p: t.float() for p, t in tree_leaves(g)}
+                    gsum = {p: constrain(p, t.float())
+                            for p, t in tree_leaves(g)}
                 else:
-                    for p, t in tree_leaves(g):
-                        gsum[p] += t.float()
+                    _accumulate(gsum, g, constrain)
                 del g
             for t in gsum.values():
                 t.div_(n)                          # in place: no 2nd copy
             grads = _rebuild(list(gsum), gsum.values())
             loss = lsum / n
-        params, opt_state, om = opt.apply_updates(opt_cfg, params, grads,
-                                                  opt_state)
-        return params, opt_state, dict(metrics, loss=loss, **om)
+        with phase("update"):
+            params, opt_state, om = opt.apply_updates(opt_cfg, params,
+                                                      grads, opt_state)
+        metrics = dict(metrics, loss=loss, **om)
+        return params, opt_state, {k: _plain(v) for k, v in metrics.items()}
 
     return train_step
 
 
-def make_loss_step(cfg: ModelConfig) -> Callable:
+def make_loss_step(cfg: ModelConfig, rules: Rules | None = None
+                   ) -> Callable:
     """``loss_step(params, batch) -> (loss, grads)``: forward and backward
-    without the optimizer."""
+    without the optimizer (the dry run's lighter variant)."""
+    rules = _rules(rules)
+
     def loss_step(params, batch):
-        loss, _, grads = _value_and_grad(cfg, params, batch)
-        return loss, grads
+        loss, _, grads = _value_and_grad(cfg, params,
+                                         place_batch(batch, rules), rules)
+        return _plain(loss), grads
     return loss_step
 
 
-def make_prefill_step(cfg: ModelConfig) -> Callable:
-    """``prefill_step(params, batch) -> (last logits, cache)``, eager."""
+def make_prefill_step(cfg: ModelConfig, rules: Rules | None = None
+                      ) -> Callable:
+    """``prefill_step(params, batch) -> (last logits, cache)``, eager;
+    under a mesh both are DTensors (the cache on the rules'
+    placements)."""
+    rules = _rules(rules)
+
     def prefill_step(params, batch):
-        with torch.no_grad():
+        batch = place_batch(batch, rules)
+        with torch.no_grad(), use_rules(rules):
             return T.prefill(cfg, params, batch["tokens"],
                              batch.get("embeds"))
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig) -> Callable:
+def make_decode_step(cfg: ModelConfig, rules: Rules | None = None
+                     ) -> Callable:
     """``serve_step(params, cache, token, pos) -> (logits, cache)``.
+
+    Under a mesh every call is eager (``T.decode_step`` under the rules:
+    the split-S decode with its merges), the token placed on the batch's
+    placements.  Without one:
 
     On the card the first call with a given (batch, first attention
     layer's cache length, 0 without attention) and parameter and cache
@@ -130,6 +240,7 @@ def make_decode_step(cfg: ModelConfig) -> Callable:
     tensors (other addresses) captures anew.  The capture runs with the garbage
     collector off, as ``core.engine.capture`` does.  On the CPU every
     call is eager."""
+    rules = _rules(rules)
     graphs: dict = {}
 
     def serve_step(params, cache, token, pos):
@@ -154,8 +265,13 @@ def make_decode_step(cfg: ModelConfig) -> Callable:
         ops.add_launch_counts(entry["delta"])
         return entry["logits"].clone(), cache
 
+    def mesh_step(params, cache, token, pos):
+        token = place_batch({"token": token}, rules)["token"]
+        with torch.no_grad(), use_rules(rules):
+            return T.decode_step(cfg, params, cache, token, pos)
+
     serve_step.graphs = graphs
-    return serve_step
+    return mesh_step if rules.mesh is not None else serve_step
 
 
 def _capture(cfg: ModelConfig, params: dict, cache: dict,

@@ -5,7 +5,10 @@ reference's pytrees over as nested dicts of numpy arrays (bf16 leaves
 arrive as ml_dtypes arrays and go through float32, which is exact).
 Every leaf of the port's spec tree must be present with its shape, and
 no other: a missing or extra leaf, or a wrong shape, raises
-``ValueError``.
+``ValueError``.  Given ``rules`` with a mesh, the converted leaves are
+placed on their ``param_shardings`` (a cache's on its logical axes'
+placements), so one set of weights feeds the one-process and the
+sharded port.
 """
 from __future__ import annotations
 
@@ -13,7 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.module import tree_leaves
+from repro_torch.models.module import place_tree, tree_leaves
 from repro_torch.models.transformer import cache_specs, model_specs
 from repro_torch.utils import resolve_device
 
@@ -40,17 +43,22 @@ def _convert(want: dict, tree, what: str, device) -> dict:
     return out
 
 
-def params_from_numpy(cfg: ModelConfig, tree, device=None) -> dict:
+def params_from_numpy(cfg: ModelConfig, tree, device=None,
+                      rules=None) -> dict:
     """The reference's parameter pytree (``embed``, ``blocks/l{i}/...``,
     ``final_norm``, ``lm_head`` when untied) as the port's tensors, on
-    ``device`` (the CUDA card unless the caller names another)."""
+    ``device`` (the CUDA card unless the caller names another); DTensors
+    on ``param_shardings(model_specs(cfg), rules)`` under a mesh."""
     device = resolve_device(device)
-    want = {path: (s.shape, s.dtype)
-            for path, s in tree_leaves(model_specs(cfg))}
-    return _convert(want, tree, "params_from_numpy", device)
+    specs = dict(tree_leaves(model_specs(cfg)))
+    want = {path: (s.shape, s.dtype) for path, s in specs.items()}
+    out = _convert(want, tree, "params_from_numpy", device)
+    return out if rules is None else place_tree(
+        out, {p: s.logical_axes for p, s in specs.items()}, rules)
 
 
-def cache_from_numpy(cfg: ModelConfig, tree, device=None) -> dict:
+def cache_from_numpy(cfg: ModelConfig, tree, device=None,
+                     rules=None) -> dict:
     """The reference's decode cache (``l{i}/{k, v[, summ]}``, each
     ``[repeats, B, Hkv, S | nb, dh]``, and ``l{i}/{conv, ssm}`` of a
     Mamba layer) as the port's tensors, on ``device`` (the CUDA card
@@ -70,5 +78,8 @@ def cache_from_numpy(cfg: ModelConfig, tree, device=None) -> dict:
                 raise ValueError(f"cache_from_numpy: no [repeats, B, Hkv, "
                                  f"S, dh] leaf l{i}/k ({err})") from err
             break
-    want = dict(tree_leaves(cache_specs(cfg, batch, seq_len)))
-    return _convert(want, tree, "cache_from_numpy", device)
+    specs = dict(tree_leaves(cache_specs(cfg, batch, seq_len)))
+    want = {path: (shp, dt) for path, (shp, _, dt) in specs.items()}
+    out = _convert(want, tree, "cache_from_numpy", device)
+    return out if rules is None else place_tree(
+        out, {p: ax for p, (_, ax, _) in specs.items()}, rules)

@@ -26,6 +26,14 @@ Differences from the reference:
     the SSD a second time for them;
   * ``mamba_decode_step`` writes the conv and SSM states into the given
     cache views in place and returns only the output.
+
+Under a mesh the projections and the gated norm take DTensors, ``z`` is
+constrained where the reference constrains it, and the conv and the SSD
+run under ``local_map``: each rank holds its batch rows with every
+channel (the conv is cheap and x, B and C are cut from its output) and
+runs the scan on its own heads (the SSD is independent per head; B and
+C are shared), so the causal masks, the cumsum and the chunk recurrence
+never see a DTensor.
 """
 from __future__ import annotations
 
@@ -34,6 +42,10 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import (axis_names, current_rules,
+                                              is_dtensor, mesh_coordinate,
+                                              shard, shard_map_compat)
+from repro_torch.models import layers as L
 from repro_torch.models.module import ParamSpec
 
 
@@ -57,22 +69,28 @@ class MambaDims:
 def mamba_specs(dims: MambaDims, dtype: torch.dtype) -> dict:
     f32 = torch.float32
     return {
-        "in_z": ParamSpec((dims.d_model, dims.d_inner), dtype),
-        "in_xbc": ParamSpec((dims.d_model, dims.conv_dim), dtype),
-        "in_dt": ParamSpec((dims.d_model, dims.heads), dtype),
-        "conv_w": ParamSpec((dims.conv_width, dims.conv_dim), dtype,
-                            scale=0.5),
-        "conv_b": ParamSpec((dims.conv_dim,), dtype, "zeros"),
-        "a_log": ParamSpec((dims.heads,), f32, "arange"),
-        "dt_bias": ParamSpec((dims.heads,), f32, "zeros"),
-        "d_skip": ParamSpec((dims.heads,), f32, "ones"),
-        "norm_w": ParamSpec((dims.d_inner,), f32, "ones"),
-        "out_proj": ParamSpec((dims.d_inner, dims.d_model), dtype),
+        "in_z": ParamSpec((dims.d_model, dims.d_inner),
+                          ("embed", "mamba_inner"), dtype),
+        "in_xbc": ParamSpec((dims.d_model, dims.conv_dim),
+                            ("embed", "mamba_conv"), dtype),
+        "in_dt": ParamSpec((dims.d_model, dims.heads),
+                           ("embed", "mamba_heads"), dtype),
+        "conv_w": ParamSpec((dims.conv_width, dims.conv_dim),
+                            (None, "mamba_conv"), dtype, scale=0.5),
+        "conv_b": ParamSpec((dims.conv_dim,), ("mamba_conv",), dtype,
+                            "zeros"),
+        "a_log": ParamSpec((dims.heads,), ("mamba_heads",), f32, "arange"),
+        "dt_bias": ParamSpec((dims.heads,), ("mamba_heads",), f32, "zeros"),
+        "d_skip": ParamSpec((dims.heads,), ("mamba_heads",), f32, "ones"),
+        "norm_w": ParamSpec((dims.d_inner,), ("mamba_inner",), f32, "ones"),
+        "out_proj": ParamSpec((dims.d_inner, dims.d_model),
+                              ("mamba_inner", "embed"), dtype),
     }
 
 
 def _in_proj(p: dict, x: torch.Tensor):
-    return x @ p["in_z"], x @ p["in_xbc"], x @ p["in_dt"]
+    return (L.dense(x, p["in_z"]), L.dense(x, p["in_xbc"]),
+            L.dense(x, p["in_dt"]))
 
 
 def _gated_norm(w: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
@@ -170,6 +188,53 @@ def _ssd_inputs(p: dict, xbc: torch.Tensor, dt: torch.Tensor,
     return xh, dt, a, b_in, c_in
 
 
+def _sharded_axes(placements, dim: int, mesh) -> list[str]:
+    from torch.distributed.tensor import Shard
+    names = axis_names(mesh)
+    return [names[i] for i, p in enumerate(placements)
+            if isinstance(p, Shard) and p.dim == dim]
+
+
+def _moved(placements, src: int, dst: int) -> tuple:
+    """The placements with a shard of dimension ``src`` moved to ``dst``."""
+    from torch.distributed.tensor import Shard
+    return tuple(Shard(dst) if isinstance(p, Shard) and p.dim == src else p
+                 for p in placements)
+
+
+def _mesh_conv_ssd(p: dict, xbc_raw, dt, dims: MambaDims, chunk: int):
+    """The conv and the SSD of DTensors under ``local_map``: (y [B, S, H,
+    P] with the heads on the mesh axes of "mamba_heads", the final state
+    [B, H, P, N], the raw xBC [B, S, C] with every channel)."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = current_rules().mesh
+    xbc_raw = shard(xbc_raw, "batch", None, None)
+    dt = shard(dt, "batch", None, "mamba_heads")
+    bpl, hpl = tuple(xbc_raw.placements), tuple(dt.placements)
+    rep = (Replicate(),) * len(bpl)
+    head_axes = _sharded_axes(hpl, 2, mesh)
+    vpl = tuple(Shard(0) if q == Shard(2) else Replicate()
+                for q in hpl)                             # [H] params
+
+    def body(xbc_l, dt_l, conv_w, conv_b, dt_bias, a_log, d_skip):
+        xbc = _causal_conv(xbc_l, conv_w, conv_b)
+        h_loc = dt_l.shape[-1]
+        h0 = mesh_coordinate(mesh, head_axes) * h_loc
+        di, n = dims.d_inner, dims.state
+        xh = xbc[..., :di].reshape(*xbc.shape[:-1], dims.heads,
+                                   dims.head_dim)[:, :, h0:h0 + h_loc]
+        b_in, c_in = xbc[..., di:di + n], xbc[..., di + n:]
+        dtv = F.softplus(dt_l.float() + dt_bias)
+        y, state = ssd_chunked(xh, dtv, -torch.exp(a_log), b_in, c_in,
+                               d_skip, chunk)
+        return y, state
+    fn = shard_map_compat(body, mesh, (bpl, hpl, rep, rep, vpl, vpl, vpl),
+                          (hpl, _moved(hpl, 2, 1)))
+    y, state = fn(xbc_raw, dt, p["conv_w"], p["conv_b"], p["dt_bias"],
+                  p["a_log"], p["d_skip"])
+    return y, state, xbc_raw
+
+
 def mamba_apply(p: dict, x: torch.Tensor, dims: MambaDims, chunk: int = 128,
                 cache: dict | None = None) -> torch.Tensor:
     """Full-sequence (train / prefill) mixer.  x: [B, S, d_model].  With
@@ -178,9 +243,13 @@ def mamba_apply(p: dict, x: torch.Tensor, dims: MambaDims, chunk: int = 128,
     the pre-conv xBC (zeros ahead of a shorter sequence) and the SSD's
     final state."""
     z, xbc_raw, dt = _in_proj(p, x)
-    xbc = _causal_conv(xbc_raw, p["conv_w"], p["conv_b"])
-    xh, dt, a, b_in, c_in = _ssd_inputs(p, xbc, dt, dims)
-    y, state = ssd_chunked(xh, dt, a, b_in, c_in, p["d_skip"], chunk)
+    z = shard(z, "batch", "seq", "act_mlp")
+    if is_dtensor(xbc_raw):
+        y, state, xbc_raw = _mesh_conv_ssd(p, xbc_raw, dt, dims, chunk)
+    else:
+        xbc = _causal_conv(xbc_raw, p["conv_w"], p["conv_b"])
+        xh, dt, a, b_in, c_in = _ssd_inputs(p, xbc, dt, dims)
+        y, state = ssd_chunked(xh, dt, a, b_in, c_in, p["d_skip"], chunk)
     bsz, s = x.shape[:2]
     y = _gated_norm(p["norm_w"], y.reshape(bsz, s, dims.d_inner), z)
     if cache is not None:
@@ -190,7 +259,7 @@ def mamba_apply(p: dict, x: torch.Tensor, dims: MambaDims, chunk: int = 128,
         cache["conv"][:, dims.conv_width - 1 - keep:].copy_(
             xbc_raw[:, s - keep:])
         cache["ssm"].copy_(state)
-    return y @ p["out_proj"]
+    return L.dense(y, p["out_proj"])
 
 
 def mamba_decode_step(p: dict, x: torch.Tensor, cache: dict,
@@ -201,6 +270,10 @@ def mamba_decode_step(p: dict, x: torch.Tensor, cache: dict,
     overlapping copy) and the state takes one step.  Returns y [B,
     d_model]."""
     z, xbc, dt = _in_proj(p, x)
+    if is_dtensor(xbc):
+        y = _mesh_decode_state(p, xbc, dt, cache, dims)
+        y = _gated_norm(p["norm_w"], y.reshape(x.shape[0], dims.d_inner), z)
+        return L.dense(y, p["out_proj"])
     conv_in = torch.cat([cache["conv"], xbc[:, None, :]], 1)   # [B, W, C]
     xbc_c = F.silu(torch.einsum("bwc,wc->bc", conv_in, p["conv_w"])
                    + p["conv_b"])
@@ -218,9 +291,57 @@ def mamba_decode_step(p: dict, x: torch.Tensor, cache: dict,
     return y @ p["out_proj"]
 
 
+def _mesh_decode_state(p: dict, xbc, dt, cache: dict, dims: MambaDims):
+    """The conv and state step of ``mamba_decode_step`` for DTensors under
+    ``local_map``: every rank convolves every channel (from the gathered
+    conv window), writes its own channels of the window and its own
+    heads of the state in place, and returns y [B, H, P] on its heads."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = current_rules().mesh
+    conv, ssm = cache["conv"], cache["ssm"]
+    cpl, spl = tuple(conv.placements), tuple(ssm.placements)
+    bpl = tuple(q if q == Shard(0) else Replicate()
+                for q in cpl)                             # batch only
+    rep = (Replicate(),) * len(cpl)
+    head_axes = _sharded_axes(spl, 1, mesh)
+    conv_axes = _sharded_axes(cpl, 2, mesh)
+    hpl = spl                          # dt [B, H]: the state's B and H
+    vpl = tuple(Shard(0) if q == Shard(1) else Replicate()
+                for q in spl)                             # [H] params
+    dt = dt.redistribute(mesh, hpl)
+
+    def body(xbc_l, dt_l, window, conv_l, ssm_l, conv_w, conv_b, dt_bias,
+             a_log, d_skip):
+        conv_in = torch.cat([window, xbc_l[:, None, :]], 1)   # [B, W, C]
+        c_loc = conv_l.shape[2]
+        c0 = mesh_coordinate(mesh, conv_axes) * c_loc
+        xbc_c = F.silu(torch.einsum("bwc,wc->bc", conv_in, conv_w) + conv_b)
+        h_loc = dt_l.shape[-1]
+        h0 = mesh_coordinate(mesh, head_axes) * h_loc
+        di, n = dims.d_inner, dims.state
+        xh = xbc_c[..., :di].reshape(-1, dims.heads, dims.head_dim)[
+            :, h0:h0 + h_loc].float()
+        b_in, c_in = xbc_c[..., di:di + n].float(), xbc_c[..., di + n:].float()
+        dtv = F.softplus(dt_l.float() + dt_bias)
+        decay = torch.exp(dtv * -torch.exp(a_log))
+        add = torch.einsum("bh,bn,bhp->bhpn", dtv, b_in, xh)
+        state = ssm_l.float() * decay[..., None, None] + add
+        y = torch.einsum("bn,bhpn->bhp", c_in, state)
+        y = y + d_skip[None, :, None] * xh
+        conv_l.copy_(conv_in[:, 1:, c0:c0 + c_loc])
+        ssm_l.copy_(state)
+        return y.to(xbc_l.dtype)
+    fn = shard_map_compat(body, mesh, (bpl, hpl, bpl, cpl, spl, rep, rep,
+                                       vpl, vpl, vpl), spl)
+    return fn(xbc, dt, conv, conv, ssm, p["conv_w"], p["conv_b"],
+              p["dt_bias"], p["a_log"], p["d_skip"])
+
+
 def mamba_cache_specs(dims: MambaDims, batch: int, dtype: torch.dtype
                       ) -> dict:
-    """One Mamba layer's decode cache: ``{name: (shape, dtype)}``."""
-    return {"conv": ((batch, dims.conv_width - 1, dims.conv_dim), dtype),
+    """One Mamba layer's decode cache: ``{name: (shape, logical_axes,
+    dtype)}``."""
+    return {"conv": ((batch, dims.conv_width - 1, dims.conv_dim),
+                     ("batch", None, "mamba_conv"), dtype),
             "ssm": ((batch, dims.heads, dims.head_dim, dims.state),
-                    torch.float32)}
+                    ("batch", "mamba_heads", None, None), torch.float32)}

@@ -19,6 +19,14 @@ tokens an expert drops:
     share)``.
 
 The products are plain einsums, as in the reference (no TPU kernel).
+
+Under a mesh the routing runs under ``local_map`` on each rank's groups
+(the groups split over the batch's mesh axes where their count allows,
+the router gathered whole), so every group's decisions are the
+one-process port's bit for bit: the sort, the cumsum and the one-hot
+never see a DTensor.  The dispatch, combine and expert tensors are then
+constrained as the reference constrains them (groups over the batch's
+axes, experts over "model").
 """
 from __future__ import annotations
 
@@ -27,16 +35,22 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import (current_rules, is_dtensor,
+                                              shard, shard_map_compat)
 from repro_torch.models.module import ParamSpec
 
 
 def moe_specs(d_model: int, d_ff: int, num_experts: int,
               dtype: torch.dtype) -> dict:
     e = num_experts
-    return {"router": ParamSpec((d_model, e), torch.float32, scale=0.02),
-            "w_gate": ParamSpec((e, d_model, d_ff), dtype),
-            "w_up": ParamSpec((e, d_model, d_ff), dtype),
-            "w_down": ParamSpec((e, d_ff, d_model), dtype)}
+    return {"router": ParamSpec((d_model, e), ("embed", None), torch.float32,
+                                scale=0.02),
+            "w_gate": ParamSpec((e, d_model, d_ff),
+                                ("experts", "embed", "mlp"), dtype),
+            "w_up": ParamSpec((e, d_model, d_ff),
+                              ("experts", "embed", "mlp"), dtype),
+            "w_down": ParamSpec((e, d_ff, d_model),
+                                ("experts", "mlp", "embed"), dtype)}
 
 
 def capacity(group: int, num_experts: int, top_k: int,
@@ -82,6 +96,40 @@ def route(p: dict, xg: torch.Tensor, num_experts: int, top_k: int,
     return probs, expert_idx, dispatch, combine
 
 
+def _mesh_route(p: dict, xg, num_experts: int, top_k: int, cap: int):
+    """``route`` of DTensors: each rank routes its own groups."""
+    from torch.distributed.tensor import Replicate
+    rules = current_rules()
+    xg = shard(xg, "batch", None, None)
+    gpl = tuple(xg.placements)
+    rep = (Replicate(),) * len(gpl)
+    fn = shard_map_compat(lambda router, x: route({"router": router}, x,
+                                                  num_experts, top_k, cap),
+                          rules.mesh, (rep, gpl), (gpl, gpl, gpl, gpl))
+    return fn(p["router"], xg)
+
+
+def _mesh_experts(p: dict, dispatch, combine, xg):
+    """Dispatch, the experts and combine of DTensors under ``local_map``,
+    on the reference's layout: the groups over the batch's axes and the
+    experts over "model" (dispatch, combine, every expert tensor), the
+    expert weights gathered on their other dimensions (ZeRO-3's gather);
+    y [G, T, d] is a partial sum over the experts' axes."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = current_rules().mesh
+    dpl = tuple(dispatch.placements)
+    xpl = tuple(p_ if p_ == Shard(0) else Replicate() for p_ in dpl)
+    wpl = tuple(Shard(0) if p_ == Shard(2) else Replicate() for p_ in dpl)
+    opl = tuple(Partial() if p_ == Shard(2) else q for p_, q in zip(dpl, xpl))
+
+    def body(d_l, c_l, x_l, wg, wu, wd):
+        xe = dispatch_tokens(d_l, x_l)
+        ye = expert_mlp({"w_gate": wg, "w_up": wu, "w_down": wd}, xe)
+        return combine_tokens(c_l, ye)
+    fn = shard_map_compat(body, mesh, (dpl, dpl, xpl, wpl, wpl, wpl), opl)
+    return fn(dispatch, combine, xg, p["w_gate"], p["w_up"], p["w_down"])
+
+
 def dispatch_tokens(dispatch: torch.Tensor, xg: torch.Tensor
                     ) -> torch.Tensor:
     """[G, T, E, C] x [G, T, d] -> each expert's slots [G, E, C, d]."""
@@ -113,12 +161,25 @@ def moe_apply(p: dict, x: torch.Tensor, num_experts: int, top_k: int,
                          f"the group of {g_sz}")
     e = num_experts
     xg = x.reshape(ng, g_sz, d)
-    probs, expert_idx, dispatch, combine = route(
-        p, xg, e, top_k, capacity(g_sz, e, top_k, capacity_factor))
-    y = combine_tokens(combine, expert_mlp(p, dispatch_tokens(dispatch, xg)))
+    cap = capacity(g_sz, e, top_k, capacity_factor)
+    if not is_dtensor(xg):
+        probs, expert_idx, dispatch, combine = route(p, xg, e, top_k, cap)
+        y = combine_tokens(combine, expert_mlp(p, dispatch_tokens(dispatch,
+                                                                  xg)))
+    else:
+        probs, expert_idx, dispatch, combine = _mesh_route(p, xg, e, top_k,
+                                                           cap)
+        dispatch = shard(dispatch, "batch", None, "act_experts", None)
+        combine = shard(combine, "batch", None, "act_experts", None)
+        y = _mesh_experts(p, dispatch, combine, xg)
 
-    # load-balance auxiliary loss (Switch / GShard form)
-    me = probs.mean((0, 1))                                       # [E]
-    ce = _one_hot(expert_idx[..., 0], e, torch.float32).mean((0, 1))
+    # load-balance auxiliary loss (Switch / GShard form); on DTensors as
+    # sums over the count (a mean over a split dimension is a
+    # Partial("avg"), which torch 2.11's DTensor cannot mix with sums)
+    top1 = _one_hot(expert_idx[..., 0], e, torch.float32)
+    if is_dtensor(probs):
+        me, ce = probs.sum((0, 1)) / t, top1.sum((0, 1)) / t
+    else:
+        me, ce = probs.mean((0, 1)), top1.mean((0, 1))            # [E]
     aux = e * torch.sum(me * ce)
     return y.reshape(b, s, d), aux

@@ -11,6 +11,12 @@ them (2-byte voids, manifest dtype ``"bfloat16"``) and read back as bf16
 bits, with no ml_dtypes; the reference itself cannot read a bf16 leaf
 back (ROADMAP Queue 3).  Leaves come back on the device and in the dtype
 of the tree given to ``restore``.
+
+A tree of DTensors (a mesh's parameters) is saved as its full tensors,
+as the reference saves global arrays: every rank gathers each leaf (a
+collective: all ranks call ``save``), rank 0 writes, and the ranks meet
+at a barrier.  ``restore`` into DTensor leaves puts each full tensor back
+on its leaf's placements (each rank keeps its chunk).
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ import pathlib
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.utils import atomic
 
 CKPT_FORMAT = "training-checkpoint"
@@ -67,6 +74,8 @@ def _unflatten(like, leaves: dict, prefix: str = ""):
 def _to_numpy(t) -> np.ndarray:
     if not isinstance(t, torch.Tensor):
         return np.asarray(t)
+    if is_dtensor(t):
+        t = t.full_tensor()
     t = t.detach().cpu().contiguous()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(atomic.BF16_BITS)
@@ -78,6 +87,10 @@ def _from_numpy(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
         t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(arr))
+    if is_dtensor(like):
+        from repro_torch.distributed.sharding import place
+        return place(t.to(device=like.to_local().device, dtype=like.dtype),
+                     like.device_mesh, like.placements)
     return t.to(device=like.device, dtype=like.dtype)
 
 
@@ -85,15 +98,25 @@ def save(directory: str | pathlib.Path, step: int, tree) -> pathlib.Path:
     """Write ``tree`` (nested dicts / NamedTuples of tensors) as step
     ``step`` under ``directory``; returns the step's directory."""
     d = pathlib.Path(directory) / f"step_{step:08d}"
-    d.mkdir(parents=True, exist_ok=True)
     flat = _flatten(tree)
     bf16 = [k for k, t in flat.items()
             if isinstance(t, torch.Tensor) and t.dtype == torch.bfloat16]
-    atomic.save_arrays(str(d / "arrays.npz"),
-                       {k: _to_numpy(t) for k, t in flat.items()},
-                       fmt=CKPT_FORMAT, version=CKPT_FORMAT_VERSION,
-                       meta={"step": int(step)},
-                       manifest_path=str(d / "manifest.json"), bfloat16=bf16)
+    arrays = {k: _to_numpy(t) for k, t in flat.items()}
+    sharded = any(is_dtensor(t) for t in flat.values())
+    if sharded:
+        import torch.distributed as dist
+        writer = dist.get_rank() == 0
+    else:
+        writer = True
+    if writer:
+        d.mkdir(parents=True, exist_ok=True)
+        atomic.save_arrays(str(d / "arrays.npz"), arrays,
+                           fmt=CKPT_FORMAT, version=CKPT_FORMAT_VERSION,
+                           meta={"step": int(step)},
+                           manifest_path=str(d / "manifest.json"),
+                           bfloat16=bf16)
+    if sharded:
+        dist.barrier()
     return d
 
 

@@ -12,16 +12,24 @@ with the reference's to the last bit or two of fp32.  ``apply_updates``
 works in place: it overwrites the parameters, m, v and master it is
 given (the reference returns new trees; the port keeps one copy of the
 38 GB of state a full-width model holds).
+
+On DTensor leaves (a mesh) the same update runs in place on each rank's
+shards: a gradient is first put on its moment's placements (the
+parameters' own, or ZeRO-1's when ``init_state`` was given other
+placements), and a parameter takes its new value from the master on
+its own placements.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import NamedTuple
 
 import torch
 
-from repro_torch.models.module import tree_leaves, tree_map
+from repro_torch.distributed.sharding import is_dtensor
+from repro_torch.models.module import tree_leaves
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,22 +66,49 @@ def lr_at(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return torch.where(step < cfg.warmup_steps, warm, cfg.lr * cos)
 
 
-def init_state(params: dict) -> AdamWState:
+def _on(t: torch.Tensor, placements) -> torch.Tensor:
+    """A DTensor on ``placements`` (a no-op for a plain tensor or the
+    same placements)."""
+    if placements is None or not is_dtensor(t) or \
+            tuple(t.placements) == tuple(placements):
+        return t
+    return t.redistribute(t.device_mesh, placements)
+
+
+def _map2(fn, tree, other):
+    """``fn(leaf, other's leaf)`` over two trees of one shape (``other``
+    None: ``fn(leaf, None)``)."""
+    if isinstance(tree, dict):
+        return {k: _map2(fn, v, None if other is None else other[k])
+                for k, v in tree.items()}
+    return fn(tree, other)
+
+
+def init_state(params: dict, placements: dict | None = None) -> AdamWState:
     """Zero moments and an fp32 master copy (a copy even of fp32
-    leaves: the update overwrites the master in place)."""
+    leaves: the update overwrites the master in place).  ``placements``
+    (a tree like ``params``, DTensor leaves only) puts the three on
+    other placements than the parameters' (ZeRO-1)."""
     leaf = next(t for _, t in tree_leaves(params))
-    zeros = lambda t: torch.zeros(t.shape, dtype=torch.float32,  # noqa: E731
-                                  device=t.device)
+
+    def zeros(t, pl):
+        return _on(torch.zeros_like(t, dtype=torch.float32), pl)
+    master = _map2(lambda t, pl: _on(t.detach().float().clone(), pl),
+                   params, placements)
     return AdamWState(torch.zeros((), dtype=torch.int32, device=leaf.device),
-                      tree_map(zeros, params), tree_map(zeros, params),
-                      tree_map(lambda t: t.detach().float().clone(), params))
+                      _map2(zeros, params, placements),
+                      _map2(zeros, params, placements), master)
 
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of the leaves' fp32 sums of squares, the leaves in
     ``tree_leaves`` order (the reference's)."""
+    return _norm(x for _, x in tree_leaves(tree))
+
+
+def _norm(leaves) -> torch.Tensor:
     total = 0
-    for _, x in tree_leaves(tree):
+    for x in leaves:
         total = total + torch.sum(torch.square(x.float()))
     return torch.sqrt(total)
 
@@ -84,17 +119,28 @@ def apply_updates(cfg: AdamWConfig, params: dict, grads: dict,
     the same parameter dict (each leaf the new master in its dtype), the
     state with m, v and master updated and ``step + 1``, and
     ``{"grad_norm", "lr"}`` as 0-d device tensors."""
-    gnorm = global_norm(grads)
+    m_of, v_of = dict(tree_leaves(state.m)), dict(tree_leaves(state.v))
+    ma_of, p_of = dict(tree_leaves(state.master)), dict(tree_leaves(params))
+    grads = [(path, _on(g, m_of[path].placements if is_dtensor(m_of[path])
+                        else None)) for path, g in tree_leaves(grads)]
+    mesh = contextlib.nullcontext()
+    if any(is_dtensor(g) for _, g in grads):
+        from torch.distributed.tensor.experimental import implicit_replication
+        mesh = implicit_replication()
+    with mesh:
+        return _apply(cfg, params, grads, state, m_of, v_of, ma_of, p_of)
+
+
+def _apply(cfg, params, grads, state, m_of, v_of, ma_of, p_of):
+    gnorm = _norm(g for _, g in grads)
     scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gnorm, 1e-9),
                             1.0)
     step = state.step + 1
     lr = lr_at(cfg, state.step)
     bc1 = 1 - cfg.b1 ** step.float()
     bc2 = 1 - cfg.b2 ** step.float()
-    m_of, v_of = dict(tree_leaves(state.m)), dict(tree_leaves(state.v))
-    ma_of, p_of = dict(tree_leaves(state.master)), dict(tree_leaves(params))
     with torch.no_grad():
-        for path, g in tree_leaves(grads):
+        for path, g in grads:
             m, v, master = m_of[path], v_of[path], ma_of[path]
             g = g.float() * scale
             m.mul_(cfg.b1).add_(g * (1 - cfg.b1))
@@ -102,5 +148,6 @@ def apply_updates(cfg: AdamWConfig, params: dict, grads: dict,
             upd = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
             upd += cfg.weight_decay * master
             master -= lr * upd
-            p_of[path].copy_(master)
+            p = p_of[path]
+            p.copy_(_on(master, p.placements if is_dtensor(p) else None))
     return params, state._replace(step=step), {"grad_norm": gnorm, "lr": lr}

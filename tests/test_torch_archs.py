@@ -238,8 +238,8 @@ def test_train_step_moves_every_leaf(arch):
     batch = torch_batch(batch_of(r["jcfg"], B, S_LEN, 3))
     want, wm = T.loss_fn(cfg, tp, batch)
     before = {p: t.clone() for p, t in tree_leaves(tp)}
-    step = S.make_train_step(cfg, O.AdamWConfig(lr=1e-3, warmup_steps=10,
-                                                total_steps=100))
+    step = S.make_train_step(cfg, None, O.AdamWConfig(
+        lr=1e-3, warmup_steps=10, total_steps=100))
     params, state, m = step(tp, O.init_state(tp), batch)
     assert int(state.step) == 1
     assert float(m["loss"]) == float(want)

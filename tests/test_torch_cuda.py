@@ -1061,7 +1061,7 @@ def test_reduced_train_step_card_matches_cpu(card):
     for dev in (card, torch.device("cpu")):
         p = params_from_numpy(cfg, np_params, device=dev)
         st = opt.init_state(p)
-        step = step_lib.make_train_step(cfg, opt.AdamWConfig(
+        step = step_lib.make_train_step(cfg, None, opt.AdamWConfig(
             lr=1e-3, warmup_steps=1, total_steps=3))
         f0, b0 = flash_attention.launches, flash_mod.flash_attention_bwd.launches
         losses[dev.type] = []
@@ -1224,7 +1224,7 @@ def _train_card_vs_cpu(monkeypatch, card, arch, steps=2, num_layers=2):
     for dev in (card, torch.device("cpu")):
         p = params_from_numpy(cfg, np_params, device=dev)
         st = opt.init_state(p)
-        step = step_lib.make_train_step(cfg, opt.AdamWConfig(
+        step = step_lib.make_train_step(cfg, None, opt.AdamWConfig(
             lr=1e-3, warmup_steps=1, total_steps=steps))
         f0, b0 = flash_attention.launches, flash_mod.flash_attention_bwd.launches
         losses = []
@@ -2102,3 +2102,56 @@ def test_runtime_monitor_captures_its_probes(card):
     want = screening_recall(pos, pd2, eng.index_perm,
                             eng.coarse(q, eng.sizes(t)[0]))
     assert rec == pytest.approx(want)
+
+
+_DRYRUN_PIN = r"""
+import json, sys
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.distributed.tensor import Shard
+from torch.utils.flop_counter import FlopCounterMode
+from repro_torch.distributed import hlo_analysis as H
+from repro_torch.distributed.sharding import place
+from repro_torch.launch import dryrun as D
+from repro_torch.models import layers as L
+mesh = D.make_mesh(False, sys.argv[1], (2, 2))
+with FakeTensorMode():
+    x = place(torch.empty(8, 16, 32, device=sys.argv[1]), mesh,
+              (Shard(0), Shard(2)))
+    w = place(torch.empty(32, 64, device=sys.argv[1]), mesh,
+              (Shard(0), Shard(1)))
+    m = H.DeviceCostMode()
+    with m:
+        L.dense(x, w)
+    with FlopCounterMode(display=False) as fc:
+        x @ w
+print(json.dumps({"flops": m.flops, "global": fc.get_total_flops(),
+                  "coll": H.collective_bytes(m.records)}))
+"""
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_dryrun_counts_pinned_on_this_torch(card, device):
+    """The dry run's reliance on torch internals, pinned on the card's
+    torch: a fake process group ("fake" backend, ``FakeStore``) over
+    fake tensors, and ``DeviceCostMode`` counting each rank's local
+    operations (declining DTensor ops, skipping the shape propagation
+    under ``_sharding_prop.py``): one sharded product's local FLOPs and
+    collective bytes are the hand count that ``tests/test_torch_mesh.py``
+    holds on the CPU's torch, where ``FlopCounterMode`` counts the
+    global product."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    src = Path(__file__).resolve().parents[1] / "src"
+    r = subprocess.run([sys.executable, "-c", _DRYRUN_PIN, device],
+                       capture_output=True, text=True, timeout=300,
+                       env=dict(os.environ, PYTHONPATH=str(src)))
+    assert r.returncode == 0, r.stderr[-3000:]
+    got = json.loads(r.stdout.strip().splitlines()[-1])
+    assert got["flops"] == 2 * 64 * 32 * 32
+    assert got["global"] == 4 * got["flops"]
+    assert got["coll"]["all-gather"] == got["coll"]["total"] == \
+        (32 * 32 + 4 * 16 * 32) * 4

@@ -202,7 +202,8 @@ def layer_params(arch: str) -> dict:
 def test_arange_init_matches_reference():
     """``init="arange"``: log(1..n) over the last axis, broadcast over a
     stacked repeat axis, in the spec's dtype; the reference's a_log."""
-    spec = ParamSpec((3, 5), torch.float32, "arange", stacked=True)
+    spec = ParamSpec((3, 5), ("layers", None), torch.float32, "arange",
+                     stacked=True)
     got = init_params({"a_log": spec}, torch.Generator().manual_seed(0))
     want = JM._init_leaf(JM.ParamSpec((3, 5), (None, None), jnp.float32,
                                       "arange"), jax.random.PRNGKey(0))
@@ -214,7 +215,7 @@ def test_arange_init_matches_reference():
     assert a_log.dtype == torch.float32 and a_log.shape == (2, 16)
     assert torch.equal(a_log[0], torch.log(torch.arange(1.0, 17.0)))
     with pytest.raises(ValueError, match="none of"):
-        init_params({"w": ParamSpec((2,), init="uniform")},
+        init_params({"w": ParamSpec((2,), (None,), init="uniform")},
                     torch.Generator().manual_seed(0))
 
 
@@ -386,10 +387,10 @@ def test_caches_convert_and_match_reference_specs(arch):
     layer), and ``concrete_inputs``' decode cache against the
     reference's."""
     full = get_config(arch)
-    got = {p: (tuple(s), str(d).removeprefix("torch.")) for p, (s, d) in
-           tree_leaves(T.cache_specs(full, 2, 256))}
+    got = {p: (tuple(s), tuple(ax), str(d).removeprefix("torch."))
+           for p, (s, ax, d) in tree_leaves(T.cache_specs(full, 2, 256))}
     jspec = JT.cache_specs(jget_config(arch), 2, 256)
-    want = {"/".join(k.key for k in path): (tuple(leaf[0]),
+    want = {"/".join(k.key for k in path): (tuple(leaf[0]), tuple(leaf[1]),
                                              np.dtype(leaf[2]).name)
             for path, leaf in jax.tree_util.tree_flatten_with_path(
                 jspec, is_leaf=lambda x: isinstance(x, tuple) and len(x) == 3

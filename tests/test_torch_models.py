@@ -136,21 +136,23 @@ def test_convert_refuses_bad_trees():
 
 
 def test_unported_paths_raise():
-    """The multi-card paths (ROADMAP Queue 1): ``train(use_mesh=True)``
-    raises, and the reference's production mesh and logical-axis
-    ``Rules`` have no counterpart yet."""
-    with pytest.raises(NotImplementedError, match="multi-card"):
+    """What is still unported (ROADMAP Queue 1: the engine over
+    ``ProcessMesh``): a ``GoldDiffEngine`` on a mesh of one shard a rank
+    raises ``NotImplementedError``.  The LLM's multi-card path runs:
+    ``train(use_mesh=True)`` asks for the production mesh's 256 ranks and
+    names the world it found."""
+    from repro_torch.core import GoldDiffEngine, make_schedule
+    from repro_torch.data.synthetic import gmm
+    from repro_torch.distributed import ProcessMesh
+    pm = ProcessMesh.__new__(ProcessMesh)      # no process group needed
+    pm.axis_names, pm.shape, pm.rank, pm.size = ("data",), {"data": 2}, 0, 2
+    with pytest.raises(NotImplementedError, match="ProcessMesh"):
+        GoldDiffEngine(gmm(64, dim=8, seed=0, device="cpu"),
+                       make_schedule("ddpm_linear", 1000), device="cpu",
+                       mesh=pm)
+    with pytest.raises(ValueError, match="needs 256 ranks; the world has 1"):
         train("llama3.2-3b", smoke=True, steps=1, batch=1, seq=8,
               ckpt_dir=None, use_mesh=True, device="cpu")
-    from repro.distributed import sharding as jsharding
-    from repro.launch import mesh as jmesh
-    from repro_torch.distributed import sharding
-    from repro_torch.launch import mesh
-    assert hasattr(jmesh, "make_production_mesh")
-    assert not hasattr(mesh, "make_production_mesh")
-    for name in ("Rules", "make_rules", "use_rules", "shard"):
-        assert hasattr(jsharding, name)
-        assert not hasattr(sharding, name), name
 
 
 # --- layers ---------------------------------------------------------------

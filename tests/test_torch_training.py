@@ -341,7 +341,7 @@ def test_train_step_matches_reference(microbatches):
     batches = [tpipe.batch(i) for i in range(5)]
     jstep = jax.jit(JS.make_train_step(jcfg, make_rules("none"),
                                        JO.AdamWConfig(**ocfg), microbatches))
-    tstep = S.make_train_step(port_cfg(jcfg), O.AdamWConfig(**ocfg),
+    tstep = S.make_train_step(port_cfg(jcfg), None, O.AdamWConfig(**ocfg),
                               microbatches)
     js, ts = JO.init_state(jp), O.init_state(tp)
     for b in batches:

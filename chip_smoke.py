@@ -99,6 +99,19 @@ Phases:
      NaN storm (its exact rung: kernel 6 in captured graphs); the
      tracer's cost; the runtime path must launch kernels 2, 3, 7 and 5
      or 6;
+  7f. the engine over a ProcessMesh (``pmesh_phase``): 2 gloo ranks
+     spawned on the one card, each holding its slab of the cifar_like
+     store (its bytes on the card after construction at most the slab's
+     plus 5%), gloo taking the card's tensors, every route's trajectory
+     from [sharded]'s x_T against the one-card one (TRAJ_TOL), the ranks
+     bit-equal, each shard-local kernel once a step a rank, ``select``
+     overlap 1.0 or ties at a cut; then a one-rank NCCL ProcessMesh in
+     this process: its bytes, every route against the one card, the
+     plan's CUDA graphs (holding the NCCL collectives) bit-equal to the
+     plan run eagerly, the plan's wall, busy and idle share in turns with
+     the one-card plan and a LocalMesh of 1, the collectives' device time
+     a step, and ``ServeEngine(mesh=...)`` capturing and building nothing
+     after ``warmup()`` ([pmesh]);
   8. reference: a small store's trajectories on the card against the
      same trajectories on the CPU (plain versions), for every route
      (the indexed one with an index built on the CPU and moved over),
@@ -195,7 +208,8 @@ Phases:
      zero1_rules against one device, the prefill and the eager decode
      (full, golden) under their rules with logits bit-equal to one
      device ([mesh]); the dry run of four archs at the four shapes on the
-     16 x 16 mesh on fake CUDA tensors in a subprocess ([dryrun]).
+     16 x 16 mesh on fake CUDA tensors, one subprocess an arch, side by
+     side ([dryrun]).
 
 Any failure exits non-zero before the last line.  The last lines are the
 card's name and power limit, a JSON line of per-kernel numbers, and
@@ -2322,10 +2336,11 @@ FEAT_RTOL = 1e-5
 # layouts are the identity); the reduced config trains with two
 # microbatches and shard_grad_accum and with zero1_rules against the
 # one-device step.  [dryrun] traces DRYRUN_ARCHS at the four shapes on
-# the 16 x 16 mesh (fake CUDA tensors, a fake group of 256 ranks) in a
-# subprocess: `--all` took 224.0 s on the card's host (jamba's train_4k
-# about 100 s of it), over the 150 s this phase allows it, so four
-# archs.
+# the 16 x 16 mesh (fake CUDA tensors, a fake group of 256 ranks), one
+# subprocess an arch side by side: `--all` took 224.0 s on the card's
+# host (jamba's train_4k about 100 s of it), over the 150 s this phase
+# allows it, so four archs; in one subprocess they took 182.6-235.2 s,
+# side by side about jamba's alone.
 MESH_ARCH, MESH_TIMED = "llama3.2-3b", 3
 MESH_LOSS_REL = 1e-4       # the mesh step's losses against [train]'s
 MESH_REF_TOL = 1e-5        # reduced config: mesh vs one-device loss (fp32)
@@ -2568,25 +2583,42 @@ def mesh_phases(kernels: dict, smi: str) -> tuple[dict, dict]:
 
 
 def dryrun_phase(smi: str) -> None:
-    """[dryrun]: ``python -m repro_torch.launch.dryrun`` on DRYRUN_ARCHS
-    at the four shapes (16 x 16, fake CUDA tensors) in a subprocess; one
-    line a combination, each record's fits_hbm and bottleneck."""
+    """[dryrun]: ``python -m repro_torch.launch.dryrun`` on each of
+    DRYRUN_ARCHS at the four shapes (16 x 16, fake CUDA tensors), one
+    subprocess an arch, all started together: the traces are the host's
+    work alone, and this phase is the last, so they share its cores with
+    nothing measured; one line a combination, each record's fits_hbm and
+    bottleneck.  A subprocess past DRYRUN_TIMEOUT fails the run; every
+    one is stopped before the phase returns or fails."""
+    import os
     t0 = time.perf_counter()
-    env = dict(__import__("os").environ, PYTHONPATH=str(ROOT / "src"))
-    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
-                        "--arch", *DRYRUN_ARCHS], capture_output=True,
-                       text=True, timeout=DRYRUN_TIMEOUT, cwd=str(ROOT),
-                       env=env)
-    lines = [x for x in r.stdout.splitlines()
-             if x.startswith(("OK ", "FAIL "))]
-    for x in lines:
-        print(f"[dryrun] {x}")
-    ok = sum(x.startswith("OK ") for x in lines)
-    check(r.returncode == 0 and ok == 4 * len(DRYRUN_ARCHS),
-          f"[dryrun] {ok} of {4 * len(DRYRUN_ARCHS)} combinations traced "
-          f"(exit {r.returncode}): {r.stderr[-3000:]}")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=str(ROOT), env=env) for a in DRYRUN_ARCHS]
+    runs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=max(
+                1.0, DRYRUN_TIMEOUT - (time.perf_counter() - t0)))
+            runs.append((p.returncode, out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for a, (rc, out, err) in zip(DRYRUN_ARCHS, runs):
+        lines = [x for x in out.splitlines()
+                 if x.startswith(("OK ", "FAIL "))]
+        for x in lines:
+            print(f"[dryrun] {x}")
+        ok = sum(x.startswith("OK ") for x in lines)
+        check(rc == 0 and ok == 4, f"[dryrun] {a}: {ok} of 4 shapes "
+              f"traced (exit {rc}): {err[-3000:]}")
     print(f"[dryrun] {len(DRYRUN_ARCHS)} archs x 4 shapes on the 16 x 16 "
-          f"mesh (fake CUDA tensors, a fake group of 256 ranks) in "
+          f"mesh (fake CUDA tensors, a fake group of 256 ranks; one "
+          f"subprocess an arch, side by side) in "
           f"{time.perf_counter() - t0:.1f} s; per-card numbers are "
           f"extrapolated from 1 and 2 layer periods (and 2 and 3 "
           f"microbatches); the host of {smi}")
@@ -3968,6 +4000,41 @@ def routed(eng, fused, screen):
         eng.fused, eng.screen = old
 
 
+def route_trajectory(gd, route: str, sched, x_T: torch.Tensor):
+    """The route's STEPS-step trajectory from ``x_T`` as a callable:
+    ``sample`` over ``gd`` (``FullScan`` of its engine for "full_scan"),
+    or ``sample_plan`` through the engine's program cache and ``jitter``
+    for "plan" (CUDA graphs where the engine captures)."""
+    from repro_torch.core import FullScan, build_plan, sample, sample_plan
+    eng, shape = gd.engine, tuple(x_T.shape)
+    if route == "full_scan":
+        return lambda: sample(FullScan(eng), sched, shape, num_steps=STEPS,
+                              x_init=x_T)
+    if route == "plan":
+        pln = build_plan(eng, STEPS)
+        return lambda: sample_plan(gd.call_masked, sched, shape, pln,
+                                   x_init=x_T, program_cache=eng.program,
+                                   jitter=eng.jitter)
+    return lambda: sample(gd, sched, shape, num_steps=STEPS, x_init=x_T)
+
+
+def route_launches(names, route: str, eng, shards: int) -> dict:
+    """The launches a sharded route's trajectory must count: each of its
+    kernels (SHARD_ROUTES) ``shards`` times a step, kernel 7 on the
+    steps the index serves and kernel 1 on the indexed route's others;
+    every other kernel (the unsharded entries of 3 and 4 too) never."""
+    from repro_torch.core import sampling_timesteps
+    n_ix = (sum(eng.use_index(int(t)) for t in
+                sampling_timesteps(eng.schedule, STEPS)[:-1])
+            if route == "indexed" else 0)
+    want = {n: 0 for n in names}
+    for n in SHARD_ROUTES[route]:
+        want[n] = shards * (n_ix if n == "centroid_scan" else STEPS)
+    if route == "indexed":
+        want["pdist"] = shards * (STEPS - n_ix)
+    return want
+
+
 def near_tie_swaps(got: torch.Tensor, want: torch.Tensor, q: torch.Tensor,
                    x: torch.Tensor, eng=None, t: int = 0) -> tuple[int, bool]:
     """Rows in one golden set of a query and not in the other: their
@@ -4055,9 +4122,8 @@ def sharded_phase(ctx: dict) -> tuple[dict, dict]:
     ``warmup()``; ``ServeRuntime`` over a sharded engine on the gmm store
     through a ``shard_drop`` storm.  Returns the state entries' numbers
     and the sharded path's counts."""
-    from repro_torch.core import (FullScan, GoldDiff, OptimalDenoiser,
-                                  build_plan, sample, sample_plan,
-                                  sampling_timesteps)
+    from repro_torch.core import (GoldDiff, OptimalDenoiser, build_plan,
+                                  sample_plan)
     from repro_torch.distributed import LocalMesh, lse_merge_mean
     from repro_torch.index.shard import shard_layout
     from repro_torch.kernels import ops, ref
@@ -4228,27 +4294,12 @@ def sharded_phase(ctx: dict) -> tuple[dict, dict]:
           f"{time.perf_counter() - t_phase:.1f} s into the phase")
 
     # -- the routes at S=2 and S=8 against the single card ---------------------
-    steps = sampling_timesteps(sched, STEPS)[:-1]
-
-    def trajectory(gd, route):
-        eng = gd.engine
-        if route == "full_scan":
-            return lambda: sample(FullScan(eng), sched, (B, d),
-                                  num_steps=STEPS, x_init=x_T)
-        if route == "plan":
-            pln = build_plan(eng, STEPS)
-            return lambda: sample_plan(gd.call_masked, sched, (B, d), pln,
-                                       x_init=x_T, program_cache=eng.program,
-                                       jitter=eng.jitter)
-        return lambda: sample(gd, sched, (B, d), num_steps=STEPS,
-                              x_init=x_T)
-
     def run(gd, route):
         eng = gd.engine
         kw = ROUTE_KW[route]
         with (routed(eng, kw["fused"], kw["screen"]) if kw
               else contextlib.nullcontext()):
-            fn = trajectory(gd, route)
+            fn = route_trajectory(gd, route, sched, x_T)
             fn()                                  # warm-up (the capture)
             return fn, counted(fn)
 
@@ -4261,20 +4312,14 @@ def sharded_phase(ctx: dict) -> tuple[dict, dict]:
         mesh = LocalMesh((s,), ("data",))
         gds = {"exact": GoldDiff(full, mesh=mesh),
                "indexed": GoldDiff(full, mesh=mesh, **ikw)}
-        for route, kern in SHARD_ROUTES.items():
+        for route in SHARD_ROUTES:
             gd = gds["indexed" if route == "indexed" else "exact"]
             eng = gd.engine
             fn, (out, (c32, _)) = run(gd, route)
             err = float((out - want_traj[route]).abs().max())
             check(bool(torch.isfinite(out).all()) and err <= TRAJ_TOL,
                   f"[sharded] S={s} {route}: vs one card {err:.3g}")
-            n_ix = (sum(eng.use_index(int(t)) for t in steps)
-                    if route == "indexed" else 0)
-            want = {n: 0 for n in names}
-            for n in kern:
-                want[n] = s * (n_ix if n == "centroid_scan" else STEPS)
-            if route == "indexed":
-                want["pdist"] = s * (STEPS - n_ix)
+            want = route_launches(names, route, eng, s)
             check(c32 == want, f"[sharded] S={s} {route} launches {c32}, "
                   f"expected {want}")
             if s == SHARDS[-1]:
@@ -4433,6 +4478,445 @@ def sharded_phase(ctx: dict) -> tuple[dict, dict]:
     del rsrv, rt
     print(f"[sharded] phase {time.perf_counter() - t_phase:.1f} s")
     return res, {"fp32": sharded_counts, "bf16": bf16_counts}
+
+
+PMESH_S = 2                # gloo ranks on the one card in [pmesh]
+PMESH_JOIN_S = 300         # the ranks' whole run; a join past it fails
+PMESH_PG_S = 120           # every process group's collective timeout
+PMESH_MEM_SLACK = 1.05     # a rank's allocated bytes over its slab's
+PMESH_LIB_BYTES = 64 << 20  # the libraries' fixed workspaces (cuBLAS's)
+PMESH_TS = (100, 500, 900)  # the select checks' timesteps ([sharded]'s)
+# the sources of the kernels the engine's routes launch, built before the
+# ranks spawn so that they only load them
+PMESH_SOURCES = ("pdist", "support_sqdist", "golden_support_aggregate",
+                 "golden_aggregate", "screen_topm", "fused_candidates",
+                 "centroid_scan")
+
+
+def pmesh_xt(st, sched, t: int) -> torch.Tensor:
+    """[sharded]'s noisy queries at t, on the store's device."""
+    return (float(sched.a[t]) * st.X[:B] + float(sched.b[t])
+            * torch.randn(B, st.dim, generator=torch.Generator()
+                          .manual_seed(t)).to(st.device))
+
+
+def slab_bytes(eng) -> int:
+    """The bytes of a ProcessMesh rank's slab: its rows, norms, ids,
+    window offsets and range, and the replicated centroid table."""
+    return sum(t.numel() * t.element_size()
+               for t in eng._layout.slabs[0] if isinstance(t, torch.Tensor))
+
+
+def pmesh_workspace(*engines) -> int:
+    """The stated bound on what a rank's B-query step allocates on the
+    card beyond its slabs, for the largest of ``engines``: 32 fp32 words
+    a query for each of the shard's rows (the screen's distances, top-m
+    keys and state, the re-rank's row maps and dot partials), 8 for each
+    of the m_max candidates, one D-row for each SM (the aggregate's
+    partial sums), and PMESH_LIB_BYTES.  A step that held another
+    shard's rows on the card (a lazy move, a whole-store gather) would
+    pass it by those rows' bytes."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return max(4 * B * (32 * e._layout.n_loc + 8 * e.cfg.sizes(e.store.n)[1]
+                        + sms * e.store.dim) for e in engines) \
+        + PMESH_LIB_BYTES
+
+
+def pmesh_peak(held: int, engines, what: str) -> dict:
+    """The card's peak allocated bytes since the last reset against
+    ``held`` (allocated at the reset) plus :func:`pmesh_workspace`."""
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    bound = pmesh_workspace(*engines)
+    check(peak <= held + bound, f"[pmesh] {what}: peak {peak} bytes "
+          f"allocated, over the {held} held plus the workspace bound "
+          f"{bound}")
+    return {"held": held, "peak": peak, "bound": bound}
+
+
+def reset_peak() -> int:
+    """The card's allocated bytes, the peak reset to them."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def counted_launches(fn) -> tuple:
+    """``fn()`` between the card's synchronizations, every wrapper's
+    count set to 0 just before it: its output and the fp32 counts."""
+    from repro_torch.kernels import ops
+    for k in ops.COUNTED:
+        k.launches = 0
+    torch.cuda.synchronize()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k.__name__: k.launches for k in ops.COUNTED}
+
+
+def pmesh_engines(full, mesh, ikw) -> dict:
+    """The exact and indexed GoldDiff over ``mesh``, each with its
+    allocated bytes on the card after construction and its slab's."""
+    from repro_torch.core import GoldDiff
+    out = {}
+    for kind, kw in (("exact", {}), ("indexed", ikw)):
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated()
+        gd = GoldDiff(full, mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        out[kind] = (gd, torch.cuda.memory_allocated() - m0,
+                     slab_bytes(gd.engine))
+    return out
+
+
+def pmesh_rank(rank: int, world: int, port: int, pdir: str, kw: dict
+               ) -> None:
+    """One gloo rank of [pmesh] on the card: the store's host copy, the
+    exact and indexed engines over a ProcessMesh of ``world`` (their
+    bytes on the card after construction), every route's trajectory from
+    x_T counted alone and timed, and ``select`` at PMESH_TS, written to
+    ``pdir/rank<r>.pt`` for the parent to check."""
+    import datetime
+
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import OptimalDenoiser, make_schedule
+    from repro_torch.core.dataset import DatasetStore, restrict
+    from repro_torch.distributed import ProcessMesh
+    from repro_torch.index.shard import shard_layout
+    from repro_torch.index.store import GoldenIndex
+    from repro_torch.launch.mesh import make_process_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=PMESH_PG_S))
+    try:
+        inp = torch.load(Path(pdir) / "inputs.pt", mmap=True)
+        st = DatasetStore(**inp["store"], image_shape=inp["image_shape"])
+        ix = GoldenIndex(**inp["index"], max_cluster=inp["max_cluster"])
+        sched = make_schedule("ddpm_linear", 1000)
+        x_T = inp["x_T"].cuda()
+        # the default device under gloo: the card (LOCAL_RANK's, else
+        # the rank's, modulo the one card)
+        mesh = make_process_mesh((world,), ("data",))
+        # a gloo mesh given no device lays a card store out on the card
+        small = restrict(st, np.arange(1000)).to("cuda")
+        bare = shard_layout(small, ProcessMesh("data"), "data")
+        devices = (str(mesh.device), str(bare.X.device),
+                   str(bare.slabs[0].X.device))
+        del small, bare
+        # gloo takes the card's tensors as they are (the merges' calls)
+        r = torch.full((4,), float(rank + 1), device="cuda")
+        dist.all_reduce(r)
+        g = torch.empty(4 * world, device="cuda")
+        dist.all_gather_into_tensor(g, torch.full((4,), float(rank),
+                                                  device="cuda"))
+        c = torch.full((2,), float(rank), device="cuda", dtype=torch.float64)
+        dist.broadcast(c, src=0)
+        probe = (bool((r == world * (world + 1) / 2).all())
+                 and g.cpu().tolist() == [float(i) for i in range(world)
+                                          for _ in range(4)]
+                 and bool((c == 0).all()))
+        gds = pmesh_engines(OptimalDenoiser(st, sched, device="cpu"), mesh,
+                            dict(cfg=kw["cfg"], index=ix,
+                                 probe_schedule=kw["probes"]))
+        res = {"probe": probe, "mem": {k: v[1:] for k, v in gds.items()},
+               "traj": {}, "counts": {}, "want": {}, "wall": {}, "select": {},
+               "devices": devices}
+        held = reset_peak()
+        for route in SHARD_ROUTES:
+            eng = gds["indexed" if route == "indexed" else "exact"][0].engine
+            rk = ROUTE_KW[route]
+            with (routed(eng, rk["fused"], rk["screen"]) if rk
+                  else contextlib.nullcontext()):
+                fn = route_trajectory(gds["indexed" if route == "indexed"
+                                          else "exact"][0], route, sched,
+                                      x_T)
+                fn()                                      # warm-up
+                out, res["counts"][route] = counted_launches(fn)
+                res["wall"][route] = wall_ms(fn, iters=3)
+            res["traj"][route] = out.cpu()
+            res["want"][route] = route_launches(list(res["counts"][route]),
+                                                route, eng, 1)
+        for t in PMESH_TS:
+            xt = pmesh_xt(st, sched, t).cuda()
+            for kind, (gd, _, _) in gds.items():
+                res["select"][kind, t] = gd.engine.select(xt, t).cpu()
+        res["peak"] = pmesh_peak(held, [gd.engine for gd, _, _ in
+                                        gds.values()],
+                                 f"rank {rank}'s routes and selects")
+        torch.save(res, Path(pdir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def pmesh_nccl(ctx: dict, host, want: dict, one: dict) -> dict:
+    """[pmesh]'s one-rank NCCL ProcessMesh in this process (the group is
+    the caller's): its bytes after construction, every route against
+    the one card (the plan on CUDA graphs that hold the NCCL
+    collectives, bit-equal to the plan run eagerly), the plan's wall,
+    busy and idle share in turns with the one-card plan and a LocalMesh
+    of 1, the collectives' device time a step, and a plan-mode
+    ServeEngine over the mesh capturing and building nothing after
+    warmup().  Returns the path's counts."""
+    from repro_torch.core import (GoldDiff, OptimalDenoiser, build_plan,
+                                  sample_plan)
+    from repro_torch.distributed import LocalMesh
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.launch.serve import Request, ServeEngine
+    sched, x_T = ctx["sched"], ctx["x_T"]
+    mesh = make_process_mesh()
+    check(mesh.backend == "nccl" and mesh.device.type == "cuda"
+          and mesh.capturable("data", mesh.device),
+          f"[pmesh] the one-rank mesh {mesh}")
+    ikw = dict(cfg=ctx["indexed_cfg"], index=ctx["cix"],
+               probe_schedule=ctx["probes"])
+    gds = pmesh_engines(OptimalDenoiser(host, sched, device="cpu"), mesh,
+                        ikw)
+    for kind, (gd, mem, slab) in gds.items():
+        check(mem <= PMESH_MEM_SLACK * slab, f"[pmesh] nccl {kind}: "
+              f"{mem} bytes allocated after construction, slab {slab}")
+        print(f"[pmesh] nccl S=1 {kind} engine: {mem} bytes allocated on "
+              f"the card after construction, its slab {slab} bytes "
+              f"({mem / slab:.4f}x; the store's rows "
+              f"{host.X.numel() * 4} bytes)")
+    names = [k.__name__ for k in ops.COUNTED]
+    counts, fns = {}, {}
+    held = reset_peak()
+    for route in SHARD_ROUTES:
+        gd = gds["indexed" if route == "indexed" else "exact"][0]
+        rk = ROUTE_KW[route]
+        with (routed(gd.engine, rk["fused"], rk["screen"]) if rk
+              else contextlib.nullcontext()):
+            fns[route] = fn = route_trajectory(gd, route, sched, x_T)
+            fn()                                  # warm-up (the capture)
+            out, counts[route] = counted_launches(fn)
+        err = float((out - want[route]).abs().max())
+        check(bool(torch.isfinite(out).all()) and err <= TRAJ_TOL,
+              f"[pmesh] nccl S=1 {route}: vs one card {err:.3g}")
+        exp = route_launches(names, route, gd.engine, 1)
+        check(counts[route] == exp, f"[pmesh] nccl S=1 {route} launches "
+              f"{counts[route]}, expected {exp}")
+        print(f"[pmesh] nccl S=1 {route} trajectory: vs one card max abs "
+              f"{err:.3g}; launches " + ", ".join(
+                  f"{n} {v}" for n, v in counts[route].items() if v))
+    gd = gds["exact"][0]
+    pln = build_plan(gd.engine, STEPS)
+    eager = sample_plan(gd.call_masked, sched, tuple(x_T.shape), pln,
+                        x_init=x_T)
+    graph = fns["plan"]()
+    check(torch.equal(eager, graph) and gd.engine._captures > 0,
+          f"[pmesh] nccl plan: replay differs from eager by "
+          f"{float((eager - graph).abs().max()):.3g} "
+          f"({gd.engine._captures} graphs)")
+    print(f"[pmesh] nccl S=1 plan: {pln.num_buckets} buckets, "
+          f"{gd.engine._captures} CUDA graphs holding the NCCL collectives; "
+          f"replay bit-equal to eager")
+    pk = pmesh_peak(held, [g.engine for g, _, _ in gds.values()],
+                    "the nccl rank's routes and plan capture")
+    print(f"[pmesh] nccl S=1 routes, plan eager and captured: peak "
+          f"{pk['peak']} bytes allocated on the card, {pk['peak'] - held} "
+          f"over the {held} held after construction (workspace bound "
+          f"{pk['bound']})")
+    # the plan in turns: the one card, the NCCL rank, a LocalMesh of 1
+    loc = GoldDiff(one["exact"].base, mesh=LocalMesh((1,), ("data",)))
+    plans = {"one card": route_trajectory(one["exact"], "plan", sched, x_T),
+             "nccl S=1": fns["plan"],
+             "LocalMesh S=1": route_trajectory(loc, "plan", sched, x_T)}
+    walls = {k: [] for k in plans}
+    for who in ("one card", "nccl S=1", "LocalMesh S=1", "LocalMesh S=1",
+                "nccl S=1", "one card"):
+        walls[who].append(wall_ms(plans[who], iters=5))
+    for who, fn in plans.items():
+        idle, busy = profile_line(f"[pmesh] plan ({who})", min(walls[who]),
+                                  fn)
+        print(f"[pmesh] plan trajectory ({who}; B={B}, {STEPS} steps, "
+              f"CUDA graphs): walls {[round(w, 3) for w in walls[who]]} ms, "
+              f"busy {busy:.3f} ms, idle share {idle:.3f}")
+    # the collectives' device time: the plan run eagerly under the
+    # profiler, each c10d collective's device work attributed to its op
+    with device_profile(cpu=True) as prof:
+        sample_plan(gd.call_masked, sched, tuple(x_T.shape), pln, x_init=x_T)
+        torch.cuda.synchronize()
+    coll = [(e.key, e.count, e.device_time_total / 1e3)
+            for e in prof.key_averages() if e.key.startswith("c10d::")]
+    coll_ms = sum(ms for _, _, ms in coll)
+    check(coll and coll_ms > 0, f"[pmesh] the eager nccl plan's profile "
+          f"shows no collective's device time: {coll}")
+    print(f"[pmesh] nccl S=1 plan run eagerly: the collectives' device time "
+          f"{coll_ms / STEPS:.4f} ms a step (" + ", ".join(
+              f"{k} x{n} {ms:.4f} ms" for k, n, ms in coll)
+          + f" in {STEPS} steps)")
+    # serving over the mesh: warmup captures, serving captures nothing
+    srv = ServeEngine(host, num_steps=STEPS, max_batch=B, mesh=mesh)
+    held = reset_peak()
+    wst = srv.warmup()
+    c0, b0 = srv.engine._captures, srv.engine._builds
+    t0 = time.perf_counter()
+    served = srv.serve([Request(i, B, seed=300 + i) for i in range(2)])
+    serve_s = time.perf_counter() - t0
+    check(srv.engine._captures == c0 and srv.engine._builds == b0
+          and c0 > 0 and all(np.isfinite(r.images).all() for r in served),
+          f"[pmesh] nccl serve: {c0} graphs at warmup, "
+          f"{srv.engine._captures - c0} captures and "
+          f"{srv.engine._builds - b0} builds after")
+    pk = pmesh_peak(held, [srv.engine], "the nccl ServeEngine's warmup and "
+                    "serve")
+    print(f"[pmesh] ServeEngine(mesh=nccl S=1) plan mode: warmup "
+          f"{wst['programs_compiled']} graphs in {wst['warmup_s']:.2f} s; 2 "
+          f"waves of {B} in {serve_s * 1e3:.1f} ms, 0 captures and 0 builds "
+          f"after warmup; peak {pk['peak']} bytes allocated on the card, "
+          f"{pk['peak'] - held} over the {held} held after construction "
+          f"(workspace bound {pk['bound']})")
+    return counts
+
+
+def pmesh_phase(ctx: dict) -> dict:
+    """[pmesh]: the engine over a ``ProcessMesh``, one shard a rank.
+
+    PMESH_S gloo ranks spawned on the one card (the parent built every
+    kernel, so the ranks only load them) from the store's host copy: a
+    probe that gloo takes the card's tensors; each rank's bytes on the
+    card after constructing the exact and the indexed engine, at most
+    its slab's plus 5%; every route (staged, streamed, fused, indexed at
+    INDEXED_CFG, full scan, the plan, eager over gloo) from [sharded]'s
+    x_T against the one-card trajectory within TRAJ_TOL, the ranks'
+    trajectories bit-equal, each counted alone (every shard-local
+    kernel once a step a rank; the unsharded entries of kernels 3 and 4
+    never); ``select`` at PMESH_TS with overlap 1.0 or ties at a cut, as
+    [sharded] allows.  A rank's error, or a join past PMESH_JOIN_S, fails
+    the run.  Then a one-rank NCCL ProcessMesh in this process
+    (``pmesh_nccl``).  Returns the path's counts: the gloo rank 0's and
+    the NCCL rank's, by route."""
+    import datetime
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from repro_torch.core import GoldDiff, OptimalDenoiser
+    from repro_torch.index.store import ARRAY_FIELDS
+    from repro_torch.kernels import _build
+    t_phase = time.perf_counter()
+    _build.build(PMESH_SOURCES)
+    st, sched, x_T, cix = ctx["store"], ctx["sched"], ctx["x_T"], ctx["cix"]
+    host = st.to("cpu")
+    full = OptimalDenoiser(st, sched, device=st.device)
+    ikw = dict(cfg=ctx["indexed_cfg"], index=cix,
+               probe_schedule=ctx["probes"])
+    one = {"exact": GoldDiff(full), "indexed": GoldDiff(full, **ikw)}
+    want = {}
+    for route in SHARD_ROUTES:
+        gd = one["indexed" if route == "indexed" else "exact"]
+        rk = ROUTE_KW[route]
+        with (routed(gd.engine, rk["fused"], rk["screen"]) if rk
+              else contextlib.nullcontext()):
+            want[route] = route_trajectory(gd, route, sched, x_T)()
+    pdir = ROOT / "build" / "pmesh"
+    pdir.mkdir(parents=True, exist_ok=True)
+    for f in pdir.glob("rank*.pt"):
+        f.unlink()
+    torch.save({"store": {f: getattr(host, f) for f in
+                          ("X", "proxy", "x_norms", "proxy_norms")},
+                "image_shape": host.image_shape,
+                "index": {f: getattr(cix, f).cpu() for f in ARRAY_FIELDS},
+                "max_cluster": cix.max_cluster, "x_T": x_T.cpu()},
+               pdir / "inputs.pt")
+    t0 = time.perf_counter()
+    procs = mp.start_processes(
+        pmesh_rank, args=(PMESH_S, free_port(), str(pdir),
+                          dict(cfg=ctx["indexed_cfg"], probes=ctx["probes"])),
+        nprocs=PMESH_S, join=False, start_method="spawn")
+    try:
+        while not procs.join(timeout=5):      # a rank's error raises here
+            check(time.perf_counter() - t0 < PMESH_JOIN_S,
+                  f"[pmesh] the {PMESH_S} ranks did not finish in "
+                  f"{PMESH_JOIN_S} s")
+    finally:
+        for p in procs.processes:
+            if p.is_alive():
+                p.kill()
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(pdir / f"rank{r}.pt") for r in range(PMESH_S)]
+    s = PMESH_S
+    for r, res in enumerate(ranks):
+        check(res["probe"], f"[pmesh] rank {r}: gloo's all_reduce, "
+              f"all_gather_into_tensor or broadcast of the card's tensors "
+              f"gave wrong values")
+        for kind, (mem, slab) in res["mem"].items():
+            check(mem <= PMESH_MEM_SLACK * slab, f"[pmesh] rank {r} {kind}:"
+                  f" {mem} bytes allocated after construction, slab {slab}")
+        check(res["devices"] == ("cuda:0",) * 3, f"[pmesh] rank {r}: the "
+              f"gloo mesh's device, and a card store's layout over a mesh "
+              f"given none: {res['devices']}")
+        for route in SHARD_ROUTES:
+            out = res["traj"][route]
+            err = float((out - want[route].cpu()).abs().max())
+            check(bool(torch.isfinite(out).all()) and err <= TRAJ_TOL,
+                  f"[pmesh] rank {r} S={s} {route}: vs one card {err:.3g}")
+            check(torch.equal(out, ranks[0]["traj"][route]),
+                  f"[pmesh] rank {r} S={s} {route}: not rank 0's bit for "
+                  f"bit")
+            check(res["counts"][route] == res["want"][route],
+                  f"[pmesh] rank {r} S={s} {route} launches "
+                  f"{res['counts'][route]}, expected {res['want'][route]}")
+    res = ranks[0]
+    print(f"[pmesh] {s} gloo ranks on the card ({ranks_s:.1f} s with the "
+          f"spawn): gloo takes the card's tensors (all_reduce, "
+          f"all_gather_into_tensor, broadcast: values right); bytes on "
+          f"the card after construction, rank by rank: " + "; ".join(
+              f"{kind} {mem} (slab {slab}, {mem / slab:.4f}x)"
+              for q in ranks for kind, (mem, slab) in q["mem"].items())
+          + f"; the store's rows {host.X.numel() * 4} bytes, / S = "
+          f"{host.X.numel() * 4 // s}")
+    print(f"[pmesh] {s} gloo ranks: the default device {res['devices'][0]}; "
+          f"a card store's layout over a gloo mesh given no device on "
+          f"{res['devices'][1]}; peak allocated over the routes and "
+          f"selects, rank by rank: " + "; ".join(
+              f"{q['peak']['peak']} ({q['peak']['peak'] - q['peak']['held']}"
+              f" over the {q['peak']['held']} held, workspace bound "
+              f"{q['peak']['bound']})" for q in ranks)
+          + f"; another shard's rows {host.X.numel() * 4 // s} bytes")
+    for route in SHARD_ROUTES:
+        err = max(float((q["traj"][route] - want[route].cpu()).abs().max())
+                  for q in ranks)
+        print(f"[pmesh] S={s} gloo {route} trajectory (B={B}, {STEPS} steps,"
+              f" one x_T): vs one card max abs {err:.3g}, ranks bit-equal; "
+              f"rank 0 wall {res['wall'][route]:.3f} ms; launches a rank "
+              + ", ".join(f"{n} {v}" for n, v in res["counts"][route].items()
+                          if v))
+    swaps, min_ov = 0, 1.0
+    for t in PMESH_TS:
+        xt = pmesh_xt(st, sched, t)
+        for kind in ("exact", "indexed"):
+            e0 = one[kind].engine
+            want_sel = e0.select(xt, t)
+            for r, q in enumerate(ranks):
+                got = q["select"][kind, t].to(st.device)
+                ov = overlap(got, want_sel)
+                nsw, ties = near_tie_swaps(
+                    got, want_sel, xt / float(sched.a[t]), st.X,
+                    e0 if kind == "exact" else None, t)
+                check(ov == 1.0 or ties, f"[pmesh] rank {r} {kind} select "
+                      f"t={t}: overlap {ov}, {nsw} swaps not near ties")
+                swaps += nsw
+                min_ov = min(min_ov, ov)
+    print(f"[pmesh] S={s} select at t in {PMESH_TS}, exact and indexed, "
+          f"every rank: overlap min {min_ov} ({swaps} rows swapped, each a "
+          f"tie at a cut)")
+    print(f"[pmesh] gloo ranks done at {time.perf_counter() - t_phase:.1f} "
+          f"s into the phase")
+    # -- one NCCL rank in this process ------------------------------------------
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=PMESH_PG_S))
+    try:
+        nccl = pmesh_nccl(ctx, host, want, one)
+    finally:
+        gc.collect()          # the engines and their graphs, before the comm
+        torch.cuda.synchronize()
+        dist.destroy_process_group()
+    print(f"[pmesh] phase {time.perf_counter() - t_phase:.1f} s")
+    return {f"gloo S={s} rank 0": res["counts"], "nccl S=1": nccl}
 
 
 def main() -> None:
@@ -5725,6 +6209,14 @@ def main() -> None:
     sharded_results, sharded_counts = sharded_phase(dict(
         store=st, sched=sched, x_T=x_T, q=q, cix=cix,
         indexed_cfg=indexed_cfg, probes=scale_probes, gmm=gst))
+
+    # -- 7f. the engine over a ProcessMesh: gloo ranks, one NCCL rank ---------
+    pmesh_counts = pmesh_phase(dict(
+        store=st, sched=sched, x_T=x_T, cix=cix, indexed_cfg=indexed_cfg,
+        probes=scale_probes))
+    print("[pmesh] path launches (a rank, by route): " + "; ".join(
+        f"{path} {route} " + ", ".join(f"{n} {v}" for n, v in c.items() if v)
+        for path, by in pmesh_counts.items() for route, c in by.items()))
 
     # -- 8. reference: small store, card against CPU plain versions ------------
     small = make_dataset("cifar_like", n=2048, seed=1, device="cpu")

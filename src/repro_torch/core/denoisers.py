@@ -72,6 +72,7 @@ class OptimalDenoiser:
     def __init__(self, store: DatasetStore, schedule: Schedule,
                  chunk: int = 8192, weighting: Weighting = "ss", device=None):
         self.store = store.to(resolve_device(device))
+        self.device = self.store.device
         self.schedule = schedule
         self.chunk = chunk
         self.weighting = weighting
@@ -125,6 +126,7 @@ class WienerDenoiser:
     def __init__(self, store: DatasetStore, schedule: Schedule,
                  rank: int | None = None, device=None):
         self.store = store.to(resolve_device(device))
+        self.device = self.store.device
         self.schedule = schedule
         dev = self.store.device
         x = self.store.X.cpu().numpy().astype(np.float64)
@@ -190,6 +192,7 @@ class PatchDenoiser:
         if len(store.image_shape) != 3:
             raise ValueError("patch denoisers need [H, W, C] data")
         self.store = store.to(resolve_device(device))
+        self.device = self.store.device
         self.schedule = schedule
         self.patch_min = patch_min
         self.patch_max = patch_max

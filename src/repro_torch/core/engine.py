@@ -57,7 +57,9 @@ captured on demand and counted in ``_builds``.
 Sharded execution (``mesh=``, ``shard_axis=``, ``batch_axis=``): the
 store, and when indexed the global index's cluster-sorted rows cut at
 CSR window boundaries (``repro_torch.index.shard``), are split over the
-shards of one axis of a :class:`repro_torch.distributed.LocalMesh`, and
+shards of one axis of a :class:`repro_torch.distributed.LocalMesh`
+(every shard in this process) or of a
+:class:`repro_torch.distributed.ProcessMesh` (one shard a rank), and
 every entry point (``denoise``, ``denoise_masked``, ``select``,
 ``full_scan``) runs as three shard-local stages separated by three
 merges (``repro_torch.distributed.retrieval``): the shard-local screen
@@ -70,8 +72,21 @@ reduction order.  ``batch_axis`` splits the query batch over a second
 axis.  With every shard on one card, the masked step reads nothing back
 to the host, and ``jitter`` captures a plan segment of S slices as one
 CUDA graph whose kernels read the layout's fixed slabs; with shards on
-several cards it runs eagerly.  Program keys carry the mesh signature,
-and a sharded engine does not hot-swap.
+several cards of one process it runs eagerly.  Program keys carry the
+mesh signature, and a sharded engine does not hot-swap.
+
+Over a ``ProcessMesh`` the program is SPMD: every rank makes the same
+calls with the same inputs and returns the global result.  The engine
+keeps the dataset on the host (``store`` is on the CPU; ``device`` is
+the rank's: the mesh's, else the one given, else the card) and puts only
+the rank's slab on that device; slot 0 holds views of that slab, never
+the whole store.  On a ``batch_axis`` of ranks a rank
+runs its chunk of the query batch and the chunks are gathered over that
+axis.  ``jitter`` decides by the groups' backend: over NCCL it captures
+a plan segment, collectives and all, as one CUDA graph (the eager run
+before the capture makes the communicator); over gloo it runs eagerly.
+``strategy="measure"`` measures on the mesh's first rank and broadcasts
+the crossover, so that every rank takes the same route.
 """
 from __future__ import annotations
 
@@ -255,7 +270,9 @@ class GoldDiffEngine:
     """Kernel routing for the GoldDiff pipeline on one device.
 
     The store (and the index) move to ``device`` (the CUDA card unless
-    the caller passes another; raises when there is none).  ``screen``
+    the caller passes another; raises when there is none); over a
+    ``ProcessMesh`` the device is the mesh's, and only the rank's slab
+    moves there.  ``screen``
     is "auto", "streamed" or "materialized"; ``screen_tile`` the plain
     carry loop's N-tile (None: its default); ``fused`` "auto", True or
     False; ``index`` a GoldenIndex of this store (or None), probed by
@@ -286,12 +303,6 @@ class GoldDiffEngine:
             if batch_axis == shard_axis:
                 raise ValueError("batch_axis must differ from shard_axis "
                                  f"({shard_axis!r})")
-        if mesh is not None and not _local_mesh(mesh):
-            raise NotImplementedError(
-                "the engine shards over a LocalMesh; over a ProcessMesh "
-                "(one shard a rank, across cards) it waits (ROADMAP Queue 1: "
-                "the sharded engine across cards): distributed_golden_denoise "
-                "runs there")
         if strategy not in STRATEGIES:
             raise ValueError(f"unknown strategy {strategy!r}; expected one "
                              f"of {STRATEGIES}")
@@ -308,16 +319,48 @@ class GoldDiffEngine:
         if index is not None and index.n != store.n:
             raise ValueError(f"index built for N={index.n}, store has "
                              f"N={store.n}")
-        self.store = store.to(resolve_device(device))
-        self.index = (None if index is None
-                      else index.to(self.store.device))
-        # the engine's store operands: epoch 0 in slot 0 (see the module
-        # docstring); the construction store stays, for the base denoiser
+        self.ranks = is_process_mesh(mesh)
+        if self.ranks:
+            # SPMD over ranks: the rows stay on the host, the rank's slab
+            # goes to the rank's device (below)
+            mesh = mesh.on(device).along(shard_axis)
+            self.device = mesh.device
+            self.store = store.to("cpu")
+            self.index = None if index is None else index.to("cpu")
+        else:
+            self.device = resolve_device(device)
+            self.store = store.to(self.device)
+            self.index = (None if index is None
+                          else index.to(self.device))
         self.storage_dtype = storage_dtype
         self._tls = threading.local()
         self._lock = threading.RLock()   # graph replay, install, capture
-        self._slots: dict[int, StoreOperands] = {
-            0: self._make_operands(self.store, self.index)}
+        # sharded execution: the per-shard layout over one mesh axis
+        self.mesh = mesh
+        self.shard_axis = shard_axis
+        self.batch_axis = batch_axis
+        if mesh is not None:
+            from repro_torch.index.shard import shard_layout
+            self.n_shards = int(mesh.shape[shard_axis])
+            self.batch_shards = (1 if batch_axis is None
+                                 else int(mesh.shape[batch_axis]))
+            self._layout = shard_layout(self.store, mesh, shard_axis,
+                                        index=self.index,
+                                        storage_dtype=storage_dtype,
+                                        device=self.device)
+        else:
+            self.n_shards = self.batch_shards = 1
+            self._layout = None
+        # the engine's store operands: epoch 0 in slot 0 (see the module
+        # docstring); the construction store stays, for the base denoiser.
+        # A rank of a ProcessMesh holds views of its slab there instead.
+        if self.ranks:
+            sl = self._layout.slabs[0]
+            ops0 = StoreOperands(X=sl.X, proxy=sl.proxy, x_norms=sl.x_norms,
+                                 proxy_norms=sl.proxy_norms)
+        else:
+            ops0 = self._make_operands(self.store, self.index)
+        self._slots: dict[int, StoreOperands] = {0: ops0}
         self._epochs: dict[int, int] = {0: 0}     # epoch -> slot
         self._kept_slots = [0]   # slots recycled when free, never freed
         self._free_slots: list[int] = []
@@ -331,17 +374,21 @@ class GoldDiffEngine:
             self._occ_cum = np.cumsum(np.sort(np.diff(
                 index.offsets.cpu().numpy())))
             self._occ_cum_dev = torch.as_tensor(
-                self._occ_cum.astype(np.int32), device=self.store.device)
+                self._occ_cum.astype(np.int32), device=self.device)
         self._nprobe: dict[int, int] = {}
         self.schedule = schedule
         self.cfg = cfg or GoldDiffConfig()
         self.screen = screen
         self.screen_tile = None if screen_tile is None else int(screen_tile)
         self.fused = fused
-        platform = self.store.device.type
+        platform = self.device.type
         self._screen_budget = SCREEN_MATERIALIZE_BYTES[platform]
         if strategy == "measure":
-            self.crossover_frac = measure_crossover(self.X, self.x_norms)
+            # over ranks one measures (its slab) and every rank takes its
+            # value: ranks that took different routes would hang
+            frac = (measure_crossover(self.X, self.x_norms)
+                    if not self.ranks or mesh.first else 0.0)
+            self.crossover_frac = mesh.broadcast(frac) if self.ranks else frac
         else:
             self.crossover_frac = GATHER_CROSSOVER_FRAC[platform]
         if strategy in ("gather", "dense"):
@@ -361,21 +408,6 @@ class GoldDiffEngine:
         self._graph_pool = None   # the memory pool every graph shares
         self._graph_stream = None  # ... and the stream that captures them
         self._masked_tables: dict = {}
-        # sharded execution: the per-shard layout over one mesh axis
-        self.mesh = mesh
-        self.shard_axis = shard_axis
-        self.batch_axis = batch_axis
-        if mesh is not None:
-            from repro_torch.index.shard import shard_layout
-            self.n_shards = int(mesh.shape[shard_axis])
-            self.batch_shards = (1 if batch_axis is None
-                                 else int(mesh.shape[batch_axis]))
-            self._layout = shard_layout(self.store, mesh, shard_axis,
-                                        index=self.index,
-                                        storage_dtype=storage_dtype)
-        else:
-            self.n_shards = self.batch_shards = 1
-            self._layout = None
 
     # -- store epochs on operand slots ------------------------------------------
     def _make_operands(self, store: DatasetStore,
@@ -388,7 +420,7 @@ class GoldDiffEngine:
         pointed at a padding row (+inf ``x_norms``), so that a probe
         which reaches it re-ranks +inf there and gives it no weight; the
         reference's capacity-mode screen re-ranks row 0 there instead."""
-        dev, sd = self.store.device, self.storage_dtype or torch.float32
+        dev, sd = self.device, self.storage_dtype or torch.float32
         kw = {}
         if index is not None:
             xn = store.x_norms.to(dev, torch.float32)
@@ -605,7 +637,7 @@ class GoldDiffEngine:
         the slot (except ``SLOTLESS_KINDS``); on the CPU a program reads
         its operands when called."""
         key = tuple(key) + self.mesh_sig()
-        if self.store.device.type != "cuda" or key[0] in SLOTLESS_KINDS:
+        if self.device.type != "cuda" or key[0] in SLOTLESS_KINDS:
             return key
         return key + (("slot", self._slot()),)
 
@@ -658,19 +690,27 @@ class GoldDiffEngine:
 
         The kernels' ``launches`` counts move at capture, when nothing
         runs: the capture's counts are taken back and added at every
-        replay.  A capture that fails raises, naming ``label``."""
-        if self.store.device.type != "cuda" or (
+        replay.  A capture that fails raises, naming ``label``.
+
+        A sharded engine captures where its mesh says a graph can hold
+        the merges (``capturable``): every shard on this card, or a
+        ``ProcessMesh`` over NCCL, whose collectives the graph then
+        holds; the eager run makes the communicator, and the capture
+        is thread-local, so that the process group's watchdog thread may
+        query its events meanwhile.  Otherwise (shards on several cards
+        of one process, gloo) ``fn`` runs eagerly."""
+        if self.device.type != "cuda" or (
                 self.mesh is not None
-                and not self.mesh.one_device(self.shard_axis,
-                                             self.store.device)):
+                and not self.mesh.capturable(self.shard_axis, self.device)):
             return fn
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
-            self._graph_stream = torch.cuda.Stream(self.store.device)
+            self._graph_stream = torch.cuda.Stream(self.device)
         with self._lock:
             self._captures += 1
             replay = capture(fn, specs, self._graph_stream, self._graph_pool,
-                             label or getattr(fn, "__qualname__", repr(fn)))
+                             label or getattr(fn, "__qualname__", repr(fn)),
+                             "thread_local" if self.ranks else "global")
 
         def locked(*args):
             with self._lock:
@@ -842,13 +882,19 @@ class GoldDiffEngine:
     def _by_batch(self, body, x_t: torch.Tensor) -> torch.Tensor:
         """``body(x)`` on each group of the query batch split over
         ``batch_axis`` (the store stays sharded over ``shard_axis`` in
-        every group), the groups' outputs concatenated."""
+        every group), the groups' outputs concatenated.  A rank of a
+        ``ProcessMesh`` runs its own group and gathers the others over
+        ``batch_axis``."""
         g = self.batch_shards
         if g == 1:
             return body(x_t)
         if x_t.shape[0] % g:
             raise ValueError(f"batch {x_t.shape[0]} does not divide over "
                              f"batch_axis {self.batch_axis!r} (size {g})")
+        if self.ranks:
+            mine = x_t.chunk(g)[self.mesh.coordinate(self.batch_axis)]
+            return self.mesh.all_gather([body(mine)], 0,
+                                        axis=self.batch_axis)
         return torch.cat([body(x) for x in x_t.chunk(g)])
 
     def _shard_rows(self):
@@ -1013,7 +1059,7 @@ class GoldDiffEngine:
         duration is the device work's.  The port runs static steps
         eagerly, so ``compile`` is always False."""
         tr = obs_trace.tracer()
-        with tr.span(f"engine.{kind}", t=int(t), backend=self.store.device.type,
+        with tr.span(f"engine.{kind}", t=int(t), backend=self.device.type,
                      shape=tuple(x_t.shape), compile=False,
                      indexed=bool(self.use_index(t))):
             for stage, c in self.stage_costs(kind, t, x_t.shape[0]).items():
@@ -1112,7 +1158,7 @@ class GoldDiffEngine:
         key = (m_cap, k_cap, p_cap, use_ix)
         if key in self._masked_tables:
             return self._masked_tables[key]
-        dev = self.store.device
+        dev = self.device
         t = torch.arange(self.schedule.num_steps + 1, device=dev)
         g, m_t, k_t = masked_sizes(self.cfg, self.schedule, t, self.store.n)
         m_t, k_t = torch.clamp_max(m_t, m_cap), torch.clamp_max(k_t, k_cap)
@@ -1183,19 +1229,22 @@ class GoldDiffEngine:
         return self._traced("full_scan", t, x_t, fn)
 
 
-def _local_mesh(mesh) -> bool:
-    from repro_torch.distributed.sharding import LocalMesh
-    return isinstance(mesh, LocalMesh)
+def is_process_mesh(mesh) -> bool:
+    """Whether ``mesh`` shards over ranks (a ``ProcessMesh``)."""
+    from repro_torch.distributed.sharding import ProcessMesh
+    return isinstance(mesh, ProcessMesh)
 
 
-def capture(fn, specs, side: torch.cuda.Stream, pool, label: str):
+def capture(fn, specs, side: torch.cuda.Stream, pool, label: str,
+            mode: str = "global"):
     """``GoldDiffEngine.jitter``'s capture on the card (see there).  The
     warm run and the capture run on the engine's own stream ``side``:
     the pool's blocks are kept per stream, so one stream lets a capture
     reuse what the graphs before it freed, and a failed capture leaves
     no state on a stream anything else uses (the outer stream context
     restores the caller's stream even when the capture's own exit
-    raises)."""
+    raises).  ``mode`` is the capture's error mode (``torch.cuda.graph``'s
+    ``capture_error_mode``)."""
     device = side.device
     inputs = [torch.zeros(shape, dtype=dtype, device=device)
               for shape, dtype in map(_spec, specs)]
@@ -1210,7 +1259,8 @@ def capture(fn, specs, side: torch.cuda.Stream, pool, label: str):
         collect = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, pool=pool, stream=side):
+            with torch.cuda.graph(graph, pool=pool, stream=side,
+                                  capture_error_mode=mode):
                 out = fn(*inputs)
         except RuntimeError as e:
             raise RuntimeError(f"CUDA graph capture of {label} failed: "

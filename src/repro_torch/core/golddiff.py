@@ -19,7 +19,7 @@ import torch
 from repro_torch.core.dataset import DatasetStore, downsample_proxy
 from repro_torch.core.denoisers import OptimalDenoiser
 from repro_torch.core.engine import (GoldDiffConfig, GoldDiffEngine,
-                                     schedule_sizes)
+                                     is_process_mesh, schedule_sizes)
 from repro_torch.core.schedules import Schedule
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import materialized_topm
@@ -58,10 +58,16 @@ class GoldDiff:
     ``storage_dtype=torch.bfloat16`` keeps the engine's store rows in
     bf16 (a patch base still reads its own fp32 store on the support),
     and ``strategy=`` picks the gather-vs-dense strategy; ``mesh=`` (a
-    ``repro_torch.distributed.LocalMesh``) shards the store over
-    ``shard_axis`` and the query batch over ``batch_axis``; all as in
-    :class:`GoldDiffEngine`.  Over a patch base the sharded selection
-    runs over the mesh and the base then runs on the support."""
+    ``repro_torch.distributed.LocalMesh`` or ``ProcessMesh``) shards the
+    store over ``shard_axis`` and the query batch over ``batch_axis``;
+    all as in :class:`GoldDiffEngine`.  Over a ``LocalMesh`` and a patch
+    base the sharded selection runs over the mesh and the base then runs
+    on the support.  Over a ``ProcessMesh`` the base must be the Optimal
+    one, whose steps the engine runs: the engine runs on the mesh's
+    device (the card unless the mesh names another), ``store`` is the
+    engine's copy on the host, and the rank's card holds only its slab.
+    A patch base needs the whole store on the card and raises.
+    ``device`` is where queries and outputs live (the engine's)."""
 
     def __init__(self, base, cfg: GoldDiffConfig | None = None,
                  screen: str = "auto", screen_tile: int | None = None,
@@ -69,15 +75,22 @@ class GoldDiff:
                  probe_schedule=None, index_mode: str = "auto",
                  storage_dtype=None, strategy: str = "auto", mesh=None,
                  shard_axis: str = "data", batch_axis: str | None = None):
+        self.store: DatasetStore = base.store
+        ranks = is_process_mesh(mesh)
+        if ranks and not isinstance(base, OptimalDenoiser):
+            raise ValueError(
+                f"the {base.name} base does not run over a ProcessMesh: it "
+                f"reads the whole store on the card; only the Optimal base "
+                f"shards one slab a rank")
         self.base = base
         self.cfg = cfg or GoldDiffConfig()
-        self.store: DatasetStore = base.store
         self.schedule: Schedule = base.schedule
         if getattr(base, "weighting", "ss") == "wss":
             base.weighting = "ss"
         self.name = f"golddiff+{base.name}"
         self.engine = GoldDiffEngine(self.store, self.schedule, self.cfg,
-                                     device=self.store.device, screen=screen,
+                                     device=None if ranks
+                                     else self.store.device, screen=screen,
                                      screen_tile=screen_tile, fused=fused,
                                      index=index,
                                      probe_schedule=probe_schedule,
@@ -86,6 +99,9 @@ class GoldDiff:
                                      strategy=strategy, mesh=mesh,
                                      shard_axis=shard_axis,
                                      batch_axis=batch_axis)
+        self.device = self.engine.device
+        if ranks:                 # the rows on the host, the slab on the card
+            self.store = self.engine.store
 
     def select(self, x_t: torch.Tensor, t: int) -> torch.Tensor:
         """Golden support S_t for each query; [B, k_t]."""
@@ -122,6 +138,7 @@ class FullScan:
 
     def __init__(self, engine: GoldDiffEngine):
         self.engine, self.store = engine, engine.store
+        self.device = engine.device
 
     def __call__(self, x_t: torch.Tensor, t: int) -> torch.Tensor:
         return self.engine.full_scan(x_t, t)

@@ -63,14 +63,14 @@ def sample(denoiser: Callable, schedule: Schedule, shape: tuple,
            x_init: torch.Tensor | None = None,
            noise: Sequence[torch.Tensor] | None = None,
            trace: bool = False):
-    """Per-step DDIM sampling on the denoiser's store device; returns x0,
+    """Per-step DDIM sampling on the denoiser's device; returns x0,
     and with ``trace=True`` also the stacked clipped x0 predictions of
     every step, [steps, *shape].
 
     ``generator`` (a CPU ``torch.Generator``) draws x_T when ``x_init``
     is None and, for ``eta > 0``, the per-step noise when ``noise``
     (one tensor of ``shape`` per step) is None."""
-    device = denoiser.store.device
+    device = denoiser.device
     ts = sampling_timesteps(schedule, num_steps)
     x = _init_noise(schedule, int(ts[0]), shape, generator, device, x_init)
     traj = []
@@ -103,9 +103,9 @@ def denoise_trajectory(denoiser: Callable, schedule: Schedule,
                        clip_value: float | None = 3.0
                        ) -> tuple[torch.Tensor, list[torch.Tensor]]:
     """Deterministic DDIM from a given terminal noise ``x_T`` (moved to
-    the denoiser's store device): ``(x_0, [x_T, ..., x_0])``."""
+    the denoiser's device): ``(x_0, [x_T, ..., x_0])``."""
     ts = sampling_timesteps(schedule, num_steps)
-    x = torch.as_tensor(x_T).to(denoiser.store.device)
+    x = torch.as_tensor(x_T).to(denoiser.device)
     xs = [x]
     for t, t_prev in zip(ts[:-1], ts[1:]):
         x0_hat = _clip(denoiser(x, int(t)), clip_value)
@@ -126,9 +126,9 @@ def _masked_step(denoise_masked: Callable, schedule: Schedule,
 
 
 def _device_of(denoise_masked: Callable) -> torch.device:
-    """The store device of a masked body's owner (``GoldDiff.call_masked``
-    or ``GoldDiffEngine.denoise_masked``)."""
-    return denoise_masked.__self__.store.device
+    """The device of a masked body's owner (``GoldDiff.call_masked`` or
+    ``GoldDiffEngine.denoise_masked``)."""
+    return denoise_masked.__self__.device
 
 
 def sample_scan(denoise_masked: Callable, schedule: Schedule, shape: tuple,

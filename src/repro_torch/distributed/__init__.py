@@ -7,7 +7,8 @@ store's data sharding (counterpart of ``repro.distributed``).
   resolved to DTensor placements on a ``DeviceMesh``); the store's mesh
   interface (:class:`LocalMesh`: every shard in this process, several
   slices on one card or one a listed card; :class:`ProcessMesh`: one
-  shard a rank of a ``torch.distributed`` group) and the cross-shard
+  shard a rank of a ``torch.distributed`` group or ``DeviceMesh``, NCCL
+  on cards and gloo on the CPU) and the cross-shard
   merges written once on gathered tensors: the two-stage top-k
   threshold (``crossshard_kth``, ``kth_from_gathered``), the gathered
   global top-k (``gather_global_topk``) and the log-sum-exp merge of

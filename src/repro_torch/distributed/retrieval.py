@@ -18,7 +18,10 @@ by three merges (``distributed.sharding``):
 Every stage takes and returns *sharded values*: lists of the tensors of
 the shards this process holds (``mesh.local_shards``), in shard order;
 a replicated input (the query) is one tensor, moved to each shard's
-device.  The sharded ``GoldDiffEngine`` runs these same functions, so
+device.  Over a ``ProcessMesh`` a rank's list is its one shard and every
+merge runs over the shard axis's group; none names a batch axis (the
+reference's rule), so the ranks of one batch group merge apart from the
+others'.  The sharded ``GoldDiffEngine`` runs these same functions, so
 there is one implementation of the two-stage top-k and the merge.
 """
 from __future__ import annotations

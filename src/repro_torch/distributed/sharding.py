@@ -31,8 +31,9 @@ on either of two meshes:
   listed device.  A shard-local stage runs once per shard, and a
   collective merges the list of the shards' tensors.
 * :class:`ProcessMesh` -- one shard per rank of a ``torch.distributed``
-  group (gloo on the CPU, NCCL across cards).  The list a rank holds is
-  its own shard's tensor; a collective is the group's all-gather or
+  group, or of one axis of a ``DeviceMesh`` (gloo on the CPU, NCCL on
+  cards).  The list a rank holds is its own shard's tensor; a collective
+  is the shard axis group's all-gather (into one preallocated output) or
   all-reduce.
 
 A *sharded value* is that list: the tensors of the shards this process
@@ -47,11 +48,14 @@ position (the lowest shard, then the lowest local slot) wins.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import threading
 from typing import Any
 
 import torch
+
+from repro_torch.utils import resolve_device
 
 NEG_INF = -1e30
 
@@ -444,8 +448,10 @@ class LocalMesh:
                              f"axis {axis!r} of size {n}")
         return list(self.devices)
 
-    def one_device(self, axis: str, default) -> bool:
-        """Whether every shard of ``axis`` shares one device."""
+    def capturable(self, axis: str, default) -> bool:
+        """Whether a CUDA graph can hold a step: with every shard of
+        ``axis`` on one card (the merges are then plain tensor
+        operations there)."""
         return len(set(self.shard_devices(axis, default))) == 1
 
     @staticmethod
@@ -474,53 +480,149 @@ class LocalMesh:
 
 
 class ProcessMesh:
-    """One axis whose shards are the ranks of a ``torch.distributed``
-    group (the default group unless ``group`` names one): rank r holds
-    shard r.  The process group is the caller's to create (for example
-    ``init_process_group("gloo", init_method="tcp://127.0.0.1:<port>",
-    rank=r, world_size=S)``)."""
+    """Named mesh axes whose shards are the ranks of ``torch.distributed``
+    groups: one shard a rank, and every rank runs the same calls on the
+    same inputs (SPMD), so every rank returns the global result.
 
-    def __init__(self, axis: str = "data", group=None):
+    * ``ProcessMesh(axis, group=None)`` -- one axis over a group (the
+      default group unless ``group`` names one): rank r holds shard r;
+    * ``ProcessMesh(device_mesh=dm)`` -- the named axes of a
+      ``torch.distributed`` ``DeviceMesh`` (one or two: the reference's
+      ``(4, 2)`` ("data", "model") mesh), each axis's collectives on
+      ``dm.get_group(axis)``; a rank holds the shard of its coordinate.
+
+    ``shard_axis`` (the first axis; ``along`` picks another) is the axis
+    the merges run over: ``all_gather``, ``pmax`` and ``psum`` without
+    ``axis``.  A second axis only splits the query batch
+    (``GoldDiffEngine(batch_axis=...)``): no merge names it, as in the
+    reference.  ``device`` is this
+    rank's device: under NCCL its card (``torch.cuda.current_device()``
+    unless given); under gloo the one given, else None, and then a rank
+    puts its shard where the caller's default says (the engine's device,
+    which is the card unless the caller asks for the CPU: :meth:`on`;
+    ``shard_layout``'s store device).  ``backend`` is the
+    shard group's.  A gather writes into one preallocated output
+    (``all_gather_into_tensor``), so that a CUDA graph can capture it
+    over NCCL.  Gloo takes the card's tensors as they are and moves them
+    through the host itself (torch 2.11 on the H100: ``all_reduce``,
+    ``all_gather_into_tensor`` and ``broadcast``, by ``chip_smoke.py``'s
+    [pmesh] probe).  The process groups are the caller's to create
+    (``repro_torch.launch.mesh.make_process_mesh``)."""
+
+    def __init__(self, axis: str = "data", group=None, *, device_mesh=None,
+                 device=None):
         import torch.distributed as dist
         self._dist = dist
-        self.group = group
-        self.rank = dist.get_rank(group)
-        self.size = dist.get_world_size(group)
-        self.axis_names = (axis,)
-        self.shape = {axis: self.size}
+        if device_mesh is None:
+            self.axis_names = (axis,)
+            self.groups = {axis: group}
+            self._coords = {axis: dist.get_rank(group)}
+            self.shape = {axis: dist.get_world_size(group)}
+        else:
+            self.axis_names = axis_names(device_mesh)
+            self.groups = {a: device_mesh.get_group(a)
+                           for a in self.axis_names}
+            self._coords = {a: int(device_mesh.get_local_rank(a))
+                            for a in self.axis_names}
+            self.shape = {a: axis_size(device_mesh, a)
+                          for a in self.axis_names}
+        self.shard_axis = self.axis_names[0]
+        self.backends = {a: dist.get_backend(g)
+                         for a, g in self.groups.items()}
+        self.backend = self.backends[self.shard_axis]
+        if device is None and self.backend == "nccl":
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.device = None if device is None else torch.device(device)
+        if self.backend == "nccl" and self.device.type != "cuda":
+            raise ValueError(f"an NCCL group runs on a card, not on "
+                             f"{self.device}")
 
     def __repr__(self) -> str:
-        return f"ProcessMesh({self.shape}, rank={self.rank})"
+        return (f"ProcessMesh({self.shape}, shard_axis={self.shard_axis!r}, "
+                f"coords={self._coords}, {self.backend} on {self.device})")
+
+    def on(self, device=None) -> "ProcessMesh":
+        """The same mesh on an entry point's device: ``device``, else the
+        mesh's, else the card (``resolve_device``); a mesh that names
+        another device raises."""
+        device = resolve_device(device if device is not None
+                                else self.device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        if self.device is not None and device != self.device:
+            raise ValueError(f"device {device} is not the ProcessMesh's "
+                             f"{self.device}")
+        out = copy.copy(self)
+        out.device = device
+        return out
+
+    def along(self, shard_axis: str) -> "ProcessMesh":
+        """The same mesh merging over ``shard_axis``."""
+        out = copy.copy(self)
+        out.shard_axis = shard_axis
+        out.backend = self.backends[shard_axis]
+        return out
+
+    def coordinate(self, axis: str) -> int:
+        return self._coords[axis]
+
+    @property
+    def first(self) -> bool:
+        """Whether this is the mesh's first rank (``broadcast``'s source)."""
+        return not any(self._coords.values())
 
     def local_shards(self, axis: str) -> list[int]:
-        return [self.rank]
+        """The one position along ``axis`` this rank holds."""
+        return [self._coords[axis]]
 
     def shard_devices(self, axis: str, default) -> list[torch.device]:
-        """``default`` (the store's device) at every position: a rank
-        reads its own position only."""
-        return [torch.device(default)] * self.size
+        """This rank's device (``default`` where the mesh was given none)
+        at every position: a rank reads its own position only."""
+        dev = torch.device(default) if self.device is None else self.device
+        return [dev] * self.shape[axis]
 
-    def one_device(self, axis: str, default) -> bool:
-        return False
+    def capturable(self, axis: str, default) -> bool:
+        """Whether a CUDA graph can hold a step's collectives: over NCCL
+        on every axis (gloo runs on the host, eagerly)."""
+        return all(b == "nccl" for b in self.backends.values())
 
-    def all_gather(self, parts, dim: int = 1) -> torch.Tensor:
+    def all_gather(self, parts, dim: int = 1, axis: str | None = None
+                   ) -> torch.Tensor:
+        """This rank's part gathered over ``axis`` (the shard axis) and
+        concatenated along ``dim`` in coordinate order."""
         (t,) = parts
+        axis = axis or self.shard_axis
+        n = self.shape[axis]
         t = t.contiguous()
-        out = [torch.empty_like(t) for _ in range(self.size)]
-        self._dist.all_gather(out, t, group=self.group)
-        return torch.cat(out, dim)
+        out = t.new_empty((n * t.shape[0],) + tuple(t.shape[1:]))
+        self._dist.all_gather_into_tensor(out, t, group=self.groups[axis])
+        shape = list(t.shape)
+        shape[dim] *= n
+        return out.view((n,) + tuple(t.shape)).movedim(0, dim).reshape(shape)
 
-    def _reduce(self, parts, op) -> torch.Tensor:
+    def _reduce(self, parts, op, axis) -> torch.Tensor:
         (t,) = parts
         t = t.clone()
-        self._dist.all_reduce(t, op=op, group=self.group)
+        self._dist.all_reduce(t, op=op,
+                              group=self.groups[axis or self.shard_axis])
         return t
 
-    def pmax(self, parts) -> torch.Tensor:
-        return self._reduce(parts, self._dist.ReduceOp.MAX)
+    def pmax(self, parts, axis: str | None = None) -> torch.Tensor:
+        return self._reduce(parts, self._dist.ReduceOp.MAX, axis)
 
-    def psum(self, parts) -> torch.Tensor:
-        return self._reduce(parts, self._dist.ReduceOp.SUM)
+    def psum(self, parts, axis: str | None = None) -> torch.Tensor:
+        return self._reduce(parts, self._dist.ReduceOp.SUM, axis)
+
+    def broadcast(self, value: float) -> float:
+        """The value of the mesh's first rank (coordinate 0 on every
+        axis), on every rank: one broadcast an axis, in mesh order."""
+        t = torch.tensor([float(value)], dtype=torch.float64,
+                         device=self.device or "cpu")
+        for a in self.axis_names:
+            g = self.groups[a]
+            src = 0 if g is None else self._dist.get_global_rank(g, 0)
+            self._dist.broadcast(t, src=src, group=g)
+        return float(t.item())
 
 
 def kth_from_gathered(g: torch.Tensor, k_sort: int, k) -> torch.Tensor:

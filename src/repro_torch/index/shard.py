@@ -18,10 +18,14 @@ re-layout of the single-device pipeline:
 
 The layout is built on the host with numpy, as the reference builds it
 (every array equal to the reference's for the same store, index and
-S), stacked on a leading shard axis, then moved: to the shards' one
-device as one stacked tensor each, whose slices ``slabs[s]`` are views
+S), for the shards this process holds (``mesh.local_shards``: every
+shard of a ``LocalMesh``, the rank's own of a ``ProcessMesh``), stacked
+on a leading axis of those shards, then moved: to the held shards' one
+device as one stacked tensor each, whose slices ``slabs[i]`` are views
 at fixed addresses (a captured CUDA graph can bake them); or, with
-shards on several devices, a copy of each slab on its own device.
+shards on several devices, a copy of each slab on its own device.  So a
+rank of a ``ProcessMesh`` builds and moves only its slab, N / S rows;
+the centroid table is replicated.
 ``ids`` maps shard-local rows back to dataset ids, which is how
 ``select()`` keeps returning dataset rows.
 """
@@ -52,6 +56,7 @@ class ShardSlab(NamedTuple):
 class ShardedLayout(NamedTuple):
     """The stacked per-shard golden store (+ optional index routing)."""
 
+    # stacked over the shards held (S of a LocalMesh, a rank's 1)
     X: torch.Tensor               # [S, n_loc, D] rows (sorted if indexed)
     x_norms: torch.Tensor         # [S, n_loc] fp32 (+inf on padding)
     proxy: torch.Tensor           # [S, n_loc, dp]
@@ -93,9 +98,11 @@ def _host(t) -> np.ndarray:
         else np.asarray(t)
 
 
-def _layout_arrays(store, n_shards: int, index=None) -> dict:
-    """The layout's stacked arrays as numpy, built as the reference's
-    ``shard_layout`` builds them, and its sizes."""
+def _layout_arrays(store, n_shards: int, index=None, held=None) -> dict:
+    """The layout's stacked arrays as numpy for the shards ``held`` (all
+    by default), each built as the reference's ``shard_layout`` builds
+    it, and the layout's sizes."""
+    held = list(range(n_shards)) if held is None else list(held)
     n = store.n
     X, proxy = _host(store.X), _host(store.proxy)
     xn = _host(store.x_norms).astype(np.float32)
@@ -116,24 +123,25 @@ def _layout_arrays(store, n_shards: int, index=None) -> dict:
         w_max = int(np.max(np.diff(cuts)))
         n_loc = int(np.max(np.diff(row_cuts)))
         parts = []
-        for s in range(n_shards):
+        for s in held:
             o = offsets[cuts[s]: cuts[s + 1] + 1] - offsets[cuts[s]]
             parts.append(np.pad(o, (0, w_max + 1 - len(o)),
                                 mode="edge" if len(o) else "constant"))
         offs = np.stack(parts).astype(np.int64)
-        wrange = np.stack([cuts[:-1], cuts[1:]], axis=1).astype(np.int64)
+        wrange = np.stack([cuts[:-1], cuts[1:]],
+                          axis=1)[held].astype(np.int64)
 
     def stack_rows(a, fill=0.0):
-        out = np.full((n_shards, n_loc) + a.shape[1:], fill, a.dtype)
-        for s in range(n_shards):
+        out = np.full((len(held), n_loc) + a.shape[1:], fill, a.dtype)
+        for i, s in enumerate(held):
             rows = order[row_cuts[s]: row_cuts[s + 1]]
-            out[s, : len(rows)] = a[rows]
+            out[i, : len(rows)] = a[rows]
         return out
 
-    ids = np.zeros((n_shards, n_loc), np.int64)
-    for s in range(n_shards):
+    ids = np.zeros((len(held), n_loc), np.int64)
+    for i, s in enumerate(held):
         rows = order[row_cuts[s]: row_cuts[s + 1]]
-        ids[s, : len(rows)] = rows
+        ids[i, : len(rows)] = rows
     return dict(X=stack_rows(X), x_norms=stack_rows(xn, fill=np.inf),
                 proxy=stack_rows(proxy),
                 proxy_norms=stack_rows(pn, fill=np.inf), ids=ids,
@@ -143,16 +151,17 @@ def _layout_arrays(store, n_shards: int, index=None) -> dict:
 def shard_layout(store, mesh, axis: str = "data", index=None,
                  storage_dtype=None, device=None) -> ShardedLayout:
     """Build the per-shard layout of ``store`` (and ``index``) over
-    ``axis`` of ``mesh`` (a ``LocalMesh`` or ``ProcessMesh``), on the
-    host.  ``device`` is the shards' default device (the store's unless
-    given); ``storage_dtype`` (None or ``torch.bfloat16``) is the rows'
-    dtype, the norms staying fp32."""
+    ``axis`` of ``mesh`` (a ``LocalMesh`` or ``ProcessMesh``) for the
+    shards this process holds, on the host.  ``device`` is the shards'
+    default device (the store's unless given); ``storage_dtype`` (None
+    or ``torch.bfloat16``) is the rows' dtype, the norms staying fp32."""
     n_sh = int(mesh.shape[axis])
-    arr = _layout_arrays(store, n_sh, index)
+    held = mesh.local_shards(axis)
+    arr = _layout_arrays(store, n_sh, index, held)
     devs = mesh.shard_devices(axis, store.device if device is None
                               else device)
-    one = mesh.one_device(axis, devs[0])
-    home = devs[0] if one else torch.device("cpu")
+    one = len({devs[s] for s in held}) == 1
+    home = devs[held[0]] if one else torch.device("cpu")
     rows_dt = storage_dtype or torch.float32
 
     def put(a, dtype=None):
@@ -167,10 +176,10 @@ def shard_layout(store, mesh, axis: str = "data", index=None,
              centroid_norms=None if index is None
              else index.centroid_norms.to(home, torch.float32))
     slabs = []
-    for s in mesh.local_shards(axis):
+    for i, s in enumerate(held):
         dev = devs[s]
         take = (lambda t: None if t is None else
-                (t[s] if one else t[s].to(dev).contiguous()))
+                (t[i] if one else t[i].to(dev).contiguous()))
         rep = (lambda t: None if t is None else
                (t if one else t.to(dev)))
         wr = take(L["wrange"])

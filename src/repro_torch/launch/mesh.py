@@ -8,7 +8,11 @@ roofline constants.
   (2, 16, 16) ("pod", "data", "model") over the current world;
 * ``make_debug_device_mesh`` -- the reference's ``make_debug_mesh`` for
   the LLM: a small ("data", "model") ``DeviceMesh`` over the current
-  world (the CPU tests' (2, 2) gloo mesh, the card's (1, 1) NCCL mesh).
+  world (the CPU tests' (2, 2) gloo mesh, the card's (1, 1) NCCL mesh);
+* ``make_process_mesh`` -- the sharded engine's ``ProcessMesh`` over the
+  current world, one shard a rank: the counterpart of the reference's
+  ``jax.make_mesh((S,), ("data",))`` / ``((4, 2), ("data", "model"))``
+  for ``GoldDiffEngine(mesh=...)``.
 
 Functions, never module-level meshes: importing this module touches no
 process group.  The default process group is the caller's to create
@@ -17,7 +21,12 @@ the dry run's is a fake group of 256 or 512 ranks).
 """
 from __future__ import annotations
 
-from repro_torch.distributed.sharding import LocalMesh
+import os
+
+import torch
+
+from repro_torch.distributed.sharding import LocalMesh, ProcessMesh
+from repro_torch.utils import resolve_device
 
 
 def make_debug_mesh(n_data: int = 1, n_model: int = 1, devices=None
@@ -28,17 +37,60 @@ def make_debug_mesh(n_data: int = 1, n_model: int = 1, devices=None
     return LocalMesh((n_data, n_model), ("data", "model"), devices=devices)
 
 
-def _device_mesh(shape, axes, device_type: str):
+def _world_for(shape) -> int:
+    """The current world's size, which must be the product of ``shape``."""
     import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
     n = 1
     for s in shape:
         n *= s
     world = dist.get_world_size() if dist.is_initialized() else 1
     if world != n:
-        raise ValueError(f"a {shape} mesh needs {n} ranks; the world has "
-                         f"{world}")
+        raise ValueError(f"a {tuple(shape)} mesh needs {n} ranks; the world "
+                         f"has {world}")
+    return world
+
+
+def _device_mesh(shape, axes, device_type: str):
+    from torch.distributed.device_mesh import init_device_mesh
+    _world_for(shape)
     return init_device_mesh(device_type, tuple(shape), mesh_dim_names=axes)
+
+
+def make_process_mesh(shape=None, axes=("data",), device=None
+                      ) -> ProcessMesh:
+    """The sharded engine's mesh over the current world: one shard a
+    rank, the first axis the shard axis.  ``shape`` is ``(S,)`` (the
+    default: the whole world) or ``(S, G)`` for axes such as ("data",
+    "model"), whose second axis can split the query batch.
+
+    The backend is the default group's, which the caller created
+    (``init_process_group`` with an explicit address, world size, rank
+    and timeout; one call per rank, e.g. under ``torchrun``).  Each rank
+    runs on its card (``LOCAL_RANK``, else the rank, modulo the cards),
+    under NCCL and gloo alike, unless ``device`` names another; with no
+    card ``device=None`` raises (``resolve_device``), and the CPU is
+    taken only where ``device="cpu"`` asks for it (gloo).  Under NCCL the
+    engine captures its plan segments, collectives and all, as CUDA
+    graphs; under gloo it runs them eagerly.  A world whose size is not
+    the product of ``shape`` raises ``ValueError`` naming it."""
+    import torch.distributed as dist
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    shape = (world,) if shape is None else tuple(int(s) for s in shape)
+    axes = tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} and axes {axes} must pair up")
+    _world_for(shape)
+    nccl = dist.get_backend() == "nccl"
+    device = resolve_device(device)
+    if device.type == "cuda":
+        if device.index is None:
+            local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+            device = torch.device("cuda", local % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    if len(shape) == 1:
+        return ProcessMesh(axes[0], device=device)
+    return ProcessMesh(device_mesh=_device_mesh(
+        shape, axes, "cuda" if nccl else "cpu"), device=device)
 
 
 def make_production_mesh(*, multi_pod: bool = False,
@@ -83,5 +135,5 @@ ICI_BW = INTERNODE_BW
 
 
 __all__ = ["make_debug_mesh", "make_production_mesh",
-           "make_debug_device_mesh", "PEAK_FLOPS_BF16", "HBM_BW",
+           "make_debug_device_mesh", "make_process_mesh", "PEAK_FLOPS_BF16", "HBM_BW",
            "HBM_PER_CHIP", "NVLINK_BW", "INTERNODE_BW", "ICI_BW"]

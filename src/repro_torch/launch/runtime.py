@@ -47,9 +47,12 @@ the same counters, breaker states and trace events.
   screening-recall probe at the seams (its programs built by
   ``warmup()`` on every kept slot), counts finite-guard trips and
   degraded waves, and joins ``health()``.
-* **sharded engines** -- a plan-mode engine over a mesh is served the
-  same way (one slot: a sharded engine does not hot-swap); an injected
-  ``shard_drop`` on its dispatches retries like any executor error.
+* **sharded engines** -- a plan-mode engine over a ``LocalMesh`` is
+  served the same way (one slot: a sharded engine does not hot-swap); an
+  injected ``shard_drop`` on its dispatches retries like any executor
+  error.  Over a ``ProcessMesh`` the runtime raises
+  ``NotImplementedError``: its host decisions would have to be taken
+  alike on every rank.
 
 Single-threaded by design: ``pump()`` runs one scheduler step;
 ``run_until_idle()`` drains inline; ``start()``/``stop()`` run the loop
@@ -68,6 +71,7 @@ import torch
 
 from repro_torch.core import build_plan
 from repro_torch.core.denoisers import WienerDenoiser
+from repro_torch.core.engine import is_process_mesh
 from repro_torch.core.sampler import (plan_segment, plan_segment_key,
                                       plan_segment_mixed,
                                       plan_segment_mixed_key, sample_plan)
@@ -292,6 +296,12 @@ class ServeRuntime:
     def __init__(self, eng: ServeEngine, config: RuntimeConfig | None = None,
                  monitor=None,
                  registry: obs_metrics.MetricsRegistry | None = None):
+        if is_process_mesh(eng.engine.mesh):
+            raise NotImplementedError(
+                "ServeRuntime over a ProcessMesh waits (ROADMAP Queue 1: "
+                "the serving runtime across ranks): admission, retries, "
+                "breakers and deadlines are host decisions every rank must "
+                "take alike; ServeEngine.serve runs SPMD there")
         if eng.mode not in ("plan", "scan"):
             raise ValueError(f"ServeRuntime needs a plan- or scan-mode "
                              f"engine (got mode={eng.mode!r}); static "

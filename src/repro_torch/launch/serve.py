@@ -36,7 +36,15 @@ through the index.
 over its "data" axis in every mode (``GoldDiff(mesh=..., batch_axis=...)``,
 ``batch_axis`` splitting the query batch over a second axis); with the
 shards on one card ``warmup()`` captures the plan segments as without a
-mesh, each graph launching every shard's kernels.
+mesh, each graph launching every shard's kernels.  Over a
+``ProcessMesh`` (``repro_torch.launch.mesh.make_process_mesh``) the
+engine runs on the rank's device (the mesh's, else ``device``, else the
+card), SPMD: every rank constructs it, warms
+it and serves the same requests, and gets the same images.  The dataset
+stays on the host and each rank's card holds its slab; over NCCL
+``warmup()`` captures every plan segment, collectives and all, and
+serving then captures and builds nothing; over gloo the segments run
+eagerly.  The Optimal base only (a patch base raises).
 
 ``ServeRuntime`` (``repro_torch.launch.runtime``) wraps a warmed plan-
 or scan-mode engine in admission, deadlines, retries, the degradation
@@ -61,6 +69,7 @@ from repro_torch.core import (GoldDiff, GoldDiffConfig, OptimalDenoiser,
                               make_schedule, sample, sample_plan,
                               sample_scan, sampling_timesteps)
 from repro_torch.core.dataset import DatasetStore
+from repro_torch.core.engine import is_process_mesh
 from repro_torch.data import make_dataset
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
@@ -121,17 +130,22 @@ class ServeEngine:
                  batch_axis: str | None = None):
         if mode not in ("auto", "plan", "scan", "static"):
             raise ValueError(f"unknown serve mode {mode!r}")
-        self.device = resolve_device(device)
-        self.store = (dataset.to(self.device)
+        if is_process_mesh(mesh):
+            # the rank's card holds its slab only: the store stays home
+            mesh = mesh.on(device)
+            self.device, home = mesh.device, torch.device("cpu")
+        else:
+            self.device = home = resolve_device(device)
+        self.store = (dataset.to(home)
                       if isinstance(dataset, DatasetStore)
-                      else make_dataset(dataset, device=self.device,
+                      else make_dataset(dataset, device=home,
                                         **(dataset_kw or {})))
         self.schedule = make_schedule(schedule, 1000)
         self.num_steps = num_steps
         self.max_batch = max_batch
         self.clip_value = clip_value
         base_den = make_denoiser(base, self.store, self.schedule,
-                                 device=self.device)
+                                 device=home)
         self.denoiser = GoldDiff(base_den, gd_cfg or GoldDiffConfig(),
                                  fused=fused, index=index,
                                  index_mode=index_mode,

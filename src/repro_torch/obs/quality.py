@@ -122,7 +122,7 @@ class QualityMonitor:
         m_t, _ = eng.sizes(t)
         mp, npb = eng.padded_m(t), eng.nprobe(t)
         shape = (rows, eng.store.dim)
-        where = eng.store.device.type
+        where = eng.device.type
         exact = eng.program(
             ("obs_screen_exact", t, shape, m_t, where),
             lambda: eng.jitter(lambda q: eng.coarse(q, m_t), shape,
@@ -151,7 +151,7 @@ class QualityMonitor:
         if q.shape[0] < rows:
             reps = -(-rows // q.shape[0])
             q = np.tile(q, (reps, 1))[:rows]
-        q = torch.from_numpy(q / np.float32(a)).to(eng.store.device)
+        q = torch.from_numpy(q / np.float32(a)).to(eng.device)
         exact_fn, ivf_fn = self._probe_programs(t, rows)
         exact_ids = exact_fn(q)
         pos, pd2 = ivf_fn(q)
@@ -190,7 +190,7 @@ class QualityMonitor:
         eng = self.engine
         rows = max(1, self.probe_rows if rows is None else int(rows))
         q = torch.zeros((rows, eng.store.dim), dtype=torch.float32,
-                        device=eng.store.device)
+                        device=eng.device)
         warmed = 0
         for t in sorted({int(t) for t in ts}):
             if not eng.use_index(t):

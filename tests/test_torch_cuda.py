@@ -2067,6 +2067,34 @@ def test_sharded_plan_graph_replay_bit_equal(card):
     assert srv.engine._captures == c0
 
 
+def test_gloo_process_mesh_keeps_a_card_store_on_the_card(card, tmp_path):
+    """A gloo ``ProcessMesh`` given no device lays out a store on the card
+    on the card (the store's device), and an engine over it runs on the
+    card (``resolve_device``): the CPU only where the caller asks."""
+    import torch.distributed as dist
+    from repro_torch.core import GoldDiffEngine
+    from repro_torch.distributed import ProcessMesh
+    from repro_torch.index.shard import shard_layout
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        store = make_dataset("cifar_like", n=1001, seed=1, device=card)
+        pm = ProcessMesh("data")
+        assert pm.device is None
+        lay = shard_layout(store, pm, "data")
+        assert lay.X.device.type == "cuda"
+        assert lay.slabs[0].X.device.type == "cuda"
+        eng = GoldDiffEngine(store, make_schedule("ddpm_linear", 1000),
+                             mesh=pm)
+        assert eng.device.type == "cuda" and eng.store.device.type == "cpu"
+        assert eng.current_operands().X.device.type == "cuda"
+        cpu = GoldDiffEngine(store, make_schedule("ddpm_linear", 1000),
+                             mesh=pm, device="cpu")
+        assert cpu.current_operands().X.device.type == "cpu"
+    finally:
+        dist.destroy_process_group()
+
+
 def test_runtime_monitor_captures_its_probes(card):
     """``ServeRuntime(monitor=QualityMonitor(...))`` on an indexed plan
     engine: warmup captures the probe screens (the indexed one returns a

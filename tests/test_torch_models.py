@@ -136,20 +136,20 @@ def test_convert_refuses_bad_trees():
 
 
 def test_unported_paths_raise():
-    """What is still unported (ROADMAP Queue 1: the engine over
-    ``ProcessMesh``): a ``GoldDiffEngine`` on a mesh of one shard a rank
+    """What is still unported (ROADMAP Queue 1: the serving runtime
+    across ranks): ``ServeRuntime`` over an engine on a ``ProcessMesh``
     raises ``NotImplementedError``.  The LLM's multi-card path runs:
     ``train(use_mesh=True)`` asks for the production mesh's 256 ranks and
     names the world it found."""
-    from repro_torch.core import GoldDiffEngine, make_schedule
-    from repro_torch.data.synthetic import gmm
+    from types import SimpleNamespace
+
     from repro_torch.distributed import ProcessMesh
+    from repro_torch.launch.runtime import ServeRuntime
     pm = ProcessMesh.__new__(ProcessMesh)      # no process group needed
-    pm.axis_names, pm.shape, pm.rank, pm.size = ("data",), {"data": 2}, 0, 2
-    with pytest.raises(NotImplementedError, match="ProcessMesh"):
-        GoldDiffEngine(gmm(64, dim=8, seed=0, device="cpu"),
-                       make_schedule("ddpm_linear", 1000), device="cpu",
-                       mesh=pm)
+    eng = SimpleNamespace(engine=SimpleNamespace(mesh=pm), mode="plan")
+    with pytest.raises(NotImplementedError,
+                       match="the serving runtime across ranks"):
+        ServeRuntime(eng)
     with pytest.raises(ValueError, match="needs 256 ranks; the world has 1"):
         train("llama3.2-3b", smoke=True, steps=1, batch=1, seq=8,
               ckpt_dir=None, use_mesh=True, device="cpu")

@@ -12,7 +12,11 @@ package and against the port's one-device engine, on the CPU.
   which the tests below read.  The port takes the same stores (numpy
   generators, bit-equal) and the reference's index (``index_from_numpy``).
 * The gloo ``ProcessMesh`` runs 2 and 4 ranks in one subprocess with a
-  timeout, on a ``FileStore`` (no port).
+  timeout, on a ``FileStore`` (no port), for ``distributed_golden_
+  denoise``; the engine over a ``ProcessMesh`` runs on 8 gloo ranks in
+  one more (``tests/_pmesh_ranks.py``, module fixture ``ranks``), each
+  rank's outputs held against the reference's sharded engine, the
+  port's ``LocalMesh`` engine and rank 0's.
 
 Tolerances: golden sets equal (overlap 1.0, distinct float distances);
 means 1e-5 relative (fp32 reduction order: a different order of the
@@ -47,11 +51,12 @@ from repro_torch.index import index_from_numpy
 from repro_torch.index.shard import partition_windows, shard_layout
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import screen as tscreen
-from repro_torch.launch.mesh import make_debug_mesh
+from repro_torch.launch.mesh import make_debug_mesh, make_process_mesh
+
+from _pmesh_ranks import REF_T, ROUTES, SERVE, SERVE_REQUESTS, TS, WORLD
 
 REPO = Path(__file__).resolve().parent.parent
 SCH = make_schedule("ddpm_linear", 1000)
-TS = (100, 500, 900)
 REL = 1e-5
 INDEX_FIELDS = ("centroids", "centroid_norms", "perm", "offsets",
                 "proxy_sorted", "proxy_norms_sorted")
@@ -408,7 +413,6 @@ def reference(tmp_path_factory):
     return dict(np.load(path))
 
 
-REF_T = 500           # the reference's sharded programs compile per t
 TIE_T = 900
 
 
@@ -542,17 +546,6 @@ def test_threshold_ties_keep_every_tied_row_as_the_reference(reference):
         "no tie at the k-th value: the case tests nothing"
 
 
-ROUTES = {
-    "staged": dict(fused=False, screen="materialized"),
-    "streamed": dict(fused=False, screen="streamed"),
-    "fused": dict(fused=True),
-    "auto": {},
-    "bf16": dict(storage_dtype=torch.bfloat16),
-    "bf16 staged": dict(storage_dtype=torch.bfloat16, fused=False),
-    "dense": dict(strategy="dense", fused=False),
-}
-
-
 @pytest.mark.parametrize("route", sorted(ROUTES))
 @pytest.mark.parametrize("shape", [(3,), (4, 2)])
 def test_sharded_engine_matches_one_device(route, shape):
@@ -612,6 +605,10 @@ def test_mesh_arguments_and_errors():
     assert eng.reserve_standby() == [0]
     key = eng.program_key(("plan_seg", 1))
     assert key == ("plan_seg", 1, ("mesh", "data", 4, "model", 2))
+    # a process mesh needs a world of its size (here none: a world of 1)
+    with pytest.raises(ValueError, match=r"a \(4, 2\) mesh needs 8 ranks; "
+                       "the world has 1"):
+        make_process_mesh((4, 2), ("data", "model"))
 
 
 # -- distributed_golden_denoise on gloo ranks -----------------------------------
@@ -679,6 +676,151 @@ def test_distributed_denoise_on_gloo_ranks(tmp_path):
             got = np.load(f"{out}_{world}_{rank}.npy")
             assert relerr(got[0], want_a) <= REL
             assert relerr(got[1], want_b) <= REL
+
+
+# -- the engine over a ProcessMesh: 8 gloo ranks ----------------------------------
+
+@pytest.fixture(scope="module")
+def ranks(reference, tmp_path_factory):
+    """Every rank's outputs of ``tests/_pmesh_ranks.py`` (one ``mp.spawn``
+    of 8 gloo ranks in a subprocess with a timeout), as a list of dicts,
+    and the inputs they ran on."""
+    d = tmp_path_factory.mktemp("pmesh")
+    store, store2 = (ref_store(reference, t) for t in ("store", "store2"))
+    inputs = {"x_exact": noisy(store.X[:4].numpy(), REF_T, REF_T),
+              "x_indexed": noisy(store2.X[:4].numpy(), REF_T, REF_T)}
+    for t in TS:
+        inputs[f"x_batch_exact_{t}"] = noisy(store.X[:4].numpy(), t, t + 7)
+        inputs[f"x_batch_indexed_{t}"] = noisy(store2.X[:4].numpy(), t,
+                                               t + 7)
+    keep = [k for k in reference if k.split("_")[0] in ("store", "store2",
+                                                        "ix", "plan")]
+    np.savez(d / "in.npz", **{k: reference[k] for k in keep}, **inputs)
+    env = dict(os.environ, PYTHONPATH=f"{REPO / 'src'}{os.pathsep}{REPO / 'tests'}",
+               OMP_NUM_THREADS="1")
+    r = subprocess.run([sys.executable, str(REPO / "tests" / "_pmesh_ranks.py"),
+                        str(d / "rank"), str(d / "in.npz")],
+                       capture_output=True, text=True, timeout=300,
+                       cwd=str(d), env=env)
+    assert "PASS" in r.stdout, r.stdout + r.stderr[-4000:]
+    return [dict(np.load(d / f"rank_{i}.npz")) for i in range(WORLD)], inputs
+
+
+def test_process_mesh_exact_matches_reference(reference, ranks):
+    """(a) One axis of 8 ranks: the reference's sharded exact outputs."""
+    for got in ranks[0]:
+        for kind in ("denoise", "masked", "full"):
+            key = f"exact_{kind}_{REF_T}"
+            assert relerr(got[key], reference[key]) <= REL, key
+        np.testing.assert_array_equal(got[f"exact_select_{REF_T}"],
+                                      reference[f"exact_select_{REF_T}"])
+        # the rank holds its slab alone: N / 8 rows, padded
+        assert got["slab_rows"].tolist() == [1, -(-1003 // WORLD), 16]
+
+
+def test_process_mesh_plan_matches_reference(reference, ranks):
+    for got in ranks[0]:
+        assert relerr(got["plan_out"], reference["plan_out"]) <= 1e-4
+        assert set(got["plan_keys"].tolist()) == {
+            repr(("mesh", "data", WORLD, None, 1))}
+
+
+def test_process_mesh_indexed_matches_reference(reference, ranks):
+    """(b) The (4, 2) ("data", "model") mesh, the model axis replicated."""
+    for got in ranks[0]:
+        for kind in ("denoise", "masked"):
+            key = f"indexed_{kind}_{REF_T}"
+            assert relerr(got[key], reference[key]) <= REL, key
+        np.testing.assert_array_equal(got[f"indexed_select_{REF_T}"],
+                                      reference[f"indexed_select_{REF_T}"])
+
+
+@pytest.fixture
+def one_thread():
+    """Torch on one thread for a test of tiny operations: under the
+    suite's workers, threads fighting over the cores made each such test
+    take seconds."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("route", sorted(ROUTES) + ["indexed"])
+def test_process_mesh_batch_axis_matches_local_mesh(reference, ranks, route,
+                                                   one_thread):
+    """(c) The (4, 2) mesh with the query batch over "model" against the
+    port's ``LocalMesh`` (4, 2) engine with the same axes."""
+    if route == "indexed":
+        st = ref_store(reference, "store2")
+        kw, tag = dict(index=port_index(reference), index_mode="always"), \
+            "indexed"
+    else:
+        st, kw, tag = ref_store(reference, "store"), ROUTES[route], "exact"
+    eng = GoldDiffEngine(st, SCH, device="cpu", mesh=mesh(4, 2),
+                         batch_axis="model", **kw)
+    outs, inputs = ranks
+    for t in TS:
+        xt = torch.from_numpy(inputs[f"x_batch_{tag}_{t}"])
+        want = {"denoise": eng.denoise(xt, t),
+                "masked": eng.denoise_masked(xt, t),
+                "full": eng.full_scan(xt, t)}
+        sel = eng.select(xt, t).numpy()
+        for got in outs:
+            pre = f"batch {route}_"
+            for kind, w in want.items():
+                assert relerr(got[pre + f"{kind}_{t}"], w) <= REL, (kind, t)
+            np.testing.assert_array_equal(got[pre + f"select_{t}"], sel)
+
+
+def test_process_mesh_ranks_bit_equal(ranks):
+    """(d) SPMD: every rank returns rank 0's tensors bit for bit."""
+    outs, _ = ranks
+    for got in outs[1:]:
+        assert got.keys() == outs[0].keys()
+        for k, v in outs[0].items():
+            np.testing.assert_array_equal(got[k], v, err_msg=k)
+
+
+def test_process_mesh_serve_matches_one_device(ranks):
+    """``ServeEngine(mesh=ProcessMesh)``: warmup, then serving builds
+    nothing and returns the one-device engine's images."""
+    from repro_torch.launch.serve import Request, ServeEngine
+    one = ServeEngine("gmm", {"n": 1003, "dim": 16}, device="cpu", **SERVE)
+    want = one.serve([Request(i, n, seed=s) for i, n, s in SERVE_REQUESTS])
+    for got in ranks[0]:
+        assert int(got["serve_builds_after_warmup"]) == 0
+        for w in want:
+            np.testing.assert_allclose(got[f"serve_{w.request_id}"],
+                                       w.images, atol=1e-4)
+
+
+def test_process_mesh_given_no_device_takes_the_callers(ranks):
+    """A gloo ``ProcessMesh`` given no device puts a rank's shard on the
+    caller's default (``shard_layout``'s store device, the engine's
+    device), never on a device of its own choosing."""
+    for got in ranks[0]:
+        assert got["bare_devices"].tolist() == ["meta"] * WORLD
+        assert str(got["bare_slab_device"]) == "cpu"
+
+
+@pytest.mark.parametrize("case,match", [
+    ("runtime", "NotImplementedError: ServeRuntime over a ProcessMesh waits "
+                r"\(ROADMAP Queue 1: the serving runtime across ranks\)"),
+    ("batch", "ValueError: batch 3 does not divide over batch_axis 'model'"),
+    ("hot_swap", "ValueError: epoch 1 cannot hot-swap: sharded engines"),
+    ("patch_base", "ValueError: the kamb base does not run over a "
+                   "ProcessMesh"),
+    ("default_card", "RuntimeError: no CUDA device is available; pass "
+                     "device='cpu'"),
+    ("bare_engine_card", "RuntimeError: no CUDA device is available"),
+    ("other_device", "ValueError: device meta is not the ProcessMesh's "
+                     "cpu")])
+def test_process_mesh_refusals(ranks, case, match):
+    """Each refusal is raised on every rank alike."""
+    import re
+    for got in ranks[0]:
+        assert re.match(match, str(got[f"err_{case}"])), got[f"err_{case}"]
 
 
 # -- the serving runtime over a sharded plan-mode engine ------------------------

@@ -111,7 +111,16 @@ Phases:
      plan run eagerly, the plan's wall, busy and idle share in turns with
      the one-card plan and a LocalMesh of 1, the collectives' device time
      a step, and ``ServeEngine(mesh=...)`` capturing and building nothing
-     after ``warmup()`` ([pmesh]);
+     after ``warmup()``; then ``ServeRuntime`` over the ranks
+     (``pmesh_runtime``: the Wiener rung from the slabs' sums, [runtime]'s
+     clean traffic with nothing built or captured after warmup, the fault
+     ladder; on the gloo ranks faults on rank 1 alone and every record
+     and image bit-equal across the ranks; on the NCCL rank images/s and
+     p50/p99 in turns with a one-card runtime, deliveries within
+     TRAJ_TOL of its) and GoldDiff+PCA / +Kamb static trajectories on
+     the cifar10 preset (``pmesh_patches``), each within TRAJ_TOL of one
+     card, with a rank's bytes held against slab + Wiener rung + feature
+     cache + ``pmesh_workspace`` ([pmesh]);
   8. reference: a small store's trajectories on the card against the
      same trajectories on the CPU (plain versions), for every route
      (the indexed one with an index built on the CPU and moved over),
@@ -1021,7 +1030,8 @@ def training_phases(kernels: dict) -> tuple[dict, dict]:
 # one 16384-token sequence; [arch-train] trains the two frontend archs
 # at full width and depth; [moe] runs the two MoE archs at full width
 # with their depth cut to MOE_LAYERS (their weights and AdamW state do
-# not fit one card: ROADMAP Queue 1's table).
+# not fit one card: ROADMAP's configurations the port has not run on the
+# card).
 ARCH_NEW = ("qwen2.5-32b", "qwen2-7b", "starcoder2-3b", "internvl2-1b",
             "musicgen-medium", "phi3.5-moe-42b-a6.6b", "dbrx-132b")
 ARCH_CHECK_S = 1000            # not a multiple of any tile
@@ -4507,19 +4517,52 @@ def slab_bytes(eng) -> int:
                for t in eng._layout.slabs[0] if isinstance(t, torch.Tensor))
 
 
-def pmesh_workspace(*engines) -> int:
-    """The stated bound on what a rank's B-query step allocates on the
-    card beyond its slabs, for the largest of ``engines``: 32 fp32 words
-    a query for each of the shard's rows (the screen's distances, top-m
-    keys and state, the re-rank's row maps and dot partials), 8 for each
-    of the m_max candidates, one D-row for each SM (the aggregate's
-    partial sums), and PMESH_LIB_BYTES.  A step that held another
-    shard's rows on the card (a lazy move, a whole-store gather) would
-    pass it by those rows' bytes."""
+def pmesh_workspace(*engines, batch: int = B,
+                    lib: int = PMESH_LIB_BYTES) -> int:
+    """The stated bound on what a rank's step of ``batch`` queries
+    allocates on the card beyond its slabs, for the largest of
+    ``engines``: 32 fp32 words a query for each of the shard's rows (the
+    screen's distances, top-m keys and state, the re-rank's row maps and
+    dot partials), 8 for each of the m_max candidates, one D-row for
+    each SM (the aggregate's partial sums), and ``lib``, the libraries'
+    fixed workspaces (0 where they were allocated before the reading:
+    :func:`lib_warm`).  A step that held another shard's rows on the
+    card (a lazy move, a whole-store gather) would pass it by those
+    rows' bytes."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return max(4 * B * (32 * e._layout.n_loc + 8 * e.cfg.sizes(e.store.n)[1]
-                        + sms * e.store.dim) for e in engines) \
-        + PMESH_LIB_BYTES
+    return max(4 * batch * (32 * e._layout.n_loc
+                            + 8 * e.cfg.sizes(e.store.n)[1]
+                            + sms * e.store.dim) for e in engines) + lib
+
+
+def lib_warm() -> None:
+    """Allocate the libraries' fixed workspaces for the current stream
+    (cuBLAS's and cuBLASLt's: a product, a batched product and an addmm)
+    before a bytes reading, so that they fall in what the reading starts
+    from rather than in what it measures."""
+    a = torch.ones(8, 8, device="cuda")
+    torch.mm(a, a)
+    torch.bmm(a[None], a[None])
+    torch.addmm(a, a, a)
+    torch.cuda.synchronize()
+
+
+def patch_support_bytes(gd, batch: int) -> tuple[int, int]:
+    """The stated bound on a patch base's transients in one GoldDiff step
+    of ``batch`` queries over a ProcessMesh, as (bound, u): with u = 4 *
+    batch * k_max * H * W bytes (one fp32 plane of the gathered
+    support), the gather's three live copies of the [b, k, H, W, C + F]
+    support (the per-value gathers, their masked concatenation, the
+    all-reduce's buffer; F the PCA rank, 0 for the Kamb base, whose
+    features are its rows) and one plane more.  What follows the gather
+    holds one copy: the distances' two [b, k, H, W, F'] temporaries (F'
+    = F, or C for the Kamb base), the [b, k, H, W] logits and weights
+    and the weighted sum's [b, k, H, W, C] copy fit the same bound."""
+    b = gd.base
+    feat = b.feature_dim if b.name == "pca" else 0
+    k_max = gd.engine.cfg.sizes(gd.engine.store.n)[3]
+    u = 4 * batch * k_max * b.h * b.w
+    return u * (3 * (b.c + feat) + 1), u
 
 
 def pmesh_peak(held: int, engines, what: str) -> dict:
@@ -4566,6 +4609,243 @@ def pmesh_engines(full, mesh, ikw) -> dict:
         out[kind] = (gd, torch.cuda.memory_allocated() - m0,
                      slab_bytes(gd.engine))
     return out
+
+
+PMESH_PATCH_B = 4          # queries of the patch bases' trajectories
+PMESH_RCFG = dict(max_queue=64, backoff_base_s=0.001, backoff_max_s=0.01,
+                  breaker_cooldown_s=0.5)          # [runtime]'s settings
+PMESH_FAULTS = dict(seed=3, nan_rate=0.05, error_rate=0.05, oom_rate=0.03,
+                    evict_rate=0.02)               # [runtime]'s ladder
+
+
+def pmesh_traffic(rt, seed0: int) -> tuple:
+    """[runtime]'s clean traffic through ``rt``: LIVE_REQS requests of 1-4
+    images (request ids and seeds from ``seed0``), two arriving a
+    scheduler step, then drained; over ranks rank 0 submits and the
+    others replay.  Returns this rank's tickets in order and the wall
+    seconds."""
+    from repro_torch.launch.serve import Request
+    sizes = np.random.default_rng(1).integers(1, 5, LIVE_REQS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, n in enumerate(sizes):
+        if rt.front:
+            rt.submit(Request(seed0 + i, int(n), seed=seed0 + i))
+        if i % 2:
+            rt.pump()
+    rt.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return [rt.ticket(seed0 + i) for i in range(LIVE_REQS)], wall
+
+
+def pmesh_record(rt, tickets, wall: float) -> dict:
+    """What the ranks must agree on (statuses, degraded flags, counters,
+    breaker states, the images) and this rank's own timing."""
+    h = rt.health()
+    lat = np.array([t.latency_s or 0.0 for t in tickets]) * 1e3
+    n_img = sum(t.request.num_images for t in tickets)
+    return {"status": [t.status for t in tickets],
+            "degraded": [bool(t.degraded) for t in tickets],
+            "counters": dict(rt.counters),
+            "breakers": {k: h[k] for k in h if k.startswith("breaker_")},
+            "images": torch.from_numpy(np.concatenate(
+                [t.images.reshape(t.images.shape[0], -1) for t in tickets
+                 if t.images is not None])),
+            "wall_s": wall, "images_per_s": n_img / wall,
+            "p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99))}
+
+
+HOST_CALLS = ("host_broadcast", "host_float", "host_max", "host_sum")
+
+
+@contextlib.contextmanager
+def runtime_probe(rt):
+    """Count and time on the host clock what ``rt`` does while the block
+    runs: its pumps, its segments (``_run_segment``, which ends in the
+    output's copy to the host, so the card is synchronized) and every
+    host-channel collective of a ``ProcessMesh`` (``host_any`` counts as
+    the ``host_max`` it makes).  Yields the dict it fills: ``{"pump": [n,
+    s], "segment": [n, s], "host": {call: [n, s]}}``."""
+    from repro_torch.distributed import ProcessMesh
+    got = {"pump": [0, 0.0], "segment": [0, 0.0],
+           "host": {k: [0, 0.0] for k in HOST_CALLS}}
+
+    def timed(fn, slot):
+        def wrapped(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                slot[0] += 1
+                slot[1] += time.perf_counter() - t0
+        return wrapped
+
+    saved = {k: getattr(ProcessMesh, k) for k in HOST_CALLS}
+    for k in HOST_CALLS:
+        setattr(ProcessMesh, k, timed(saved[k], got["host"][k]))
+    rt.pump = timed(rt.pump, got["pump"])
+    rt._run_segment = timed(rt._run_segment, got["segment"])
+    try:
+        yield got
+    finally:
+        for k, f in saved.items():
+            setattr(ProcessMesh, k, f)
+        del rt.pump, rt._run_segment
+
+
+def probe_line(got: dict, wall: float) -> str:
+    """A probed traffic run's pumps, segments and host-channel calls
+    against its wall seconds, as [pmesh] prints them."""
+    (np_, _), (ns, ss) = got["pump"], got["segment"]
+    nh = sum(n for n, _ in got["host"].values())
+    sh = sum(t for _, t in got["host"].values())
+    return (f"{np_} pumps, {ns} segments taking {ss * 1e3:.1f} ms with "
+            f"the host calls they make ({ss / wall:.3f} of the "
+            f"{wall * 1e3:.1f} ms wall); "
+            f"host channel {nh} calls ({nh / max(np_, 1):.2f} a pump: "
+            + ", ".join(f"{k} {n} in {t * 1e3:.2f} ms"
+                        for k, (n, t) in got["host"].items() if n)
+            + f"), {sh * 1e3:.2f} ms ({sh / wall:.3f} of the wall, "
+            f"{sh / max(nh, 1) * 1e6:.1f} us a call)")
+
+
+def wiener_bytes(w) -> int:
+    return sum(t.numel() * t.element_size() for t in (w.mu, w.V, w.lam))
+
+
+def pmesh_runtime(mesh, host, sched, inject: bool) -> tuple:
+    """``ServeRuntime`` over ``ServeEngine(mesh=mesh)`` on the card: the
+    Wiener rung from the slabs' sums (its seconds), warmup (graphs on
+    NCCL), the bytes it holds after warmup against slab + Wiener rung +
+    ``pmesh_workspace`` (each term), [runtime]'s clean traffic (nothing
+    built or captured after warmup), then the fault ladder on a second
+    runtime with PMESH_FAULTS installed where ``inject``.  Returns the
+    results and the first runtime."""
+    import contextlib
+
+    from repro_torch.launch.faults import FaultConfig, injected
+    from repro_torch.launch.runtime import RuntimeConfig, ServeRuntime
+    from repro_torch.launch.serve import ServeEngine
+    base = reset_peak()
+    srv = ServeEngine(host, num_steps=STEPS, max_batch=B, mesh=mesh)
+    eng = srv.engine
+    rt = ServeRuntime(srv, RuntimeConfig(**PMESH_RCFG))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rt._wiener_den()
+    wiener_s = time.perf_counter() - t0
+    stats = rt.warmup()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    terms = {"slab": slab_bytes(eng), "Wiener rung": wiener_bytes(rt._wiener),
+             "workspace bound": pmesh_workspace(eng)}
+    check(held <= sum(terms.values()), f"[pmesh] runtime on {mesh}: {held} "
+          f"bytes held after warmup, over {terms}")
+    c0, b0 = eng._captures, eng._builds
+    with runtime_probe(rt) as probe:
+        tickets, wall = pmesh_traffic(rt, 0)
+    check(eng._captures == c0 and eng._builds == b0
+          and all(t.status == "done" for t in tickets),
+          f"[pmesh] runtime on {mesh}: {eng._captures - c0} captures, "
+          f"{eng._builds - b0} builds after warmup; statuses "
+          f"{Counter(t.status for t in tickets)}")
+    out = {"wiener_s": wiener_s, "graphs": stats["graphs_captured"],
+           "warmup_s": stats["runtime_warmup_s"], "held": held,
+           "terms": terms, "clean": pmesh_record(rt, tickets, wall),
+           "probe": probe_line(probe, wall)}
+    lad = ServeRuntime(srv, RuntimeConfig(breaker_threshold=1, **PMESH_RCFG))
+    lad._wiener = rt._wiener             # the same statistics, computed once
+    lad.warmup()
+    with (injected(FaultConfig(**PMESH_FAULTS)) if inject
+          else contextlib.nullcontext()):
+        tickets, wall = pmesh_traffic(lad, 5000)
+    check(all(t.status == "done" and np.isfinite(t.images).all()
+              for t in tickets), f"[pmesh] fault ladder on {mesh}: "
+          f"{Counter(t.status for t in tickets)}")
+    out["faults"] = pmesh_record(lad, tickets, wall)
+    return out, rt
+
+
+def pmesh_patches(mesh, pst, sched, x_P) -> dict:
+    """GoldDiff over the PCA and the Kamb base on ``mesh`` (the preset
+    store ``pst`` on the host): the bytes held after the PCA caches
+    (slab, slot map, feature cache, ``pmesh_workspace`` for the served
+    batch; each term), that allowance against another shard's rows, the
+    static trajectory from ``x_P`` (counted: every wrapper's launches)
+    with its peak against what it held plus ``patch_support_bytes`` and
+    the step workspace, and its wall.  The libraries' workspaces are
+    allocated first (``lib_warm``), so neither bound carries them."""
+    from repro_torch.core import (GoldDiff, make_denoiser, sample,
+                                  sampling_timesteps)
+    out = {}
+    b = x_P.shape[0]
+    for name in ("pca", "kamb"):
+        lib_warm()
+        base = reset_peak()
+        gd = GoldDiff(make_denoiser(name, pst, sched, device="cpu"),
+                      mesh=mesh)
+        cache = gd.base.build_caches(sampling_timesteps(sched, STEPS)[:-1])
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - base
+        ws = pmesh_workspace(gd.engine, batch=b, lib=0)
+        terms = {"slab": slab_bytes(gd.engine),
+                 "slot map": gd.base._slots.numel() * 4,
+                 "feature cache": cache, "workspace bound": ws}
+        check(held <= sum(terms.values()), f"[pmesh] {name} on {mesh}: "
+              f"{held} bytes held after the caches, over {terms}")
+        # another shard's fp32 rows: what a whole-store copy would add
+        other = (gd.engine._layout.n_loc * pst.dim * 4
+                 if gd.engine.n_shards > 1 else None)
+        check(other is None or 2 * ws <= other, f"[pmesh] {name} on "
+              f"{mesh}: the allowance {ws} is not well below another "
+              f"shard's rows {other}")
+        fn = lambda: sample(gd, sched, tuple(x_P.shape), num_steps=STEPS,
+                            x_init=x_P)
+        fn()                            # builds the kernels' first shapes
+        held_t = reset_peak()
+        traj, counts = counted_launches(fn)
+        peak = torch.cuda.max_memory_allocated()
+        sup, plane = patch_support_bytes(gd, b)
+        check(peak <= held_t + sup + ws, f"[pmesh] {name} on {mesh}: the "
+              f"trajectory's peak {peak} bytes over the {held_t} held plus "
+              f"the support bound {sup} and the workspace bound {ws}")
+        # the slack over the gather's three copies, which a copy of
+        # another shard's rows during the step would pass
+        check(other is None or 2 * (plane + ws) <= other, f"[pmesh] {name} "
+              f"on {mesh}: the trajectory's slack {plane + ws} is not well "
+              f"below another shard's rows {other}")
+        out[name] = {"traj": traj.cpu(), "wall_ms": wall_once(fn),
+                     "held": held, "terms": terms, "other": other,
+                     "peak": {"held": held_t, "peak": peak, "support": sup,
+                              "workspace": ws, "slack": plane + ws},
+                     "launches": {n: v for n, v in counts.items() if v}}
+        del gd, fn
+    return out
+
+
+def patch_mem_line(q: dict) -> str:
+    """A patch base's bytes, as [pmesh] prints them."""
+    pk = q["peak"]
+    return (f"held after the caches {q['held']} <= " + " + ".join(
+        f"{k} {v}" for k, v in q["terms"].items())
+        + ("" if q["other"] is None else
+           f" (another shard's rows {q['other']})")
+        + f"; trajectory peak {pk['peak']}, {pk['peak'] - pk['held']} over "
+        f"the {pk['held']} held <= support bound {pk['support']} + "
+        f"workspace bound {pk['workspace']} (slack over the gather's three "
+        f"copies {pk['slack']})")
+
+
+def wall_once(fn) -> float:
+    """The host wall ms of one warm call of ``fn``, the card synchronized
+    at both ends (a trajectory that takes a second over gloo)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
 
 
 def pmesh_rank(rank: int, world: int, port: int, pdir: str, kw: dict
@@ -4645,12 +4925,20 @@ def pmesh_rank(rank: int, world: int, port: int, pdir: str, kw: dict
         res["peak"] = pmesh_peak(held, [gd.engine for gd, _, _ in
                                         gds.values()],
                                  f"rank {rank}'s routes and selects")
+        del gds
+        # the serving runtime over the ranks, faults on rank 1 alone
+        res["runtime"], _ = pmesh_runtime(mesh, st, sched, inject=rank == 1)
+        pst = DatasetStore(**inp["patch_store"],
+                           image_shape=inp["image_shape"])
+        res["patch"] = pmesh_patches(mesh, pst, sched,
+                                     x_T[:PMESH_PATCH_B])
         torch.save(res, Path(pdir) / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()
 
 
-def pmesh_nccl(ctx: dict, host, want: dict, one: dict) -> dict:
+def pmesh_nccl(ctx: dict, host, want: dict, one: dict, pst, x_P,
+               patch_want: dict) -> tuple:
     """[pmesh]'s one-rank NCCL ProcessMesh in this process (the group is
     the caller's): its bytes after construction, every route against
     the one card (the plan on CUDA graphs that hold the NCCL
@@ -4658,7 +4946,12 @@ def pmesh_nccl(ctx: dict, host, want: dict, one: dict) -> dict:
     busy and idle share in turns with the one-card plan and a LocalMesh
     of 1, the collectives' device time a step, and a plan-mode
     ServeEngine over the mesh capturing and building nothing after
-    warmup().  Returns the path's counts."""
+    warmup().  Then ``ServeRuntime`` over a ServeEngine on the mesh
+    (``pmesh_runtime``): its clean traffic against the one-card runtime's
+    on the same requests (TRAJ_TOL), images/s and p50/p99 in turns with
+    it, the path's launches, the fault ladder; and GoldDiff over the PCA
+    and Kamb bases (``pmesh_patches``) against one card.  Returns the
+    path's counts and the one-card runtime's clean deliveries."""
     from repro_torch.core import (GoldDiff, OptimalDenoiser, build_plan,
                                   sample_plan)
     from repro_torch.distributed import LocalMesh
@@ -4769,7 +5062,67 @@ def pmesh_nccl(ctx: dict, host, want: dict, one: dict) -> dict:
           f"after warmup; peak {pk['peak']} bytes allocated on the card, "
           f"{pk['peak'] - held} over the {held} held after construction "
           f"(workspace bound {pk['bound']})")
-    return counts
+    del srv, gds, fns, plans, loc
+    gc.collect()
+    # -- the serving runtime over the NCCL rank ------------------------------
+    from repro_torch.launch.runtime import RuntimeConfig, ServeRuntime
+    rt_res, rt = pmesh_runtime(mesh, host, sched, inject=True)
+    print(f"[pmesh] nccl S=1 runtime: warmup {rt_res['graphs']} CUDA graphs "
+          f"in {rt_res['warmup_s']:.2f} s after {rt_res['wiener_s']:.2f} s "
+          f"for the Wiener rung from the slab's sums; held after warmup "
+          f"{rt_res['held']} bytes <= " + " + ".join(
+              f"{k} {v}" for k, v in rt_res["terms"].items())
+          + f"; clean traffic ({LIVE_REQS} requests, 1-4 images, two a "
+          f"step): 0 captures and 0 builds after warmup")
+    one_srv = ServeEngine(ctx["store"], num_steps=STEPS, max_batch=B)
+    one_rt = ServeRuntime(one_srv, RuntimeConfig(**PMESH_RCFG))
+    one_rt._wiener = rt._wiener          # the same statistics, on this card
+    one_rt.warmup()
+    recs = {"nccl S=1": [], "one card": []}
+    for who in ("nccl S=1", "one card", "one card", "nccl S=1"):
+        r_ = rt if who == "nccl S=1" else one_rt
+        recs[who].append(pmesh_record(r_, *pmesh_traffic(r_, 0)))
+    one_clean = recs["one card"][0]["images"]
+    err = float((recs["nccl S=1"][0]["images"] - one_clean).abs().max())
+    check(err <= TRAJ_TOL, f"[pmesh] nccl runtime clean deliveries vs the "
+          f"one-card runtime's {err:.3g}")
+    for who, rs in recs.items():
+        print(f"[pmesh] runtime clean traffic in turns ({who}): " + "; ".join(
+            f"{r_['images_per_s']:.1f} images/s, p50 {r_['p50_ms']:.1f} ms, "
+            f"p99 {r_['p99_ms']:.1f} ms" for r_ in rs)
+            + (f"; deliveries vs the one-card runtime's max abs {err:.3g}"
+               if who == "nccl S=1" else ""))
+    # where the runtime's time goes: its segments and its host channel,
+    # the NCCL rank's from its first clean run, one card's probed here
+    with runtime_probe(one_rt) as probe:
+        _, wall1 = pmesh_traffic(one_rt, 0)
+    print(f"[pmesh] runtime clean traffic probed (host clock): nccl S=1 "
+          f"{rt_res['probe']}; one card {probe_line(probe, wall1)}")
+    (_, _), counts["runtime"] = counted_launches(
+        lambda: pmesh_traffic(rt, 0))
+    print(f"[pmesh] nccl S=1 runtime clean traffic launches: " + ", ".join(
+        f"{n} {v}" for n, v in counts["runtime"].items() if v))
+    rf = rt_res["faults"]
+    print(f"[pmesh] nccl S=1 fault ladder ({PMESH_FAULTS}): "
+          f"{Counter(rf['status'])}, every delivery finite; counters "
+          + ", ".join(f"{k} {v}" for k, v in rf["counters"].items() if v)
+          + "; breakers " + ", ".join(f"{k[8:]} {v}" for k, v in
+                                      rf["breakers"].items()))
+    del one_rt, one_srv, rt
+    gc.collect()
+    # -- the patch bases over the NCCL rank ----------------------------------
+    pres = pmesh_patches(mesh, pst, sched, x_P)
+    for name, q in pres.items():
+        want_p, wall_p = patch_want[name]
+        err = float((q["traj"] - want_p).abs().max())
+        check(bool(torch.isfinite(q["traj"]).all()) and err <= TRAJ_TOL,
+              f"[pmesh] nccl GoldDiff+{name}: vs one card {err:.3g}")
+        print(f"[pmesh] nccl S=1 GoldDiff+{name} static trajectory (cifar10 "
+              f"preset N={pst.n}, B={PMESH_PATCH_B}, {STEPS} steps): vs one "
+              f"card max abs {err:.3g}; wall {q['wall_ms']:.1f} ms, one card "
+              f"{wall_p:.1f} ms; launches {q['launches']}; "
+              + patch_mem_line(q))
+    return counts, one_clean
 
 
 def pmesh_phase(ctx: dict) -> dict:
@@ -4785,10 +5138,14 @@ def pmesh_phase(ctx: dict) -> dict:
     trajectories bit-equal, each counted alone (every shard-local
     kernel once a step a rank; the unsharded entries of kernels 3 and 4
     never); ``select`` at PMESH_TS with overlap 1.0 or ties at a cut, as
-    [sharded] allows.  A rank's error, or a join past PMESH_JOIN_S, fails
-    the run.  Then a one-rank NCCL ProcessMesh in this process
-    (``pmesh_nccl``).  Returns the path's counts: the gloo rank 0's and
-    the NCCL rank's, by route."""
+    [sharded] allows; then each rank's ``ServeRuntime`` (``pmesh_runtime``,
+    faults on rank 1 alone: the ranks' records and images bit-equal, the
+    clean deliveries within TRAJ_TOL of the one-card runtime's) and
+    GoldDiff+PCA / +Kamb on the cifar10 preset (``pmesh_patches``,
+    within TRAJ_TOL of one card, the ranks bit-equal).  A rank's error, or
+    a join past PMESH_JOIN_S, fails the run.  Then a one-rank NCCL
+    ProcessMesh in this process (``pmesh_nccl``).  Returns the path's
+    counts: the gloo rank 0's and the NCCL rank's, by route."""
     import datetime
 
     import torch.distributed as dist
@@ -4811,12 +5168,31 @@ def pmesh_phase(ctx: dict) -> dict:
         with (routed(gd.engine, rk["fused"], rk["screen"]) if rk
               else contextlib.nullcontext()):
             want[route] = route_trajectory(gd, route, sched, x_T)()
+    # the patch bases' store (the cifar10 preset's) and their one-card
+    # static trajectories from x_T's first rows
+    from repro_torch.configs.golddiff import PRESETS
+    from repro_torch.core import make_denoiser, sample
+    from repro_torch.data import make_dataset
+    pre = PRESETS["cifar10"]
+    pst = make_dataset(pre.dataset, device="cpu", **pre.dataset_kw)
+    pst_card = pst.to("cuda")
+    x_P = x_T[:PMESH_PATCH_B]
+    patch_want = {}
+    for name in ("pca", "kamb"):
+        gd = GoldDiff(make_denoiser(name, pst_card, sched, device="cuda"))
+        fn = lambda: sample(gd, sched, tuple(x_P.shape), num_steps=STEPS,
+                            x_init=x_P)
+        patch_want[name] = (fn().cpu(), wall_once(fn))
+        del gd, fn
+    del pst_card
     pdir = ROOT / "build" / "pmesh"
     pdir.mkdir(parents=True, exist_ok=True)
     for f in pdir.glob("rank*.pt"):
         f.unlink()
     torch.save({"store": {f: getattr(host, f) for f in
                           ("X", "proxy", "x_norms", "proxy_norms")},
+                "patch_store": {f: getattr(pst, f) for f in
+                                ("X", "proxy", "x_norms", "proxy_norms")},
                 "image_shape": host.image_shape,
                 "index": {f: getattr(cix, f).cpu() for f in ARRAY_FIELDS},
                 "max_cluster": cix.max_cluster, "x_T": x_T.cpu()},
@@ -4903,6 +5279,47 @@ def pmesh_phase(ctx: dict) -> dict:
     print(f"[pmesh] S={s} select at t in {PMESH_TS}, exact and indexed, "
           f"every rank: overlap min {min_ov} ({swaps} rows swapped, each a "
           f"tie at a cut)")
+    # the serving runtime over the ranks: the records bit-equal, faults
+    # on rank 1 alone
+    for kind in ("clean", "faults"):
+        r0 = ranks[0]["runtime"][kind]
+        for r, q in enumerate(ranks[1:], 1):
+            rk = q["runtime"][kind]
+            check(all(rk[k] == r0[k] for k in ("status", "degraded",
+                                              "counters", "breakers"))
+                  and torch.equal(rk["images"], r0["images"]),
+                  f"[pmesh] gloo rank {r} runtime {kind}: not rank 0's "
+                  f"records and images")
+    for r, q in enumerate(ranks):
+        rt_ = q["runtime"]
+        print(f"[pmesh] gloo rank {r} runtime: Wiener rung from the slabs' "
+              f"sums {rt_['wiener_s']:.2f} s, warmup {rt_['warmup_s']:.2f} s;"
+              f" held after warmup {rt_['held']} bytes <= " + " + ".join(
+                  f"{k} {v}" for k, v in rt_["terms"].items())
+              + f"; clean {rt_['clean']['images_per_s']:.1f} images/s, p50 "
+              f"{rt_['clean']['p50_ms']:.1f} ms, p99 "
+              f"{rt_['clean']['p99_ms']:.1f} ms; probed: {rt_['probe']}")
+    rf = ranks[0]["runtime"]["faults"]
+    print(f"[pmesh] {s} gloo ranks, faults on rank 1 only ({PMESH_FAULTS}):"
+          f" both ranks' statuses, counters, breakers and images bit-equal; "
+          f"{Counter(rf['status'])}, counters " + ", ".join(
+              f"{k} {v}" for k, v in rf["counters"].items() if v))
+    for name, (want_p, wall_p) in patch_want.items():
+        for r, q in enumerate(ranks):
+            pr = q["patch"][name]
+            err = float((pr["traj"] - want_p).abs().max())
+            check(bool(torch.isfinite(pr["traj"]).all()) and err <= TRAJ_TOL
+                  and torch.equal(pr["traj"], ranks[0]["patch"][name]["traj"]),
+                  f"[pmesh] gloo rank {r} GoldDiff+{name}: vs one card "
+                  f"{err:.3g}, or not rank 0's")
+        q = ranks[0]["patch"][name]
+        print(f"[pmesh] S={s} gloo GoldDiff+{name} static trajectory "
+              f"(cifar10 preset N={pst.n}, B={PMESH_PATCH_B}, {STEPS} steps): "
+              f"vs one card max abs {max(float((q_['patch'][name]['traj'] - want_p).abs().max()) for q_ in ranks):.3g}, "
+              f"ranks bit-equal; walls rank 0 {q['wall_ms']:.1f} ms, one "
+              f"card {wall_p:.1f} ms; launches a rank {q['launches']}; "
+              f"bytes, rank by rank: " + "; ".join(
+                  patch_mem_line(q_["patch"][name]) for q_ in ranks))
     print(f"[pmesh] gloo ranks done at {time.perf_counter() - t_phase:.1f} "
           f"s into the phase")
     # -- one NCCL rank in this process ------------------------------------------
@@ -4910,11 +5327,19 @@ def pmesh_phase(ctx: dict) -> dict:
         "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
         world_size=1, timeout=datetime.timedelta(seconds=PMESH_PG_S))
     try:
-        nccl = pmesh_nccl(ctx, host, want, one)
+        nccl, one_clean = pmesh_nccl(ctx, host, want, one, pst, x_P,
+                                     patch_want)
     finally:
         gc.collect()          # the engines and their graphs, before the comm
         torch.cuda.synchronize()
         dist.destroy_process_group()
+    for r, q in enumerate(ranks):
+        err = float((q["runtime"]["clean"]["images"] - one_clean).abs().max())
+        check(err <= TRAJ_TOL, f"[pmesh] gloo rank {r} runtime clean "
+              f"deliveries vs the one-card runtime's {err:.3g}")
+    print(f"[pmesh] {s} gloo ranks' runtime: clean deliveries within "
+          f"{max(float((q['runtime']['clean']['images'] - one_clean).abs().max()) for q in ranks):.3g}"
+          f" of the one-card runtime's")
     print(f"[pmesh] phase {time.perf_counter() - t_phase:.1f} s")
     return {f"gloo S={s} rank 0": res["counts"], "nccl S=1": nccl}
 

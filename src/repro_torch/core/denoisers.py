@@ -119,25 +119,41 @@ class OptimalDenoiser:
 class WienerDenoiser:
     """x0_hat = mu + Sigma a (a^2 Sigma + b^2 I)^-1 (x_t - a mu), Sigma
     through the SVD of the centered data (float64 numpy on the host, as
-    in the reference); V and the eigenvalues then move to the device."""
+    in the reference); V and the eigenvalues then move to the device.
+
+    Over a ``ProcessMesh`` (``mesh=``, with ``rows`` the dataset ids of
+    this rank's slab; ``store`` on the host) no rank reads another's
+    rows: each sums its slab's rows and their products (sum x and X^T X
+    in float64, on the host), one sum over the mesh's host channel
+    (``host_sum``) gives the mean and the covariance, and the channel's
+    first rank takes one float64 ``eigh`` of the D x D covariance and
+    broadcasts mu, V and the eigenvalues (``_rank_stats``).  Only those
+    go on the device, 4 D (r + 2) bytes, and every rank holds the same
+    ones."""
 
     name = "wiener"
 
     def __init__(self, store: DatasetStore, schedule: Schedule,
-                 rank: int | None = None, device=None):
-        self.store = store.to(resolve_device(device))
-        self.device = self.store.device
+                 rank: int | None = None, device=None, mesh=None,
+                 rows=None):
         self.schedule = schedule
-        dev = self.store.device
-        x = self.store.X.cpu().numpy().astype(np.float64)
-        self.mu = torch.as_tensor(x.mean(0), dtype=torch.float32, device=dev)
-        xc = x - x.mean(0)
-        r = min(x.shape) if rank is None else min(rank, min(x.shape))
-        _, s, vt = np.linalg.svd(xc, full_matrices=False)
-        self.V = torch.as_tensor(vt[:r].T, dtype=torch.float32,
+        if mesh is not None:
+            self.store = store
+            self.device = dev = resolve_device(device)
+            mu, vt, lam = _rank_stats(store, mesh, rows, rank)
+        else:
+            self.store = store.to(resolve_device(device))
+            self.device = dev = self.store.device
+            x = self.store.X.cpu().numpy().astype(np.float64)
+            mu = x.mean(0)
+            xc = x - mu
+            r = min(x.shape) if rank is None else min(rank, min(x.shape))
+            _, s, vt = np.linalg.svd(xc, full_matrices=False)
+            vt, lam = vt[:r], (s[:r] ** 2) / x.shape[0]
+        self.mu = torch.as_tensor(mu, dtype=torch.float32, device=dev)
+        self.V = torch.as_tensor(vt.T, dtype=torch.float32,
                                  device=dev)                   # [D, r]
-        self.lam = torch.as_tensor((s[:r] ** 2) / x.shape[0],
-                                   dtype=torch.float32, device=dev)
+        self.lam = torch.as_tensor(lam, dtype=torch.float32, device=dev)
 
     def __call__(self, x_t: torch.Tensor, t: int,
                  support: torch.Tensor | None = None) -> torch.Tensor:
@@ -148,6 +164,32 @@ class WienerDenoiser:
         z = x_t - a * self.mu
         coeff = (a * self.lam) / (a * a * self.lam + b * b)   # [r]
         return self.mu + ((z @ self.V) * coeff) @ self.V.T
+
+
+def _rank_stats(store: DatasetStore, mesh, rows, rank: int | None):
+    """(mu [D], V^T [r, D], eigenvalues [r]) of the whole store from
+    the ranks' slabs: each rank's float64 sums of its ``rows`` (x and
+    x x^T), summed over the host channel; the first rank's ``eigh`` of
+    the covariance, eigenvalues descending (the SVD form's order),
+    broadcast."""
+    n, d = store.n, store.dim
+    rows = np.asarray(rows, np.int64)
+    s1, s2 = np.zeros(d), np.zeros((d, d))
+    for c in range(0, len(rows), 8192):         # float64 a chunk at a time
+        x = store.X[torch.as_tensor(rows[c:c + 8192])].numpy() \
+            .astype(np.float64)
+        s1 += x.sum(0)
+        s2 += x.T @ x
+    sums = mesh.host_sum(np.concatenate([s1, s2.ravel()]))
+    out = None
+    if mesh.host_rank == 0:
+        mu = sums[:d] / n
+        cov = sums[d:].reshape(d, d) / n - np.outer(mu, mu)
+        lam, v = np.linalg.eigh(cov)
+        r = min(n, d) if rank is None else min(rank, n, d)
+        order = np.argsort(lam)[::-1][:r]
+        out = (mu, v[:, order].T, np.clip(lam[order], 0.0, None))
+    return mesh.host_broadcast(out)
 
 
 # ---------------------------------------------------------------------------
@@ -199,6 +241,29 @@ class PatchDenoiser:
         self.chunk = chunk
         self.weighting = weighting or self.default_weighting
         self.h, self.w, self.c = store.image_shape
+        self._mesh = None         # a ProcessMesh once ``on_ranks`` binds it
+
+    def on_ranks(self, engine) -> None:
+        """Run on ``engine``'s ``ProcessMesh`` rank (``GoldDiff`` binds a
+        patch base so): the base takes the engine's device and host
+        store, holds its slab's fp32 rows on the device (the engine's own
+        slab where that is fp32) and the map from dataset id to slab row
+        (``index.shard.slab_slots``), and gathers each query's support
+        rows from the ranks (``index.shard.gather_support``, one
+        collective a query group).  It never holds another rank's rows on
+        the device; the full patch scan (no support) raises."""
+        from repro_torch.index.shard import slab_slots
+        sl = engine._layout.slabs[0]
+        self.store, self.device = engine.store, engine.device
+        if sl.X.dtype == torch.float32:
+            self._slab = sl.X
+        else:                     # bf16 engine rows: the base reads fp32
+            self._slab = torch.zeros(sl.X.shape, dtype=torch.float32,
+                                     device=self.device)
+            self._slab[: sl.n_rows] = self.store.X[
+                torch.as_tensor(engine.slab_ids())].to(self.device)
+        self._slots = slab_slots(sl, self.store.n)
+        self._mesh = engine.mesh
 
     # -- hooks overridden by PCADenoiser ------------------------------------
     def features(self, imgs: torch.Tensor, patch: int) -> torch.Tensor:
@@ -250,6 +315,10 @@ class PatchDenoiser:
         qf = self.features(q, patch)
         if support is not None:
             return self._on_support(q, qf, t, support, patch, sig2, mask)
+        if self._mesh is not None:
+            raise ValueError(f"the {self.name} base's full scan reads every "
+                             f"row; over a ProcessMesh it runs on a "
+                             f"support (GoldDiff) only")
 
         # full scan, chunked over the store with an online softmax per
         # pixel (the weighting does not enter: the reference's full scan
@@ -270,9 +339,30 @@ class PatchDenoiser:
 
     def _query_group(self, k: int) -> int:
         """Queries whose [b, k, H, W, F] support gather fits
-        ``SUPPORT_GATHER_BYTES``."""
-        per_query = 4 * k * self.h * self.w * max(self.feature_dim, self.c)
+        ``SUPPORT_GATHER_BYTES`` (over ranks the rows and the features
+        share one [b, k, H, W, C + F] buffer)."""
+        width = (self.c + self.feature_dim if self._mesh is not None
+                 else max(self.feature_dim, self.c))
+        per_query = 4 * k * self.h * self.w * width
         return max(1, SUPPORT_GATHER_BYTES // per_query)
+
+    def _slab_features(self, patch: int) -> torch.Tensor | None:
+        """The slab's cached feature maps a rank gathers beside its rows
+        (None: the features are the rows)."""
+        return None
+
+    def _support_rows(self, ids: torch.Tensor, patch: int):
+        """The support's rows [b, k, H, W, C] and their features: from
+        the whole store, or over a ``ProcessMesh`` from the ranks' slabs
+        in one ``gather_support``."""
+        if self._mesh is None:
+            ximg = self._imgs(self.store.X[ids])
+            return ximg, self._support_features(ids, ximg, patch)
+        from repro_torch.index.shard import gather_support
+        cache = self._slab_features(patch)
+        vals = [self._imgs(self._slab)] + ([] if cache is None else [cache])
+        got = gather_support(vals, ids, self._slots, self._mesh)
+        return got[0], got[-1]
 
     @property
     def feature_dim(self) -> int:
@@ -288,8 +378,7 @@ class PatchDenoiser:
         for b0 in range(0, bsz, step):
             ids = idx[b0:b0 + step]
             nb = ids.shape[0]
-            ximg = self._imgs(self.store.X[ids])                # [b,k,H,W,C]
-            xf = self._support_features(ids, ximg, patch)
+            ximg, xf = self._support_rows(ids, patch)         # [b,k,H,W,C]
             lg = -self._pixel_dist(qf[b0:b0 + step, None], xf,
                                    patch) / (2.0 * sig2)        # [b,k,H,W]
             if mask is not None:
@@ -346,10 +435,12 @@ class PCADenoiser(PatchDenoiser):
     def _dataset_features(self, patch: int) -> torch.Tensor:
         """PCA feature maps of the whole store for this patch size,
         [N, H, W, r] on the store's device, built once: features do not
-        depend on the query, so the support path gathers them."""
+        depend on the query, so the support path gathers them.  Over a
+        ``ProcessMesh`` those of the rank's slab only, [n_loc, H, W, r]."""
         if patch not in self._features:
-            imgs = self._imgs(self.store.X)
-            n = self.store.n
+            imgs = self._imgs(self.store.X if self._mesh is None
+                              else self._slab)
+            n = imgs.shape[0]
             feats = imgs.new_empty((n, self.h, self.w, self._basis(patch)
                                     .shape[-1]))
             step = max(1, 4096 // max(self.h // 8, 1))
@@ -360,10 +451,23 @@ class PCADenoiser(PatchDenoiser):
 
     def _basis(self, patch: int) -> torch.Tensor:
         """PCA filters [patch, patch, C, r] fit on random training patches:
-        the reference's numpy draws and SVD, on patches gathered on the
-        device (only they are copied to the host)."""
+        the reference's numpy draws and SVD, on patches gathered where
+        the store lives (only they are copied to the host).  Over a
+        ``ProcessMesh`` the host channel's first rank fits it from the
+        host rows and broadcasts it, so every rank holds the same one."""
         if patch in self._bases:
             return self._bases[patch]
+        if self._mesh is None:
+            basis = self._fit_basis(patch)
+        else:
+            basis = self._mesh.host_broadcast(
+                self._fit_basis(patch) if self._mesh.host_rank == 0
+                else None)
+        self._bases[patch] = torch.as_tensor(basis, dtype=torch.float32,
+                                             device=self.device)
+        return self._bases[patch]
+
+    def _fit_basis(self, patch: int) -> np.ndarray:
         rng = np.random.default_rng(self.seed + patch)
         n = self.store.n
         cnt = min(self.num_fit_patches, 16384)
@@ -380,10 +484,7 @@ class PCADenoiser(PatchDenoiser):
         flat = flat - flat.mean(0)
         r = min(self.rank, flat.shape[1])
         _, _, vt = np.linalg.svd(flat, full_matrices=False)
-        basis = vt[:r].T.reshape(patch, patch, self.c, r)
-        self._bases[patch] = torch.as_tensor(basis, dtype=torch.float32,
-                                             device=dev)
-        return self._bases[patch]
+        return vt[:r].T.reshape(patch, patch, self.c, r)
 
     def features(self, imgs: torch.Tensor, patch: int) -> torch.Tensor:
         """[n, H, W, C] -> [n, H, W, r]: a SAME cross-correlation with the
@@ -402,6 +503,9 @@ class PCADenoiser(PatchDenoiser):
 
     def _support_features(self, ids, ximg, patch):
         return self._dataset_features(patch)[ids]
+
+    def _slab_features(self, patch):
+        return self._dataset_features(patch)
 
 
 DENOISERS = {

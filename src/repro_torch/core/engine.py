@@ -408,6 +408,7 @@ class GoldDiffEngine:
         self._graph_pool = None   # the memory pool every graph shares
         self._graph_stream = None  # ... and the stream that captures them
         self._masked_tables: dict = {}
+        self.seam = None          # the ranks' fault agreement (``program``)
 
     # -- store epochs on operand slots ------------------------------------------
     def _make_operands(self, store: DatasetStore,
@@ -656,15 +657,25 @@ class GoldDiffEngine:
         This lookup is the dispatch seam: an installed hook
         (``ops.set_dispatch_hook``) sees the key before the hit/miss
         check (it may evict) and may wrap the returned callable; with
-        none the cached object itself is returned."""
+        none the cached object itself is returned.  Over a
+        ``ProcessMesh`` a serving runtime may set ``seam`` (a
+        ``repro_torch.launch.faults.Agreement``): while it is active the
+        ranks agree on every lookup's and dispatch's outcome, so that a
+        fault drawn on one rank is every rank's."""
         key = self.program_key(key)
         hook = ops.dispatch_hook()
-        if hook is not None:
+        seam = self.seam if self.seam is not None and self.seam.active \
+            else None
+        if seam is not None:
+            seam.on_program(self, key, hook)
+        elif hook is not None:
             hook.on_program(self, key)
         if key not in self._programs:
             self._programs[key] = build()
             self._builds += 1
         fn = self._programs[key]
+        if seam is not None:
+            return seam.wrap(key, fn, hook)
         if hook is not None:
             return hook.wrap(key, fn)
         return fn
@@ -1033,6 +1044,54 @@ class GoldDiffEngine:
                       for X, xn in zip(Xs, xns)]
             return lse_merge_mean(*zip(*states), self.mesh).to(x.dtype)
         return self._by_batch(body, x_t)
+
+    def slab_ids(self) -> np.ndarray:
+        """The dataset ids of this rank's slab rows (a ``ProcessMesh``
+        rank's one slab), int64 on the host: the rows a reader of this
+        rank's part of the store takes."""
+        sl = self._layout.slabs[0]
+        return sl.ids[: sl.n_rows].cpu().numpy()
+
+    def coarse_ids(self, q: torch.Tensor, m: int) -> torch.Tensor:
+        """Top-m dataset ids by exact proxy distance, [B, m], for the
+        recall probe: ``coarse`` on one device; over a ``ProcessMesh``
+        each shard's top-m of its slab and the gathered global top-m
+        (``gather_global_topk``), the same on every rank."""
+        if not self.ranks:
+            return self.coarse(q, m)
+        from repro_torch.distributed.sharding import gather_global_topk
+        L = self._layout
+        qp = self._proxy_query(q)
+        stream = self.use_stream(q.shape[0], L.n_loc)
+        ids, neg = [], []
+        for s in L.slabs:
+            c, d2 = ops.screen_topm(qp, s.proxy, min(m, L.n_loc),
+                                    x_norms=s.proxy_norms,
+                                    tile=self.screen_tile, stream=stream)
+            ids.append(s.ids[c])
+            neg.append(-d2)
+        return gather_global_topk(ids, neg, m, self.mesh)
+
+    def probed_ids(self, q: torch.Tensor, m: int, nprobe: int
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The indexed screen's candidates as dataset ids and their
+        proxy distances (+inf on capacity padding), for the recall
+        probe: ``coarse_indexed`` mapped through the index's order on
+        one device; over a ``ProcessMesh`` every shard's lanes of the
+        globally probed windows (``ops.ivf_screen_local``), gathered, the
+        same on every rank."""
+        if not self.ranks:
+            pos, d2 = self.coarse_indexed(q, m, nprobe)
+            return self.index_perm[pos], d2
+        L = self._layout
+        qp = self._proxy_query(q)
+        w_cap = min(nprobe, L.w_max)
+        (s,) = L.slabs
+        pos, d2 = ops.ivf_screen_local(qp, s.offsets, s.centroids,
+                                       s.centroid_norms, s.w_lo, s.w_hi,
+                                       nprobe, L.max_cluster, w_cap, L.n_loc)
+        return (self.mesh.all_gather([s.ids[pos]], 1),
+                self.mesh.all_gather([d2], 1))
 
     # -- observability: spans around the static entry points -----------------
     def stage_costs(self, kind: str, t: int, batch: int) -> dict:

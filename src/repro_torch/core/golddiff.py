@@ -60,14 +60,16 @@ class GoldDiff:
     and ``strategy=`` picks the gather-vs-dense strategy; ``mesh=`` (a
     ``repro_torch.distributed.LocalMesh`` or ``ProcessMesh``) shards the
     store over ``shard_axis`` and the query batch over ``batch_axis``;
-    all as in :class:`GoldDiffEngine`.  Over a ``LocalMesh`` and a patch
-    base the sharded selection runs over the mesh and the base then runs
-    on the support.  Over a ``ProcessMesh`` the base must be the Optimal
-    one, whose steps the engine runs: the engine runs on the mesh's
-    device (the card unless the mesh names another), ``store`` is the
-    engine's copy on the host, and the rank's card holds only its slab.
-    A patch base needs the whole store on the card and raises.
-    ``device`` is where queries and outputs live (the engine's)."""
+    all as in :class:`GoldDiffEngine`.  Over a mesh and a patch base the
+    sharded selection runs over the mesh and the base then runs on the
+    support (the reference's order).  Over a ``ProcessMesh`` the engine
+    runs on the mesh's device (the card unless the mesh names another),
+    ``store`` is the engine's copy on the host, and the rank's card holds
+    only its slab: the Optimal base's steps are the engine's, and a patch
+    base is bound to the rank (``PatchDenoiser.on_ranks``), so that it
+    gathers each support's rows (and the PCA base's features, cached for
+    the slab alone) from the ranks' slabs.  ``device`` is where queries
+    and outputs live (the engine's)."""
 
     def __init__(self, base, cfg: GoldDiffConfig | None = None,
                  screen: str = "auto", screen_tile: int | None = None,
@@ -77,11 +79,6 @@ class GoldDiff:
                  shard_axis: str = "data", batch_axis: str | None = None):
         self.store: DatasetStore = base.store
         ranks = is_process_mesh(mesh)
-        if ranks and not isinstance(base, OptimalDenoiser):
-            raise ValueError(
-                f"the {base.name} base does not run over a ProcessMesh: it "
-                f"reads the whole store on the card; only the Optimal base "
-                f"shards one slab a rank")
         self.base = base
         self.cfg = cfg or GoldDiffConfig()
         self.schedule: Schedule = base.schedule
@@ -102,6 +99,8 @@ class GoldDiff:
         self.device = self.engine.device
         if ranks:                 # the rows on the host, the slab on the card
             self.store = self.engine.store
+            if not isinstance(base, OptimalDenoiser):
+                base.on_ranks(self.engine)
 
     def select(self, x_t: torch.Tensor, t: int) -> torch.Tensor:
         """Golden support S_t for each query; [B, k_t]."""

@@ -53,6 +53,7 @@ import dataclasses
 import threading
 from typing import Any
 
+import numpy as np
 import torch
 
 from repro_torch.utils import resolve_device
@@ -507,10 +508,22 @@ class ProcessMesh:
     through the host itself (torch 2.11 on the H100: ``all_reduce``,
     ``all_gather_into_tensor`` and ``broadcast``, by ``chip_smoke.py``'s
     [pmesh] probe).  The process groups are the caller's to create
-    (``repro_torch.launch.mesh.make_process_mesh``)."""
+    (``repro_torch.launch.mesh.make_process_mesh``).
+
+    **The host channel** (``host_broadcast``, ``host_float``, ``host_max``,
+    ``host_any``, ``host_sum``) carries the serving runtime's decisions and the slabs'
+    statistics (small Python records, a few integers, float64 sums) over
+    ``host_group``, a gloo group of every rank of the mesh on the CPU,
+    so that a decision neither synchronizes the card nor enters a
+    captured stream.  Given none, it is the shard group
+    when that is gloo (``device_mesh``: the world's default group when
+    that is gloo); over NCCL ``make_process_mesh`` makes one beside the
+    shard group, and a mesh without one raises where the channel is
+    used.  The channel's first rank (``host_rank == 0``) is the source
+    of every record."""
 
     def __init__(self, axis: str = "data", group=None, *, device_mesh=None,
-                 device=None):
+                 device=None, host_group=None):
         import torch.distributed as dist
         self._dist = dist
         if device_mesh is None:
@@ -536,6 +549,17 @@ class ProcessMesh:
         if self.backend == "nccl" and self.device.type != "cuda":
             raise ValueError(f"an NCCL group runs on a card, not on "
                              f"{self.device}")
+        if host_group is None:
+            world = None if device_mesh is not None else group
+            if dist.get_backend(world) == "gloo":
+                host_group = (world,)
+        else:
+            if dist.get_backend(host_group) != "gloo":
+                raise ValueError("the host channel runs over a gloo group")
+            host_group = (host_group,)
+        # a 1-tuple holding the group (None names the default group), or
+        # None: no channel
+        self._host = host_group
 
     def __repr__(self) -> str:
         return (f"ProcessMesh({self.shape}, shard_axis={self.shard_axis!r}, "
@@ -623,6 +647,68 @@ class ProcessMesh:
             src = 0 if g is None else self._dist.get_global_rank(g, 0)
             self._dist.broadcast(t, src=src, group=g)
         return float(t.item())
+
+    # -- the host channel: the runtime's decisions, gloo on the CPU -----------
+    def _host_group(self):
+        if self._host is None:
+            raise ValueError(
+                f"{self!r} has no host channel: the shard group is "
+                f"{self.backend}; make the mesh with make_process_mesh (a "
+                f"gloo group beside it) or pass host_group=")
+        return self._host[0]
+
+    @property
+    def host_rank(self) -> int:
+        """This rank's position in the host group: 0 is the front end
+        whose records every rank replays."""
+        return self._dist.get_rank(self._host_group())
+
+    def host_broadcast(self, obj):
+        """The host group's first rank's Python object ``obj`` (small and
+        picklable; the other ranks' arguments are ignored), on every
+        rank."""
+        g = self._host_group()
+        box = [obj]
+        self._dist.broadcast_object_list(
+            box, src=0 if g is None else self._dist.get_global_rank(g, 0),
+            group=g)
+        return box[0]
+
+    def host_float(self, value: float | None) -> float:
+        """The host group's first rank's float (the others pass None), on
+        every rank: one float64 broadcast, no pickling (a clock
+        reading)."""
+        g = self._host_group()
+        t = torch.tensor([0.0 if value is None else float(value)],
+                         dtype=torch.float64)
+        self._dist.broadcast(
+            t, src=0 if g is None else self._dist.get_global_rank(g, 0),
+            group=g)
+        return float(t.item())
+
+    def host_max(self, codes) -> list[int]:
+        """The element-wise maximum over every rank of a few integers
+        (an int or a sequence of them), as a list."""
+        t = torch.tensor(np.atleast_1d(np.asarray(codes, np.int64)))
+        self._dist.all_reduce(t, op=self._dist.ReduceOp.MAX,
+                              group=self._host_group())
+        return t.tolist()
+
+    def host_sum(self, values) -> np.ndarray:
+        """The element-wise float64 sum over every rank of an array (the
+        slabs' statistics)."""
+        t = torch.from_numpy(np.array(values, np.float64))
+        self._dist.all_reduce(t, op=self._dist.ReduceOp.SUM,
+                              group=self._host_group())
+        return t.numpy()
+
+    def host_any(self, flags) -> np.ndarray:
+        """The element-wise OR over every rank of a boolean vector."""
+        flags = np.asarray(flags, bool)
+        if flags.size == 0:
+            return flags
+        return np.asarray(self.host_max(flags.astype(np.int64)),
+                          bool).reshape(flags.shape)
 
 
 def kth_from_gathered(g: torch.Tensor, k_sort: int, k) -> torch.Tensor:

@@ -27,7 +27,11 @@ shards on several devices, a copy of each slab on its own device.  So a
 rank of a ``ProcessMesh`` builds and moves only its slab, N / S rows;
 the centroid table is replicated.
 ``ids`` maps shard-local rows back to dataset ids, which is how
-``select()`` keeps returning dataset rows.
+``select()`` keeps returning dataset rows.  The way back is
+:func:`slab_slots` (a dataset id's row in a slab, -1 where the slab
+does not hold it), and :func:`gather_support` assembles per-query
+support rows [b, k, ...] that the shards hold between them, each rank
+writing the slots it owns, with one sum over the shard axis.
 """
 from __future__ import annotations
 
@@ -51,6 +55,7 @@ class ShardSlab(NamedTuple):
     w_hi: torch.Tensor | None
     centroids: torch.Tensor | None
     centroid_norms: torch.Tensor | None
+    n_rows: int = 0               # real rows (the rest is padding)
 
 
 class ShardedLayout(NamedTuple):
@@ -145,7 +150,8 @@ def _layout_arrays(store, n_shards: int, index=None, held=None) -> dict:
     return dict(X=stack_rows(X), x_norms=stack_rows(xn, fill=np.inf),
                 proxy=stack_rows(proxy),
                 proxy_norms=stack_rows(pn, fill=np.inf), ids=ids,
-                offsets=offs, wrange=wrange, n_loc=int(n_loc), w_max=w_max)
+                offsets=offs, wrange=wrange, n_loc=int(n_loc), w_max=w_max,
+                n_rows=[int(row_cuts[s + 1] - row_cuts[s]) for s in held])
 
 
 def shard_layout(store, mesh, axis: str = "data", index=None,
@@ -190,12 +196,46 @@ def shard_layout(store, mesh, axis: str = "data", index=None,
             w_lo=None if wr is None else wr[0],
             w_hi=None if wr is None else wr[1],
             centroids=rep(L["centroids"]),
-            centroid_norms=rep(L["centroid_norms"])))
+            centroid_norms=rep(L["centroid_norms"]),
+            n_rows=arr["n_rows"][i]))
     return ShardedLayout(**L, n_loc=arr["n_loc"], w_max=arr["w_max"],
                          max_cluster=0 if index is None
                          else int(index.max_cluster),
                          n_shards=n_sh, slabs=tuple(slabs))
 
 
+def slab_slots(slab: ShardSlab, n: int) -> torch.Tensor:
+    """[n] int32 on the slab's device: the slab row holding each
+    dataset id, -1 for the ids the slab does not hold (its padding rows
+    map nothing)."""
+    dev = slab.ids.device
+    slots = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    slots[slab.ids[: slab.n_rows]] = torch.arange(
+        slab.n_rows, dtype=torch.int32, device=dev)
+    return slots
+
+
+def gather_support(values, idx: torch.Tensor, slots: torch.Tensor, mesh
+                   ) -> list[torch.Tensor]:
+    """The rows of dataset ids ``idx`` [b, k] of each of ``values``
+    (tensors [n_loc, ...] of this rank's slab rows, one leading row a
+    slab row), assembled over the shard axis: every rank writes the
+    slots whose rows it holds (``slots`` from :func:`slab_slots`) into a
+    zero [b, k, ...] buffer and one ``mesh.psum`` (a ``ProcessMesh``)
+    sums them, which is exact, since every slot has one owner and the
+    other ranks add zeros.  The values share one buffer, so one
+    collective serves them all; returns their [b, k, ...] rows, in the
+    order given."""
+    s = slots[idx]                                       # [b, k]
+    own = (s >= 0)[..., None]
+    rows = s.clamp_min(0).long()
+    flat = [v[rows].reshape(idx.shape + (-1,)) for v in values]
+    widths = [f.shape[-1] for f in flat]
+    buf = torch.where(own, torch.cat(flat, -1), 0.0)
+    buf = mesh.psum([buf])
+    return [p.reshape(idx.shape + tuple(v.shape[1:]))
+            for p, v in zip(buf.split(widths, -1), values)]
+
+
 __all__ = ["ShardedLayout", "ShardSlab", "partition_windows",
-           "shard_layout"]
+           "shard_layout", "slab_slots", "gather_support"]

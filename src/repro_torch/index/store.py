@@ -142,17 +142,19 @@ def screening_recall(pos, d2, perm, exact_ids) -> float:
     Fraction of the exact top-m candidate ids (``exact_ids`` [B, m])
     present among the selectable indexed candidates (positions ``pos``
     whose ``d2`` is finite; capacity padding must not count), mapped
-    through ``perm`` to dataset ids, averaged over the batch.  Takes
+    through ``perm`` to dataset ids (None: ``pos`` are dataset ids),
+    averaged over the batch.  Takes
     tensors on any device or numpy arrays."""
     def host(a):
         return a.cpu().numpy() if isinstance(a, torch.Tensor) else \
             np.asarray(a)
 
-    pos, perm, exact = host(pos), host(perm), host(exact_ids)
+    pos, exact = host(pos), host(exact_ids)
+    ids = pos if perm is None else host(perm)[pos]
     fin = np.isfinite(host(d2))
     m = exact.shape[1]
     return float(np.mean([
-        len(set(perm[pos[b][fin[b]]]) & set(exact[b])) / m
+        len(set(ids[b][fin[b]]) & set(exact[b])) / m
         for b in range(exact.shape[0])]))
 
 

@@ -38,6 +38,11 @@ poisoned), is not retried and propagates out of ``ServeRuntime.pump``.
 
 Only program kinds in ``target_kinds`` are touched (default: the
 compute segments); the runtime's Gaussian fallback is not among them.
+
+An injector draws each outcome before applying it (``draw_lookup``,
+``draw_dispatch``; ``evict_entry`` and ``dispatch`` apply one), so that
+over a ``ProcessMesh`` the serving runtime can make every rank take the
+same outcome (:class:`Agreement`), whichever ranks have an injector.
 """
 from __future__ import annotations
 
@@ -53,7 +58,12 @@ from repro_torch.obs import trace as obs_trace
 
 
 class InjectedRuntimeError(RuntimeError):
-    """Base of the injected executor failures."""
+    """Base of the injected executor failures.  ``agreed`` is True where
+    every rank of a ``ProcessMesh`` raised it at the same dispatch
+    (:class:`Agreement`): over ranks the serving runtime retries only
+    such an error."""
+
+    agreed = False
 
 
 class InjectedInternalError(InjectedRuntimeError):
@@ -143,16 +153,6 @@ class FaultInjector:
         self.lookups = 0
         self.events: list[tuple] = []
 
-    def _record(self, kind: str, key, n: int) -> None:
-        """Log a fired fault to the legacy tuple list AND the current
-        tracer (``fault.<kind>`` point events on the unified schema —
-        no-ops when tracing is off), so injections appear inline with
-        the dispatch/segment spans they hit."""
-        self.events.append((kind, key[0], n))
-        tr = obs_trace.tracer()
-        if tr.enabled:
-            tr.event(f"fault.{kind}", program=key[0], counter=n)
-
     # -- decision stream -----------------------------------------------------
     def _targets(self, key) -> bool:
         return (isinstance(key, tuple) and len(key) > 0
@@ -162,17 +162,46 @@ class FaultInjector:
         return rate > 0.0 and \
             unit_uniform(self.config.seed, n, _SALT[kind]) < rate
 
+    def draw_lookup(self, key) -> tuple[int, bool] | None:
+        """The next lookup decision for ``key``: ``(counter, evict)``, or
+        None for a kind the injector does not touch (no counter used)."""
+        if not self._targets(key):
+            return None
+        n = self.lookups
+        self.lookups += 1
+        return n, self._hit(n, "evict", self.config.evict_rate)
+
+    def draw_dispatch(self, key) -> Draw | None:
+        """The next dispatch's outcome for ``key`` (None: untouched
+        kind), drawn before anything runs: the latency sleep, the
+        exception to raise (shard_drop first, then oom, then error) and
+        the NaN row's uniform."""
+        if not self._targets(key):
+            return None
+        n = self.dispatches
+        self.dispatches += 1
+        cfg = self.config
+        raise_kind = None
+        if cfg.shard_drop_rate > 0.0 and sharded(key) \
+                and self._hit(n, "shard_drop", cfg.shard_drop_rate):
+            raise_kind = "shard_drop"
+        elif self._hit(n, "oom", cfg.oom_rate):
+            raise_kind = "oom"
+        elif self._hit(n, "error", cfg.error_rate):
+            raise_kind = "error"
+        return Draw(n=n,
+                    latency_s=(cfg.latency_s if self._hit(
+                        n, "latency", cfg.latency_rate) else None),
+                    raise_kind=raise_kind,
+                    nan_u=(unit_uniform(cfg.seed, n, _SALT["row"])
+                           if self._hit(n, "nan", cfg.nan_rate) else None))
+
     # -- hook protocol (called by GoldDiffEngine.program) --------------------
     def on_program(self, engine, key) -> None:
         """Cache-lookup hook: may evict the entry (a build storm)."""
-        if not self._targets(key):
-            return
-        n = self.lookups
-        self.lookups += 1
-        if self._hit(n, "evict", self.config.evict_rate) \
-                and key in engine._programs:
-            del engine._programs[key]
-            self._record("evict", key, n)
+        d = self.draw_lookup(key)
+        if d is not None:
+            evict_entry(engine, key, d[0], d[1], self)
 
     def wrap(self, key, fn):
         """Dispatch hook: returns ``fn`` or a fault-wrapped callable."""
@@ -180,46 +209,158 @@ class FaultInjector:
             return fn
 
         def wrapped(*args, **kw):
-            n = self.dispatches
-            self.dispatches += 1
-            cfg = self.config
-            if self._hit(n, "latency", cfg.latency_rate):
-                self._record("latency", key, n)
-                time.sleep(cfg.latency_s)
-            if cfg.shard_drop_rate > 0.0 and sharded(key) \
-                    and self._hit(n, "shard_drop", cfg.shard_drop_rate):
-                self._record("shard_drop", key, n)
-                raise InjectedInternalError(
-                    "INTERNAL: injected shard dropout: mesh device "
-                    "unavailable during collective")
-            if self._hit(n, "oom", cfg.oom_rate):
-                self._record("oom", key, n)
-                raise InjectedOOMError(
-                    "RESOURCE_EXHAUSTED: injected out-of-memory "
-                    "allocating temporary buffer")
-            if self._hit(n, "error", cfg.error_rate):
-                self._record("error", key, n)
-                raise InjectedInternalError(
-                    "INTERNAL: injected transient executor failure")
-            out = fn(*args, **kw)
-            if self._hit(n, "nan", cfg.nan_rate):
-                out = self._corrupt(out, n, key)
-            return out
+            return dispatch(key, fn, args, kw, self.draw_dispatch(key), self)
 
         return wrapped
 
-    def _corrupt(self, out, n: int, key):
-        """NaN one row of a float batch output, on a clone of it (the
-        cached program's own output buffer stays as it was)."""
-        if not isinstance(out, torch.Tensor) or out.ndim == 0 \
-                or not out.is_floating_point() or out.shape[0] == 0:
-            return out
-        a = out.clone()
-        row = int(unit_uniform(self.config.seed, n, _SALT["row"])
-                  * a.shape[0]) % a.shape[0]
-        a[row] = float("nan")
-        self._record("nan", key, n)
-        return a
+
+@dataclasses.dataclass(frozen=True)
+class Draw:
+    """One dispatch's drawn outcome (:meth:`FaultInjector.draw_dispatch`):
+    its counter, the latency sleep (None: none), the exception kind to raise
+    (None, "shard_drop", "oom" or "error") and, for a NaN corruption, the
+    uniform that picks its row (None: none)."""
+
+    n: int
+    latency_s: float | None = None
+    raise_kind: str | None = None
+    nan_u: float | None = None
+
+
+_RAISES = (None, "error", "oom", "shard_drop")   # agreement codes 0..3
+
+
+def _record(injector, kind: str, key, n: int) -> None:
+    """Log a fired fault to the injector's tuple list (where this rank
+    has one) and to the current tracer (``fault.<kind>`` point events on
+    the unified schema, no-ops when tracing is off), so injections
+    appear inline with the dispatch/segment spans they hit."""
+    if injector is not None:
+        injector.events.append((kind, key[0], n))
+    tr = obs_trace.tracer()
+    if tr.enabled:
+        tr.event(f"fault.{kind}", program=key[0], counter=n)
+
+
+def evict_entry(engine, key, n: int, evict: bool, injector=None) -> None:
+    """Apply a lookup decision: delete the cached entry, so the lookup
+    really builds again."""
+    if evict and key in engine._programs:
+        del engine._programs[key]
+        _record(injector, "evict", key, n)
+
+
+def dispatch(key, fn, args, kw, draw: Draw | None, injector=None):
+    """Run ``fn(*args, **kw)`` under a dispatch outcome: the latency
+    sleep, the injected exception, or the program and then its NaN
+    row."""
+    if draw is None:
+        return fn(*args, **kw)
+    n = draw.n
+    if draw.latency_s is not None:
+        _record(injector, "latency", key, n)
+        time.sleep(draw.latency_s)
+    if draw.raise_kind == "shard_drop":
+        _record(injector, "shard_drop", key, n)
+        raise InjectedInternalError(
+            "INTERNAL: injected shard dropout: mesh device "
+            "unavailable during collective")
+    if draw.raise_kind == "oom":
+        _record(injector, "oom", key, n)
+        raise InjectedOOMError(
+            "RESOURCE_EXHAUSTED: injected out-of-memory "
+            "allocating temporary buffer")
+    if draw.raise_kind == "error":
+        _record(injector, "error", key, n)
+        raise InjectedInternalError(
+            "INTERNAL: injected transient executor failure")
+    out = fn(*args, **kw)
+    if draw.nan_u is not None:
+        out = corrupt(out, draw.nan_u, key, n, injector)
+    return out
+
+
+def corrupt(out, u: float, key, n: int, injector=None):
+    """NaN one row of a float batch output (row ``int(u * rows) %
+    rows``), on a clone of it (the cached program's own output buffer
+    stays as it was)."""
+    if not isinstance(out, torch.Tensor) or out.ndim == 0 \
+            or not out.is_floating_point() or out.shape[0] == 0:
+        return out
+    a = out.clone()
+    row = int(u * a.shape[0]) % a.shape[0]
+    a[row] = float("nan")
+    _record(injector, "nan", key, n)
+    return a
+
+
+def _bits(x: float | None) -> int:
+    """A non-negative float's IEEE bits as an int64 (None: 0), which
+    orders as the floats do, so a maximum over ranks keeps it whole."""
+    return 0 if x is None else int(np.float64(x).view(np.int64))
+
+
+def _unbits(b: int) -> float:
+    return float(np.int64(b).view(np.float64))
+
+
+class Agreement:
+    """Rank-agreed fault outcomes at the dispatch seam over a
+    ``ProcessMesh``: each rank draws from its own injector, if it has
+    one (ranks without one draw nothing), and ``host_max`` over the mesh's
+    host channel makes the outcome every rank's, before anything runs:
+
+    * a lookup's eviction, so that every rank rebuilds (on NCCL:
+      captures again, collectives and all) or none does;
+    * a dispatch's latency, its exception (by a maximum of the codes
+      none < error < oom < shard_drop, so every rank raises the same
+      class) and its NaN row, whose ``fault.<kind>`` trace event every
+      rank records.
+
+    So an injector installed on one rank gives every rank the faults an
+    injector of the same config on every rank gives.  The serving runtime
+    turns it on (``active``) for a scheduler step when some rank has an
+    injector installed; then every program lookup and dispatch of the
+    step agrees (one ``host_max`` each), whatever its kind, since a rank
+    without an injector cannot tell which kinds another rank's targets.
+    Off, the seam adds no collective.  An exception it raised so is
+    marked ``agreed``.  Any other error, such as one raised inside a
+    running program on one rank, is not agreed and is never retried over
+    ranks: it propagates out of ``pump()`` on its rank, and the other
+    ranks' next collective fails within the groups' timeout, so their
+    ``pump()`` raises too."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.active = False
+
+    def on_program(self, engine, key, hook) -> None:
+        d = hook.draw_lookup(key) if hook is not None else None
+        n1, evict = self.mesh.host_max(
+            [0, 0] if d is None else [d[0] + 1, int(d[1])])
+        if n1:
+            evict_entry(engine, key, n1 - 1, bool(evict), hook)
+
+    def wrap(self, key, fn, hook):
+        def agreed(*args, **kw):
+            d = hook.draw_dispatch(key) if hook is not None else None
+            v = [0] * 6 if d is None else [
+                d.n + 1, _RAISES.index(d.raise_kind),
+                int(d.latency_s is not None), _bits(d.latency_s),
+                int(d.nan_u is not None), _bits(d.nan_u)]
+            n1, code, lat, lat_s, nan, u = self.mesh.host_max(v)
+            draw = None if not n1 else Draw(
+                n=n1 - 1, latency_s=_unbits(lat_s) if lat else None,
+                raise_kind=_RAISES[code], nan_u=_unbits(u) if nan else None)
+            if draw is None or draw.raise_kind is None:
+                return dispatch(key, fn, args, kw, draw, hook)
+            try:                         # raises before ``fn`` runs
+                dispatch(key, fn, args, kw, draw, hook)
+            except InjectedRuntimeError as e:
+                e.agreed = True
+                raise
+
+        return agreed
 
 
 def install(config: FaultConfig) -> FaultInjector:

@@ -56,6 +56,19 @@ def _device_mesh(shape, axes, device_type: str):
     return init_device_mesh(device_type, tuple(shape), mesh_dim_names=axes)
 
 
+def _group_timeout():
+    """The collective timeout the default group was made with, or None
+    where its backend does not expose it."""
+    import torch.distributed as dist
+    pg = dist.distributed_c10d._get_default_group()
+    for dev in ("cpu", "cuda"):
+        try:
+            return pg._get_backend(torch.device(dev)).options._timeout
+        except (AttributeError, RuntimeError):
+            continue
+    return None
+
+
 def make_process_mesh(shape=None, axes=("data",), device=None
                       ) -> ProcessMesh:
     """The sharded engine's mesh over the current world: one shard a
@@ -72,7 +85,15 @@ def make_process_mesh(shape=None, axes=("data",), device=None
     taken only where ``device="cpu"`` asks for it (gloo).  Under NCCL the
     engine captures its plan segments, collectives and all, as CUDA
     graphs; under gloo it runs them eagerly.  A world whose size is not
-    the product of ``shape`` raises ``ValueError`` naming it."""
+    the product of ``shape`` raises ``ValueError`` naming it.
+
+    The mesh's host channel (``ProcessMesh.host_broadcast`` and
+    ``host_max``, the serving runtime's decisions) runs over gloo on the
+    CPU: the default group itself under gloo; under NCCL a gloo group of
+    the whole world made here, with the timeout the default group was
+    made with (a backend that does not expose it raises), so that a rank
+    that stops answering fails every other rank's decision within it.
+    Every rank must call this at the same point (``new_group``)."""
     import torch.distributed as dist
     world = dist.get_world_size() if dist.is_initialized() else 1
     shape = (world,) if shape is None else tuple(int(s) for s in shape)
@@ -87,10 +108,18 @@ def make_process_mesh(shape=None, axes=("data",), device=None
             local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
             device = torch.device("cuda", local % torch.cuda.device_count())
         torch.cuda.set_device(device)
+    host = None
+    if nccl:
+        timeout = _group_timeout()
+        if timeout is None:
+            raise RuntimeError("the default group's timeout is not "
+                               "readable; the host channel takes it")
+        host = dist.new_group(backend="gloo", timeout=timeout)
     if len(shape) == 1:
-        return ProcessMesh(axes[0], device=device)
+        return ProcessMesh(axes[0], device=device, host_group=host)
     return ProcessMesh(device_mesh=_device_mesh(
-        shape, axes, "cuda" if nccl else "cpu"), device=device)
+        shape, axes, "cuda" if nccl else "cpu"), device=device,
+        host_group=host)
 
 
 def make_production_mesh(*, multi_pod: bool = False,

@@ -50,9 +50,32 @@ the same counters, breaker states and trace events.
 * **sharded engines** -- a plan-mode engine over a ``LocalMesh`` is
   served the same way (one slot: a sharded engine does not hot-swap); an
   injected ``shard_drop`` on its dispatches retries like any executor
-  error.  Over a ``ProcessMesh`` the runtime raises
-  ``NotImplementedError``: its host decisions would have to be taken
-  alike on every rank.
+  error.
+* **across ranks** -- over a ``ProcessMesh`` every rank runs a runtime
+  over its engine and takes the same scheduler steps on the same state,
+  so every rank delivers the same images and keeps the same counters,
+  breakers and trace events.  The host channel's first rank (rank 0) is
+  the front end: ``submit`` runs there only (another rank raises
+  ``ValueError``), and each ``pump()`` opens with one
+  ``mesh.host_broadcast`` of its record (the requests submitted since the
+  last pump, with their clock readings, and whether to stop) and one
+  ``host_max`` of whether any rank has a fault injector installed (then
+  the ranks agree on every dispatch's outcome: ``faults.Agreement``).
+  Inside ``pump()`` every clock reading is rank 0's, broadcast
+  (``host_float``); after
+  each segment one ``host_any`` joins the finite guard's row mask and
+  the build counter's breaker input, so a row bad on any rank is
+  replaced on all.  Only an agreed fault (one every rank raised at the
+  same dispatch) is retried over ranks; any other error, retryable or
+  not (say a ``TransientExecutorError`` or a real out-of-memory error
+  raised inside a running segment on one rank), propagates out of that
+  rank's ``pump()``, and the others' next collective fails within the
+  groups' timeout, so their ``pump()`` raises too rather than hanging.  ``health()``,
+  ``metrics_snapshot()`` and ``prometheus()`` stay rank-local and make
+  no collective call (another rank reads the last agreed clock reading);
+  ``start()``/``stop()`` run the loop on every rank, and rank 0's
+  ``stop()`` ends every rank's loop at the same pump; ``hot_swap``
+  raises, as for any sharded engine.
 
 Single-threaded by design: ``pump()`` runs one scheduler step;
 ``run_until_idle()`` drains inline; ``start()``/``stop()`` run the loop
@@ -61,6 +84,7 @@ outside it.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import threading
 import time
@@ -76,12 +100,16 @@ from repro_torch.core.sampler import (plan_segment, plan_segment_key,
                                       plan_segment_mixed,
                                       plan_segment_mixed_key, sample_plan)
 from repro_torch.core.schedules import sampling_timesteps, take
-from repro_torch.launch.faults import RETRYABLE_ERRORS, unit_uniform
+from repro_torch.kernels import ops
+from repro_torch.launch.faults import (RETRYABLE_ERRORS, Agreement,
+                                       unit_uniform)
 from repro_torch.launch.serve import Request, ServeEngine
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 
 _SALT_JITTER = 0xB0
+# tickets a runtime keeps reachable by request id (``ticket``)
+KEPT_TICKETS = 4096
 
 
 class QueueFullError(RuntimeError):
@@ -296,12 +324,6 @@ class ServeRuntime:
     def __init__(self, eng: ServeEngine, config: RuntimeConfig | None = None,
                  monitor=None,
                  registry: obs_metrics.MetricsRegistry | None = None):
-        if is_process_mesh(eng.engine.mesh):
-            raise NotImplementedError(
-                "ServeRuntime over a ProcessMesh waits (ROADMAP Queue 1: "
-                "the serving runtime across ranks): admission, retries, "
-                "breakers and deadlines are host decisions every rank must "
-                "take alike; ServeEngine.serve runs SPMD there")
         if eng.mode not in ("plan", "scan"):
             raise ValueError(f"ServeRuntime needs a plan- or scan-mode "
                              f"engine (got mode={eng.mode!r}); static "
@@ -349,6 +371,15 @@ class ServeRuntime:
         self._wiener: WienerDenoiser | None = None
         self._thread: threading.Thread | None = None
         self._stop = threading.Event()
+        # -- over a ProcessMesh: rank 0 fronts, every rank replays
+        self.ranks = is_process_mesh(self.engine.mesh)
+        self.mesh = self.engine.mesh if self.ranks else None
+        self.front = not self.ranks or self.mesh.host_rank == 0
+        self._inbox: list[tuple] = []    # rank 0: (ticket, queue depth)
+        self._tickets: collections.OrderedDict = collections.OrderedDict()
+        self._now = 0.0                  # the last agreed clock reading
+        self._halt = False               # rank 0's stop, agreed
+        self._seam = Agreement(self.mesh) if self.ranks else None
         self.counters = {k: 0 for k in (
             "submitted", "completed", "expired", "failed", "retries",
             "finite_trips", "gauss_segments", "oom_splits", "repacks",
@@ -381,9 +412,13 @@ class ServeRuntime:
 
     # -- Gaussian (Wiener) fallback programs ---------------------------------
     def _wiener_den(self) -> WienerDenoiser:
+        """The Gaussian rung's statistics: over ranks from the slabs'
+        sums, so no rank's device holds another rank's rows."""
         if self._wiener is None:
+            kw = (dict(mesh=self.mesh, rows=self.engine.slab_ids())
+                  if self.ranks else {})
             self._wiener = WienerDenoiser(self.eng.store, self.eng.schedule,
-                                          device=self.eng.device)
+                                          device=self.eng.device, **kw)
         return self._wiener
 
     def _gauss_program(self, bucket: int, ts: tuple, start: int, stop: int):
@@ -491,6 +526,8 @@ class ServeRuntime:
         ``compiles_post_warmup`` from the engine's build counter)."""
         t0 = time.perf_counter()
         c0 = self.engine._captures
+        if self.ranks:
+            self._agree_faults()
         epochs = self.engine.reserve_standby()
         slots = [self.engine._epochs[e] for e in epochs]
         stats: dict = {}
@@ -591,7 +628,13 @@ class ServeRuntime:
 
         Returns the installed epoch id (``epoch`` if given — e.g. the
         lifecycle's on-disk epoch number — else the next free int).
+        Over a ``ProcessMesh`` it raises ``ValueError``: a sharded engine
+        holds per-rank slabs and does not hot-swap.
         """
+        if self.ranks:
+            raise ValueError("ServeRuntime.hot_swap over a ProcessMesh: "
+                             "sharded engines do not hot-swap (each rank "
+                             "holds its slab; rebuild the engines)")
         tr = obs_trace.tracer()
         t0 = time.perf_counter()
         with self._lock:
@@ -642,14 +685,88 @@ class ServeRuntime:
         for e in [e for e in self.engine._epochs if e not in live]:
             self.engine.retire_epoch(e)
 
+    # -- the ranks' agreement ---------------------------------------------------
+    def _clock(self) -> float:
+        """A clock reading inside ``pump()``: over ranks rank 0's, one
+        ``host_float`` (no other rank reads its own clock here)."""
+        if not self.ranks:
+            return self.cfg.clock()
+        self._now = self.mesh.host_float(
+            self.cfg.clock() if self.front else None)
+        return self._now
+
+    def _local_now(self) -> float:
+        """The time ``health()`` and the metrics read: the clock, or on a
+        rank other than 0 the last agreed reading (no collective)."""
+        return self.cfg.clock() if self.front else self._now
+
+    def _agree_faults(self) -> None:
+        """One ``host_max``: whether any rank has a fault injector
+        installed; if one has, every lookup and dispatch of this step
+        agrees its outcome (``faults.Agreement``), else the seam adds no
+        collective."""
+        (any_hook,) = self.mesh.host_max(int(ops.dispatch_hook() is not None))
+        self._seam.active = bool(any_hook)
+        self.engine.seam = self._seam
+
+    def _take_record(self) -> None:
+        """Open a scheduler step over ranks: rank 0's record (the
+        requests submitted since the last step and whether to stop), one
+        ``host_broadcast``; every other rank queues the same tickets, as
+        ``submit`` queued them on rank 0."""
+        rec = None
+        if self.front:
+            with self._lock:
+                new, self._inbox = self._inbox, []
+                self._queue.extend(t for t, _ in new)
+                rec = {"stop": self._stop.is_set(), "new": [
+                    (t.request.request_id, int(t.request.num_images),
+                     int(t.request.seed), t.request.deadline_s,
+                     t.submitted_at, t.expiry, depth)
+                    for t, depth in new]}
+        rec = self.mesh.host_broadcast(rec)
+        self._agree_faults()
+        self._halt = rec["stop"]
+        if self.front:
+            return
+        tr = obs_trace.tracer()
+        with self._lock:
+            for rid, n, seed, dl, at, expiry, depth in rec["new"]:
+                t = Ticket(request=Request(rid, n, seed, deadline_s=dl),
+                           submitted_at=at, expiry=expiry)
+                self._queue.append(t)
+                self._keep(t)
+                self.counters["submitted"] += 1
+                if tr.enabled:
+                    tr.event("request.admit", request=rid, images=n,
+                             queue_depth=depth)
+
+    def _keep(self, t: Ticket) -> None:
+        self._tickets[t.request.request_id] = t
+        while len(self._tickets) > KEPT_TICKETS:
+            self._tickets.popitem(last=False)
+
+    def ticket(self, request_id) -> Ticket:
+        """The latest ticket of ``request_id`` on this rank, of the last
+        ``KEPT_TICKETS`` (``submit`` returned it; over ranks every rank
+        but 0 made it from rank 0's record)."""
+        return self._tickets[request_id]
+
     # -- admission ------------------------------------------------------------
     def submit(self, req: Request) -> Ticket:
         """Validate + enqueue; raises ``ValueError`` (bad request) or
         ``QueueFullError`` (admission control) instead of accepting
-        work it cannot serve."""
+        work it cannot serve.  Over ranks rank 0 admits (any other rank
+        raises ``ValueError``) and the request reaches the queue, every
+        rank's, at the next ``pump()``."""
+        if not self.front:
+            raise ValueError(
+                f"submit runs on rank 0 of the mesh's host channel, the "
+                f"front end; this is rank {self.mesh.host_rank}, which "
+                f"replays rank 0's requests")
         validate_request(req, self.max_images)
         with self._lock:
-            if len(self._queue) >= self.cfg.max_queue:
+            if len(self._queue) + len(self._inbox) >= self.cfg.max_queue:
                 raise QueueFullError(
                     f"queue at capacity ({self.cfg.max_queue}); retry "
                     f"after the backlog drains")
@@ -658,13 +775,17 @@ class ServeRuntime:
                 else self.cfg.default_deadline_s
             t = Ticket(request=req, submitted_at=now,
                        expiry=None if dl is None else now + float(dl))
-            self._queue.append(t)
+            depth = len(self._queue) + len(self._inbox) + 1
+            if self.ranks:
+                self._inbox.append((t, depth))
+            else:
+                self._queue.append(t)
+            self._keep(t)
             self.counters["submitted"] += 1
             tr = obs_trace.tracer()
             if tr.enabled:
                 tr.event("request.admit", request=req.request_id,
-                         images=int(req.num_images),
-                         queue_depth=len(self._queue))
+                         images=int(req.num_images), queue_depth=depth)
             return t
 
     def _expire_queued(self, now: float) -> None:
@@ -914,6 +1035,7 @@ class ServeRuntime:
             # when cursors actually diverge
             mixed = not bool(act[: wave.used].all())
         attempt = 0
+        built = None
         while True:
             builds0 = self.engine._builds
             try:
@@ -925,17 +1047,17 @@ class ServeRuntime:
                     fn = self._segment_fn(wave, seg, False)
                     out = fn(self._dev(x_prev))
                 out = self._host(out)
-                if self.engine._builds > builds0 and self._warm:
-                    # evict-then-rebuild storms (and a third live
-                    # epoch's slot) build without changing the cache
-                    # size; the build counter sees them and arms the
-                    # scan-mode rung
-                    self.br_compile.record_failure(self.cfg.clock())
-                else:
-                    self.br_compile.record_success(self.cfg.clock())
+                # evict-then-rebuild storms (and a third live epoch's
+                # slot) build without changing the cache size; the build
+                # counter sees them and arms the scan-mode rung (below)
+                built = self.engine._builds > builds0 and self._warm
                 break
             except RETRYABLE_ERRORS as e:
-                now = self.cfg.clock()
+                if self.ranks and not getattr(e, "agreed", False):
+                    # one rank's own error: retried alone, it would make
+                    # collectives the other ranks do not make
+                    raise
+                now = self._clock()
                 oom = self._is_oom(str(e))
                 if tr.enabled:
                     tr.event("wave.retry", wave=wave.seq, attempt=attempt,
@@ -969,6 +1091,17 @@ class ServeRuntime:
         # span, not theirs).
         used = wave.used
         row_ok = np.isfinite(out[:used]).all(axis=1) | ~act[:used]
+        if self.ranks:
+            # one OR over the ranks: a row bad on any rank is replaced on
+            # every rank, and a build on any rank arms every rank's rung
+            bad = self.mesh.host_any(np.append(~row_ok, bool(built)))
+            row_ok = ~bad[:-1]
+            built = None if built is None else bool(bad[-1])
+        if built is not None:
+            if built:
+                self.br_compile.record_failure(self._clock())
+            else:
+                self.br_compile.record_success(self._clock())
         if not row_ok.all():
             nbad = int((~row_ok).sum())
             self.counters["finite_trips"] += nbad
@@ -976,7 +1109,7 @@ class ServeRuntime:
                 self.monitor.on_finite_trips(nbad)
             if tr.enabled:
                 tr.event("wave.finite_trip", wave=wave.seq, rows=nbad)
-            self.br_screen.record_failure(self.cfg.clock())
+            self.br_screen.record_failure(self._clock())
             gauss = self._run_gauss(wave, seg, x_prev)
             bad = np.flatnonzero(~row_ok)
             if not out.flags.writeable:
@@ -984,8 +1117,8 @@ class ServeRuntime:
             out[bad] = gauss[bad]
             wave.degraded = True
         else:
-            self.br_screen.record_success(self.cfg.clock())
-            self.br_exec.record_success(self.cfg.clock())
+            self.br_screen.record_success(self._clock())
+            self.br_exec.record_success(self._clock())
         return "ok", out
 
     # -- post-segment bookkeeping (under the lock) ----------------------------
@@ -1086,7 +1219,7 @@ class ServeRuntime:
 
     def _post_segment(self, wave: _Wave, seg: int, result) -> None:
         status, out = result
-        now = self.cfg.clock()
+        now = self._clock()
         if status == "split":
             self._split(wave)
             return
@@ -1139,9 +1272,12 @@ class ServeRuntime:
 
     # -- scheduler loop -------------------------------------------------------
     def pump(self) -> bool:
-        """One scheduler step.  Returns True if a segment ran."""
+        """One scheduler step.  Returns True if a segment ran.  Over
+        ranks it opens with rank 0's record (``_take_record``)."""
+        if self.ranks:
+            self._take_record()
         with self._lock:
-            now = self.cfg.clock()
+            now = self._clock()
             self._expire_queued(now)
             # pre-admission seam: rows already past their deadline are
             # dropped BEFORE admission, so the slots they free (and the
@@ -1190,13 +1326,17 @@ class ServeRuntime:
                            f"pump iterations")
 
     def start(self) -> None:
+        """Run the scheduler loop on a daemon thread.  Over ranks every
+        rank starts one, and the loops end together: at the pump whose
+        record carries rank 0's ``stop()``."""
         if self._thread is not None:
             return
         self._stop.clear()
+        self._halt = False
 
         def loop():
-            while not self._stop.is_set():
-                if not self.pump():
+            while not (self._halt if self.ranks else self._stop.is_set()):
+                if not self.pump() and not self._halt:
                     self._stop.wait(self.cfg.idle_sleep_s)
 
         self._thread = threading.Thread(target=loop, daemon=True,
@@ -1204,16 +1344,19 @@ class ServeRuntime:
         self._thread.start()
 
     def stop(self) -> None:
+        """End the loop; over ranks rank 0's call ends every rank's, and
+        another rank's call waits for that."""
         if self._thread is None:
             return
-        self._stop.set()
+        if self.front:
+            self._stop.set()
         self._thread.join()
         self._thread = None
 
     # -- observability --------------------------------------------------------
     def health(self) -> dict:
         with self._lock:
-            now = self.cfg.clock()
+            now = self._local_now()
             finished = (self.counters["completed"]
                         + self.counters["expired"] + self.counters["failed"])
             h = {
@@ -1274,11 +1417,11 @@ class ServeRuntime:
     def metrics_snapshot(self) -> dict:
         """JSON-friendly dict of every metric in the registry."""
         with self._lock:
-            self._sync_registry(self.cfg.clock())
+            self._sync_registry(self._local_now())
         return self.registry.snapshot()
 
     def prometheus(self) -> str:
         """Prometheus text exposition of the same registry."""
         with self._lock:
-            self._sync_registry(self.cfg.clock())
+            self._sync_registry(self._local_now())
         return self.registry.prometheus()

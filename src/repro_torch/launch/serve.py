@@ -44,7 +44,9 @@ it and serves the same requests, and gets the same images.  The dataset
 stays on the host and each rank's card holds its slab; over NCCL
 ``warmup()`` captures every plan segment, collectives and all, and
 serving then captures and builds nothing; over gloo the segments run
-eagerly.  The Optimal base only (a patch base raises).
+eagerly.  A patch base serves static mode there too: each rank gathers
+the supports' rows from the ranks' slabs, and ``warmup()`` builds the
+PCA feature caches of its slab alone (``GoldDiff``).
 
 ``ServeRuntime`` (``repro_torch.launch.runtime``) wraps a warmed plan-
 or scan-mode engine in admission, deadlines, retries, the degradation

@@ -40,9 +40,10 @@ then also takes the reference's two knobs:
 A microbatch of a sharded batch is its rows i x B/n ... (i + 1) x B/n, as
 on one device, on the batch's placements (a DTensor batch's rows are
 gathered once a step, not once a microbatch).  The
-mesh decode step runs eagerly: a CUDA graph over the cache's collectives
-is a question of the multi-card engine (ROADMAP Queue 1), so this is the
-design of this step, not a fallback from a graph.
+mesh decode step runs eagerly: no CUDA graph holds its collectives yet
+(the GoldDiff engine's plan graphs do hold NCCL collectives: PERF.md
+section 6), so this is the design of this step, not a fallback from a
+graph.
 """
 from __future__ import annotations
 

@@ -117,7 +117,12 @@ class QualityMonitor:
     def _probe_programs(self, t: int, rows: int):
         """The (exact, indexed) probe screens for static ``t`` over a
         ``[rows, D]`` query, in the engine's program cache under the
-        obs-only kinds (on the card each a CUDA graph)."""
+        obs-only kinds (on the card each a CUDA graph): the exact top-m
+        ids (``engine.coarse_ids``) and the probed candidates' ids and
+        distances (``engine.probed_ids``).  Over a ``ProcessMesh`` both
+        screen every shard and merge, so every rank gets the global
+        recall; a ``LocalMesh`` engine's slot holds the whole store, so
+        it screens that."""
         eng = self.engine
         m_t, _ = eng.sizes(t)
         mp, npb = eng.padded_m(t), eng.nprobe(t)
@@ -125,11 +130,11 @@ class QualityMonitor:
         where = eng.device.type
         exact = eng.program(
             ("obs_screen_exact", t, shape, m_t, where),
-            lambda: eng.jitter(lambda q: eng.coarse(q, m_t), shape,
+            lambda: eng.jitter(lambda q: eng.coarse_ids(q, m_t), shape,
                                label=f"recall probe (exact) t={t}"))
         ivf = eng.program(
             ("obs_screen_ivf", t, shape, mp, npb, where),
-            lambda: eng.jitter(lambda q: eng.coarse_indexed(q, mp, npb),
+            lambda: eng.jitter(lambda q: eng.probed_ids(q, mp, npb),
                                shape, label=f"recall probe (indexed) t={t}"))
         return exact, ivf
 
@@ -154,8 +159,8 @@ class QualityMonitor:
         q = torch.from_numpy(q / np.float32(a)).to(eng.device)
         exact_fn, ivf_fn = self._probe_programs(t, rows)
         exact_ids = exact_fn(q)
-        pos, pd2 = ivf_fn(q)
-        rec = screening_recall(pos, pd2, eng.index_perm, exact_ids)
+        ids, pd2 = ivf_fn(q)
+        rec = screening_recall(ids, pd2, None, exact_ids)
         self.probes.inc()
         self.recall_hist.observe(rec)
         self.recall_last.set(rec)

@@ -135,21 +135,40 @@ def test_convert_refuses_bad_trees():
         params_from_numpy(cfg, bad, device="cpu")
 
 
-def test_unported_paths_raise():
-    """What is still unported (ROADMAP Queue 1: the serving runtime
-    across ranks): ``ServeRuntime`` over an engine on a ``ProcessMesh``
-    raises ``NotImplementedError``.  The LLM's multi-card path runs:
-    ``train(use_mesh=True)`` asks for the production mesh's 256 ranks and
-    names the world it found."""
-    from types import SimpleNamespace
+def test_unported_paths_raise(tmp_path):
+    """What stays refused over ranks, on a one-rank gloo ``ProcessMesh``:
+    ``ServeRuntime.hot_swap`` (a sharded engine does not hot-swap, as in
+    the reference) and the masked step over a patch base (static mode
+    only).  The LLM's multi-card path runs: ``train(use_mesh=True)``
+    asks for the production mesh's 256 ranks and names the world it
+    found."""
+    import datetime
 
-    from repro_torch.distributed import ProcessMesh
+    import torch.distributed as dist
+
+    from repro_torch.core import GoldDiff, make_denoiser, make_schedule
+    from repro_torch.data.synthetic import image_store
+    from repro_torch.launch.mesh import make_process_mesh
     from repro_torch.launch.runtime import ServeRuntime
-    pm = ProcessMesh.__new__(ProcessMesh)      # no process group needed
-    eng = SimpleNamespace(engine=SimpleNamespace(mesh=pm), mode="plan")
-    with pytest.raises(NotImplementedError,
-                       match="the serving runtime across ranks"):
-        ServeRuntime(eng)
+    from repro_torch.launch.serve import ServeEngine
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=60))
+    try:
+        pm = make_process_mesh(device="cpu")
+        srv = ServeEngine("gmm", {"n": 64, "dim": 8}, num_steps=2,
+                          max_batch=2, mesh=pm)
+        with pytest.raises(ValueError, match="ServeRuntime.hot_swap over a "
+                                             "ProcessMesh"):
+            ServeRuntime(srv).hot_swap(srv.store)
+        img = image_store(16, 8, 8, 3, device="cpu")
+        gd = GoldDiff(make_denoiser("kamb", img, make_schedule(
+            "ddpm_linear"), device="cpu"), mesh=pm)
+        with pytest.raises(ValueError, match="the masked step needs the "
+                                             "Optimal base"):
+            gd.call_masked(torch.zeros(1, 192), 500)
+    finally:
+        dist.destroy_process_group()
     with pytest.raises(ValueError, match="needs 256 ranks; the world has 1"):
         train("llama3.2-3b", smoke=True, steps=1, batch=1, seq=8,
               ckpt_dir=None, use_mesh=True, device="cpu")

@@ -16,7 +16,11 @@ package and against the port's one-device engine, on the CPU.
   denoise``; the engine over a ``ProcessMesh`` runs on 8 gloo ranks in
   one more (``tests/_pmesh_ranks.py``, module fixture ``ranks``), each
   rank's outputs held against the reference's sharded engine, the
-  port's ``LocalMesh`` engine and rank 0's.
+  port's ``LocalMesh`` engine and rank 0's.  So do the serving runtime
+  over the ranks (``tests/_runtime_parity.py``'s scenarios: every
+  rank's records equal the port's ``LocalMesh`` runtime's, which equal
+  the reference's runtime over its emulated mesh, run in the
+  ``reference`` subprocess) and GoldDiff over the patch bases.
 
 Tolerances: golden sets equal (overlap 1.0, distinct float distances);
 means 1e-5 relative (fp32 reduction order: a different order of the
@@ -53,7 +57,10 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels import screen as tscreen
 from repro_torch.launch.mesh import make_debug_mesh, make_process_mesh
 
-from _pmesh_ranks import REF_T, ROUTES, SERVE, SERVE_REQUESTS, TS, WORLD
+from _pmesh_ranks import (ERROR_TIMEOUT_S, MONITOR_HEALTH, MONITOR_TS,
+                          PATCH_BASES, PCA_SERVE, REF_T, ROUTES, SERVE,
+                          SERVE_REQUESTS, TS, WORLD, image_store,
+                          monitor_probes, monitor_queries)
 
 REPO = Path(__file__).resolve().parent.parent
 SCH = make_schedule("ddpm_linear", 1000)
@@ -327,6 +334,7 @@ from repro.index.shard import partition_windows, shard_layout
 out = {}
 sch = make_schedule("ddpm_linear", 1000)
 TS = (500,)
+PATCH_TS = (100, 500, 900)
 
 def noisy(x0, t, seed):
     eps = np.random.default_rng(seed).normal(size=x0.shape)
@@ -396,6 +404,40 @@ for s in (1, 3, 8):
                     a.astype(jnp.float32) if a.dtype == jnp.bfloat16 else a)
         out[f"layout_{tag}_{s}_sizes"] = np.asarray(
             [L.n_loc, L.w_max, L.max_cluster, L.n_shards])
+# the patch bases over the mesh: an image store, GoldDiff static steps
+from repro.core.denoisers import PCADenoiser, PatchDenoiser
+from repro.data.synthetic import image_store
+img = image_store(257, 16, 16, 3, seed=0)
+for f in ("X", "proxy", "x_norms", "proxy_norms"):
+    out[f"img_{f}"] = np.asarray(getattr(img, f))
+for t in PATCH_TS:
+    out[f"xpatch_{t}"] = noisy(np.asarray(img.X[:4]), t, t + 3)
+for name, cls in (("kamb", PatchDenoiser), ("pca", PCADenoiser)):
+    gd = GoldDiff(cls(img, sch), GoldDiffConfig(), mesh=mesh8)
+    for t in PATCH_TS:
+        x = jnp.asarray(out[f"xpatch_{t}"])
+        out[f"patch_{name}_{t}"] = np.asarray(gd(x, t))
+        out[f"patch_{name}_select_{t}"] = np.asarray(gd.select(x, t))
+# the serving runtime over the mesh: the scripted scenarios, drawing the
+# port's x_T (records as JSON)
+import json
+sys.path.insert(0, sys.argv[2])
+import _runtime_parity as rp
+import repro.launch.serve as r_serve
+from repro_torch.core import store_from_numpy
+from repro_torch.launch.serve import ServeEngine as TServe
+reng = r_serve.ServeEngine(store, mesh=mesh8, **rp.ENG_KW)
+peng = TServe(store_from_numpy(*(out[f"store_{f}"] for f in (
+    "X", "proxy", "x_norms", "proxy_norms")), (16,), device="cpu"),
+    device="cpu", **rp.ENG_KW)
+for name, (scen, faults, kw) in rp.SCENARIOS.items():
+    rec, tickets = rp.run_one(rp.REF, reng, scen, faults,
+                              around=lambda: rp.port_noise(reng, peng), **kw)
+    out[f"rt_{name}_record"] = json.dumps(rec)
+    for i, t in enumerate(tickets):
+        out[f"rt_{name}_img{i}"] = (np.zeros((0,), np.float32)
+                                    if t.images is None
+                                    else np.asarray(t.images))
 np.savez(sys.argv[1], **out)
 print("PASS")
 """
@@ -406,7 +448,8 @@ def reference(tmp_path_factory):
     """The reference's sharded outputs on an emulated 8-device mesh."""
     path = tmp_path_factory.mktemp("sharded") / "reference.npz"
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"), JAX_PLATFORMS="cpu")
-    r = subprocess.run([sys.executable, "-c", _REFERENCE, str(path)],
+    r = subprocess.run([sys.executable, "-c", _REFERENCE, str(path),
+                        str(REPO / "tests")],
                        capture_output=True, text=True, timeout=600,
                        cwd=str(REPO), env=env)
     assert "PASS" in r.stdout, r.stdout + r.stderr
@@ -693,8 +736,8 @@ def ranks(reference, tmp_path_factory):
         inputs[f"x_batch_exact_{t}"] = noisy(store.X[:4].numpy(), t, t + 7)
         inputs[f"x_batch_indexed_{t}"] = noisy(store2.X[:4].numpy(), t,
                                                t + 7)
-    keep = [k for k in reference if k.split("_")[0] in ("store", "store2",
-                                                        "ix", "plan")]
+    keep = [k for k in reference if k.split("_")[0] in (
+        "store", "store2", "ix", "plan", "img", "xpatch")]
     np.savez(d / "in.npz", **{k: reference[k] for k in keep}, **inputs)
     env = dict(os.environ, PYTHONPATH=f"{REPO / 'src'}{os.pathsep}{REPO / 'tests'}",
                OMP_NUM_THREADS="1")
@@ -774,12 +817,16 @@ def test_process_mesh_batch_axis_matches_local_mesh(reference, ranks, route,
 
 
 def test_process_mesh_ranks_bit_equal(ranks):
-    """(d) SPMD: every rank returns rank 0's tensors bit for bit."""
+    """(d) SPMD: every rank returns rank 0's tensors bit for bit (but the
+    ``submit`` refusal, which only the ranks after the front end raise:
+    ``test_process_mesh_refusals``, and the real error of one rank:
+    ``test_process_mesh_runtime_real_error_raises_on_every_rank``)."""
     outs, _ = ranks
     for got in outs[1:]:
         assert got.keys() == outs[0].keys()
         for k, v in outs[0].items():
-            np.testing.assert_array_equal(got[k], v, err_msg=k)
+            if k != "err_runtime" and not k.startswith("real_error"):
+                np.testing.assert_array_equal(got[k], v, err_msg=k)
 
 
 def test_process_mesh_serve_matches_one_device(ranks):
@@ -805,21 +852,28 @@ def test_process_mesh_given_no_device_takes_the_callers(ranks):
 
 
 @pytest.mark.parametrize("case,match", [
-    ("runtime", "NotImplementedError: ServeRuntime over a ProcessMesh waits "
-                r"\(ROADMAP Queue 1: the serving runtime across ranks\)"),
+    ("runtime", "ValueError: submit runs on rank 0 of the mesh's host "
+                "channel, the front end; this is rank [1-7]"),
+    ("runtime_hot_swap", "ValueError: ServeRuntime.hot_swap over a "
+                         "ProcessMesh: sharded engines do not hot-swap"),
     ("batch", "ValueError: batch 3 does not divide over batch_axis 'model'"),
     ("hot_swap", "ValueError: epoch 1 cannot hot-swap: sharded engines"),
-    ("patch_base", "ValueError: the kamb base does not run over a "
-                   "ProcessMesh"),
+    ("patch_base", "ValueError: the masked step needs the Optimal base; "
+                   "golddiff\\+pca serves in static mode only"),
     ("default_card", "RuntimeError: no CUDA device is available; pass "
                      "device='cpu'"),
     ("bare_engine_card", "RuntimeError: no CUDA device is available"),
     ("other_device", "ValueError: device meta is not the ProcessMesh's "
                      "cpu")])
 def test_process_mesh_refusals(ranks, case, match):
-    """Each refusal is raised on every rank alike."""
+    """Each refusal is raised on every rank alike; ``submit`` on every
+    rank but the front end, rank 0."""
     import re
-    for got in ranks[0]:
+    outs = ranks[0]
+    if case == "runtime":
+        assert str(outs[0]["err_runtime"]) == ""
+        outs = outs[1:]
+    for got in outs:
         assert re.match(match, str(got[f"err_{case}"])), got[f"err_{case}"]
 
 
@@ -855,3 +909,279 @@ def test_runtime_over_sharded_engine_retries_shard_drops():
     with injected(FaultConfig(seed=2, shard_drop_rate=1.0)) as inj:
         one.serve(reqs[:1])
     assert inj.events == []
+
+
+# -- the serving runtime over a ProcessMesh: 8 gloo ranks ------------------------
+
+SCEN_TAGS = ("clean", "deadline", "join", "faults", "faults_rank3")
+
+
+@pytest.fixture(scope="module")
+def local_runtime(reference):
+    """The port's runtime over a ``LocalMesh`` of 8 on the reference's
+    store, every scenario of ``_runtime_parity.SCENARIOS``: records (as
+    JSON round-trips them) and deliveries."""
+    import json
+
+    from _runtime_parity import ENG_KW, PORT, SCENARIOS, run_one
+    from repro_torch.launch.serve import ServeEngine
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        eng = ServeEngine(ref_store(reference, "store"), mesh=mesh(8),
+                          device="cpu", **ENG_KW)
+        out = {}
+        for name, (scen, faults, kw) in SCENARIOS.items():
+            rec, tickets = run_one(PORT, eng, scen, faults, **kw)
+            out[name] = (json.loads(json.dumps(rec)),
+                         [t.images for t in tickets])
+    finally:
+        torch.set_num_threads(n)
+    return out
+
+
+def _delivered(got: dict, tag: str, n: int) -> list:
+    return [got[f"rt_{tag}_img{i}"] for i in range(n)]
+
+
+@pytest.mark.parametrize("tag", SCEN_TAGS)
+def test_process_mesh_runtime_matches_local_mesh(ranks, local_runtime, tag):
+    """Every rank's statuses, degraded flags, counters, breakers, epochs
+    and trace events equal the ``LocalMesh`` runtime's, its deliveries
+    within ``REL``, and the ranks' deliveries bit-equal.  The follower
+    ranks' clocks raise when read, so no rank but 0 read its own clock
+    inside ``pump()``; ``faults_rank3`` installs the injector on rank 3
+    alone and gets the records of the injector on every rank."""
+    import json
+    want, images = local_runtime[tag.replace("_rank3", "")]
+    outs = ranks[0]
+    for got in outs:
+        assert json.loads(str(got[f"rt_{tag}_record"])) == want
+        for g, w, g0 in zip(_delivered(got, tag, len(images)), images,
+                            _delivered(outs[0], tag, len(images))):
+            if w is None:
+                assert g.size == 0
+                continue
+            assert relerr(g, w) <= REL
+            np.testing.assert_array_equal(g, g0)
+    if tag.startswith("faults"):           # every kind and every rung
+        kinds = {n for _, n in want["events"] if n.startswith("fault.")}
+        assert kinds == {f"fault.{k}" for k in ("shard_drop", "error", "oom",
+                                                 "nan", "evict")}
+        for k in ("retries", "finite_trips", "gauss_segments", "oom_splits",
+                  "scan_waves", "joins"):
+            assert want["counters"][k] > 0, k
+
+
+@pytest.mark.parametrize("tag", SCEN_TAGS[:4])
+def test_local_mesh_runtime_matches_reference(reference, local_runtime, tag):
+    """The ``LocalMesh`` runtime's records equal the reference's
+    ``ServeRuntime`` over its emulated 8-device mesh (the same scenario,
+    the same x_T), its deliveries within 1e-4."""
+    import json
+    want = json.loads(str(reference[f"rt_{tag}_record"]))
+    rec, images = local_runtime[tag]
+    assert rec == want
+    for g, w in zip(_delivered(reference, tag, len(images)), images):
+        if w is None:
+            assert g.size == 0
+        else:
+            np.testing.assert_allclose(w, g, rtol=0, atol=1e-4)
+
+
+def test_process_mesh_runtime_background_thread(ranks):
+    """``start()`` on every rank, a request on rank 0, rank 0's
+    ``stop()`` ending every rank's loop: each rank holds the ticket,
+    done, with rank 0's images."""
+    outs = ranks[0]
+    for got in outs:
+        assert str(got["bg_status"]) == "done"
+        assert np.isfinite(got["bg_images"]).all()
+        np.testing.assert_array_equal(got["bg_images"], outs[0]["bg_images"])
+
+
+def test_process_mesh_runtime_real_error_raises_on_every_rank(ranks):
+    """(e) A real ``TransientExecutorError`` in rank 3's segment (no drawn
+    fault, so no agreement) is not retried there: rank 3's ``pump()``
+    raises it, and every other rank's ``pump()`` raises when its
+    segment's collective times out, within the group's timeout (and a
+    margin for a loaded host) rather than hanging or pairing mismatched
+    collectives."""
+    for r, got in enumerate(ranks[0]):
+        err = str(got["real_error"])
+        if r == 3:
+            assert err == "TransientExecutorError"
+        else:
+            assert err and err != "TransientExecutorError", (r, err)
+        assert int(got["real_error_retries"]) == 0
+        assert float(got["real_error_s"]) < 2 * ERROR_TIMEOUT_S, (
+            r, float(got["real_error_s"]))
+
+
+def test_process_mesh_wiener_segment_matches_one_process(reference, ranks):
+    """The Gaussian rung from the slabs' sums (float64 sums, one eigh on
+    rank 0, broadcast) within 1e-4 of the one-process runtime's (the SVD
+    of the whole store), on every rank alike; its statistics alone on
+    the device, the store on the host."""
+    from _runtime_parity import ENG_KW
+    from repro_torch.launch.runtime import ServeRuntime
+    from repro_torch.launch.serve import ServeEngine
+    eng = ServeEngine(ref_store(reference, "store"), device="cpu", **ENG_KW)
+    rt = ServeRuntime(eng)
+    outs = ranks[0]
+    ts = tuple(int(x) for x in eng.plan.ts)
+    want = rt._gauss_program(4, ts, 0, len(ts) - 1)(
+        torch.from_numpy(outs[0]["gauss_x"])).numpy()
+    for got in outs:
+        np.testing.assert_allclose(got["gauss_seg"], want, rtol=0, atol=1e-4)
+        np.testing.assert_array_equal(got["gauss_seg"], outs[0]["gauss_seg"])
+        assert got["wiener_on"].tolist() == ["cpu", "cpu"]
+
+
+def _monitor_engine(reference, m):
+    from repro_torch.launch.serve import ServeEngine
+    from _runtime_parity import ENG_KW
+    return ServeEngine(ref_store(reference, "store2"),
+                       index=port_index(reference), index_mode="always",
+                       probe_schedule=monitor_probes(), device="cpu",
+                       mesh=m, **ENG_KW)
+
+
+def test_monitor_recall_is_global(reference, ranks):
+    """The recall probe gives the global recall everywhere: a
+    ``LocalMesh`` engine's (its slot holds the whole store) equals the
+    one-device engine's, and so does every rank's over the
+    ``ProcessMesh`` (the shards' screens merged), below 1 somewhere."""
+    from repro_torch.obs import MetricsRegistry, QualityMonitor
+    st2 = ref_store(reference, "store2")
+    want = {}
+    for name, m in (("one", None), ("local", mesh(8))):
+        mon = QualityMonitor(_monitor_engine(reference, m).engine,
+                             registry=MetricsRegistry(), sample_rate=1.0)
+        want[name] = [mon.probe_recall(x, t) for x in monitor_queries(st2)
+                      for t in MONITOR_TS]
+    assert want["local"] == want["one"] and min(want["one"]) < 1.0
+    for got in ranks[0]:
+        assert got["monitor_recall"].tolist() == want["one"]
+
+
+def test_process_mesh_runtime_monitor_matches_local_mesh(reference, ranks):
+    """A runtime with a monitor (every seam probes) over the ranks: its
+    health's recall and concentration equal the ``LocalMesh`` runtime's,
+    its deliveries within ``REL``."""
+    import json
+
+    from _runtime_parity import FakeClock
+    from repro_torch.launch.runtime import RuntimeConfig, ServeRuntime
+    from repro_torch.launch.serve import Request
+    from repro_torch.obs import MetricsRegistry, QualityMonitor
+    eng = _monitor_engine(reference, mesh(8))
+    clk = FakeClock()
+    rt = ServeRuntime(eng, RuntimeConfig(clock=clk, sleep=clk.sleep),
+                      monitor=QualityMonitor(eng.engine,
+                                             registry=MetricsRegistry(),
+                                             sample_rate=1.0))
+    rt.warmup()
+    tk = [rt.submit(Request(i, 1 + i % 3, seed=40 + i)) for i in range(4)]
+    rt.run_until_idle()
+    h = rt.health()
+    want = {k: h[k] for k in MONITOR_HEALTH}
+    assert want["n_recall_probes"] > 0
+    imgs = np.concatenate([t.images for t in tk])
+    for got in ranks[0]:
+        assert json.loads(str(got["monitor_health"])) == want
+        assert relerr(got["monitor_images"], imgs) <= REL
+
+
+def _patch_gd(reference, name, m):
+    from repro_torch.core import make_denoiser
+    return GoldDiff(make_denoiser(name, image_store(reference), SCH,
+                                  device="cpu"), mesh=m)
+
+
+@pytest.mark.parametrize("name", PATCH_BASES)
+def test_process_mesh_patch_bases_match_reference(reference, ranks, name):
+    """GoldDiff over the Kamb / PCA base on 8 ranks (the support's rows
+    gathered from the slabs) matches the reference's GoldDiff over its
+    8-device mesh at ``TS``: supports equal, steps within ``REL``."""
+    for got in ranks[0]:
+        for t in TS:
+            np.testing.assert_array_equal(
+                got[f"patch_{name}_select_{t}"],
+                reference[f"patch_{name}_select_{t}"])
+            assert relerr(got[f"patch_{name}_{t}"],
+                          reference[f"patch_{name}_{t}"]) <= REL, t
+
+
+@pytest.mark.parametrize("name", PATCH_BASES)
+def test_process_mesh_patch_bases_match_local_mesh(reference, ranks, name,
+                                                   one_thread):
+    """... and the port's ``LocalMesh`` of 8, the ranks bit-equal; every
+    store-row tensor a rank holds (the engine's slot, the base's rows,
+    the PCA feature caches) has n_loc rows, and the base's store stays
+    on the host."""
+    gd = _patch_gd(reference, name, mesh(8))
+    n_loc = -(-257 // WORLD)
+    outs = ranks[0]
+    for t in TS:
+        x = torch.from_numpy(reference[f"xpatch_{t}"])
+        want, sel = gd(x, t).numpy(), gd.select(x, t).numpy()
+        for got in outs:
+            assert relerr(got[f"patch_{name}_{t}"], want) <= REL
+            np.testing.assert_array_equal(got[f"patch_{name}_select_{t}"],
+                                          sel)
+            np.testing.assert_array_equal(got[f"patch_{name}_{t}"],
+                                          outs[0][f"patch_{name}_{t}"])
+    for got in outs:
+        rows = got[f"patch_{name}_rows"].tolist()
+        assert rows and set(rows) == {n_loc}
+        sizes = {gd.base.patch_size(t) for t in TS}
+        assert len(rows) == 2 + (len(sizes) if name == "pca" else 0)
+        assert str(got[f"patch_{name}_store_on"]) == "cpu"
+
+
+def test_process_mesh_pca_serve_one_rank(reference, ranks, one_thread):
+    """``ServeEngine(base="pca")`` over a one-rank mesh (a group of one,
+    on each rank): warmup builds the slab's feature caches, serving
+    builds nothing, the images those of the one-device engine."""
+    from repro_torch.launch.serve import Request, ServeEngine
+    one = ServeEngine(image_store(reference), base="pca", device="cpu",
+                      **PCA_SERVE)
+    st = one.warmup()
+    (want,) = one.serve([Request(0, 2, seed=5)])
+    for got in ranks[0]:
+        cache, builds, n_loc = got["pca_serve_cache"].tolist()
+        assert cache == st["feature_cache_bytes"] > 0
+        assert builds == 0 and n_loc == 257
+        np.testing.assert_allclose(got["pca_serve"], want.images, atol=1e-4)
+
+
+def test_slab_slots_and_gather_support():
+    """Each slab's ``slab_slots`` maps exactly its real rows (padding
+    maps nothing), and ``gather_support``'s per-slab buffers sum to the
+    store's rows of any ids, bit for bit."""
+    from repro_torch.index.shard import gather_support, slab_slots
+    st = gmm(103, dim=6, seed=3, device="cpu")
+    L = shard_layout(st, mesh(4))
+
+    class One:                      # a slab's own buffer: the sum's part
+        @staticmethod
+        def psum(parts):
+            (p,) = parts
+            return p
+    idx = torch.from_numpy(np.random.default_rng(0).integers(0, 103, (5, 7)))
+    feats = st.X * 2 + 1
+    total = [0, 0]
+    owners = torch.zeros(103, dtype=torch.long)
+    for sl in L.slabs:
+        slots = slab_slots(sl, st.n)
+        held = torch.nonzero(slots >= 0)[:, 0]
+        assert held.numel() == sl.n_rows
+        np.testing.assert_array_equal(sl.ids[slots[held].long()], held)
+        owners[held] += 1
+        rows = sl.X
+        got = gather_support([rows, rows * 2 + 1], idx, slots, One)
+        total = [a + b for a, b in zip(total, got)]
+    assert bool((owners == 1).all())
+    np.testing.assert_array_equal(total[0].numpy(), st.X[idx].numpy())
+    np.testing.assert_array_equal(total[1].numpy(), feats[idx].numpy())

@@ -233,6 +233,7 @@ import ctypes
 import dataclasses
 import gc
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -3413,7 +3414,8 @@ def live_store_phase(ctx: dict) -> dict:
     32 requests served continuously, two hot swaps (one with a wave in
     flight) that capture and build nothing, the fault ladder, NaN and
     evict storms, a fused engine's exact rung and the tracer's cost.
-    Returns the launch counts of the runtime path."""
+    Returns the launch counts of the runtime path; the directory of the
+    last committed epoch stays, as ``ctx["lifecycle"]``, for [pmesh]."""
     from repro_torch.index import IngestConfig, StoreLifecycle
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.fused_step import (fused_candidates,
@@ -3972,7 +3974,10 @@ def live_store_phase(ctx: dict) -> dict:
           and (path_counts["screen_topm"]
                + path_counts["fused_candidates"]) > 0,
           f"[runtime] the runtime path's launches {dict(path_counts)}")
-    tmp.cleanup()
+    # the committed epoch stays for [pmesh], whose ranks open it by slab
+    # (it removes the directory), and its state, whose view is [pmesh]'s
+    # one-card reference
+    ctx["lifecycle"], ctx["lifecycle_state"] = tmp, lc
     print(f"[runtime] phase {time.perf_counter() - t_phase:.1f} s; runtime "
           f"path launches {dict(path_counts)}")
     return dict(path_counts)
@@ -4535,6 +4540,150 @@ def pmesh_workspace(*engines, batch: int = B,
                             + sms * e.store.dim) for e in engines) + lib
 
 
+# The fixed part of the allowance on a step's host bytes: a rank's
+# resident anonymous + file bytes (``RssAnon + RssFile``, the allocator's
+# free pages handed back first) may grow in one step (``open_slab``, the
+# engines' construction, the Wiener rung, the runtime's warmup, the PCA
+# caches; each from a reading just before it) by at most PMESH_MEM_SLACK
+# x the bytes of the slabs it holds on the host (about 0 on a card rank:
+# the slab is on the card), plus the small arrays that ``open_slab``
+# reads whole, plus this (the step's own objects and the libraries'
+# state for a new shape: cuDNN's for the PCA features, 24.6 MB on a gloo
+# rank), plus the step's named terms: rank 0's PCA draws, and
+# PMESH_GRAPH_HOST for each CUDA graph a runtime's warmup captures.  Set
+# so that a whole read of the smaller epoch's rows (the cifar10 preset's,
+# 160.2 MB) fails every step that captures no graph.
+PMESH_HOST_FIXED = 48 << 20
+# The host bytes a captured CUDA graph holds (CUDA's host copy of its
+# nodes and the executable graph; the NCCL runtime's 85 graphs grew the
+# process by 2.54-2.57 MB a graph in a [pmesh] run alone, 0.82 in the
+# whole script)
+PMESH_GRAPH_HOST = 3 << 20
+PMESH_WARM_N = 2048        # rows of the in-memory store a gloo rank warms on
+HOST_FIELDS = ("RssAnon", "RssFile", "VmRSS", "threads", "pinned", "heap")
+
+
+def heap_rss() -> int | None:
+    """The resident bytes of this process's ``[heap]`` (the C allocator's
+    main arena: small allocations; a large buffer is a mapping of its
+    own), from ``/proc/self/smaps``; None where it cannot be read."""
+    try:
+        with open("/proc/self/smaps") as f:
+            heap = False
+            for line in f:
+                head = line.split(maxsplit=1)
+                if head and "-" in head[0] and not head[0].endswith(":"):
+                    heap = line.rstrip().endswith("[heap]")
+                elif heap and line.startswith("Rss:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        return None
+    return 0
+
+
+def host_reading() -> dict:
+    """This process's host memory (``repro_torch.utils.host_memory``,
+    collected and trimmed first), with the trace that tells its parts
+    apart: ``threads`` (each new thread's stack is touched), ``pinned``
+    (the page-locked bytes the caching host allocator holds: the copies
+    gloo makes of the card's tensors) and ``heap`` (``heap_rss``)."""
+    from repro_torch.utils import host_memory
+    gc.collect()
+    m = host_memory()
+    m["threads"] = len(os.listdir("/proc/self/task"))
+    m["pinned"] = torch.cuda.host_memory_stats().get(
+        "allocated_bytes.current", 0)
+    m["heap"] = heap_rss()
+    return m
+
+
+class HostSteps:
+    """A process's host readings step by step: the first at construction,
+    ``mark()`` before a step, ``point(name, ...)`` after it (the next
+    step's base).  A gated point holds the step's ``RssAnon + RssFile``
+    delta to PMESH_MEM_SLACK x ``slab`` host bytes + ``small`` +
+    PMESH_HOST_FIXED + ``extra`` + ``graphs`` x PMESH_GRAPH_HOST, and
+    records ``whole``: the bytes of the rows whose whole read the bound
+    must not let through.  Every point also keeps its delta since the
+    first reading and each traced field's."""
+
+    def __init__(self):
+        self.first = self.last = host_reading()
+        self.points = {}
+
+    def mark(self) -> None:
+        self.last = host_reading()
+
+    def point(self, name: str, slab: int = 0, small: int = 0,
+              extra: int = 0, graphs: int = 0, whole: int | None = None
+              ) -> None:
+        m = host_reading()
+        rss = lambda r: r["RssAnon"] + r["RssFile"]
+        q = {k: (None if m[k] is None or self.last[k] is None
+                 else m[k] - self.last[k]) for k in HOST_FIELDS}
+        q.update(delta=rss(m) - rss(self.last),
+                 since_first=rss(m) - rss(self.first),
+                 bound=None if whole is None else (
+                     int(PMESH_MEM_SLACK * slab) + small + PMESH_HOST_FIXED
+                     + extra + graphs * PMESH_GRAPH_HOST),
+                 slab=slab, small=small, extra=extra, graphs=graphs,
+                 whole=whole, hwm=m.get("VmHWM"))
+        self.points[name] = q
+        self.last = m
+
+
+def host_slab(*engines) -> int:
+    """The bytes of the engines' slabs that live on the host."""
+    return sum(t.numel() * t.element_size() for e in engines
+               for t in e._layout.slabs[0]
+               if isinstance(t, torch.Tensor) and t.device.type == "cpu")
+
+
+def host_gate(who: str, mem: dict) -> str:
+    """Check every gated point of ``mem`` (``HostSteps.points``) against
+    its bound, and that the bound's slack is below the rows it names
+    (a whole read of them fails it); the line [pmesh] prints (MB: 1e6
+    bytes; the ungated steps are the one-time costs of a process's first
+    full-size run, shown with their trace)."""
+    mb = lambda v: "not measured" if v is None else f"{v / 1e6:.1f}"
+    out = []
+    for name, q in mem.items():
+        trace = (f"anon {mb(q['RssAnon'])}, file {mb(q['RssFile'])}; heap "
+                 f"{mb(q['heap'])}, pinned {mb(q['pinned'])}, threads "
+                 f"{q['threads']:+d}; since the first reading "
+                 f"{mb(q['since_first'])}")
+        if q["bound"] is None:
+            out.append(f"{name} {mb(q['delta'])} MB, not gated ({trace})")
+            continue
+        check(q["delta"] <= q["bound"], f"[pmesh] {who} host bytes in "
+              f"{name}: RssAnon + RssFile grew {q['delta']}, over the bound "
+              f"{q['bound']} ({q})")
+        slack = q["bound"] - q["delta"]
+        check(slack < q["whole"], f"[pmesh] {who} {name}: the bound's slack "
+              f"{slack} would let a whole read of {q['whole']} bytes of "
+              f"rows through")
+        out.append(
+            f"{name} {mb(q['delta'])} MB ({trace}; bound {mb(q['bound'])} = "
+            f"slab {mb(q['slab'])} x {PMESH_MEM_SLACK} + small "
+            f"{mb(q['small'])} + fixed {mb(PMESH_HOST_FIXED)}"
+            + (f" + draws {mb(q['extra'])}" if q["extra"] else "")
+            + (f" + {q['graphs']} graphs x {mb(PMESH_GRAPH_HOST)}"
+               if q["graphs"] else "")
+            + f"; slack {mb(slack)} < whole rows {mb(q['whole'])}"
+            + ("" if q["hwm"] is None else f"; peak {mb(q['hwm'])}") + ")")
+    return "; ".join(out)
+
+
+def pca_draw_bytes(gd, timesteps) -> int:
+    """The rows the host channel's first rank reads to fit a PCA base's
+    bases for ``timesteps`` (its largest fit: the distinct rows drawn)."""
+    b = gd.base
+    if b.name != "pca" or b._mesh.host_rank != 0:
+        return 0
+    return max(np.unique(b.fit_draws(b.patch_size(int(t)))[0]).size
+               for t in timesteps) * b.store.dim * 4
+
+
 def lib_warm() -> None:
     """Allocate the libraries' fixed workspaces for the current stream
     (cuBLAS's and cuBLASLt's: a product, a batched product and an addmm)
@@ -4612,6 +4761,9 @@ def pmesh_engines(full, mesh, ikw) -> dict:
 
 
 PMESH_PATCH_B = 4          # queries of the patch bases' trajectories
+# the cifar10 preset's epoch: windows of its widest cluster and one spare,
+# so that its capacity padding stays near 1.5x its 8192 rows
+PMESH_PATCH_INGEST = dict(slack=1.0, spare_frac=0.01)
 PMESH_RCFG = dict(max_queue=64, backoff_base_s=0.001, backoff_max_s=0.01,
                   breaker_cooldown_s=0.5)          # [runtime]'s settings
 PMESH_FAULTS = dict(seed=3, nan_rate=0.05, error_rate=0.05, oom_rate=0.03,
@@ -4715,14 +4867,17 @@ def wiener_bytes(w) -> int:
     return sum(t.numel() * t.element_size() for t in (w.mu, w.V, w.lam))
 
 
-def pmesh_runtime(mesh, host, sched, inject: bool) -> tuple:
+def pmesh_runtime(mesh, host, sched, inject: bool, on_point=None) -> tuple:
     """``ServeRuntime`` over ``ServeEngine(mesh=mesh)`` on the card: the
     Wiener rung from the slabs' sums (its seconds), warmup (graphs on
     NCCL), the bytes it holds after warmup against slab + Wiener rung +
-    ``pmesh_workspace`` (each term), [runtime]'s clean traffic (nothing
-    built or captured after warmup), then the fault ladder on a second
-    runtime with PMESH_FAULTS installed where ``inject``.  Returns the
-    results and the first runtime."""
+    ``pmesh_workspace`` (each term; ``on_point(name, engine, graphs)``
+    takes the host's readings after the Wiener rung (with the
+    construction) and after warmup, with the CUDA graphs each step
+    captured), [runtime]'s
+    clean traffic (nothing built or captured after warmup), then the fault ladder on a second runtime with
+    PMESH_FAULTS installed where ``inject``.  Returns the results and the
+    first runtime."""
     import contextlib
 
     from repro_torch.launch.faults import FaultConfig, injected
@@ -4736,6 +4891,8 @@ def pmesh_runtime(mesh, host, sched, inject: bool) -> tuple:
     t0 = time.perf_counter()
     rt._wiener_den()
     wiener_s = time.perf_counter() - t0
+    if on_point is not None:
+        on_point("Wiener rung", eng, 0)
     stats = rt.warmup()
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated() - base
@@ -4743,6 +4900,8 @@ def pmesh_runtime(mesh, host, sched, inject: bool) -> tuple:
              "workspace bound": pmesh_workspace(eng)}
     check(held <= sum(terms.values()), f"[pmesh] runtime on {mesh}: {held} "
           f"bytes held after warmup, over {terms}")
+    if on_point is not None:
+        on_point("runtime warmup", eng, stats["graphs_captured"])
     c0, b0 = eng._captures, eng._builds
     with runtime_probe(rt) as probe:
         tickets, wall = pmesh_traffic(rt, 0)
@@ -4768,7 +4927,7 @@ def pmesh_runtime(mesh, host, sched, inject: bool) -> tuple:
     return out, rt
 
 
-def pmesh_patches(mesh, pst, sched, x_P) -> dict:
+def pmesh_patches(mesh, pst, sched, x_P, on_caches=None) -> dict:
     """GoldDiff over the PCA and the Kamb base on ``mesh`` (the preset
     store ``pst`` on the host): the bytes held after the PCA caches
     (slab, slot map, feature cache, ``pmesh_workspace`` for the served
@@ -4776,7 +4935,9 @@ def pmesh_patches(mesh, pst, sched, x_P) -> dict:
     static trajectory from ``x_P`` (counted: every wrapper's launches)
     with its peak against what it held plus ``patch_support_bytes`` and
     the step workspace, and its wall.  The libraries' workspaces are
-    allocated first (``lib_warm``), so neither bound carries them."""
+    allocated first (``lib_warm``), so neither bound carries them.
+    ``on_caches(name, gd, timesteps)`` takes the host's reading after
+    each base's caches."""
     from repro_torch.core import (GoldDiff, make_denoiser, sample,
                                   sampling_timesteps)
     out = {}
@@ -4786,9 +4947,12 @@ def pmesh_patches(mesh, pst, sched, x_P) -> dict:
         base = reset_peak()
         gd = GoldDiff(make_denoiser(name, pst, sched, device="cpu"),
                       mesh=mesh)
-        cache = gd.base.build_caches(sampling_timesteps(sched, STEPS)[:-1])
+        ts = sampling_timesteps(sched, STEPS)[:-1]
+        cache = gd.base.build_caches(ts)
         torch.cuda.synchronize()
         held = torch.cuda.memory_allocated() - base
+        if on_caches is not None:
+            on_caches(name, gd, ts)
         ws = pmesh_workspace(gd.engine, batch=b, lib=0)
         terms = {"slab": slab_bytes(gd.engine),
                  "slot map": gd.base._slots.numel() * 4,
@@ -4848,22 +5012,76 @@ def wall_once(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
+def pmesh_warm(mesh, sched, kw: dict) -> None:
+    """A gloo rank's entry points once over an in-memory cifar_like store
+    of PMESH_WARM_N rows, before its first host reading: every route
+    (every kernel loaded), a select, a runtime's warmup and the patch
+    bases' caches and two steps, so that the libraries' code pages a
+    first call faults in, the kernels' modules and the interpreter's
+    lazy state lie in the baseline and the readings count what the
+    epochs' slabs bring.  Also the device rule's check: a gloo mesh given
+    no device lays a card store out on the card (its devices)."""
+    from repro_torch.core import (GoldDiff, OptimalDenoiser, make_denoiser,
+                                  sample, sampling_timesteps)
+    from repro_torch.data import make_dataset
+    from repro_torch.distributed import ProcessMesh
+    from repro_torch.index import build_index
+    from repro_torch.index.shard import shard_layout
+    from repro_torch.launch.runtime import RuntimeConfig, ServeRuntime
+    from repro_torch.launch.serve import ServeEngine
+    small = make_dataset("cifar_like", n=PMESH_WARM_N, seed=2, device="cpu")
+    bare = shard_layout(small.to("cuda"), ProcessMesh("data"), "data")
+    devices = (str(mesh.device), str(bare.X.device),
+               str(bare.slabs[0].X.device))
+    del bare
+    x = torch.randn(B, small.dim,
+                    generator=torch.Generator().manual_seed(3)).cuda()
+    full = OptimalDenoiser(small, sched, device="cpu")
+    gds = {"exact": GoldDiff(full, mesh=mesh),
+           "indexed": GoldDiff(full, mesh=mesh, cfg=kw["cfg"],
+                               index=build_index(small),
+                               probe_schedule=kw["probes"])}
+    for route in SHARD_ROUTES:
+        gd = gds["indexed" if route == "indexed" else "exact"]
+        rk = ROUTE_KW[route]
+        with (routed(gd.engine, rk["fused"], rk["screen"]) if rk
+              else contextlib.nullcontext()):
+            route_trajectory(gd, route, sched, x)()
+        gd.engine.select(x, PMESH_TS[0])
+    ServeRuntime(ServeEngine(small, num_steps=STEPS, max_batch=B, mesh=mesh),
+                 RuntimeConfig(**PMESH_RCFG)).warmup()
+    for name in ("pca", "kamb"):
+        lib_warm()
+        gd = GoldDiff(make_denoiser(name, small, sched, device="cpu"),
+                      mesh=mesh)
+        gd.base.build_caches(sampling_timesteps(sched, STEPS)[:-1])
+        sample(gd, sched, (PMESH_PATCH_B, small.dim), num_steps=2,
+               x_init=x[:PMESH_PATCH_B])
+    torch.cuda.synchronize()
+    del gds, full, gd
+    return devices
+
+
 def pmesh_rank(rank: int, world: int, port: int, pdir: str, kw: dict
                ) -> None:
-    """One gloo rank of [pmesh] on the card: the store's host copy, the
-    exact and indexed engines over a ProcessMesh of ``world`` (their
-    bytes on the card after construction), every route's trajectory from
-    x_T counted alone and timed, and ``select`` at PMESH_TS, written to
+    """One gloo rank of [pmesh] on the card: it warms its entry points on
+    a small store (``pmesh_warm``) and takes its first host reading, opens
+    [lifecycle]'s committed cifar_like epoch and the cifar10 preset's
+    epoch by slab (``StoreLifecycle.open_slab``), builds the exact and
+    indexed engines over a ProcessMesh of ``world`` (their bytes on the
+    card after construction), runs every route's trajectory from x_T
+    counted alone and timed, ``select`` at PMESH_TS, the serving runtime
+    and the patch bases, with host readings step by step (``HostSteps``:
+    the opens, the engines, the Wiener rung, the runtime's warmup and the
+    PCA caches gated, each against its whole rows: the preset's; the
+    routes and the runtime's traffic recorded); all written to
     ``pdir/rank<r>.pt`` for the parent to check."""
     import datetime
 
     import torch.distributed as dist
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import OptimalDenoiser, make_schedule
-    from repro_torch.core.dataset import DatasetStore, restrict
-    from repro_torch.distributed import ProcessMesh
-    from repro_torch.index.shard import shard_layout
-    from repro_torch.index.store import GoldenIndex
+    from repro_torch.index import StoreLifecycle
     from repro_torch.launch.mesh import make_process_mesh
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4871,20 +5089,12 @@ def pmesh_rank(rank: int, world: int, port: int, pdir: str, kw: dict
         "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
         world_size=world, timeout=datetime.timedelta(seconds=PMESH_PG_S))
     try:
-        inp = torch.load(Path(pdir) / "inputs.pt", mmap=True)
-        st = DatasetStore(**inp["store"], image_shape=inp["image_shape"])
-        ix = GoldenIndex(**inp["index"], max_cluster=inp["max_cluster"])
+        inp = torch.load(Path(pdir) / "inputs.pt")
         sched = make_schedule("ddpm_linear", 1000)
         x_T = inp["x_T"].cuda()
         # the default device under gloo: the card (LOCAL_RANK's, else
         # the rank's, modulo the one card)
         mesh = make_process_mesh((world,), ("data",))
-        # a gloo mesh given no device lays a card store out on the card
-        small = restrict(st, np.arange(1000)).to("cuda")
-        bare = shard_layout(small, ProcessMesh("data"), "data")
-        devices = (str(mesh.device), str(bare.X.device),
-                   str(bare.slabs[0].X.device))
-        del small, bare
         # gloo takes the card's tensors as they are (the merges' calls)
         r = torch.full((4,), float(rank + 1), device="cuda")
         dist.all_reduce(r)
@@ -4897,12 +5107,29 @@ def pmesh_rank(rank: int, world: int, port: int, pdir: str, kw: dict
                  and g.cpu().tolist() == [float(i) for i in range(world)
                                           for _ in range(4)]
                  and bool((c == 0).all()))
+        t0 = time.perf_counter()
+        devices = pmesh_warm(mesh, sched, kw)
+        warm_s = time.perf_counter() - t0
+        hs = HostSteps()
+        t0 = time.perf_counter()
+        ep = StoreLifecycle.open_slab(kw["root"], mesh)
+        pep = StoreLifecycle.open_slab(kw["patch_root"], mesh)
+        open_s = time.perf_counter() - t0
+        (st, ix), (pst, _) = ep, pep
+        small = ep.small_bytes + pep.small_bytes
+        # a whole read of the preset's rows (the smaller epoch) must fail
+        # every gated step
+        whole = pst.X.numel() * pst.X.element_size()
+        hs.point("open_slab", 0, small, whole=whole)
         gds = pmesh_engines(OptimalDenoiser(st, sched, device="cpu"), mesh,
                             dict(cfg=kw["cfg"], index=ix,
                                  probe_schedule=kw["probes"]))
+        hs.point("engines", host_slab(*(gd.engine for gd, _, _ in
+                                        gds.values())), small, whole=whole)
         res = {"probe": probe, "mem": {k: v[1:] for k, v in gds.items()},
                "traj": {}, "counts": {}, "want": {}, "wall": {}, "select": {},
-               "devices": devices}
+               "devices": devices, "warm_s": warm_s, "open_s": open_s,
+               "host": hs.points}
         held = reset_peak()
         for route in SHARD_ROUTES:
             eng = gds["indexed" if route == "indexed" else "exact"][0].engine
@@ -4919,25 +5146,36 @@ def pmesh_rank(rank: int, world: int, port: int, pdir: str, kw: dict
             res["want"][route] = route_launches(list(res["counts"][route]),
                                                 route, eng, 1)
         for t in PMESH_TS:
-            xt = pmesh_xt(st, sched, t).cuda()
+            xt = inp["x_sel"][t].cuda()
             for kind, (gd, _, _) in gds.items():
                 res["select"][kind, t] = gd.engine.select(xt, t).cpu()
         res["peak"] = pmesh_peak(held, [gd.engine for gd, _, _ in
                                         gds.values()],
                                  f"rank {rank}'s routes and selects")
         del gds
+        hs.point("routes and selects")
+
+        def on_point(name, eng, graphs):
+            hs.point(name, host_slab(eng), small, graphs=graphs, whole=whole)
+
         # the serving runtime over the ranks, faults on rank 1 alone
-        res["runtime"], _ = pmesh_runtime(mesh, st, sched, inject=rank == 1)
-        pst = DatasetStore(**inp["patch_store"],
-                           image_shape=inp["image_shape"])
-        res["patch"] = pmesh_patches(mesh, pst, sched,
-                                     x_T[:PMESH_PATCH_B])
+        res["runtime"], _ = pmesh_runtime(mesh, st, sched, inject=rank == 1,
+                                          on_point=on_point)
+        hs.point("runtime traffic and faults")
+
+        def on_caches(name, gd, ts):
+            if name == "pca":
+                hs.point("PCA caches", host_slab(gd.engine), small,
+                         pca_draw_bytes(gd, ts), whole=whole)
+
+        res["patch"] = pmesh_patches(mesh, pst, sched, x_T[:PMESH_PATCH_B],
+                                     on_caches)
         torch.save(res, Path(pdir) / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()
 
 
-def pmesh_nccl(ctx: dict, host, want: dict, one: dict, pst, x_P,
+def pmesh_nccl(ctx: dict, roots: dict, want: dict, one: dict, est, x_P,
                patch_want: dict) -> tuple:
     """[pmesh]'s one-rank NCCL ProcessMesh in this process (the group is
     the caller's): its bytes after construction, every route against
@@ -4950,11 +5188,17 @@ def pmesh_nccl(ctx: dict, host, want: dict, one: dict, pst, x_P,
     (``pmesh_runtime``): its clean traffic against the one-card runtime's
     on the same requests (TRAJ_TOL), images/s and p50/p99 in turns with
     it, the path's launches, the fault ladder; and GoldDiff over the PCA
-    and Kamb bases (``pmesh_patches``) against one card.  Returns the
+    and Kamb bases (``pmesh_patches``) against one card.  The rank opens
+    the two epochs by slab (``roots``); this process also holds the
+    one-card references (``one``, over the epoch's card view ``est``), so
+    its host readings are its own steps' deltas: the opens and the
+    engines from a reading just before them, the runtime's warmup and
+    the PCA caches each from one just before its own step.  Returns the
     path's counts and the one-card runtime's clean deliveries."""
     from repro_torch.core import (GoldDiff, OptimalDenoiser, build_plan,
                                   sample_plan)
     from repro_torch.distributed import LocalMesh
+    from repro_torch.index import StoreLifecycle
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_process_mesh
     from repro_torch.launch.serve import Request, ServeEngine
@@ -4963,10 +5207,22 @@ def pmesh_nccl(ctx: dict, host, want: dict, one: dict, pst, x_P,
     check(mesh.backend == "nccl" and mesh.device.type == "cuda"
           and mesh.capturable("data", mesh.device),
           f"[pmesh] the one-rank mesh {mesh}")
-    ikw = dict(cfg=ctx["indexed_cfg"], index=ctx["cix"],
+    hs = HostSteps()
+    ep = StoreLifecycle.open_slab(roots["root"], mesh)
+    pep = StoreLifecycle.open_slab(roots["patch_root"], mesh)
+    (host, hix), (pst, _) = ep, pep
+    small = ep.small_bytes + pep.small_bytes
+    # a whole read of the preset's rows must fail a step that captures no
+    # graph; of the cifar_like epoch's, the runtime's warmup (its graphs)
+    whole = {0: pst.X.numel() * pst.X.element_size(),
+             1: host.X.numel() * host.X.element_size()}
+    hs.point("open_slab", 0, small, whole=whole[0])
+    ikw = dict(cfg=ctx["indexed_cfg"], index=hix,
                probe_schedule=ctx["probes"])
     gds = pmesh_engines(OptimalDenoiser(host, sched, device="cpu"), mesh,
                         ikw)
+    hs.point("engines", host_slab(*(gd.engine for gd, _, _ in gds.values())),
+             small, whole=whole[0])
     for kind, (gd, mem, slab) in gds.items():
         check(mem <= PMESH_MEM_SLACK * slab, f"[pmesh] nccl {kind}: "
               f"{mem} bytes allocated after construction, slab {slab}")
@@ -5066,7 +5322,11 @@ def pmesh_nccl(ctx: dict, host, want: dict, one: dict, pst, x_P,
     gc.collect()
     # -- the serving runtime over the NCCL rank ------------------------------
     from repro_torch.launch.runtime import RuntimeConfig, ServeRuntime
-    rt_res, rt = pmesh_runtime(mesh, host, sched, inject=True)
+    hs.mark()
+    rt_res, rt = pmesh_runtime(
+        mesh, host, sched, inject=True, on_point=lambda name, eng, graphs:
+        hs.point(name, host_slab(eng), graphs=graphs,
+                 whole=whole[bool(graphs)]))
     print(f"[pmesh] nccl S=1 runtime: warmup {rt_res['graphs']} CUDA graphs "
           f"in {rt_res['warmup_s']:.2f} s after {rt_res['wiener_s']:.2f} s "
           f"for the Wiener rung from the slab's sums; held after warmup "
@@ -5074,7 +5334,7 @@ def pmesh_nccl(ctx: dict, host, want: dict, one: dict, pst, x_P,
               f"{k} {v}" for k, v in rt_res["terms"].items())
           + f"; clean traffic ({LIVE_REQS} requests, 1-4 images, two a "
           f"step): 0 captures and 0 builds after warmup")
-    one_srv = ServeEngine(ctx["store"], num_steps=STEPS, max_batch=B)
+    one_srv = ServeEngine(est, num_steps=STEPS, max_batch=B)
     one_rt = ServeRuntime(one_srv, RuntimeConfig(**PMESH_RCFG))
     one_rt._wiener = rt._wiener          # the same statistics, on this card
     one_rt.warmup()
@@ -5111,7 +5371,17 @@ def pmesh_nccl(ctx: dict, host, want: dict, one: dict, pst, x_P,
     del one_rt, one_srv, rt
     gc.collect()
     # -- the patch bases over the NCCL rank ----------------------------------
-    pres = pmesh_patches(mesh, pst, sched, x_P)
+    hs.mark()
+
+    def on_caches(name, gd, ts):
+        if name == "pca":
+            hs.point("PCA caches", host_slab(gd.engine), 0,
+                     pca_draw_bytes(gd, ts), whole=whole[0])
+
+    pres = pmesh_patches(mesh, pst, sched, x_P, on_caches)
+    print(f"[pmesh] nccl S=1 host bytes, each step's own delta (this "
+          f"process also holds the one-card references): "
+          + host_gate("nccl S=1", hs.points))
     for name, q in pres.items():
         want_p, wall_p = patch_want[name]
         err = float((q["traj"] - want_p).abs().max())
@@ -5129,12 +5399,20 @@ def pmesh_phase(ctx: dict) -> dict:
     """[pmesh]: the engine over a ``ProcessMesh``, one shard a rank.
 
     PMESH_S gloo ranks spawned on the one card (the parent built every
-    kernel, so the ranks only load them) from the store's host copy: a
-    probe that gloo takes the card's tensors; each rank's bytes on the
+    kernel, so the ranks only load them), each opening [lifecycle]'s
+    committed cifar_like epoch (``ctx["lifecycle"]``) and the cifar10
+    preset's epoch by slab (``StoreLifecycle.open_slab``): a probe that
+    gloo takes the card's tensors; each rank's host bytes step by step
+    (``HostSteps``): the opens, the engines, the Wiener rung, the
+    runtime's warmup and the PCA caches each within its bound
+    (PMESH_MEM_SLACK x the slabs it holds on the host + the small arrays
+    + PMESH_HOST_FIXED + the step's named terms), whose slack a whole
+    read of the preset's rows would exceed; each rank's bytes on the
     card after constructing the exact and the indexed engine, at most
     its slab's plus 5%; every route (staged, streamed, fused, indexed at
     INDEXED_CFG, full scan, the plan, eager over gloo) from [sharded]'s
-    x_T against the one-card trajectory within TRAJ_TOL, the ranks'
+    x_T against the one-card trajectory over the same epoch's
+    ``view("cuda")`` within TRAJ_TOL, the ranks'
     trajectories bit-equal, each counted alone (every shard-local
     kernel once a step a rank; the unsharded entries of kernels 3 and 4
     never); ``select`` at PMESH_TS with overlap 1.0 or ties at a cut, as
@@ -5151,14 +5429,17 @@ def pmesh_phase(ctx: dict) -> dict:
     import torch.distributed as dist
     import torch.multiprocessing as mp
     from repro_torch.core import GoldDiff, OptimalDenoiser
-    from repro_torch.index.store import ARRAY_FIELDS
+    from repro_torch.index import IngestConfig, StoreLifecycle
     from repro_torch.kernels import _build
     t_phase = time.perf_counter()
     _build.build(PMESH_SOURCES)
-    st, sched, x_T, cix = ctx["store"], ctx["sched"], ctx["x_T"], ctx["cix"]
-    host = st.to("cpu")
+    sched, x_T = ctx["sched"], ctx["x_T"]
+    # the one-card references: [lifecycle]'s committed epoch, whole, on
+    # the card (what the ranks open by slab)
+    root = ctx["lifecycle"].name
+    st, eix = ctx.pop("lifecycle_state").view("cuda")
     full = OptimalDenoiser(st, sched, device=st.device)
-    ikw = dict(cfg=ctx["indexed_cfg"], index=cix,
+    ikw = dict(cfg=ctx["indexed_cfg"], index=eix,
                probe_schedule=ctx["probes"])
     one = {"exact": GoldDiff(full), "indexed": GoldDiff(full, **ikw)}
     want = {}
@@ -5168,39 +5449,42 @@ def pmesh_phase(ctx: dict) -> dict:
         with (routed(gd.engine, rk["fused"], rk["screen"]) if rk
               else contextlib.nullcontext()):
             want[route] = route_trajectory(gd, route, sched, x_T)()
-    # the patch bases' store (the cifar10 preset's) and their one-card
-    # static trajectories from x_T's first rows
+    # the patch bases' store (the cifar10 preset's), committed as an epoch
+    # of its own that the ranks open by slab, and its one-card static
+    # trajectories from x_T's first rows
     from repro_torch.configs.golddiff import PRESETS
     from repro_torch.core import make_denoiser, sample
     from repro_torch.data import make_dataset
+    from repro_torch.index import build_index
     pre = PRESETS["cifar10"]
-    pst = make_dataset(pre.dataset, device="cpu", **pre.dataset_kw)
-    pst_card = pst.to("cuda")
+    pdata = dataclasses.replace(make_dataset(pre.dataset, device="cuda",
+                                             **pre.dataset_kw), labels=None)
+    ptmp = tempfile.TemporaryDirectory(prefix="pmesh_patch_")
+    pst = StoreLifecycle.create(ptmp.name, pdata, build_index(pdata),
+                                IngestConfig(**PMESH_PATCH_INGEST)
+                                ).view("cuda")[0]
+    del pdata
     x_P = x_T[:PMESH_PATCH_B]
     patch_want = {}
     for name in ("pca", "kamb"):
-        gd = GoldDiff(make_denoiser(name, pst_card, sched, device="cuda"))
+        gd = GoldDiff(make_denoiser(name, pst, sched, device="cuda"))
         fn = lambda: sample(gd, sched, tuple(x_P.shape), num_steps=STEPS,
                             x_init=x_P)
         patch_want[name] = (fn().cpu(), wall_once(fn))
         del gd, fn
-    del pst_card
     pdir = ROOT / "build" / "pmesh"
     pdir.mkdir(parents=True, exist_ok=True)
     for f in pdir.glob("rank*.pt"):
         f.unlink()
-    torch.save({"store": {f: getattr(host, f) for f in
-                          ("X", "proxy", "x_norms", "proxy_norms")},
-                "patch_store": {f: getattr(pst, f) for f in
-                                ("X", "proxy", "x_norms", "proxy_norms")},
-                "image_shape": host.image_shape,
-                "index": {f: getattr(cix, f).cpu() for f in ARRAY_FIELDS},
-                "max_cluster": cix.max_cluster, "x_T": x_T.cpu()},
+    # the ranks' inputs: the queries only (the stores are the epochs)
+    torch.save({"x_T": x_T.cpu(),
+                "x_sel": {t: pmesh_xt(st, sched, t).cpu() for t in PMESH_TS}},
                pdir / "inputs.pt")
     t0 = time.perf_counter()
     procs = mp.start_processes(
         pmesh_rank, args=(PMESH_S, free_port(), str(pdir),
-                          dict(cfg=ctx["indexed_cfg"], probes=ctx["probes"])),
+                          dict(cfg=ctx["indexed_cfg"], probes=ctx["probes"],
+                               root=root, patch_root=ptmp.name)),
         nprocs=PMESH_S, join=False, start_method="spawn")
     try:
         while not procs.join(timeout=5):      # a rank's error raises here
@@ -5242,8 +5526,15 @@ def pmesh_phase(ctx: dict) -> dict:
           f"the card after construction, rank by rank: " + "; ".join(
               f"{kind} {mem} (slab {slab}, {mem / slab:.4f}x)"
               for q in ranks for kind, (mem, slab) in q["mem"].items())
-          + f"; the store's rows {host.X.numel() * 4} bytes, / S = "
-          f"{host.X.numel() * 4 // s}")
+          + f"; the epoch's rows {st.X.numel() * 4} bytes, / S = "
+          f"{st.X.numel() * 4 // s}")
+    for r, q in enumerate(ranks):
+        print(f"[pmesh] gloo rank {r} host bytes step by step, each from "
+              f"a reading just before it (the first taken after warming its "
+              f"entry points on a {PMESH_WARM_N}-row store in "
+              f"{q['warm_s']:.1f} s; open_slab of both epochs "
+              f"{q['open_s']:.3f} s): " + host_gate(f"gloo rank {r}",
+                                                   q["host"]))
     print(f"[pmesh] {s} gloo ranks: the default device {res['devices'][0]}; "
           f"a card store's layout over a gloo mesh given no device on "
           f"{res['devices'][1]}; peak allocated over the routes and "
@@ -5251,7 +5542,7 @@ def pmesh_phase(ctx: dict) -> dict:
               f"{q['peak']['peak']} ({q['peak']['peak'] - q['peak']['held']}"
               f" over the {q['peak']['held']} held, workspace bound "
               f"{q['peak']['bound']})" for q in ranks)
-          + f"; another shard's rows {host.X.numel() * 4 // s} bytes")
+          + f"; another shard's rows {st.X.numel() * 4 // s} bytes")
     for route in SHARD_ROUTES:
         err = max(float((q["traj"][route] - want[route].cpu()).abs().max())
                   for q in ranks)
@@ -5262,7 +5553,7 @@ def pmesh_phase(ctx: dict) -> dict:
                           if v))
     swaps, min_ov = 0, 1.0
     for t in PMESH_TS:
-        xt = pmesh_xt(st, sched, t)
+        xt = pmesh_xt(st, sched, t)         # the queries the ranks were sent
         for kind in ("exact", "indexed"):
             e0 = one[kind].engine
             want_sel = e0.select(xt, t)
@@ -5327,8 +5618,9 @@ def pmesh_phase(ctx: dict) -> dict:
         "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
         world_size=1, timeout=datetime.timedelta(seconds=PMESH_PG_S))
     try:
-        nccl, one_clean = pmesh_nccl(ctx, host, want, one, pst, x_P,
-                                     patch_want)
+        nccl, one_clean = pmesh_nccl(ctx, dict(root=root,
+                                               patch_root=ptmp.name),
+                                     want, one, st, x_P, patch_want)
     finally:
         gc.collect()          # the engines and their graphs, before the comm
         torch.cuda.synchronize()
@@ -5340,6 +5632,8 @@ def pmesh_phase(ctx: dict) -> dict:
     print(f"[pmesh] {s} gloo ranks' runtime: clean deliveries within "
           f"{max(float((q['runtime']['clean']['images'] - one_clean).abs().max()) for q in ranks):.3g}"
           f" of the one-card runtime's")
+    ptmp.cleanup()
+    ctx["lifecycle"].cleanup()
     print(f"[pmesh] phase {time.perf_counter() - t_phase:.1f} s")
     return {f"gloo S={s} rank 0": res["counts"], "nccl S=1": nccl}
 
@@ -6626,9 +6920,9 @@ def main() -> None:
               f"{n}'s bf16 instance never launched on the bf16 {p} path")
 
     # -- 7d. the live store: the lifecycle and the serving runtime ------------
-    path_counts["runtime"] = live_store_phase(dict(
-        store=st, cix=cix, sched=sched, indexed_cfg=indexed_cfg,
-        probes=scale_probes, x_T=x_T, kernels=kernels))
+    live = dict(store=st, cix=cix, sched=sched, indexed_cfg=indexed_cfg,
+                probes=scale_probes, x_T=x_T, kernels=kernels)
+    path_counts["runtime"] = live_store_phase(live)
 
     # -- 7e. sharded: the store over a LocalMesh on the one card --------------
     sharded_results, sharded_counts = sharded_phase(dict(
@@ -6637,8 +6931,9 @@ def main() -> None:
 
     # -- 7f. the engine over a ProcessMesh: gloo ranks, one NCCL rank ---------
     pmesh_counts = pmesh_phase(dict(
-        store=st, sched=sched, x_T=x_T, cix=cix, indexed_cfg=indexed_cfg,
-        probes=scale_probes))
+        sched=sched, x_T=x_T, indexed_cfg=indexed_cfg, probes=scale_probes,
+        lifecycle=live.pop("lifecycle"),
+        lifecycle_state=live.pop("lifecycle_state")))
     print("[pmesh] path launches (a rank, by route): " + "; ".join(
         f"{path} {route} " + ", ".join(f"{n} {v}" for n, v in c.items() if v)
         for path, by in pmesh_counts.items() for route, c in by.items()))

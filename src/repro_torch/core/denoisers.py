@@ -172,14 +172,15 @@ def _rank_stats(store: DatasetStore, mesh, rows, rank: int | None):
     x x^T), summed over the host channel; the first rank's ``eigh`` of
     the covariance, eigenvalues descending (the SVD form's order),
     broadcast."""
+    from repro_torch.index.shard import host_rows
     n, d = store.n, store.dim
     rows = np.asarray(rows, np.int64)
     s1, s2 = np.zeros(d), np.zeros((d, d))
     for c in range(0, len(rows), 8192):         # float64 a chunk at a time
-        x = store.X[torch.as_tensor(rows[c:c + 8192])].numpy() \
-            .astype(np.float64)
+        x = host_rows(store.X, rows[c:c + 8192]).astype(np.float64)
         s1 += x.sum(0)
         s2 += x.T @ x
+        del x
     sums = mesh.host_sum(np.concatenate([s1, s2.ravel()]))
     out = None
     if mesh.host_rank == 0:
@@ -252,16 +253,16 @@ class PatchDenoiser:
         rows from the ranks (``index.shard.gather_support``, one
         collective a query group).  It never holds another rank's rows on
         the device; the full patch scan (no support) raises."""
-        from repro_torch.index.shard import slab_slots
+        from repro_torch.index.shard import host_rows, slab_slots
         sl = engine._layout.slabs[0]
         self.store, self.device = engine.store, engine.device
         if sl.X.dtype == torch.float32:
             self._slab = sl.X
         else:                     # bf16 engine rows: the base reads fp32
-            self._slab = torch.zeros(sl.X.shape, dtype=torch.float32,
-                                     device=self.device)
-            self._slab[: sl.n_rows] = self.store.X[
-                torch.as_tensor(engine.slab_ids())].to(self.device)
+            at, ids = engine.slab_rows()
+            slab = np.zeros(tuple(sl.X.shape), np.float32)
+            host_rows(self.store.X, ids, slab, at)
+            self._slab = torch.from_numpy(slab).to(self.device)
         self._slots = slab_slots(sl, self.store.n)
         self._mesh = engine.mesh
 
@@ -467,19 +468,30 @@ class PCADenoiser(PatchDenoiser):
                                              device=self.device)
         return self._bases[patch]
 
-    def _fit_basis(self, patch: int) -> np.ndarray:
+    def fit_draws(self, patch: int) -> tuple:
+        """The reference's draws for the basis of ``patch``: ``(rows,
+        ys, xs)``, each patch's dataset row and top-left corner."""
         rng = np.random.default_rng(self.seed + patch)
-        n = self.store.n
         cnt = min(self.num_fit_patches, 16384)
-        ii = rng.integers(0, n, cnt)
-        hh = rng.integers(0, max(self.h - patch, 0) + 1, cnt)
-        ww = rng.integers(0, max(self.w - patch, 0) + 1, cnt)
-        dev = self.store.device
+        return (rng.integers(0, self.store.n, cnt),
+                rng.integers(0, max(self.h - patch, 0) + 1, cnt),
+                rng.integers(0, max(self.w - patch, 0) + 1, cnt))
+
+    def _fit_basis(self, patch: int) -> np.ndarray:
+        ii, hh, ww = self.fit_draws(patch)
+        cnt = ii.size
+        if self._mesh is None:
+            dev, src = self.store.device, self.store.X
+        else:                     # the drawn rows alone, read from the host
+            from repro_torch.index.shard import host_rows
+            uniq, ii = np.unique(ii, return_inverse=True)
+            dev, src = torch.device("cpu"), torch.from_numpy(
+                host_rows(self.store.X, uniq))
         ar = torch.arange(patch, device=dev)
         rows = torch.as_tensor(ii, device=dev)[:, None, None]
         ys = (torch.as_tensor(hh, device=dev)[:, None] + ar)[:, :, None]
         xs = (torch.as_tensor(ww, device=dev)[:, None] + ar)[:, None, :]
-        patches = self._imgs(self.store.X)[rows, ys, xs].cpu().numpy()
+        patches = self._imgs(src)[rows, ys, xs].cpu().numpy()
         flat = patches.reshape(cnt, -1)
         flat = flat - flat.mean(0)
         r = min(self.rank, flat.shape[1])

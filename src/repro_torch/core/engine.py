@@ -1048,9 +1048,17 @@ class GoldDiffEngine:
     def slab_ids(self) -> np.ndarray:
         """The dataset ids of this rank's slab rows (a ``ProcessMesh``
         rank's one slab), int64 on the host: the rows a reader of this
-        rank's part of the store takes."""
+        rank's part of the store takes.  Rows of +inf norm hold no data
+        row (the empty slots of a capacity-padded index's windows, which
+        name row 0) and are left out."""
+        return self.slab_rows()[1]
+
+    def slab_rows(self) -> tuple[np.ndarray, np.ndarray]:
+        """``(at, ids)``: the positions in this rank's slab of the rows
+        that hold a data row (finite norm), and their dataset ids."""
         sl = self._layout.slabs[0]
-        return sl.ids[: sl.n_rows].cpu().numpy()
+        at = torch.nonzero(torch.isfinite(sl.x_norms[: sl.n_rows]))[:, 0]
+        return at.cpu().numpy(), sl.ids[at].cpu().numpy()
 
     def coarse_ids(self, q: torch.Tensor, m: int) -> torch.Tensor:
         """Top-m dataset ids by exact proxy distance, [B, m], for the

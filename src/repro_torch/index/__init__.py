@@ -13,7 +13,9 @@ Counterpart of ``repro.index`` for one device:
   time-aware probe count nprobe_t;
 * :mod:`repro_torch.index.ingest`   — :class:`StoreLifecycle`, the
   appendable capacity-padded store with epochs and a journal, in the
-  reference's on-disk format.
+  reference's on-disk format (``StoreLifecycle.open_slab``: a committed
+  epoch opened by every rank of a ``ProcessMesh`` without its rows, so
+  that a rank reads its slab's alone).
 
 ``GoldDiffEngine(index=...)`` routes the coarse stage through it:
 ``ops.ivf_probe`` (on the card one launch of a hand-written kernel)
@@ -22,7 +24,8 @@ windows, O(C d + nprobe_t L) instead of O(N d).
 """
 from repro_torch.index.build import kmeans, kmeans_plusplus
 from repro_torch.index.ingest import (CURRENT_FILE, JOURNAL_FILE,
-                                      IngestConfig, StoreLifecycle)
+                                      IngestConfig, SlabEpoch,
+                                      StoreLifecycle)
 from repro_torch.index.schedule import ProbeSchedule
 from repro_torch.index.store import (GoldenIndex, StoreCapacityError,
                                      StoreCorruptionError, StoreError,
@@ -36,4 +39,4 @@ __all__ = ["GoldenIndex", "build_index", "default_num_clusters",
            "kmeans_plusplus", "ProbeSchedule", "screening_recall",
            "validate_index", "StoreError", "StoreCorruptionError",
            "StoreVersionError", "StoreCapacityError", "IngestConfig",
-           "StoreLifecycle", "CURRENT_FILE", "JOURNAL_FILE"]
+           "StoreLifecycle", "SlabEpoch", "CURRENT_FILE", "JOURNAL_FILE"]

@@ -38,6 +38,13 @@ as an ordinary ``(DatasetStore, GoldenIndex)`` pair (never a zero-copy
 alias of the live buffers, which a later append would mutate); the
 serving runtime installs views as engine epochs
 (``ServeRuntime.hot_swap``).
+
+Over ranks (``open_slab``) a committed epoch is opened in place: its
+small arrays are read, its row arrays stay in the file (uncompressed npz
+members, mapped and read by position), and each rank of a
+``ProcessMesh`` reads its slab's rows alone.  The reference cuts one
+host copy in its one process; one process a card would otherwise hold
+the store once a rank.
 """
 from __future__ import annotations
 
@@ -258,17 +265,7 @@ class StoreLifecycle:
         load error propagates.
         """
         root = os.fspath(root)
-        cur_path = os.path.join(root, CURRENT_FILE)
-        if not os.path.exists(cur_path):
-            raise StoreError(f"{root}: not a store-lifecycle root "
-                             f"(no {CURRENT_FILE})")
-        current = open(cur_path).read().strip()
-        candidates = [current]
-        if fallback:
-            others = sorted((p for p in os.listdir(root)
-                             if p.startswith("epoch_") and p != current),
-                            reverse=True)
-            candidates += others
+        candidates = _candidates(root, fallback)
         quarantined: list[tuple[str, str]] = []
         last_err: StoreError | None = None
         for name in candidates:
@@ -285,48 +282,114 @@ class StoreLifecycle:
     @classmethod
     def _load_epoch(cls, root: str, name: str,
                     quarantined: list) -> "StoreLifecycle":
-        try:
-            epoch = int(name.split("_", 1)[1])
-        except (IndexError, ValueError):
-            raise StoreCorruptionError(f"{root}: malformed epoch name "
-                                       f"{name!r} in {CURRENT_FILE}")
-        npz = os.path.join(root, name, "arrays.npz")
-        if not os.path.exists(npz):
-            raise StoreCorruptionError(f"{npz}: epoch directory missing "
-                                       f"or incomplete")
+        npz, epoch = _epoch_npz(root, name)
         arrays, meta = atomic.load_arrays(
             npz, fmt=EPOCH_FORMAT, version=EPOCH_FORMAT_VERSION,
             corruption_exc=StoreCorruptionError,
             version_exc=StoreVersionError)
-        missing = sorted(set(_ARRAYS) - set(arrays))
-        if missing:
-            raise StoreCorruptionError(f"{npz}: missing epoch array(s): "
-                                       f"{missing}")
-        for key in ("image_shape", "proxy_factor", "capacity", "n_rows",
-                    "seq"):
-            if key not in meta:
-                raise StoreCorruptionError(f"{npz}: manifest meta is "
-                                           f"missing {key!r}")
-        validate_index({f: arrays[f] for f in
-                        ("centroids", "centroid_norms", "perm", "offsets",
-                         "proxy_sorted", "proxy_norms_sorted")},
-                       int(meta["capacity"]))
-        n_rows = int(meta["n_rows"])
-        n_cap = arrays["perm"].shape[0]
-        if not 0 <= n_rows <= n_cap:
-            raise StoreCorruptionError(f"{npz}: n_rows {n_rows} outside "
-                                       f"[0, {n_cap}]")
-        if np.isfinite(arrays["x_norms"][n_rows:]).any():
-            raise StoreCorruptionError(f"{npz}: finite x_norms beyond "
-                                       f"n_rows={n_rows} (row-count "
-                                       f"mismatch)")
-        sizes = arrays["sizes"]
-        if int(sizes.sum()) != n_rows:
-            raise StoreCorruptionError(
-                f"{npz}: window occupancy {int(sizes.sum())} != n_rows "
-                f"{n_rows}")
+        _validate_epoch(npz, arrays, meta)
         return cls(root, arrays, meta, epoch=epoch,
                    quarantined=list(quarantined))
+
+    @classmethod
+    def open_slab(cls, root: str, mesh, fallback: bool = True
+                  ) -> "SlabEpoch":
+        """The epoch :meth:`open` would choose, opened on every rank of
+        ``mesh`` (a ``ProcessMesh``) without reading its rows: a host
+        ``(DatasetStore, GoldenIndex)`` whose small arrays (norms,
+        ``perm``, ``offsets``, centroids, ``sizes``) are read whole and
+        whose row arrays (``X``, ``proxy``, ``proxy_sorted``; ``[n_cap,
+        .]``, so ``store.n``, ``store.dim`` and ``index.max_cluster`` are
+        the epoch's) are tensors over the epoch file
+        (``index.shard.file_backed``).  Given to ``GoldDiffEngine``,
+        ``GoldDiff`` or ``ServeEngine`` with ``mesh=``, the rank reads
+        its slab's rows alone (the slab of the engine's shard axis), by
+        positioned reads, so that it holds its slab (on its device), the small
+        arrays and nothing else of the rows.
+
+        Every rank validates the small arrays as :meth:`open` does; the
+        host channel's first rank also streams the row arrays' sha256
+        (one fixed buffer) and reads the journal.  Its verdict, or the
+        typed error's message, goes to every rank over
+        ``mesh.host_broadcast``, so every rank returns the same epoch
+        (``fallback`` walks back past damaged ones, listed in the
+        result's ``quarantined``), or raises the same
+        ``StoreCorruptionError`` / ``StoreVersionError``.  Journaled
+        appends that :meth:`open` would replay raise ``StoreError`` on
+        every rank: fold them into an epoch with :meth:`commit` first
+        (a journal is replayed on the whole store, never by slab).
+        Nothing is written: a torn journal tail stays for :meth:`open`
+        to truncate."""
+        from repro_torch.core.dataset import DatasetStore
+        from repro_torch.index.shard import file_backed
+        root = os.fspath(root)
+        first = mesh.host_rank == 0
+        listing = None
+        if first:
+            try:
+                listing = ("ok", _candidates(root, fallback))
+            except StoreError as e:
+                listing = (type(e).__name__, str(e))
+        kind, got = mesh.host_broadcast(listing)
+        if kind != "ok":
+            raise _ERRORS[kind](got)
+        quarantined: list[tuple[str, str]] = []
+        last = None
+        for name in got:
+            mine = None
+            try:
+                npz, epoch = _epoch_npz(root, name)
+                arrays, meta = atomic.load_arrays(
+                    npz, fmt=EPOCH_FORMAT, version=EPOCH_FORMAT_VERSION,
+                    in_place=_ROW_ARRAYS, verify=first,
+                    corruption_exc=StoreCorruptionError,
+                    version_exc=StoreVersionError)
+                _validate_epoch(npz, arrays, meta)
+                if first:
+                    pending = _pending_frames(root, epoch, int(meta["seq"]),
+                                              arrays["X"].shape[1])
+                    if pending:
+                        raise StoreError(
+                            f"{root}: the journal holds {pending} frame(s) "
+                            f"of appends to {name} that open() would "
+                            f"replay; open_slab reads committed epochs "
+                            f"only: commit() them first")
+            except (StoreCorruptionError, StoreVersionError,
+                    StoreError) as e:
+                mine = (type(e).__name__, str(e))
+            verdict = mesh.host_broadcast(mine)
+            # a rank that fails where the first rank passed (the same
+            # bytes read apart) fails every rank alike
+            if mesh.host_max([int(verdict is None and mine is not None)])[0]:
+                raise StoreError(f"{root}: the ranks disagree on {name} "
+                                 f"(a rank's own reading failed where the "
+                                 f"first rank's passed)")
+            if verdict is None:
+                store = DatasetStore(
+                    X=file_backed(arrays["X"]),
+                    proxy=file_backed(arrays["proxy"]),
+                    x_norms=torch.from_numpy(arrays["x_norms"]),
+                    proxy_norms=torch.from_numpy(arrays["proxy_norms"]),
+                    image_shape=tuple(meta["image_shape"]), labels=None)
+                index = GoldenIndex(
+                    centroids=torch.from_numpy(arrays["centroids"]),
+                    centroid_norms=torch.from_numpy(
+                        arrays["centroid_norms"]),
+                    perm=torch.from_numpy(arrays["perm"].astype(np.int64)),
+                    offsets=torch.from_numpy(
+                        arrays["offsets"].astype(np.int64)),
+                    proxy_sorted=file_backed(arrays["proxy_sorted"]),
+                    proxy_norms_sorted=torch.from_numpy(
+                        arrays["proxy_norms_sorted"]),
+                    max_cluster=int(meta["capacity"]))
+                return SlabEpoch(store, index, epoch, quarantined)
+            kind, msg = verdict
+            if kind == "StoreError":
+                raise StoreError(msg)
+            quarantined.append((name, msg))
+            last = _ERRORS[kind](msg)
+        raise last if last is not None else \
+            StoreError(f"{root}: no loadable epoch")
 
     # -- journal -------------------------------------------------------------
     def _journal_path(self) -> str:
@@ -336,34 +399,9 @@ class StoreLifecycle:
         atomic.atomic_write_bytes(self._journal_path(), JOURNAL_MAGIC)
 
     def _read_journal(self):
-        """Yield ``(epoch, seq, rows)`` for the journal's valid prefix;
-        returns the byte offset where validity ends."""
-        path = self._journal_path()
-        frames = []
-        end = len(JOURNAL_MAGIC)
-        if not os.path.exists(path):
-            return frames, 0
-        with open(path, "rb") as f:
-            data = f.read()
-        if data[:len(JOURNAL_MAGIC)] != JOURNAL_MAGIC:
-            return frames, 0                      # foreign file: rewrite
-        pos = len(JOURNAL_MAGIC)
-        while pos + _FRAME_HDR.size <= len(data):
-            magic, epoch, seq, n, dim, crc = _FRAME_HDR.unpack_from(
-                data, pos)
-            if magic != FRAME_MAGIC or dim != self.dim:
-                break
-            payload = data[pos + _FRAME_HDR.size:
-                           pos + _FRAME_HDR.size + n * dim * 4]
-            if len(payload) != n * dim * 4:
-                break                             # torn tail
-            if zlib.crc32(payload) & 0xFFFFFFFF != crc:
-                break                             # corrupt tail
-            rows = np.frombuffer(payload, np.float32).reshape(n, dim)
-            frames.append((epoch, seq, rows))
-            pos += _FRAME_HDR.size + len(payload)
-            end = pos
-        return frames, end
+        """``(frames, end)``: ``(epoch, seq, rows)`` of the journal's
+        valid prefix and the byte offset where validity ends."""
+        return _journal_frames(self._journal_path(), self.dim)
 
     def _replay_journal(self) -> None:
         """Apply the journal's valid prefix on top of the loaded epoch
@@ -590,6 +628,133 @@ class StoreLifecycle:
             self._cent, self._cnorm, self._perm, self._offsets, self._ps,
             self._pns, max_cluster=self.capacity, device=device)
         return store, index
+
+
+_ROW_ARRAYS = ("X", "proxy", "proxy_sorted")   # [n_cap, .]: by slab
+_ERRORS = {"StoreError": StoreError,
+           "StoreCorruptionError": StoreCorruptionError,
+           "StoreVersionError": StoreVersionError}
+
+
+class SlabEpoch(tuple):
+    """``(store, index)`` of an epoch opened by
+    :meth:`StoreLifecycle.open_slab` (it unpacks as the pair), with the
+    ``epoch`` id, the epochs ``quarantined`` on the way to it, as
+    :meth:`StoreLifecycle.open` lists them, and ``small_bytes``: the host
+    bytes of the arrays read whole, as the pair holds them."""
+
+    def __new__(cls, store, index, epoch: int, quarantined: list):
+        self = super().__new__(cls, (store, index))
+        self.store, self.index = store, index
+        self.epoch, self.quarantined = int(epoch), list(quarantined)
+        self.small_bytes = sum(
+            t.numel() * t.element_size() for t in (
+                store.x_norms, store.proxy_norms, index.centroids,
+                index.centroid_norms, index.perm, index.offsets,
+                index.proxy_norms_sorted))
+        return self
+
+
+def _candidates(root: str, fallback: bool) -> list[str]:
+    """The epochs :meth:`StoreLifecycle.open` tries, in order: CURRENT's,
+    then (``fallback``) every other epoch directory, newest first."""
+    cur_path = os.path.join(root, CURRENT_FILE)
+    if not os.path.exists(cur_path):
+        raise StoreError(f"{root}: not a store-lifecycle root "
+                         f"(no {CURRENT_FILE})")
+    current = open(cur_path).read().strip()
+    candidates = [current]
+    if fallback:
+        candidates += sorted((p for p in os.listdir(root)
+                              if p.startswith("epoch_") and p != current),
+                             reverse=True)
+    return candidates
+
+
+def _epoch_npz(root: str, name: str) -> tuple[str, int]:
+    """An epoch directory's npz path and epoch id (checked to exist)."""
+    try:
+        epoch = int(name.split("_", 1)[1])
+    except (IndexError, ValueError):
+        raise StoreCorruptionError(f"{root}: malformed epoch name "
+                                   f"{name!r} in {CURRENT_FILE}")
+    npz = os.path.join(root, name, "arrays.npz")
+    if not os.path.exists(npz):
+        raise StoreCorruptionError(f"{npz}: epoch directory missing "
+                                   f"or incomplete")
+    return npz, epoch
+
+
+def _validate_epoch(npz: str, arrays: dict, meta: dict) -> None:
+    """An epoch's semantic checks, after the manifest's: the array set,
+    the meta keys, the index's invariants and the row count (reads only
+    the small arrays and the row arrays' shapes)."""
+    missing = sorted(set(_ARRAYS) - set(arrays))
+    if missing:
+        raise StoreCorruptionError(f"{npz}: missing epoch array(s): "
+                                   f"{missing}")
+    for key in ("image_shape", "proxy_factor", "capacity", "n_rows", "seq"):
+        if key not in meta:
+            raise StoreCorruptionError(f"{npz}: manifest meta is missing "
+                                       f"{key!r}")
+    validate_index({f: arrays[f] for f in
+                    ("centroids", "centroid_norms", "perm", "offsets",
+                     "proxy_sorted", "proxy_norms_sorted")},
+                   int(meta["capacity"]))
+    n_rows = int(meta["n_rows"])
+    n_cap = arrays["perm"].shape[0]
+    if not 0 <= n_rows <= n_cap:
+        raise StoreCorruptionError(f"{npz}: n_rows {n_rows} outside "
+                                   f"[0, {n_cap}]")
+    if np.isfinite(arrays["x_norms"][n_rows:]).any():
+        raise StoreCorruptionError(f"{npz}: finite x_norms beyond "
+                                   f"n_rows={n_rows} (row-count mismatch)")
+    sizes = arrays["sizes"]
+    if int(sizes.sum()) != n_rows:
+        raise StoreCorruptionError(
+            f"{npz}: window occupancy {int(sizes.sum())} != n_rows "
+            f"{n_rows}")
+
+
+def _journal_frames(path: str, dim: int):
+    """``(frames, end)``: ``(epoch, seq, rows)`` for the journal's valid
+    prefix (frames of ``dim``-wide rows), and the byte offset where
+    validity ends (0: no journal, or a foreign file)."""
+    frames = []
+    end = len(JOURNAL_MAGIC)
+    if not os.path.exists(path):
+        return frames, 0
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:len(JOURNAL_MAGIC)] != JOURNAL_MAGIC:
+        return frames, 0                          # foreign file: rewrite
+    pos = len(JOURNAL_MAGIC)
+    while pos + _FRAME_HDR.size <= len(data):
+        magic, epoch, seq, n, d, crc = _FRAME_HDR.unpack_from(data, pos)
+        if magic != FRAME_MAGIC or d != dim:
+            break
+        payload = data[pos + _FRAME_HDR.size:
+                       pos + _FRAME_HDR.size + n * d * 4]
+        if len(payload) != n * d * 4:
+            break                                 # torn tail
+        if zlib.crc32(payload) & 0xFFFFFFFF != crc:
+            break                                 # corrupt tail
+        rows = np.frombuffer(payload, np.float32).reshape(n, d)
+        frames.append((epoch, seq, rows))
+        pos += _FRAME_HDR.size + len(payload)
+        end = pos
+    return frames, end
+
+
+def _pending_frames(root: str, epoch: int, seq: int, dim: int) -> int:
+    """How many of the journal's frames ``open`` would replay on top of
+    ``epoch`` (whose next frame is ``seq``)."""
+    frames, _ = _journal_frames(os.path.join(root, JOURNAL_FILE), dim)
+    n = 0
+    for e, s, _ in frames:
+        if e == epoch and s == seq + n:
+            n += 1
+    return n
 
 
 def _host(a, dtype) -> np.ndarray:

@@ -103,13 +103,61 @@ def _host(t) -> np.ndarray:
         else np.asarray(t)
 
 
+# the attribute naming the epoch-file array a host tensor maps
+_STORED = "_stored_array"
+
+
+def file_backed(stored) -> torch.Tensor:
+    """A host tensor over a copy-on-write mapping of ``stored`` (a
+    ``utils.atomic.StoredArray``: an array of an epoch file, in place)
+    that remembers where it lies, so that :func:`host_rows` reads the
+    rows it is asked for with positioned reads and leaves the mapping
+    untouched.  Any other reader sees an ordinary tensor whose pages
+    are read when touched."""
+    t = torch.from_numpy(stored.map())
+    setattr(t, _STORED, stored)
+    return t
+
+
+def host_rows(a, rows, out: np.ndarray | None = None, dst=None
+              ) -> np.ndarray:
+    """Rows ``rows`` of ``a`` (a tensor on any device, or an array) as
+    numpy, or into ``out`` (at ``dst`` when given, as
+    ``StoredArray.read_rows``).  A :func:`file_backed` tensor's rows are
+    read from its file by positioned reads (sorted, coalesced into runs
+    of consecutive ids), not through its mapping: a kernel's fault-around
+    maps up to 64 KiB of cached neighbours for each page a scattered
+    gather through the mapping touches, and those pages stay resident
+    while the mapping lives, so the reader would hold several times the
+    rows it read (and ``RssFile`` would say so).  Resident bytes then
+    grow by ``out`` alone."""
+    stored = getattr(a, _STORED, None)
+    rows = np.asarray(rows, np.int64).reshape(-1)
+    if stored is not None:
+        return stored.read_rows(rows, out, dst)
+    if isinstance(a, torch.Tensor):
+        got = a[torch.as_tensor(rows, device=a.device)].cpu().numpy()
+    else:
+        got = np.asarray(a)[rows]
+    if out is None:
+        return got
+    out[np.arange(rows.size) if dst is None else dst] = got
+    return out
+
+
 def _layout_arrays(store, n_shards: int, index=None, held=None) -> dict:
     """The layout's stacked arrays as numpy for the shards ``held`` (all
     by default), each built as the reference's ``shard_layout`` builds
-    it, and the layout's sizes."""
+    it, and the layout's sizes.  Only the held shards' rows are read
+    (:func:`host_rows`: from the epoch file where the store maps one).
+    An empty slot of a capacity-padded index's window (+inf
+    ``proxy_norms_sorted`` where ``perm`` names a real row, row 0 by
+    the layout's convention) is laid out as padding: zero rows, +inf
+    norms, id 0, so that it is never screened in and its row is not
+    read (the reference's layout copies row 0 there, which a probe of
+    that window then ranks as a second copy of row 0)."""
     held = list(range(n_shards)) if held is None else list(held)
     n = store.n
-    X, proxy = _host(store.X), _host(store.proxy)
     xn = _host(store.x_norms).astype(np.float32)
     pn = _host(store.proxy_norms).astype(np.float32)
     if index is None:
@@ -118,10 +166,11 @@ def _layout_arrays(store, n_shards: int, index=None, held=None) -> dict:
         row_cuts = np.minimum(np.arange(n_shards + 1) * n_loc, n)
         w_max = 0
         offs = wrange = None
+        empty = None
     else:
         if index.n != n:
             raise ValueError(f"index built for N={index.n}, store N={n}")
-        order = _host(index.perm)
+        order = _host(index.perm).astype(np.int64)
         offsets = _host(index.offsets).astype(np.int64)
         cuts = partition_windows(offsets, n_shards)
         row_cuts = offsets[cuts]
@@ -135,20 +184,28 @@ def _layout_arrays(store, n_shards: int, index=None, held=None) -> dict:
         offs = np.stack(parts).astype(np.int64)
         wrange = np.stack([cuts[:-1], cuts[1:]],
                           axis=1)[held].astype(np.int64)
+        empty = (~np.isfinite(_host(index.proxy_norms_sorted))
+                 & np.isfinite(pn[order]))
+    ids = np.zeros((len(held), n_loc), np.int64)
+    keep = []
+    for i, s in enumerate(held):
+        span = np.arange(row_cuts[s], row_cuts[s + 1])
+        at = (np.arange(span.size) if empty is None
+              else np.flatnonzero(~empty[span]))
+        ids[i, at] = order[span[at]]
+        keep.append(at)
 
     def stack_rows(a, fill=0.0):
-        out = np.full((len(held), n_loc) + a.shape[1:], fill, a.dtype)
-        for i, s in enumerate(held):
-            rows = order[row_cuts[s]: row_cuts[s + 1]]
-            out[i, : len(rows)] = a[rows]
+        width = tuple(a.shape[1:])
+        out = np.full((len(held), n_loc) + width, fill,
+                      a.dtype if isinstance(a, np.ndarray)
+                      else _host(a[:0]).dtype)
+        for i, at in enumerate(keep):
+            host_rows(a, ids[i, at], out[i], at)
         return out
 
-    ids = np.zeros((len(held), n_loc), np.int64)
-    for i, s in enumerate(held):
-        rows = order[row_cuts[s]: row_cuts[s + 1]]
-        ids[i, : len(rows)] = rows
-    return dict(X=stack_rows(X), x_norms=stack_rows(xn, fill=np.inf),
-                proxy=stack_rows(proxy),
+    return dict(X=stack_rows(store.X), x_norms=stack_rows(xn, fill=np.inf),
+                proxy=stack_rows(store.proxy),
                 proxy_norms=stack_rows(pn, fill=np.inf), ids=ids,
                 offsets=offs, wrange=wrange, n_loc=int(n_loc), w_max=w_max,
                 n_rows=[int(row_cuts[s + 1] - row_cuts[s]) for s in held])
@@ -206,12 +263,13 @@ def shard_layout(store, mesh, axis: str = "data", index=None,
 
 def slab_slots(slab: ShardSlab, n: int) -> torch.Tensor:
     """[n] int32 on the slab's device: the slab row holding each
-    dataset id, -1 for the ids the slab does not hold (its padding rows
-    map nothing)."""
+    dataset id, -1 for the ids the slab does not hold (its padding rows,
+    and any row of +inf norm, map nothing: an empty slot of a
+    capacity-padded window holds no row)."""
     dev = slab.ids.device
     slots = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    slots[slab.ids[: slab.n_rows]] = torch.arange(
-        slab.n_rows, dtype=torch.int32, device=dev)
+    at = torch.nonzero(torch.isfinite(slab.x_norms[: slab.n_rows]))[:, 0]
+    slots[slab.ids[at]] = at.to(torch.int32)
     return slots
 
 
@@ -238,4 +296,5 @@ def gather_support(values, idx: torch.Tensor, slots: torch.Tensor, mesh
 
 
 __all__ = ["ShardedLayout", "ShardSlab", "partition_windows",
-           "shard_layout", "slab_slots", "gather_support"]
+           "shard_layout", "slab_slots", "gather_support", "file_backed",
+           "host_rows"]
